@@ -1,0 +1,84 @@
+"""The CUDA kernels against their plain PyTorch versions, on a CUDA device.
+
+Marked ``cuda``: each test skips where torch.cuda.is_available() is false
+(a CUDA kernel has no CPU mode). This file imports neither JAX nor the JAX
+package, so it runs on a GPU machine without them; ``tests/conftest.py``
+imports JAX, hence:
+
+    python -m pytest tests/test_torch_port_cuda.py --noconftest -q
+
+Small odd shapes: partial row tiles, partial hidden-unit blocks, a ragged
+last vocab tile. Tolerances: f32 operands differ only in summation order;
+bf16 ``wh`` lets a last-bit difference in h flip a bf16 rounding of the
+next step's input (see chip_smoke.py for the Yahoo-width checks).
+"""
+import numpy as np
+import pytest
+import torch
+
+from vae_lagging_encoder_tpu_torch.ops import build, ce_cuda, lstm_cuda
+
+
+def _ce_inputs(n, nh, vocab, seed):
+    rng = np.random.RandomState(seed)
+    h = (rng.randn(n, nh) * 0.4).astype(np.float32)
+    w = (rng.randn(nh, vocab) * 0.05).astype(np.float32)
+    tgt = rng.randint(0, vocab, n).astype(np.int32)
+    return h, w, tgt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("save_residuals", [False, True])
+@pytest.mark.parametrize("wh_dtype", [torch.float32, torch.bfloat16])
+def test_lstm_kernel_matches_plain_on_cuda(save_residuals, wh_dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    g = torch.Generator().manual_seed(0)
+    T, B, H = 7, 37, 200  # odd sizes: partial row tiles and unit blocks
+    xw = torch.randn(T, B, 4 * H, generator=g).cuda()
+    mask = (torch.rand(T, B, generator=g) > 0.3).float().cuda()
+    wh = (0.1 * torch.randn(H, 4 * H, generator=g)).to(wh_dtype).cuda()
+    h0, c0 = (0.1 * torch.randn(B, H, generator=g)).cuda(), torch.zeros(B, H).cuda()
+    n = build.LAUNCHES["lstm_fwd_residuals" if save_residuals else "lstm_fwd_infer"]
+    got = lstm_cuda.lstm_seq(xw, mask, wh, h0, c0, save_residuals)
+    ref = lstm_cuda.lstm_seq_plain(xw, mask, wh, h0, c0, save_residuals)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["lstm_fwd_residuals" if save_residuals else "lstm_fwd_infer"] == n + 1
+    tol = 1e-5 if wh_dtype == torch.float32 else 2e-3
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+def test_ce_kernel_matches_plain_on_cuda(bf16):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    h, w, tgt = _ce_inputs(n=70, nh=40, vocab=1100, seed=2)
+    dt = torch.bfloat16 if bf16 else None
+    args = (torch.from_numpy(h).cuda(), torch.from_numpy(w).cuda(), torch.from_numpy(tgt).cuda())
+    got = ce_cuda.ce_forward(*args, dt)
+    ref = ce_cuda.ce_logp_plain(*args, dt)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_lstm_run_refuses_gradient_through_kernel_on_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from vae_lagging_encoder_tpu_torch.models.lstm_core import LSTMParams, lstm_run
+
+    p = LSTMParams(6, 16)
+    p.reset_parameters(torch.Generator().manual_seed(0))
+    p = p.cuda()
+    x = torch.randn(3, 4, 6, device="cuda")
+    with pytest.raises(RuntimeError, match="backward kernel"):
+        lstm_run(p, x, kernel_route=True)
+    with torch.no_grad():
+        n = build.LAUNCHES["lstm_fwd_infer"]
+        out, (hT, cT) = lstm_run(p, x, kernel_route=True)
+        assert build.LAUNCHES["lstm_fwd_infer"] == n + 1
+        ref, (hr, cr) = lstm_run(p, x, kernel_route=False)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)

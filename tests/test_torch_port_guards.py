@@ -1,0 +1,174 @@
+"""Guards of the PyTorch port.
+
+- The port (every module) and ``chip_smoke.py`` import neither JAX nor the
+  JAX package.
+- Entry points run on the GPU unless asked for the CPU: on a machine
+  without CUDA, the default-device VAE and the CLI without ``--device cpu``
+  raise, and ``python chip_smoke.py`` exits non-zero, also as a lone file.
+- ``from_jax_params`` round-trips; one checkpoint loads in both packages;
+  the CLI's ``--eval --device cpu`` runs on a checkpoint the JAX package
+  wrote, and without ``--eval`` it exits (training is not ported yet).
+"""
+import ast
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from vae_lagging_encoder_tpu.models import build_text_vae as jax_build
+from vae_lagging_encoder_tpu.config import get_config as jax_get_config
+from vae_lagging_encoder_tpu.train.checkpoint import load_checkpoint as jax_load
+from vae_lagging_encoder_tpu.train.checkpoint import save_checkpoint as jax_save
+from vae_lagging_encoder_tpu_torch.cli import text as cli_text
+from vae_lagging_encoder_tpu_torch.config import get_config
+from vae_lagging_encoder_tpu_torch.models import build_text_vae
+from vae_lagging_encoder_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from vae_lagging_encoder_tpu_torch.utils.jax_params import from_jax_params, to_jax_params
+
+REPO = Path(__file__).resolve().parent.parent
+SMALL = dict(ni=8, enc_nh=12, dec_nh=12, nz=3)
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA device")
+
+
+def _flatten(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flatten(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: np.asarray(tree)}
+
+
+def _jax_params(vocab=30, seed=0):
+    vae = jax_build(jax_get_config("yahoo", **SMALL), vocab)
+    return jax.device_get(vae.init(jax.random.PRNGKey(seed)))
+
+
+def test_port_modules_import_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import vae_lagging_encoder_tpu_torch as p\n"
+        "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'vae_lagging_encoder_tpu' or m.startswith('vae_lagging_encoder_tpu.'))\n"
+        "print(len(mods), bad)\n"
+        "sys.exit(1 if bad or len(mods) < 20 else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_chip_smoke_imports_no_jax():
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module or "")
+    assert "vae_lagging_encoder_tpu_torch.ops" in names  # the walk sees nested imports
+    bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "vae_lagging_encoder_tpu")]
+    assert not bad, bad
+
+
+def test_default_device_is_cuda_and_raises_without_it(tmp_path):
+    _no_cuda()
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_text_vae(get_config("yahoo", **SMALL), 30)
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli_text.main(["--eval", "--exp_dir", str(tmp_path / "exp"), "--train_data",
+                       str(tmp_path / "missing.txt")])
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_gpu_or_package(tmp_path, alone):
+    _no_cuda()
+    script = REPO / "chip_smoke.py"
+    if alone:
+        shutil.copy(script, tmp_path / "chip_smoke.py")
+        script = tmp_path / "chip_smoke.py"
+    r = subprocess.run([sys.executable, str(script)], cwd=script.parent,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert "cuda" in r.stderr.lower() and '"ok"' not in r.stdout
+
+
+def test_from_jax_params_round_trip():
+    params = _jax_params()
+    sd = from_jax_params(params)
+    vae = build_text_vae(get_config("yahoo", **SMALL), 30, device="cpu")
+    vae.load_state_dict(sd)  # strict: every name and shape matches
+    back = _flatten(to_jax_params(vae.state_dict()))
+    want = _flatten(params)
+    assert back.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(back[k], want[k])
+    # a legacy merged LSTM bias "b" becomes b_ih = b, b_hh = 0
+    legacy = {"wx": np.ones((2, 4)), "wh": np.ones((1, 4)), "b": np.arange(4.0)}
+    sd = from_jax_params({"lstm": legacy})
+    assert torch.equal(sd["lstm.b_ih"], torch.arange(4.0)) and not sd["lstm.b_hh"].any()
+
+
+def test_checkpoint_loads_in_both_packages(tmp_path):
+    params = _jax_params(seed=1)
+    extra = {"epoch": 3, "val": {"loss": 1.5}, "hist": [1, 2], "note": None}
+    jax_save(str(tmp_path / "jax.ckpt"), params, extra)
+    p, e = load_checkpoint(str(tmp_path / "jax.ckpt"))
+    assert e == extra
+    for k, v in _flatten(params).items():
+        np.testing.assert_array_equal(_flatten(p)[k], v)
+
+    vae = build_text_vae(get_config("yahoo", **SMALL), 30, device="cpu")
+    save_checkpoint(str(tmp_path / "port.ckpt"), to_jax_params(vae.state_dict()), {"epoch": 7})
+    p2, e2 = jax_load(str(tmp_path / "port.ckpt"))
+    assert e2 == {"epoch": 7}
+    for name, t in vae.state_dict().items():
+        np.testing.assert_array_equal(_flatten(p2)[name.replace(".", "/")], t.numpy())
+    (tmp_path / "bad.ckpt").write_bytes(b"\x80\x04not a zip")
+    with pytest.raises(ValueError, match="npz"):
+        load_checkpoint(str(tmp_path / "bad.ckpt"))
+
+
+def _corpus(d: Path):
+    rng = np.random.RandomState(0)
+    words = [f"w{i}" for i in range(26)]
+    for split, n in (("train", 30), ("valid", 5), ("test", 10)):
+        lines = [f"1\t" + " ".join(words[j] for j in rng.randint(0, 26, rng.randint(2, 12)))
+                 for _ in range(n)]
+        (d / f"{split}.txt").write_text("\n".join(lines) + "\n")
+    return ["--train_data", str(d / "train.txt"), "--val_data", str(d / "valid.txt"),
+            "--test_data", str(d / "test.txt")]
+
+
+def test_cli_eval_on_jax_checkpoint(tmp_path):
+    files = _corpus(tmp_path)
+    params = _jax_params(vocab=30, seed=2)  # vocab: 26 words + 4 specials
+    jax_save(str(tmp_path / "model.ckpt"), params, {"epoch": 0})
+    dims = [f"--{k}={v}" for k, v in SMALL.items()]
+    rc = cli_text.main(["--dataset", "yahoo", "--eval", "--load_path",
+                        str(tmp_path / "model.ckpt"), "--device", "cpu", "--iw_nsamples", "10",
+                        "--iw_batch", "5", "--exp_dir", str(tmp_path / "exp"), *files, *dims])
+    assert rc == 0
+    recs = [json.loads(l) for l in (tmp_path / "exp" / "log.metrics.jsonl").read_text().splitlines()]
+    res = next(r for r in recs if r.get("split") == "test")
+    for k in ("elbo_loss", "rec", "kl", "mi", "iw_nll", "iw_ppl"):
+        assert np.isfinite(res[k]), (k, res)
+    assert 0 <= res["au"] <= SMALL["nz"]
+
+
+def test_cli_without_eval_exits(tmp_path):
+    with pytest.raises(SystemExit, match="training is not ported"):
+        cli_text.main(["--dataset", "yahoo", "--device", "cpu", "--exp_dir", str(tmp_path)])

@@ -1,0 +1,12 @@
+"""PyTorch/CUDA port of vae_lagging_encoder_tpu for NVIDIA Hopper GPUs.
+
+The JAX package ``vae_lagging_encoder_tpu`` stays the reference; this
+package imports nothing of it (nor JAX). Layout mirrors it: config, data,
+models, ops (the hand-written CUDA kernels' wrappers and their build),
+train, cli, utils; CUDA sources are in ``csrc/``. Entry points run on the
+GPU ("cuda") unless the caller passes ``device="cpu"``.
+
+Ported so far: the text VAE's final evaluation (ELBO, MI, active units,
+importance-weighted NLL) — ``python -m vae_lagging_encoder_tpu_torch.cli.text
+--eval --load_path CKPT``.
+"""

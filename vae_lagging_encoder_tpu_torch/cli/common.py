@@ -1,0 +1,66 @@
+"""Shared CLI plumbing: the reference's flag names merged over the
+per-dataset configs (flags win), as in ``vae_lagging_encoder_tpu/cli/
+common.py``. ``--device`` takes the place of ``--jax_platform``; flags of
+training, which is not ported yet, are not offered."""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import sys
+import time
+
+from ..config import DATASET_CONFIGS, ExperimentConfig, get_config
+from ..utils.exp_utils import Logger, create_exp_dir
+
+
+def build_parser(default_dataset: str = "yahoo") -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser()
+    p.add_argument("--dataset", type=str, default=default_dataset,
+                   choices=sorted(DATASET_CONFIGS))
+    p.add_argument("--iw_nsamples", type=int, default=None)
+    p.add_argument("--iw_batch", type=int, default=None,
+                   help="IW estimator chunk size; iw_nsamples must divide by it")
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--eval", action="store_true")
+    p.add_argument("--load_path", type=str, default=None)
+    p.add_argument("--batch_size", type=int, default=None)
+    p.add_argument("--exp_dir", type=str, default=None)
+    p.add_argument("--label", type=int, default=None)
+    p.add_argument("--ni", type=int, default=None, help="embedding size")
+    p.add_argument("--enc_nh", type=int, default=None, help="encoder LSTM hidden size")
+    p.add_argument("--dec_nh", type=int, default=None, help="decoder LSTM hidden size")
+    p.add_argument("--nz", type=int, default=None, help="latent dimension")
+    p.add_argument("--compute_dtype", type=str, default=None,
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--use_pallas", type=int, default=None,
+                   help="1 = the kernel route (CUDA kernels on a GPU)")
+    p.add_argument("--train_data", type=str, default=None)
+    p.add_argument("--val_data", type=str, default=None)
+    p.add_argument("--test_data", type=str, default=None)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device; 'cuda' (default) needs a GPU and never "
+                        "falls back; 'cpu' runs the kernels' plain versions")
+    return p
+
+
+def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
+    fields = {f.name for f in dataclasses.fields(ExperimentConfig)}
+    overrides = {}
+    for k, v in vars(args).items():
+        if k in fields and v is not None and k != "dataset":
+            if k in ("label", "use_pallas"):
+                v = bool(v)
+            if k == "eval" and not v:
+                continue  # store_true default False shouldn't override
+            overrides[k] = v
+    return get_config(args.dataset, **overrides)
+
+
+def make_run_logger(cfg: ExperimentConfig, kind: str) -> Logger:
+    exp_dir = cfg.exp_dir or os.path.join(
+        "models", cfg.dataset,
+        f"exp_{kind}_aggressive{int(cfg.aggressive)}_"
+        f"kls{cfg.kl_start}_warm{cfg.warm_up}_seed{cfg.seed}_{int(time.time())}")
+    create_exp_dir(exp_dir, scripts_to_save=[sys.argv[0]] if sys.argv else None)
+    return Logger(os.path.join(exp_dir, "log.txt"))

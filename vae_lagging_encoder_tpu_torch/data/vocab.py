@@ -1,0 +1,61 @@
+"""Vocabulary with the reference's special tokens.
+
+The port's own copy of ``vae_lagging_encoder_tpu/data/vocab.py``: word ids
+are built from the train file only and reused for val/test; specials
+``<pad> <unk> <s> </s>`` take ids 0..3; unknown words map to ``<unk>``.
+"""
+from __future__ import annotations
+
+import re
+from typing import Dict, Iterable, List
+
+PAD, UNK, BOS, EOS = "<pad>", "<unk>", "<s>", "</s>"
+PAD_ID, UNK_ID, BOS_ID, EOS_ID = 0, 1, 2, 3
+_SPECIALS = (PAD, UNK, BOS, EOS)
+
+_ASCII_WS = re.compile(r"[^ \t\r\n\v\f]+")
+_LEADING_INT = re.compile(r"^\s*[+-]?\d+")
+
+
+def _ws_split(s: str) -> List[str]:
+    """ASCII-whitespace tokenization (``str.split()`` would also split
+    Unicode whitespace such as U+00A0, which the JAX package's readers keep
+    inside a word)."""
+    return _ASCII_WS.findall(s)
+
+
+def _strtol(s: str) -> int:
+    """C ``strtol`` semantics for label fields: leading integer, else 0."""
+    m = _LEADING_INT.match(s)
+    return int(m.group(0)) if m else 0
+
+
+class Vocab:
+    def __init__(self, word2id: Dict[str, int]):
+        for i, sp in enumerate(_SPECIALS):
+            if word2id.get(sp) != i:
+                raise ValueError(f"special {sp!r} must have id {i}")
+        self.word2id = word2id
+
+    @classmethod
+    def from_corpus(cls, sentences: Iterable[List[str]]) -> "Vocab":
+        counts: Dict[str, int] = {}
+        for sent in sentences:
+            for w in sent:
+                counts[w] = counts.get(w, 0) + 1
+        word2id = {sp: i for i, sp in enumerate(_SPECIALS)}
+        # deterministic order: frequency desc, then lexicographic
+        for w, _ in sorted(counts.items(), key=lambda kv: (-kv[1], kv[0])):
+            if w not in word2id:
+                word2id[w] = len(word2id)
+        return cls(word2id)
+
+    def __len__(self) -> int:
+        return len(self.word2id)
+
+    def __getitem__(self, word: str) -> int:
+        return self.word2id.get(word, UNK_ID)
+
+    def encode(self, words: List[str]) -> List[int]:
+        """<s> w1 ... wn </s> as ids (the reference wraps every sentence)."""
+        return [BOS_ID] + [self[w] for w in words] + [EOS_ID]

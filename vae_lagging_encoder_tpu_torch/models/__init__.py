@@ -1,0 +1,32 @@
+import torch
+
+from ..ops.build import resolve_device
+from .dec_lstm import LSTMDecoder
+from .decoder import DecoderBase
+from .enc_lstm import GaussianLSTMEncoder
+from .encoder import (GaussianEncoderBase, calc_mi, eval_inference_dist,
+                      gaussian_kl, reparameterize)
+from .vae import VAE
+
+
+def build_text_vae(cfg, vocab_size: int, device="cuda",
+                   generator: torch.Generator | None = None) -> VAE:
+    """The text VAE of an ExperimentConfig, initialised with the reference's
+    recipe from ``generator`` (default: seeded with ``cfg.seed``) on the CPU
+    and then moved to ``device``. ``cfg.use_pallas`` selects the kernel route."""
+    dev = resolve_device(device)
+    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    enc = GaussianLSTMEncoder(vocab_size, cfg.ni, cfg.enc_nh, cfg.nz,
+                              kernel_route=cfg.use_pallas, compute_dtype=dtype)
+    dec = LSTMDecoder(vocab_size, cfg.ni, cfg.dec_nh, cfg.nz,
+                      kernel_route=cfg.use_pallas, compute_dtype=dtype)
+    vae = VAE(enc, dec)
+    vae.reset_parameters(generator or torch.Generator().manual_seed(cfg.seed))
+    return vae.to(dev)
+
+
+__all__ = [
+    "DecoderBase", "GaussianEncoderBase", "GaussianLSTMEncoder", "LSTMDecoder",
+    "VAE", "build_text_vae", "calc_mi", "eval_inference_dist", "gaussian_kl",
+    "reparameterize",
+]

@@ -1,0 +1,96 @@
+"""Shared LSTM machinery.
+
+Counterpart of ``vae_lagging_encoder_tpu/models/lstm_core.py``. Parameters
+keep the JAX layouts: ``wx [ni, 4H]``, ``wh [H, 4H]`` and the two PyTorch
+biases ``b_ih``/``b_hh`` as separate parameters, gate order (i, f, g, o).
+The input projection for the whole sequence is hoisted out of the
+recurrence as one ``torch.matmul``, as the JAX package leaves it to XLA; the
+recurrence runs on ``ops/lstm_cuda.py``.
+
+Routes (``kernel_route`` = the config's ``use_pallas``):
+
+- kernel route: ``wh`` goes to bf16 (f32 accumulation) when H > 512 or the
+  compute dtype is bf16, as the JAX package's Pallas route does; a CUDA
+  input launches the forward-only kernel, a CPU input runs its plain
+  version. The JAX package also gates its kernels on TPU tiles (H % 128,
+  B % 8, B <= 128 for the training kernel, a VMEM fit for the inference
+  kernel) and falls back to scan (with f32 ``wh``) off those tiles; the
+  port has no such gates, so at an off-tile shape the port keeps the kernel
+  route's numerics where the JAX package would switch to scan's.
+- scan route: the plain recurrence with ``wh`` in the compute dtype — the
+  numerics of the JAX package's ``lax.scan`` route.
+
+At masked (pad) positions both routes emit the KEPT state, as the TPU
+kernels do; the JAX scan route emits the raw step output there. Callers
+read only unmasked positions and the final carry, where all agree.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..ops.lstm_cuda import lstm_seq, lstm_seq_plain
+
+
+def uniform_(t: torch.Tensor, scale: float, generator: torch.Generator) -> None:
+    with torch.no_grad():
+        t.uniform_(-scale, scale, generator=generator)
+
+
+class LSTMParams(nn.Module):
+    """``wx [input_dim, 4H]``, ``wh [H, 4H]``, ``b_ih``, ``b_hh [4H]``."""
+
+    def __init__(self, input_dim: int, hidden_dim: int):
+        super().__init__()
+        self.wx = nn.Parameter(torch.empty(input_dim, 4 * hidden_dim))
+        self.wh = nn.Parameter(torch.empty(hidden_dim, 4 * hidden_dim))
+        self.b_ih = nn.Parameter(torch.empty(4 * hidden_dim))
+        self.b_hh = nn.Parameter(torch.empty(4 * hidden_dim))
+
+    def reset_parameters(self, generator: torch.Generator, scale: float = 0.01) -> None:
+        for p in (self.wx, self.wh, self.b_ih, self.b_hh):
+            uniform_(p, scale, generator)
+
+
+def lstm_run(params: LSTMParams, x: torch.Tensor,
+             mask: Optional[torch.Tensor] = None,
+             h0: Optional[torch.Tensor] = None,
+             c0: Optional[torch.Tensor] = None,
+             kernel_route: bool = False,
+             compute_dtype: torch.dtype = torch.float32
+             ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Run the LSTM over a padded batch.
+
+    x: [B, T, input_dim]; mask: [B, T] (1 real / 0 pad) or None.
+    Returns (outputs [B, T, H], (h_T, c_T)), the carries at each row's last
+    real token when a mask is given.
+    """
+    B, T, _ = x.shape
+    H = params.wh.shape[0]
+    cd = compute_dtype
+    xw = ((x.reshape(B * T, -1).to(cd).float() @ params.wx.to(cd).float())
+          .reshape(B, T, 4 * H) + (params.b_ih + params.b_hh)).transpose(0, 1)
+    m = mask.transpose(0, 1) if mask is not None else x.new_ones((T, B))
+    if h0 is None:
+        h0 = x.new_zeros((B, H))
+    if c0 is None:
+        c0 = x.new_zeros((B, H))
+
+    if not kernel_route:
+        hs, hT, cT = lstm_seq_plain(xw, m, params.wh.to(cd), h0, c0)
+    else:
+        wh = params.wh.to(torch.bfloat16 if (H > 512 or cd == torch.bfloat16)
+                          else torch.float32)
+        needs_grad = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xw, wh, h0, c0))
+        if needs_grad and x.device.type == "cuda":
+            raise RuntimeError(
+                "lstm_run: a gradient through the CUDA LSTM kernel was requested, "
+                "but its backward kernel (the counterpart of the TPU _bwd_kernel) "
+                "arrives with the training slice; run evaluation under "
+                "torch.no_grad()")
+        run = lstm_seq_plain if needs_grad else lstm_seq
+        hs, hT, cT = run(xw.contiguous(), m.contiguous(), wh, h0, c0)
+    return hs.transpose(0, 1), (hT, cT)

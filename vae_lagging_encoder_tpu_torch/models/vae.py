@@ -1,0 +1,92 @@
+"""VAE composition and the estimators the final evaluation reports.
+
+Counterpart of ``vae_lagging_encoder_tpu/models/vae.py`` (the reference's
+modules/vae.py): loss (per-sentence loss/rec/KL), eval_complete_ll,
+nll_iw (importance-weighted NLL in chunks of ``ns``), KL, calc_mi_q and
+calc_infer_mean. Submodules ``enc`` and ``dec`` mirror the JAX package's
+``{"enc": ..., "dec": ...}`` parameter tree.
+
+Noise is explicit: each estimator takes ``eps`` (or, for ``nll_iw``, a
+``noise(j, shape)`` callable per chunk) or a ``torch.Generator``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..utils.numeric import log_sum_exp
+from .encoder import eval_inference_dist, gaussian_kl
+
+
+class VAE(nn.Module):
+    """``x`` is (tokens [B, T], mask [B, T]) for text."""
+
+    def __init__(self, encoder: nn.Module, decoder: nn.Module):
+        super().__init__()
+        self.enc = encoder
+        self.dec = decoder
+        self.nz = encoder.nz
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.enc.reset_parameters(generator)
+        self.dec.reset_parameters(generator)
+
+    def eval_prior_dist(self, z: torch.Tensor) -> torch.Tensor:
+        """log p(z) under N(0, I): [..., nz] -> [...]."""
+        return -0.5 * (torch.sum(z ** 2, dim=-1) + self.nz * math.log(2 * math.pi))
+
+    def loss(self, x, mask=None, row_weight=None, kl_weight: float = 1.0,
+             nsamples: int = 1, eps=None, generator=None
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Per-sentence (loss, rec, kl), each [B]; evaluation mode (no dropout).
+
+        loss = rec + kl_weight * KL, rec = E_{z~q}[-log p(x|z)] averaged over
+        ``nsamples`` (``eps`` [B, nsamples, nz]); zero-weight pad rows are zeroed."""
+        z, kl = self.enc.encode(x, mask, nsamples, eps, generator)
+        rec = self.dec.reconstruct_error(x, mask, z).mean(dim=1)
+        if row_weight is not None:
+            rec = rec * row_weight
+            kl = kl * row_weight
+        return rec + kl_weight * kl, rec, kl
+
+    def eval_complete_ll(self, x, mask, z) -> torch.Tensor:
+        """log p(x, z) = log p(z) + log p(x|z): z [B, K, nz] -> [B, K]."""
+        return self.eval_prior_dist(z) + self.dec.log_probability(x, mask, z)
+
+    def nll_iw(self, x, mask=None, nsamples: int = 500, ns: int = 100,
+               noise: Optional[Callable[[int, Tuple[int, ...]], torch.Tensor]] = None,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Importance-weighted NLL per sentence: [B].
+
+        ``nsamples`` z ~ q(z|x) in chunks of ``ns`` (each chunk re-encodes x,
+        as the reference does): w = log p(x, z) - log q(z|x), NLL =
+        -(logsumexp(w) - log nsamples). Chunk ``j`` draws its eps
+        [B, ns, nz] from ``noise(j, shape)`` when given, else from
+        ``generator``."""
+        ns = min(ns, nsamples)
+        if nsamples % ns:
+            raise ValueError(f"nll_iw: nsamples {nsamples} must be divisible by ns {ns}")
+        B = x.shape[0]
+        log_w = []
+        for j in range(nsamples // ns):
+            eps = noise(j, (B, ns, self.nz)) if noise is not None else None
+            z, (mu, logvar) = self.enc.sample(x, mask, ns, eps, generator)
+            log_w.append(self.eval_complete_ll(x, mask, z) - eval_inference_dist(z, mu, logvar))
+        return -(log_sum_exp(torch.cat(log_w, dim=1), dim=1) - math.log(nsamples))
+
+    def KL(self, x, mask=None) -> torch.Tensor:
+        """Analytic KL per row: [B]."""
+        mu, logvar = self.enc(x, mask)
+        return gaussian_kl(mu, logvar)
+
+    def calc_mi_q(self, x, mask=None, row_weight=None, eps=None, generator=None) -> torch.Tensor:
+        """Batch MI estimate (scalar tensor)."""
+        return self.enc.calc_mi(x, mask, row_weight, eps, generator)
+
+    def calc_infer_mean(self, x, mask=None) -> torch.Tensor:
+        """mu(x) of the approximate posterior: [B, nz]."""
+        mu, _ = self.enc(x, mask)
+        return mu

@@ -1,0 +1,131 @@
+"""Build and load the hand-written CUDA kernels; device checks; launch counts.
+
+Each ``csrc/<name>.cu`` is compiled on first use by ``nvcc`` into its own
+shared library with a plain C interface, which is loaded with ``ctypes``:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -Xptxas -v -o build/torch_kernels/<name>-<hash>.so
+
+The file name carries a hash of the source and the flags, so an edited
+source is rebuilt and a stale library is never loaded. ``nvcc``'s output
+(``-Xptxas -v``: registers, shared memory, spills) is kept beside the
+library as ``<name>-<hash>.log``. Nothing here runs at import time.
+
+This module is the port's counterpart of ``ops/vmem.py::pallas_available``
+in the JAX package: where that probe decided whether the Pallas kernels
+could run, here a CUDA tensor always goes to its kernel, and a build
+failure raises instead of falling back.
+
+Every kernel wrapper adds one to its entry of ``LAUNCHES`` where it
+launches the kernel, and nowhere else.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
+SOURCES = ("lstm_fwd", "ce_fwd")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# launches per kernel, counted by the wrappers in lstm_cuda.py / ce_cuda.py
+LAUNCHES: Dict[str, int] = {"lstm_fwd_residuals": 0, "lstm_fwd_infer": 0,
+                            "ce_fwd": 0}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device`` for ``device``; CUDA without a usable card raises
+    (the port never picks the CPU in its place)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' (CLI: --device cpu) to run the plain "
+            "PyTorch versions on the CPU")
+    return dev
+
+
+def _nvcc() -> str:
+    cands = [os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc")
+             if os.environ.get("CUDA_HOME") else None,
+             shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.isfile(c):
+            return c
+    raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, PATH and "
+                       "/usr/local/cuda/bin); the CUDA kernels cannot be built")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for hdr in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
+
+
+def build(names: Iterable[str] = SOURCES) -> float:
+    """Compile every missing library among ``names``, one ``nvcc`` per
+    source, all started together. Returns the wall seconds spent; raises
+    with the compiler's output when a build fails."""
+    t0 = time.perf_counter()
+    todo = [(n, _lib_path(n)) for n in names if not _lib_path(n).exists()]
+    if not todo:
+        return 0.0
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name, path in todo:
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        log = open(path.with_suffix(".log"), "w")
+        procs.append((name, path, tmp, log, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
+            stdout=log, stderr=subprocess.STDOUT)))
+    failed = []
+    for name, path, tmp, log, proc in procs:
+        rc = proc.wait()
+        log.close()
+        if rc != 0:
+            failed.append(f"{name}: nvcc exit {rc}\n"
+                          + path.with_suffix(".log").read_text()[-4000:])
+        else:
+            os.replace(tmp, path)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    if name not in _LIBS:
+        build([name])
+        _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
+    return _LIBS[name]
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error (its
+    ``cudaGetLastError()`` after the launch, or an earlier refusal)."""
+    if err != 0:
+        lib.kernel_error_string.restype = ctypes.c_char_p
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        msg = lib.kernel_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
