@@ -8,16 +8,25 @@ Phases (each raises on failure; the script then exits non-zero):
 1. device and build: prints the card and its power limit, builds the CUDA
    kernels from ``vae_lagging_encoder_tpu_torch/csrc`` (one ``nvcc`` per
    source, in parallel);
-2. kernel checks at the Yahoo slice's shapes: each kernel against its
-   plain PyTorch version on the card, in bf16 and f32 operand mode, with
-   timings (CUDA events), the plain version's and a library call's time,
-   and the least time the card could take (``bound_ms``);
-3. the slice end to end through the normal entry point: a Yahoo-shaped
-   corpus and a Yahoo-width random model (seeded) are written to a
-   temporary directory, ``cli.text.main([... "--eval" ...])`` runs the final
-   evaluation (ELBO, MI, AU, 500-sample IW-NLL), the launch counters show
-   the kernels ran, and one test batch is cross-checked against the plain
-   versions at reduced ``iw_nsamples`` on the same injected noise.
+2. kernel checks at the Yahoo shapes of the evaluation and the training
+   paths: each kernel against its plain PyTorch version on the card, in
+   bf16 and f32 operand mode, with timings (CUDA events), the plain
+   version's and a library call's time, and the least time the card could
+   take (``bound_ms``);
+3. the evaluation slice end to end through the normal entry point: a
+   Yahoo-shaped corpus and a Yahoo-width random model (seeded) are written
+   to a temporary directory, ``cli.text.main([... "--eval" ...])`` runs the
+   final evaluation (ELBO, MI, AU, 500-sample IW-NLL), the launch counters
+   show the kernels ran, and one test batch is cross-checked against the
+   plain versions at reduced ``iw_nsamples`` on the same injected noise;
+4. the training slice end to end through the same entry point, without
+   ``--eval``: ``--epochs 2 --aggressive 1`` at Yahoo width on an 8-batch
+   training split (vocabulary exactly 20004), then one plain epoch; the
+   launch counters must equal 2 LSTM forwards, 2 LSTM backwards and 1
+   grad-mode CE per forward+backward plus the evaluation's launches; plain
+   and aggressive steps/s are printed and the best checkpoint is loaded
+   back; then one training step's loss and every gradient are cross-checked
+   against the plain versions on the same eps and dropout draws.
 
 Prints one JSON line per kernel, a ``{"kernels": [...]}`` line, and as the
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -55,7 +64,18 @@ T_CHECK = 96  # the bucket length of a typical Yahoo sentence (~80 words + <s>, 
 #   back rounded to bf16, so a last-bit difference in h_t can flip a bf16
 #   rounding at the next step; 2e-3 leaves room for that over 96 steps.
 TOL = {("lstm", "f32"): 1e-4, ("lstm", "bf16"): 2e-3,
-       ("ce", "f32"): 1e-4, ("ce", "bf16"): 1e-3}
+       ("ce", "f32"): 1e-4, ("ce", "bf16"): 1e-3,
+       # LSTM backward at T 96, B 32, H 1024 (gates from the same forward on
+       # both sides): f32 differs in summation order only (3e-7 on da values
+       # up to 1.5 when the plain sweep's product runs in f64 instead of f32,
+       # on the CPU); bf16 rounds da before the product, so a last-bit
+       # difference flips a rounding that the carry takes back through the
+       # remaining steps (6e-5 in the same experiment): ~10x that.
+       ("lstm_bwd", "f32"): 1e-5, ("lstm_bwd", "bf16"): 5e-4,
+       # grad-mode CE: logp and lse as the forward CE; the spill is held
+       # separately, within one bf16 step of each element (see check_ce_train)
+       ("ce_train", "f32"): 1e-4, ("ce_train", "bf16"): 1e-3}
+BF16_STEP = 2.0 ** -7  # the largest relative spacing of bf16 values (8-bit significand)
 
 
 def log(msg: str) -> None:
@@ -118,6 +138,7 @@ def check_lstm(save_residuals: bool, rows: int, ni: int, launches_key: str, dev)
     ms = time_ms(lambda: lstm_cuda.lstm_seq(xw, mask, whb, h0, c0, save_residuals))
     plain_ms = time_ms(lambda: lstm_cuda.lstm_seq_plain(xw, mask, whb, h0, c0, save_residuals), reps=5)
     ref_lstm = torch.nn.LSTM(ni, H, device=dev, dtype=torch.bfloat16)
+    ref_lstm.flatten_parameters()
     xb = x.bfloat16()
     lib_ms = time_ms(lambda: ref_lstm(xb))
     ops = 2.0 * T * rows * H * 4 * H
@@ -161,6 +182,113 @@ def check_ce(dev):
     return dict(err_f32=errs["f32"], err_bf16=errs["bf16"], ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bms, bound_by=by,
                 shape=f"N {N}, nh {NH}, V {VOCAB}, bf16 operands")
+
+
+def check_lstm_bwd(dev):
+    """``lstm_bwd`` against ``lstm_bwd_plain`` on the residuals of one
+    masked forward at the training shape (T 96, B 32, H 1024)."""
+    from vae_lagging_encoder_tpu_torch.ops import lstm_cuda
+
+    g = torch.Generator(device="cpu").manual_seed(5)
+    T, H, rows = T_CHECK, NH, B
+    x = torch.randn(T, rows, NI, generator=g)
+    wx = torch.empty(NI, 4 * H).uniform_(-0.05, 0.05, generator=g)
+    wh32 = torch.empty(H, 4 * H).uniform_(-1 / math.sqrt(H), 1 / math.sqrt(H), generator=g)
+    b = torch.empty(4 * H).uniform_(-0.1, 0.1, generator=g)
+    h0 = 0.1 * torch.randn(rows, H, generator=g)
+    c0 = 0.1 * torch.randn(rows, H, generator=g)
+    dhs = 0.1 * torch.randn(T, rows, H, generator=g)
+    dhT = 0.1 * torch.randn(rows, H, generator=g)
+    dcT = 0.1 * torch.randn(rows, H, generator=g)
+    lens = lengths_like_yahoo(np.random.RandomState(6), rows, T)
+    mask = torch.from_numpy((np.arange(T)[:, None] < lens[None, :]).astype(np.float32))
+    x, wx, wh32, b, h0, c0, dhs, dhT, dcT, mask = (
+        a.to(dev) for a in (x, wx, wh32, b, h0, c0, dhs, dhT, dcT, mask))
+    xw = (x.reshape(T * rows, NI) @ wx + b).reshape(T, rows, 4 * H)
+    errs, args = {}, {}
+    for mode, wh in (("f32", wh32), ("bf16", wh32.bfloat16())):
+        _, cs, gates, _, _ = lstm_cuda.lstm_seq_plain(xw, mask, wh, h0, c0, True)
+        args[mode] = (gates, mask, wh, torch.cat([c0[None], cs[:-1]]), dhs, dhT, dcT)
+        got = lstm_cuda.lstm_bwd(*args[mode])
+        ref = lstm_cuda.lstm_bwd_plain(*args[mode])
+        torch.cuda.synchronize()
+        errs[mode] = max(float((a - r).abs().max()) for a, r in zip(got, ref))
+        if not errs[mode] <= TOL[("lstm_bwd", mode)]:
+            raise AssertionError(f"lstm_bwd {mode}: max abs err {errs[mode]} > "
+                                 f"{TOL[('lstm_bwd', mode)]}")
+    ms = time_ms(lambda: lstm_cuda.lstm_bwd(*args["bf16"]))
+    plain_ms = time_ms(lambda: lstm_cuda.lstm_bwd_plain(*args["bf16"]), reps=5)
+    # library: cuDNN's nn.LSTM (bf16) forward + backward, minus its forward
+    ref_lstm = torch.nn.LSTM(NI, H, device=dev, dtype=torch.bfloat16)
+    ref_lstm.flatten_parameters()
+    xb = x.bfloat16().requires_grad_()
+    gb = dhs.bfloat16()
+
+    def fwd_bwd():
+        out, _ = ref_lstm(xb)
+        out.backward(gb)
+
+    with torch.enable_grad():
+        lib_ms = time_ms(fwd_bwd) - time_ms(lambda: ref_lstm(xb))
+    # the products of the real (unmasked) steps; each input read once, each output written once
+    ops = 2.0 * float(mask.sum()) * 4 * H * H
+    nbytes = 4.0 * (T * rows * 4 * H + T * rows + 2 * T * rows * H + 2 * rows * H
+                    + T * rows * 4 * H + 2 * rows * H) + 2.0 * H * 4 * H
+    bms, by = bound(ops, nbytes, PEAK_BF16)
+    return dict(err_f32=errs["f32"], err_bf16=errs["bf16"], ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bms, bound_by=by,
+                shape=f"T {T}, B {rows}, H {H}, wh bf16, masked")
+
+
+def check_ce_train(dev):
+    """The grad-mode CE (logp, the logsumexp of the rounded logits and the
+    spilled logits) against its plain version at the training shape
+    (N = 32 x 95 rows)."""
+    from vae_lagging_encoder_tpu_torch.ops import ce_cuda
+
+    g = torch.Generator(device="cpu").manual_seed(8)
+    N = B * (T_CHECK - 1)
+    h = torch.tanh(torch.randn(N, NH, generator=g)).to(dev)
+    w = torch.empty(NH, VOCAB).uniform_(-0.05, 0.05, generator=g).to(dev)
+    tgt = torch.randint(0, VOCAB, (N,), generator=g).to(dev)
+    errs, spill_errs = {}, {}
+    for mode, dt in (("f32", None), ("bf16", torch.bfloat16)):
+        logp, lse, spill = ce_cuda.ce_forward(h, w, tgt, dt, save_logits=True)
+        rlogp, rlse, rspill = ce_cuda.ce_logp_plain(h, w, tgt, dt, save_logits=True)
+        torch.cuda.synchronize()
+        errs[mode] = max(float((logp - rlogp).abs().max()), float((lse - rlse).abs().max()))
+        d = (spill.float() - rspill.float()).abs()
+        spill_errs[mode] = float(d.max())
+        # f32: summation order; bf16: the two f32 logits may round to
+        # neighbouring bf16 values (one step), plus the f32 difference itself
+        spill_ok = bool((d <= (BF16_STEP * rspill.float().abs() + 1e-5)).all()) \
+            if dt is not None else spill_errs[mode] <= TOL[("ce_train", "f32")]
+        if not (errs[mode] <= TOL[("ce_train", mode)] and spill_ok):
+            raise AssertionError(f"ce_fwd_train {mode}: max abs err {errs[mode]} "
+                                 f"(tolerance {TOL[('ce_train', mode)]}), spill {spill_errs[mode]}")
+    hb, wb = h.bfloat16(), w.bfloat16()
+    ms = time_ms(lambda: ce_cuda.ce_forward(hb, wb, tgt, save_logits=True))
+    plain_ms = time_ms(lambda: ce_cuda.ce_logp_plain(hb, wb, tgt, save_logits=True), reps=5)
+    gout = torch.randn(N, generator=g).to(dev)
+
+    def library():  # bf16 matmul + log_softmax + gather, forward and backward
+        logits = torch.matmul(hr, wr).float()
+        torch.log_softmax(logits, -1).gather(1, tgt[:, None])[:, 0].backward(gout)
+
+    def port_fwd_bwd():  # the port's FusedCEFn forward (this kernel) + backward
+        ce_cuda.FusedCEFn.apply(hr, wr, tgt, torch.bfloat16).backward(gout)
+
+    hr, wr = hb.clone().requires_grad_(), wb.clone().requires_grad_()
+    with torch.enable_grad():
+        lib_ms = time_ms(library, reps=5)
+        fused_ms = time_ms(port_fwd_bwd, reps=5)
+    ops = 2.0 * N * NH * VOCAB
+    nbytes = 2.0 * (N * NH + NH * VOCAB + N * VOCAB) + 4.0 * N + 8.0 * N
+    bms, by = bound(ops, nbytes, PEAK_BF16)
+    return dict(err_f32=errs["f32"], err_bf16=errs["bf16"], spill_err_bf16=spill_errs["bf16"],
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, port_fwd_bwd_ms=fused_ms,
+                bound_ms=bms, bound_by=by,
+                shape=f"N {N}, nh {NH}, V {VOCAB}, bf16 operands, bf16 spill")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -245,7 +373,7 @@ def expected_launches(pool, cfg):
     iw_chunks = cfg.iw_nsamples // cfg.iw_batch
     dec_calls = 1 + cfg.iw_nsamples // IW_CHUNK
     return {"lstm_fwd_infer": n * (1 + 1 + 2 + iw_chunks + dec_calls),
-            "ce_fwd": n * dec_calls, "lstm_fwd_residuals": 0}
+            "ce_fwd": n * dec_calls, "lstm_fwd_residuals": 0, "lstm_bwd": 0, "ce_fwd_train": 0}
 
 
 def cross_check(pool, ck, cfg, vocab_size, dev):
@@ -297,13 +425,200 @@ def cross_check(pool, ck, cfg, vocab_size, dev):
     return err, float(got[2].sum() / rw.sum())
 
 
+# ---------------------------------------------------------------- phase 4
+N_TRAIN_SMOKE = 256   # 8 batches of 32, all in the 96 bucket
+TRAIN_EPOCHS = 2
+TRAIN_IW = 100        # --iw_nsamples of the training run's final evaluation
+
+
+def write_train_corpus(d: Path):
+    """An 8-batch training split of 79-94-word sentences (one bucket, T 96)
+    whose tokens hold every one of the N_WORDS words, so the vocabulary is
+    exactly 20004; the validation split is Yahoo-like."""
+    rng = np.random.RandomState(1)
+    lens = rng.randint(79, 95, N_TRAIN_SMOKE)
+    ids = np.concatenate([rng.permutation(N_WORDS),
+                          rng.zipf(1.3, size=int(lens.sum()) - N_WORDS) % N_WORDS])
+    rng.shuffle(ids)
+    pos, train = 0, []
+    for ln in lens:
+        train.append(" ".join(f"w{i}" for i in ids[pos:pos + ln]))
+        pos += int(ln)
+    paths = {"train": d / "smoke.train.txt", "valid": d / "smoke.valid.txt"}
+    for split, sents in (("train", train), ("valid", yahoo_like_sentences(rng, N_VAL))):
+        paths[split].write_text("".join(f"{i % 10}\t{s}\n" for i, s in enumerate(sents)))
+    return paths
+
+
+def run_train_cli(argv, exp_dir: Path):
+    """``cli.text.main(argv)`` with the counters set to 0 just before it;
+    returns the launches, per-epoch metrics, final results and wall seconds."""
+    from vae_lagging_encoder_tpu_torch.cli import text as cli_text
+    from vae_lagging_encoder_tpu_torch.ops import build
+
+    log(f"[train] python -m vae_lagging_encoder_tpu_torch.cli.text {' '.join(argv)}")
+    build.reset_launches()
+    t0 = time.perf_counter()
+    rc = cli_text.main(argv + ["--exp_dir", str(exp_dir)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    if rc != 0:
+        raise AssertionError(f"cli.text.main returned {rc}")
+    records = [json.loads(l) for l in (exp_dir / "log.metrics.jsonl").read_text().splitlines()]
+    epochs = [r for r in records if "val_loss" in r]
+    results = next(r for r in records if r.get("split") == "test")
+    return launches, epochs, results, wall
+
+
+def expected_train_launches(epochs, n_train, val_pool, test_pool, cfg):
+    """Per forward+backward (outer step or inner sub-iteration): 2 LSTM
+    forwards with residuals, 2 backward sweeps, 1 grad-mode CE. Per epoch the
+    validation ELBO (encoder + decoder forward, CE per batch) and, after an
+    aggressive epoch, the validation MI (encoder); then the final evaluation."""
+    fb = sum(n_train + e["inner_iters"] for e in epochs)
+    n_val = val_pool.num_batches
+    mi_epochs = sum(bool(e["epoch_aggressive"]) for e in epochs)
+    final = expected_launches(test_pool, cfg)
+    return {"lstm_fwd_residuals": 2 * fb, "lstm_bwd": 2 * fb, "ce_fwd_train": fb,
+            "lstm_fwd_infer": n_val * (2 * len(epochs) + mi_epochs) + final["lstm_fwd_infer"],
+            "ce_fwd": n_val * len(epochs) + final["ce_fwd"]}
+
+
+def run_training_slice(tmp: Path, test_path: Path, dev):
+    """Phase 4: the aggressive run, then one plain epoch, through the CLI;
+    the test split is phase 3's."""
+    from vae_lagging_encoder_tpu_torch.config import get_config
+    from vae_lagging_encoder_tpu_torch.data import BucketedPool, MonoTextData
+    from vae_lagging_encoder_tpu_torch.models import build_text_vae
+    from vae_lagging_encoder_tpu_torch.train.checkpoint import load_checkpoint
+    from vae_lagging_encoder_tpu_torch.utils.jax_params import from_jax_params
+
+    tp = write_train_corpus(tmp)
+    files = ["--train_data", str(tp["train"]), "--val_data", str(tp["valid"]),
+             "--test_data", str(test_path)]
+    train = MonoTextData(str(tp["train"]), label=True)
+    if len(train.vocab) != VOCAB:
+        raise AssertionError(f"training vocabulary {len(train.vocab)} != {VOCAB}")
+    dims = dict(ni=NI, enc_nh=NH, dec_nh=NH, nz=NZ)  # the Yahoo config's widths
+    cfg = get_config("yahoo", iw_nsamples=TRAIN_IW, **dims)
+    pool = lambda f: BucketedPool(MonoTextData(str(f), label=True, vocab=train.vocab)
+                                  .create_data_batch(cfg.batch_size, cfg.length_buckets), dev)
+    train_pool, val_pool, test_pool = pool(tp["train"]), pool(tp["valid"]), pool(test_path)
+    if train_pool.lengths != (T_CHECK,) or train_pool.num_batches != N_TRAIN_SMOKE // B:
+        raise AssertionError(f"training pool {train_pool.lengths} {train_pool.num_batches}")
+    out = {}
+    for name, extra in (("aggressive", ["--epochs", str(TRAIN_EPOCHS), "--aggressive", "1"]),
+                        ("plain", ["--epochs", "1", "--aggressive", "0"])):
+        ck = tmp / f"{name}.ckpt"
+        argv = ["--dataset", "yahoo", *extra, "--warm_up", "1", "--kl_start", "0.1",
+                "--iw_nsamples", str(TRAIN_IW), "--save_path", str(ck), *files,
+                *(f"--{k}={v}" for k, v in dims.items())]
+        launches, epochs, res, wall = run_train_cli(argv, tmp / f"exp_{name}")
+        want = expected_train_launches(epochs, train_pool.num_batches, val_pool, test_pool, cfg)
+        log(f"[train] {name}: epochs {json.dumps(epochs)}")
+        log(f"[train] {name}: results {json.dumps(res)}; whole CLI {wall:.2f} s; launches "
+            f"{json.dumps(launches)} (expected {json.dumps(want)})")
+        if {k: launches[k] for k in want} != want:
+            raise AssertionError(f"{name} training launch counts {launches} != expected {want}")
+        vals = [res[k] for k in ("elbo_loss", "rec", "kl", "mi", "iw_nll")] + \
+            [e[k] for e in epochs for k in ("train_loss", "val_loss")]
+        if not all(math.isfinite(v) for v in vals):
+            raise AssertionError(f"{name}: non-finite training or evaluation values")
+        params, extra_state = load_checkpoint(str(ck))
+        vae = build_text_vae(cfg, VOCAB, device=dev)
+        vae.load_state_dict(from_jax_params(params))  # strict: every name and shape
+        if "opt_state" not in extra_state or extra_state["epoch"] not in range(len(epochs)):
+            raise AssertionError(f"{name}: checkpoint extras {sorted(extra_state)}")
+        out[name] = dict(launches=launches, epochs=epochs, results=res, wall=wall)
+    steps = {mode: [e["steps_per_sec"] for r in out.values() for e in r["epochs"]
+                    if bool(e["epoch_aggressive"]) == (mode == "aggressive")]
+             for mode in ("aggressive", "plain")}
+    return out, steps, train_pool, cfg
+
+
+def grad_cross_check(train_pool, cfg, dev):
+    """One training step at Yahoo width, dropout on: loss and every gradient
+    with the kernels, and again with ``lstm_seq``, ``lstm_bwd`` and the CE
+    swapped for their plain versions, on the same eps and dropout draws. The
+    weights are the seeded init scaled by 10, as in ``cross_check``, so that
+    the two sides' differences are visible. GRAD_TOL (relative to each
+    leaf's largest entry, and to the global norm) covers bf16 roundings of
+    h (forward) and da (backward) that one side flips and the other not,
+    compounding over 96 steps: the kernels' own checks bound each call's
+    difference at ~1e-3 of its scale."""
+    from vae_lagging_encoder_tpu_torch.models import build_text_vae
+    from vae_lagging_encoder_tpu_torch.ops import build, ce_cuda, lstm_cuda
+    from vae_lagging_encoder_tpu_torch.train.aggressive import grads_of, make_grad_on
+    from vae_lagging_encoder_tpu_torch.train.epoch import make_loss_fn
+    from vae_lagging_encoder_tpu_torch.train.optim import clip_scale
+
+    vae = build_text_vae(cfg, VOCAB, device=dev, generator=torch.Generator().manual_seed(11))
+    with torch.no_grad():
+        for p in vae.parameters():
+            p.mul_(10.0)
+    batch = train_pool.batch(0)
+    g = torch.Generator(device=dev).manual_seed(12)
+    draws = {}
+
+    def draw(site, shape):  # the same draws for both runs
+        if site not in draws:
+            draws[site] = (torch.randn if site == "eps" else torch.rand)(
+                shape, generator=g, device=dev)
+        return draws[site]
+
+    grad_on = make_grad_on(vae, make_loss_fn(vae, nsamples=1, train=True))
+    params = dict(vae.named_parameters())
+
+    def run():
+        build.reset_launches()
+        with torch.enable_grad():
+            aux = grad_on(batch, draw, 0.5)
+        grads = {k: v.clone() for k, v in grads_of(params).items()}
+        torch.cuda.synchronize()
+        return (float(aux[0].detach()), grads, float(clip_scale(grads, cfg.clip_grad)[1]),
+                dict(build.LAUNCHES))
+
+    loss_k, grads_k, norm_k, launches_k = run()
+    saved = lstm_cuda.lstm_seq, lstm_cuda.lstm_bwd, ce_cuda.ce_forward
+    lstm_cuda.lstm_seq, lstm_cuda.lstm_bwd, ce_cuda.ce_forward = (
+        lstm_cuda.lstm_seq_plain, lstm_cuda.lstm_bwd_plain, ce_cuda.ce_logp_plain)
+    try:
+        loss_p, grads_p, norm_p, launches_p = run()
+    finally:
+        lstm_cuda.lstm_seq, lstm_cuda.lstm_bwd, ce_cuda.ce_forward = saved
+    want = {"lstm_fwd_residuals": 2, "lstm_bwd": 2, "ce_fwd_train": 1}
+    if {k: launches_k[k] for k in want} != want or any(launches_p.values()):
+        raise AssertionError(f"gradient cross-check routing: kernel run launched {launches_k}, "
+                             f"plain run launched {launches_p}")
+    rel = {k: float((grads_k[k] - grads_p[k]).abs().max()) / max(float(grads_p[k].abs().max()),
+                                                                  1e-30)
+           for k in grads_p}
+    worst = max(rel, key=rel.get)
+    norm_rel = abs(norm_k - norm_p) / norm_p
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    finite = all(torch.isfinite(v).all() for v in grads_k.values())
+    if not (finite and rel[worst] <= GRAD_TOL and norm_rel <= GRAD_TOL and loss_rel <= GRAD_TOL):
+        raise AssertionError(f"gradient cross-check: worst leaf {worst} {rel[worst]:.3e}, norm "
+                             f"{norm_rel:.3e}, loss {loss_rel:.3e} (tolerance {GRAD_TOL}), "
+                             f"finite {finite}")
+    return dict(loss=loss_k, loss_rel=loss_rel, norm=norm_k, norm_rel=norm_rel,
+                worst_leaf=worst, worst_rel=rel[worst], leaves=len(rel))
+
+
+GRAD_TOL = 5e-2
+
 KERNELS = [
     ("lstm_fwd_residuals", "vae_lagging_encoder_tpu_torch/csrc/lstm_fwd.cu",
      "vae_lagging_encoder_tpu/ops/lstm_pallas.py:67", ("lstm", True, B, NI)),
     ("lstm_fwd_infer", "vae_lagging_encoder_tpu_torch/csrc/lstm_fwd.cu",
      "vae_lagging_encoder_tpu/ops/lstm_pallas.py:166", ("lstm", False, B * IW_CHUNK, NI + NZ)),
+    ("lstm_bwd", "vae_lagging_encoder_tpu_torch/csrc/lstm_bwd.cu",
+     "vae_lagging_encoder_tpu/ops/lstm_pallas.py:269", ("lstm_bwd",)),
     ("ce_fwd", "vae_lagging_encoder_tpu_torch/csrc/ce_fwd.cu",
      "vae_lagging_encoder_tpu/ops/ce_pallas.py:65", ("ce",)),
+    ("ce_fwd_train", "vae_lagging_encoder_tpu_torch/csrc/ce_fwd.cu",
+     "vae_lagging_encoder_tpu/ops/ce_pallas.py:65", ("ce_train",)),
 ]
 
 
@@ -334,10 +649,13 @@ def main() -> int:
 
     # phase 2 — kernels against their plain versions at the slice's shapes
     results = {}
+    checks = {"lstm": lambda spec, name: check_lstm(spec[1], spec[2], spec[3], name, dev),
+              "lstm_bwd": lambda spec, name: check_lstm_bwd(dev),
+              "ce": lambda spec, name: check_ce(dev),
+              "ce_train": lambda spec, name: check_ce_train(dev)}
     with torch.no_grad():
         for name, source, replaces, spec in KERNELS:
-            r = check_lstm(spec[1], spec[2], spec[3], name, dev) if spec[0] == "lstm" \
-                else check_ce(dev)
+            r = checks[spec[0]](spec, name)
             r.update(name=name, source=source, replaces=replaces)
             results[name] = r
             log(json.dumps({"kernel_check": r}))
@@ -362,19 +680,34 @@ def main() -> int:
         log(f"[slice] cross-check vs plain versions on one batch (IW {IW_CROSS_SAMPLES}): "
             f"max abs err {err:.3e} nats (tolerance {CROSS_TOL}), mean IW-NLL {nll_mean:.3f}")
 
+        # phase 4 — the training slice end to end through the CLI
+        train_runs, steps, train_pool, tcfg = run_training_slice(
+            Path(td), Path(td) / "yahoo.test.txt", dev)
+        log(f"[train] steps/s on {torch.cuda.get_device_name(0)} ({smi}): aggressive "
+            f"{json.dumps(steps['aggressive'])}, plain {json.dumps(steps['plain'])} "
+            "(a step = one forward+backward: an outer step or an inner sub-iteration)")
+        gx = grad_cross_check(train_pool, tcfg, dev)
+        log(f"[train] gradient cross-check vs plain versions (one step, Yahoo width, weights "
+            f"x10): {json.dumps(gx)} (tolerance {GRAD_TOL})")
+
+    train_launches = {k: sum(r["launches"][k] for r in train_runs.values()) for k in launches}
     kernels = []
     for name, source, replaces, spec in KERNELS:
         r = results[name]
         tol = TOL[(spec[0], "bf16")]
+        by_path = {"eval": launches[name], "train": train_launches[name]}
+        if not sum(by_path.values()):
+            raise AssertionError(f"{name} was launched no time on the main paths: {by_path}")
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        "on_main_path": name != "lstm_fwd_residuals",
+                        "replaces": replaces, "launches": sum(by_path.values()),
+                        "launches_by_path": by_path, "on_main_path": True,
                         "max_abs_err": r["err_bf16"], "tolerance": tol,
                         "max_abs_err_f32": r["err_f32"],
                         "tolerance_f32": TOL[(spec[0], "f32")],
                         "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"], "shape": r["shape"]})
+                        "library_ms": r["library_ms"], "shape": r["shape"],
+                        **{k: r[k] for k in ("spill_err_bf16", "port_fwd_bwd_ms") if k in r}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

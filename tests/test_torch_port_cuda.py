@@ -9,8 +9,9 @@ imports JAX, hence:
 
 Small odd shapes: partial row tiles, partial hidden-unit blocks, a ragged
 last vocab tile. Tolerances: f32 operands differ only in summation order;
-bf16 ``wh`` lets a last-bit difference in h flip a bf16 rounding of the
-next step's input (see chip_smoke.py for the Yahoo-width checks).
+bf16 ``wh`` lets a last-bit difference in h (forward) or da (backward) flip
+a bf16 rounding of the next step's product input (see chip_smoke.py for the
+Yahoo-width checks).
 """
 import numpy as np
 import pytest
@@ -64,21 +65,85 @@ def test_ce_kernel_matches_plain_on_cuda(bf16):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
 
 
+def _lstm_bwd_inputs(T, B, H, wh_dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    xw = torch.randn(T, B, 4 * H, generator=g)
+    mask = (torch.rand(T, B, generator=g) > 0.3).float()
+    wh = (0.1 * torch.randn(H, 4 * H, generator=g)).to(wh_dtype)
+    h0, c0 = 0.1 * torch.randn(B, H, generator=g), 0.1 * torch.randn(B, H, generator=g)
+    hs, cs, gates, _, _ = lstm_cuda.lstm_seq_plain(xw, mask, wh, h0, c0, True)
+    c_prev = torch.cat([c0[None], cs[:-1]])
+    dhs = 0.1 * torch.randn(T, B, H, generator=g)
+    dhT, dcT = 0.1 * torch.randn(B, H, generator=g), 0.1 * torch.randn(B, H, generator=g)
+    return [a.cuda() for a in (gates, mask, wh, c_prev, dhs, dhT, dcT)]
+
+
 @pytest.mark.cuda
-def test_lstm_run_refuses_gradient_through_kernel_on_cuda():
+@pytest.mark.parametrize("wh_dtype", [torch.float32, torch.bfloat16])
+def test_lstm_bwd_kernel_matches_plain_on_cuda(wh_dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    args = _lstm_bwd_inputs(7, 37, 200, wh_dtype, seed=3)
+    n = build.LAUNCHES["lstm_bwd"]
+    got = lstm_cuda.lstm_bwd(*args)
+    ref = lstm_cuda.lstm_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["lstm_bwd"] == n + 1
+    # f32: summation order only (~1e-7 here); bf16: a flipped rounding of one
+    # da value (~1e-3 relative) times a wh entry of ~0.1
+    tol = 1e-5 if wh_dtype == torch.float32 else 1e-3
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+def test_ce_train_kernel_matches_plain_on_cuda(bf16):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    h, w, tgt = _ce_inputs(n=70, nh=40, vocab=1100, seed=5)
+    dt = torch.bfloat16 if bf16 else None
+    args = (torch.from_numpy(h).cuda(), torch.from_numpy(w).cuda(), torch.from_numpy(tgt).cuda())
+    n = build.LAUNCHES["ce_fwd_train"]
+    logp, lse, spill = ce_cuda.ce_forward(*args, dt, save_logits=True)
+    rlogp, rlse, rspill = ce_cuda.ce_logp_plain(*args, dt, save_logits=True)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["ce_fwd_train"] == n + 1
+    assert spill.dtype == (torch.bfloat16 if bf16 else torch.float32)
+    torch.testing.assert_close(logp, rlogp, atol=1e-4, rtol=0)
+    torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=0)
+    # the spill: one f32 logit rounded to bf16 may land one bf16 step apart
+    torch.testing.assert_close(spill.float(), rspill.float(), atol=2e-3 if bf16 else 1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_lstm_run_gradient_through_kernel_on_cuda():
+    """A gradient through ``lstm_run``'s kernel route launches the forward
+    (residuals) and backward kernels and matches the plain route's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     from vae_lagging_encoder_tpu_torch.models.lstm_core import LSTMParams, lstm_run
 
     p = LSTMParams(6, 16)
-    p.reset_parameters(torch.Generator().manual_seed(0))
+    p.reset_parameters(torch.Generator().manual_seed(0), scale=0.3)
     p = p.cuda()
     x = torch.randn(3, 4, 6, device="cuda")
-    with pytest.raises(RuntimeError, match="backward kernel"):
-        lstm_run(p, x, kernel_route=True)
+    mask = torch.tensor([[1, 1, 1, 1], [1, 1, 0, 0], [1, 1, 1, 0]], device="cuda").float()
+    grads = []
+    for kernel_route in (True, False):
+        n = dict(build.LAUNCHES)
+        p.zero_grad()
+        out, (hT, cT) = lstm_run(p, x, mask, kernel_route=kernel_route)
+        ((out * mask[..., None]).square().sum() + hT.sum() + cT.square().sum()).backward()
+        grads.append([q.grad.clone() for q in p.parameters()])
+        launched = {k: build.LAUNCHES[k] - n[k] for k in n}
+        if kernel_route:
+            assert launched["lstm_fwd_residuals"] == 1 and launched["lstm_bwd"] == 1, launched
+        else:
+            assert not any(launched.values()), launched
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4)
     with torch.no_grad():
         n = build.LAUNCHES["lstm_fwd_infer"]
-        out, (hT, cT) = lstm_run(p, x, kernel_route=True)
+        lstm_run(p, x, kernel_route=True)
         assert build.LAUNCHES["lstm_fwd_infer"] == n + 1
-        ref, (hr, cr) = lstm_run(p, x, kernel_route=False)
-    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)

@@ -7,7 +7,9 @@
   raise, and ``python chip_smoke.py`` exits non-zero, also as a lone file.
 - ``from_jax_params`` round-trips; one checkpoint loads in both packages;
   the CLI's ``--eval --device cpu`` runs on a checkpoint the JAX package
-  wrote, and without ``--eval`` it exits (training is not ported yet).
+  wrote; without ``--eval`` it trains, writes a best checkpoint with its
+  optimizer state that the JAX package reads, and ``--resume`` continues
+  from it exactly as the uninterrupted run went on.
 """
 import ast
 import json
@@ -169,6 +171,35 @@ def test_cli_eval_on_jax_checkpoint(tmp_path):
     assert 0 <= res["au"] <= SMALL["nz"]
 
 
-def test_cli_without_eval_exits(tmp_path):
-    with pytest.raises(SystemExit, match="training is not ported"):
-        cli_text.main(["--dataset", "yahoo", "--device", "cpu", "--exp_dir", str(tmp_path)])
+def test_cli_without_eval_trains_and_resumes(tmp_path):
+    files = _corpus(tmp_path)
+    dims = [f"--{k}={v}" for k, v in SMALL.items()]
+    common = ["--dataset", "yahoo", "--device", "cpu", "--iw_nsamples", "4", "--iw_batch", "2",
+              "--batch_size", "8", "--lr", "0.5", "--momentum", "0.5", "--warm_up", "1",
+              "--aggressive", "1", "--log_niter", "2", *files, *dims]
+
+    def run(name, epochs, *extra):
+        ck = tmp_path / f"{name}.ckpt"
+        rc = cli_text.main([*common, "--epochs", str(epochs), "--save_path", str(ck),
+                            "--exp_dir", str(tmp_path / name), *extra])
+        assert rc == 0
+        recs = [json.loads(l) for l in
+                (tmp_path / name / "log.metrics.jsonl").read_text().splitlines()]
+        return ck, [r for r in recs if "val_loss" in r], next(r for r in recs
+                                                               if r.get("split") == "test")
+
+    _, full, _ = run("full", 3)
+    ck, first, res = run("first", 2)
+    assert [m["epoch"] for m in first] == [0, 1] and first[0]["inner_iters"] > 0
+    for k in ("elbo_loss", "rec", "kl", "iw_nll"):
+        assert np.isfinite(res[k]), (k, res)
+    params, extra = jax_load(str(ck))  # the JAX package reads the port's checkpoint
+    assert extra["epoch"] == 1 and extra["opt_state"]["enc"]["v"]["lstm"]["wh"].shape == (12, 48)
+    vae = build_text_vae(get_config("yahoo", **SMALL), 30, device="cpu")
+    vae.load_state_dict(from_jax_params(params))
+    _, resumed, _ = run("resumed", 3, "--load_path", str(ck), "--resume")
+    assert [m["epoch"] for m in resumed] == [2]
+    # the same epoch as the uninterrupted run: parameters, optimizer state,
+    # schedule, shuffle and draws all carried over
+    for k in ("train_loss", "val_loss", "kl_weight", "lr", "inner_iters", "aggressive"):
+        assert resumed[0][k] == full[2][k], (k, resumed[0][k], full[2][k])

@@ -97,8 +97,9 @@ def test_decoder_decode_logits_match_jax():
 
 
 def test_kernel_route_gradient_runs_on_cpu():
-    """On the CPU the kernel route's plain version takes autograd (the CUDA
-    kernel refuses a gradient until its backward kernel is ported)."""
+    """On the CPU the kernel route's gradient runs ``LSTMSeqFn`` with its
+    plain forward and backward (the CUDA route is tested in
+    test_torch_port_cuda.py)."""
     tokens, mask, _ = _batch(4)
     enc = GaussianLSTMEncoder(V, NI, NH, NZ, kernel_route=True)
     enc.reset_parameters(torch.Generator().manual_seed(0))

@@ -1,7 +1,8 @@
 """Shared CLI plumbing: the reference's flag names merged over the
 per-dataset configs (flags win), as in ``vae_lagging_encoder_tpu/cli/
-common.py``. ``--device`` takes the place of ``--jax_platform``; flags of
-training, which is not ported yet, are not offered."""
+common.py``. ``--device`` takes the place of ``--jax_platform``; the JAX
+CLI's flags of what is not ported (DP/TP, autosaves, profiling, the XLA
+dispatch knobs, the compilation cache) are not offered."""
 from __future__ import annotations
 
 import argparse
@@ -18,19 +19,39 @@ def build_parser(default_dataset: str = "yahoo") -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("--dataset", type=str, default=default_dataset,
                    choices=sorted(DATASET_CONFIGS))
+    p.add_argument("--aggressive", type=int, default=None,
+                   help="1 = lagging-encoder inner loop (paper's algorithm)")
+    p.add_argument("--kl_start", type=float, default=None)
+    p.add_argument("--warm_up", type=int, default=None)
+    p.add_argument("--nsamples", type=int, default=None)
     p.add_argument("--iw_nsamples", type=int, default=None)
     p.add_argument("--iw_batch", type=int, default=None,
                    help="IW estimator chunk size; iw_nsamples must divide by it")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--eval", action="store_true")
     p.add_argument("--load_path", type=str, default=None)
+    p.add_argument("--resume", action="store_true",
+                   help="continue training from load_path's saved state")
+    p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--batch_size", type=int, default=None)
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--optim", type=str, default=None, choices=["sgd", "adam"])
+    p.add_argument("--momentum", type=float, default=None)
+    p.add_argument("--clip_grad", type=float, default=None)
+    p.add_argument("--decay_epoch", type=int, default=None)
+    p.add_argument("--lr_decay", type=float, default=None)
+    p.add_argument("--max_decay", type=int, default=None)
+    p.add_argument("--save_path", type=str, default=None)
     p.add_argument("--exp_dir", type=str, default=None)
     p.add_argument("--label", type=int, default=None)
+    p.add_argument("--log_niter", type=int, default=None)
+    p.add_argument("--test_nepoch", type=int, default=None)
     p.add_argument("--ni", type=int, default=None, help="embedding size")
     p.add_argument("--enc_nh", type=int, default=None, help="encoder LSTM hidden size")
     p.add_argument("--dec_nh", type=int, default=None, help="decoder LSTM hidden size")
     p.add_argument("--nz", type=int, default=None, help="latent dimension")
+    p.add_argument("--dec_dropout_in", type=float, default=None)
+    p.add_argument("--dec_dropout_out", type=float, default=None)
     p.add_argument("--compute_dtype", type=str, default=None,
                    choices=["float32", "bfloat16"])
     p.add_argument("--use_pallas", type=int, default=None,
@@ -49,9 +70,9 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
     overrides = {}
     for k, v in vars(args).items():
         if k in fields and v is not None and k != "dataset":
-            if k in ("label", "use_pallas"):
+            if k in ("aggressive", "label", "use_pallas"):
                 v = bool(v)
-            if k == "eval" and not v:
+            if k in ("eval", "resume") and not v:
                 continue  # store_true default False shouldn't override
             overrides[k] = v
     return get_config(args.dataset, **overrides)

@@ -1,11 +1,16 @@
-"""Text experiment CLI, evaluation only (the reference's text.py --eval).
+"""Text experiment CLI (the reference's text.py): training and evaluation.
 
-    python -m vae_lagging_encoder_tpu_torch.cli.text --dataset yahoo --eval \\
-        --load_path models/yahoo/model.ckpt [--train_data ... --val_data ... \\
-        --test_data ...] [--device cpu]
+    python -m vae_lagging_encoder_tpu_torch.cli.text --dataset yahoo --aggressive 1
+    python -m vae_lagging_encoder_tpu_torch.cli.text --dataset yahoo --eval \
+        --load_path models/yahoo/model.ckpt
+    # resume a stopped run from its best checkpoint
+    ... --load_path models/yahoo/model.ckpt --resume
+    # off the GPU (the kernels' plain versions), e.g. at tiny widths
+    ... --device cpu --ni 16 --enc_nh 32 --dec_nh 32 --nz 4
 
 The checkpoint is the JAX package's ``.npz`` format (either package writes
-it). Without ``--eval`` the CLI exits: training is not ported yet.
+and reads it). Generation (``--sample_from_prior``, ``--reconstruct``) is
+not ported yet.
 """
 from __future__ import annotations
 
@@ -19,14 +24,11 @@ from .common import build_parser, config_from_args, make_run_logger
 def main(argv=None) -> int:
     args = build_parser(default_dataset="yahoo").parse_args(argv)
     cfg = config_from_args(args)
-    if not cfg.eval:
-        raise SystemExit("vae_lagging_encoder_tpu_torch.cli.text: training is not "
-                         "ported yet; run the final evaluation with --eval "
-                         "--load_path CKPT")
     with make_run_logger(cfg, "text") as log:
         log.info(f"[config] {cfg}")
         results = train_text(cfg, log, device=args.device)
-        log.info("[results] " + json.dumps(results, default=float))
+        log.info("[results] " + json.dumps(
+            {k: v for k, v in results.items() if k != "history"}, default=float))
     return 0
 
 

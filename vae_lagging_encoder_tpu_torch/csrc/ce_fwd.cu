@@ -1,10 +1,19 @@
 // Fused vocab projection + cross-entropy forward, for Hopper (sm_90a).
 //
 // Replaces the JAX package's Pallas TPU kernel ops/ce_pallas.py::_ce_kernel
-// in its forward form (no logits spill): for h [N, nh], W [nh, V], tgt [N]
+// in both its forms: for h [N, nh], W [nh, V], tgt [N]
 //   logp[n] = (h W)[n, tgt[n]] - logsumexp_v (h W)[n, v],   lse[n] = logsumexp
 // as an online (max, sum of exp, target logit) over vocab tiles, with the
-// ragged last tile masked to -1e30. No [N, V] array ever reaches device memory.
+// ragged last tile masked to -1e30.
+//   - forward form (ce_fwd, kSave = false): no [N, V] array ever reaches
+//     device memory;
+//   - grad mode (ce_fwd_train, kSave = true; the TPU kernel with
+//     save_logits=True): each logits tile is also written, rounded to the
+//     operand type (bf16, or f32 in f32-operand mode), into the residual
+//     spill [N, V], and a second running sum s2 of exp(rounded - running max)
+//     over the real columns gives lse[n] = m + log(s2), the logsumexp of the
+//     ROUNDED logits, so that the backward's exp(spill - lse) rows sum to
+//     exactly 1; logp keeps the unrounded m + log(s).
 //
 // What bounds it on the H100: 2*N*nh*V operations (2.5 TFLOP per call at the
 // IW decoder's N = 640*95, nh = 1024, V = 20004), against which the inputs are
@@ -176,10 +185,16 @@ __device__ __forceinline__ void logits_tile(const float* __restrict__ h,
     for (int j = 0; j < 8; ++j) Cs[(ty * 4 + i) * LDC + tx * 8 + j] = acc[i][j];
 }
 
-template <typename T>
+__device__ __forceinline__ float rounded(float x, float) { return x; }
+__device__ __forceinline__ float rounded(float x, __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+template <typename T, bool kSave>
 __global__ void __launch_bounds__(NTHREADS)
 ce_fwd_kernel(const T* __restrict__ h, const T* __restrict__ w, const int* __restrict__ tgt,
-              float* __restrict__ logp, float* __restrict__ lse, int N, int nh, int V) {
+              float* __restrict__ logp, float* __restrict__ lse, T* __restrict__ spill,
+              int N, int nh, int V) {
   extern __shared__ __align__(128) unsigned char smem[];
   const float* Cs = reinterpret_cast<const float*>(smem + Tiles<T>::a_bytes + Tiles<T>::b_bytes);
   const int tid = threadIdx.x;
@@ -187,11 +202,17 @@ ce_fwd_kernel(const T* __restrict__ h, const T* __restrict__ w, const int* __res
   const int er = tid / 4, ep = tid % 4;  // 4 threads per row; thread ep takes cols c*4 + ep
   const int grow = row0 + er;
   const int target = grow < N ? tgt[grow] : -1;
-  float m_run = -INFINITY, s_run = 0.f, t_logit = 0.f;
+  float m_run = -INFINITY, s_run = 0.f, s2_run = 0.f, t_logit = 0.f;
 
   for (int col0 = 0; col0 < V; col0 += BN) {
     logits_tile(h, w, smem, row0, col0, N, nh, V);
     __syncthreads();
+    if (kSave) {  // the residual: the tile rounded to T, row-major [N, V]
+      for (int idx = tid; idx < BM * BN; idx += NTHREADS) {
+        const int r = idx / BN, c = idx % BN, gr = row0 + r, gc = col0 + c;
+        if (gr < N && gc < V) spill[(size_t)gr * V + gc] = T(Cs[r * LDC + c]);
+      }
+    }
     const float* crow = Cs + er * LDC;
     float vmax = NEG;
     for (int c = 0; c < BN / 4; ++c) {
@@ -203,35 +224,43 @@ ce_fwd_kernel(const T* __restrict__ h, const T* __restrict__ w, const int* __res
     vmax = fmaxf(vmax, __shfl_xor_sync(0xffffffffu, vmax, 1));
     vmax = fmaxf(vmax, __shfl_xor_sync(0xffffffffu, vmax, 2));
     const float m_new = fmaxf(m_run, vmax);
-    float ssum = 0.f;
+    float ssum = 0.f, ssum2 = 0.f;
     for (int c = 0; c < BN / 4; ++c) {
       const int n = c * 4 + ep, gc = col0 + n;
       ssum += expf((gc < V ? crow[n] : NEG) - m_new);
+      if (kSave) ssum2 += expf((gc < V ? rounded(crow[n], T(0.f)) : NEG) - m_new);
     }
     ssum += __shfl_xor_sync(0xffffffffu, ssum, 1);
     ssum += __shfl_xor_sync(0xffffffffu, ssum, 2);
-    s_run = s_run * expf(m_run - m_new) + ssum;
+    const float scale = expf(m_run - m_new);
+    s_run = s_run * scale + ssum;
+    if (kSave) {
+      ssum2 += __shfl_xor_sync(0xffffffffu, ssum2, 1);
+      ssum2 += __shfl_xor_sync(0xffffffffu, ssum2, 2);
+      s2_run = s2_run * scale + ssum2;
+    }
     m_run = m_new;
   }
   t_logit += __shfl_xor_sync(0xffffffffu, t_logit, 1);
   t_logit += __shfl_xor_sync(0xffffffffu, t_logit, 2);
   if (ep == 0 && grow < N) {
     const float l = m_run + logf(s_run);
-    lse[grow] = l;
+    lse[grow] = kSave ? m_run + logf(s2_run) : l;
     logp[grow] = t_logit - l;
   }
 }
 
-template <typename T>
+template <typename T, bool kSave>
 cudaError_t launch(const void* h, const void* w, const int* tgt, float* logp, float* lse,
-                   int N, int nh, int V, cudaStream_t stream) {
+                   void* spill, int N, int nh, int V, cudaStream_t stream) {
   if (N < 1 || nh < 1 || V < 1) return cudaErrorInvalidValue;
-  auto kern = ce_fwd_kernel<T>;
+  auto kern = ce_fwd_kernel<T, kSave>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)Tiles<T>::smem);
   if (err != cudaSuccess) return err;
   kern<<<(N + BM - 1) / BM, NTHREADS, Tiles<T>::smem, stream>>>(
-      static_cast<const T*>(h), static_cast<const T*>(w), tgt, logp, lse, N, nh, V);
+      static_cast<const T*>(h), static_cast<const T*>(w), tgt, logp, lse,
+      static_cast<T*>(spill), N, nh, V);
   return cudaGetLastError();
 }
 
@@ -245,8 +274,17 @@ extern "C" {
 int ce_fwd(const void* h, const void* w, const int* tgt, float* logp, float* lse,
            int N, int nh, int V, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16>(h, w, tgt, logp, lse, N, nh, V, s)
-              : launch<float>(h, w, tgt, logp, lse, N, nh, V, s);
+  return bf16 ? launch<__nv_bfloat16, false>(h, w, tgt, logp, lse, nullptr, N, nh, V, s)
+              : launch<float, false>(h, w, tgt, logp, lse, nullptr, N, nh, V, s);
+}
+
+// Grad mode: as ce_fwd, and writes spill [N, V] (the logits in the operand
+// type) and, as lse, the logsumexp of the spilled (rounded) logits.
+int ce_fwd_train(const void* h, const void* w, const int* tgt, float* logp, float* lse,
+                 void* spill, int N, int nh, int V, int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch<__nv_bfloat16, true>(h, w, tgt, logp, lse, spill, N, nh, V, s)
+              : launch<float, true>(h, w, tgt, logp, lse, spill, N, nh, V, s);
 }
 
 const char* kernel_error_string(int err) {

@@ -6,7 +6,11 @@ device — tokens [n_b, B, L_b] int64, mask [n_b, B, L_b] f32, row_weight
 [n_b, B] f32 — and iterated in the JAX package's flat order: buckets by
 ascending length, then batch index inside a bucket. Flat batch ``i`` is the
 ``i`` the JAX evaluators fold into their per-batch key, so noise injected
-by batch index lines up with the reference.
+by batch index lines up with the reference. ``coords`` maps a flat index
+to (bucket, index in bucket) by ``searchsorted`` over the cumulative counts,
+as the JAX package's ``sample_coords`` maps its uniform draw; ``batch``
+reads one batch. Both run on the host (the bucket decides the sequence
+length, so the caller needs it there anyway).
 """
 from __future__ import annotations
 
@@ -35,7 +39,20 @@ class BucketedPool:
                 torch.from_numpy(np.stack([g.row_weight for g in grp])).to(device),
             ))
         self.counts = [len(groups[L]) for L in self.lengths]
-        self.num_batches = int(sum(self.counts))
+        self.cum = np.concatenate([[0], np.cumsum(self.counts)]).astype(np.int64)
+        self.num_batches = int(self.cum[-1])
+
+    def coords(self, flat: int) -> Tuple[int, int]:
+        """Flat batch index -> (bucket, index within the bucket)."""
+        if not 0 <= flat < self.num_batches:
+            raise IndexError(f"batch {flat} outside [0, {self.num_batches})")
+        bucket = int(np.searchsorted(self.cum, flat, side="right") - 1)
+        return bucket, int(flat - self.cum[bucket])
+
+    def batch(self, flat: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Flat batch ``flat``: ``(tokens [B, L], mask [B, L], row_weight [B])``."""
+        bucket, idx = self.coords(flat)
+        return tuple(a[idx] for a in self.arrays[bucket])
 
     def __iter__(self) -> Iterator[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
         """Batches ``(tokens [B, L], mask [B, L], row_weight [B])`` in flat order."""

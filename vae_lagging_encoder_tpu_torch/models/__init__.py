@@ -19,6 +19,7 @@ def build_text_vae(cfg, vocab_size: int, device="cuda",
     enc = GaussianLSTMEncoder(vocab_size, cfg.ni, cfg.enc_nh, cfg.nz,
                               kernel_route=cfg.use_pallas, compute_dtype=dtype)
     dec = LSTMDecoder(vocab_size, cfg.ni, cfg.dec_nh, cfg.nz,
+                      dropout_in=cfg.dec_dropout_in, dropout_out=cfg.dec_dropout_out,
                       kernel_route=cfg.use_pallas, compute_dtype=dtype)
     vae = VAE(enc, dec)
     vae.reset_parameters(generator or torch.Generator().manual_seed(cfg.seed))

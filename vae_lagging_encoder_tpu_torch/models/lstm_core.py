@@ -10,9 +10,11 @@ recurrence runs on ``ops/lstm_cuda.py``.
 Routes (``kernel_route`` = the config's ``use_pallas``):
 
 - kernel route: ``wh`` goes to bf16 (f32 accumulation) when H > 512 or the
-  compute dtype is bf16, as the JAX package's Pallas route does; a CUDA
-  input launches the forward-only kernel, a CPU input runs its plain
-  version. The JAX package also gates its kernels on TPU tiles (H % 128,
+  compute dtype is bf16, as the JAX package's Pallas route does. Without a
+  gradient a CUDA input launches the forward-only kernel; with one it goes
+  through ``LSTMSeqFn`` (the residual-saving forward kernel and the
+  backward-sweep kernel, the counterpart of ``lstm_seq_fused``). A CPU
+  input runs the plain versions of the same. The JAX package also gates its kernels on TPU tiles (H % 128,
   B % 8, B <= 128 for the training kernel, a VMEM fit for the inference
   kernel) and falls back to scan (with f32 ``wh``) off those tiles; the
   port has no such gates, so at an off-tile shape the port keeps the kernel
@@ -31,7 +33,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from ..ops.lstm_cuda import lstm_seq, lstm_seq_plain
+from ..ops.lstm_cuda import LSTMSeqFn, lstm_seq, lstm_seq_plain
 
 
 def uniform_(t: torch.Tensor, scale: float, generator: torch.Generator) -> None:
@@ -85,12 +87,6 @@ def lstm_run(params: LSTMParams, x: torch.Tensor,
                           else torch.float32)
         needs_grad = torch.is_grad_enabled() and any(
             t.requires_grad for t in (xw, wh, h0, c0))
-        if needs_grad and x.device.type == "cuda":
-            raise RuntimeError(
-                "lstm_run: a gradient through the CUDA LSTM kernel was requested, "
-                "but its backward kernel (the counterpart of the TPU _bwd_kernel) "
-                "arrives with the training slice; run evaluation under "
-                "torch.no_grad()")
-        run = lstm_seq_plain if needs_grad else lstm_seq
+        run = LSTMSeqFn.apply if needs_grad else lstm_seq
         hs, hT, cT = run(xw.contiguous(), m.contiguous(), wh, h0, c0)
     return hs.transpose(0, 1), (hT, cT)

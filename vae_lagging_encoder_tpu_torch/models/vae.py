@@ -7,7 +7,9 @@ calc_infer_mean. Submodules ``enc`` and ``dec`` mirror the JAX package's
 ``{"enc": ..., "dec": ...}`` parameter tree.
 
 Noise is explicit: each estimator takes ``eps`` (or, for ``nll_iw``, a
-``noise(j, shape)`` callable per chunk) or a ``torch.Generator``.
+``noise(j, shape)`` callable per chunk) or a ``torch.Generator``; the
+training loss takes a ``draw(site, shape)`` callable for all of a step's
+draws (see ``loss``).
 """
 from __future__ import annotations
 
@@ -39,14 +41,20 @@ class VAE(nn.Module):
         return -0.5 * (torch.sum(z ** 2, dim=-1) + self.nz * math.log(2 * math.pi))
 
     def loss(self, x, mask=None, row_weight=None, kl_weight: float = 1.0,
-             nsamples: int = 1, eps=None, generator=None
+             nsamples: int = 1, eps=None, generator=None, draw=None
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Per-sentence (loss, rec, kl), each [B]; evaluation mode (no dropout).
+        """Per-sentence (loss, rec, kl), each [B].
 
         loss = rec + kl_weight * KL, rec = E_{z~q}[-log p(x|z)] averaged over
-        ``nsamples`` (``eps`` [B, nsamples, nz]); zero-weight pad rows are zeroed."""
+        ``nsamples`` (``eps`` [B, nsamples, nz]); zero-weight pad rows are
+        zeroed. Without ``draw`` this is evaluation mode (no dropout). With
+        ``draw(site, shape)`` it is the JAX package's ``train=True``: eps is
+        ``draw("eps", (B, nsamples, nz))`` and the decoder draws its dropout
+        uniforms (sites ``"keep_in"``, ``"keep_out"``), in that order."""
+        if draw is not None:
+            eps = draw("eps", (x.shape[0], nsamples, self.nz))
         z, kl = self.enc.encode(x, mask, nsamples, eps, generator)
-        rec = self.dec.reconstruct_error(x, mask, z).mean(dim=1)
+        rec = self.dec.reconstruct_error(x, mask, z, draw=draw).mean(dim=1)
         if row_weight is not None:
             rec = rec * row_weight
             kl = kl * row_weight

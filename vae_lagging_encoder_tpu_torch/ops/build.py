@@ -35,13 +35,13 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
-SOURCES = ("lstm_fwd", "ce_fwd")
+SOURCES = ("lstm_fwd", "lstm_bwd", "ce_fwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # launches per kernel, counted by the wrappers in lstm_cuda.py / ce_cuda.py
 LAUNCHES: Dict[str, int] = {"lstm_fwd_residuals": 0, "lstm_fwd_infer": 0,
-                            "ce_fwd": 0}
+                            "lstm_bwd": 0, "ce_fwd": 0, "ce_fwd_train": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -1,17 +1,24 @@
-"""Evaluators over a pool: ELBO, MI, active units, importance-weighted NLL.
+"""Training epoch and the evaluators over a pool: ELBO, MI, active units,
+importance-weighted NLL.
 
-Counterparts of the evaluators in ``vae_lagging_encoder_tpu/train/
-epoch.py`` (make_loss_fn in eval mode, make_eval_fn, make_mi_fn,
-make_au_fn, make_iwnll_fn). Where the JAX package compiles one fused
-reduction program per evaluator (``make_pool_reducer``), each evaluator
-here is a host loop over the pool's batches in flat order that
-accumulates on the device and reads the sums back once at the end.
+Counterparts of ``vae_lagging_encoder_tpu/train/epoch.py``:
+``make_loss_fn`` (training and evaluation mode), the step body of
+``make_train_epoch``, and the evaluators ``make_eval_fn``, ``make_mi_fn``,
+``make_au_fn``, ``make_iwnll_fn``. Where the JAX package compiles one fused
+program per epoch or per evaluator, here each is a host loop over batches
+that accumulates on the device and reads the sums back once at the end.
 
-Noise comes from a ``noise(batch_index, site, shape)`` provider: sites are
-``"elbo"`` (eps [B, nsamples, nz]), ``"mi"`` ([B, 1, nz]) and ``"iw<j>"``
-for IW chunk ``j`` ([B, ns, nz]). ``make_noise`` draws from a seeded
-``torch.Generator``; a test can instead hand in the JAX package's exact
-draws.
+Noise comes from a ``noise(i, site, shape)`` provider. Evaluators pass the
+flat batch index ``i`` and sites ``"elbo"`` (eps [B, nsamples, nz]),
+``"mi"`` ([B, 1, nz]) and ``"iw<j>"`` for IW chunk ``j`` ([B, ns, nz]). A
+training epoch passes the step's index ``i`` for the outer step and
+``(i, sub)`` for sub-iteration ``sub`` of its aggressive inner loop, with
+sites ``"eps"`` (normal [B, nsamples, nz]), ``"keep_in"`` / ``"keep_out"``
+(uniform [0, 1) dropout draws) and, in the inner loop, ``"pick"``: an int
+uniform in ``[0, shape[0])``, the flat index of the sub-iteration's batch.
+``make_noise`` draws from seeded ``torch.Generator``s (picks on the host, so
+that choosing a batch never waits for the device); a test can instead hand
+in the JAX package's exact draws.
 """
 from __future__ import annotations
 
@@ -20,17 +27,27 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
+import numpy as np
+
 from ..data.pool import BucketedPool
 from ..models.vae import VAE
+from .aggressive import grads_of, make_aggressive_inner, make_grad_on
+from .optim import clip_scale, make_optimizer
 
-Noise = Callable[[int, str, Tuple[int, ...]], torch.Tensor]
+Noise = Callable[[object, str, Tuple[int, ...]], object]
 
 
 def make_noise(seed: int, device) -> Noise:
-    """Standard-normal draws from one generator seeded with ``seed``."""
+    """Draws from generators seeded with ``seed``: normals for the eps sites,
+    uniforms for ``"keep_*"``, a host-side int for ``"pick"``."""
     g = torch.Generator(device=device).manual_seed(seed)
+    g_host = torch.Generator().manual_seed(seed)
 
-    def noise(i: int, site: str, shape: Tuple[int, ...]) -> torch.Tensor:
+    def noise(i, site: str, shape: Tuple[int, ...]):
+        if site == "pick":
+            return int(torch.randint(shape[0], (), generator=g_host))
+        if site.startswith("keep"):
+            return torch.rand(shape, generator=g, device=device)
         return torch.randn(shape, generator=g, device=device)
 
     return noise
@@ -43,15 +60,18 @@ def _safe_exp(x: float) -> float:
         return float("inf")
 
 
-def make_loss_fn(vae: VAE, nsamples: int = 1) -> Callable:
-    """``loss_fn(batch, eps) -> (mean_loss, (loss_sum, rec_sum, kl_sum,
-    n_sents, n_words))`` for ``batch = (tokens, mask, row_weight)``, in
-    evaluation mode; mean_loss is per real sentence."""
+def make_loss_fn(vae: VAE, nsamples: int = 1, train: bool = False) -> Callable:
+    """Evaluation mode: ``loss_fn(batch, eps)``; training mode:
+    ``loss_fn(batch, draw, kl_weight)`` with the step's ``draw(site, shape)``
+    (dropout on). Both return ``(mean_loss, (loss_sum, rec_sum, kl_sum,
+    n_sents, n_words))`` for ``batch = (tokens, mask, row_weight)``;
+    mean_loss, the objective, is per real sentence."""
 
-    def loss_fn(batch, eps):
+    def loss_fn(batch, noise, kl_weight=1.0):
         tokens, mask, row_weight = batch
-        loss, rec, kl = vae.loss(tokens, mask, row_weight, kl_weight=1.0,
-                                 nsamples=nsamples, eps=eps)
+        eps, draw = (None, noise) if train else (noise, None)
+        loss, rec, kl = vae.loss(tokens, mask, row_weight, kl_weight=kl_weight,
+                                 nsamples=nsamples, eps=eps, draw=draw)
         n_sents = row_weight.sum()
         n_words = (mask[:, 1:] * row_weight[:, None]).sum()
         loss_sum = loss.sum()
@@ -59,6 +79,65 @@ def make_loss_fn(vae: VAE, nsamples: int = 1) -> Callable:
             loss_sum, rec.sum(), kl.sum(), n_sents, n_words)
 
     return loss_fn
+
+
+def make_train_epoch(vae: VAE, pool: BucketedPool, cfg) -> Tuple[Callable, Callable]:
+    """``(epoch_fn, opt_init)``: the step loop of one training epoch and the
+    initial ``{"enc": ..., "dec": ...}`` optimizer state (two separate
+    optimizers, as the reference has).
+
+    ``epoch_fn(opt_state, noise, kl_weight, lr, order, aggressive,
+    on_step=None) -> (opt_state, kl_weight, sums, inner_iters)`` runs one
+    outer step per flat batch index of ``order``. Each step anneals the KL
+    weight first (``min(1, kl_weight + anneal_rate)`` in f32, as at the top
+    of the reference's batch loop), then, while ``aggressive``, runs the
+    inner loop (encoder-only updates to a plateau), then takes the outer
+    update: decoder-only while aggressive, encoder and decoder otherwise,
+    always with the clip over the full gradient. ``sums`` [5] (loss, rec,
+    KL, sentences, words) accumulate on the device; ``on_step(i, kl_weight,
+    aux)`` is called after each outer step (the caller's log cadence)."""
+    loss_fn = make_loss_fn(vae, nsamples=cfg.nsamples, train=True)
+    grad_on = make_grad_on(vae, loss_fn)
+    opt_init_part, opt_update = make_optimizer(cfg.optim, momentum=cfg.momentum)
+    params = dict(vae.named_parameters())
+    enc = dict(vae.enc.named_parameters())
+    dec = dict(vae.dec.named_parameters())
+    inner = make_aggressive_inner(grad_on, pool, params, enc, cfg.clip_grad,
+                                  cfg.burn_max_iters, cfg.burn_window, opt_update)
+    # warm_up <= 0 is valid only with kl_start 1.0 (run_training checks)
+    anneal_rate = np.float32((1.0 - cfg.kl_start) / (cfg.warm_up * pool.num_batches)
+                             if cfg.warm_up > 0 else 0.0)
+
+    def opt_init():
+        return {"enc": opt_init_part(enc), "dec": opt_init_part(dec)}
+
+    def epoch_fn(opt_state, noise: Noise, kl_weight, lr: float, order, aggressive: bool,
+                 on_step: Callable | None = None):
+        sums = torch.zeros(5, device=next(iter(params.values())).device)
+        inner_iters = 0
+        for i, flat in enumerate(order):
+            kl_weight = np.minimum(np.float32(1.0), np.float32(kl_weight) + anneal_rate)
+            if aggressive:
+                opt_state, n_sub = inner(
+                    opt_state,
+                    lambda sub, i=i: (lambda site, shape: noise((i, sub), site, shape)),
+                    float(kl_weight), lr)
+                inner_iters += n_sub
+            aux = grad_on(pool.batch(int(flat)),
+                          lambda site, shape, i=i: noise(i, site, shape), float(kl_weight))
+            scale, _, finite = clip_scale(grads_of(params), cfg.clip_grad)
+            for part, ps in (("enc", enc), ("dec", dec)):
+                if part == "enc" and aggressive:
+                    continue  # decoder-only outer step while aggressive
+                opt_state = dict(opt_state, **{part: opt_update(
+                    ps, grads_of(ps), opt_state[part], lr, scale=scale, finite=finite)})
+            aux = torch.stack([a.detach() for a in aux])
+            sums = sums + aux
+            if on_step is not None:
+                on_step(i, kl_weight, aux)
+        return opt_state, kl_weight, sums, inner_iters
+
+    return epoch_fn, opt_init
 
 
 def make_eval_fn(vae: VAE, pool: BucketedPool, nsamples: int = 1) -> Callable:

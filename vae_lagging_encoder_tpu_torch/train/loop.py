@@ -1,17 +1,33 @@
-"""Host-side entry points: the final evaluation of a text VAE.
+"""Host-side entry points: training and the final evaluation of a text VAE.
 
-Counterpart of ``vae_lagging_encoder_tpu/train/loop.py``'s
-``load_text_datasets``, ``run_final_eval`` and ``train_text`` with
-``cfg.eval``: load the corpora (vocabulary from the train split), bucket
-the test split into a device-resident pool, build the model, load a
-checkpoint, and report ELBO/rec/KL, MI, active units and the
-importance-weighted NLL/PPL. Training is not ported yet.
+Counterpart of ``vae_lagging_encoder_tpu/train/loop.py``: ``run_training``
+(KL-annealed training with separate encoder and decoder optimizers, the
+aggressive inner loop with its epoch-level MI-plateau permanent switch-off,
+per-epoch validation ELBO, the best checkpoint, LR plateau decay with
+rollback to the best parameters and fresh optimizer state, the test
+cadence, epoch-level ``--resume``, and the final evaluation on the best
+parameters), ``run_final_eval`` and ``train_text``.
+
+Not ported from ``run_training``: data and tensor parallelism, mid-epoch
+autosaves (``--autosave_niter``; a checkpoint holding a mid-epoch position
+is refused), ``--profile_dir``, and the XLA dispatch knobs
+``--epoch_segment`` / ``--loop_unroll`` (an epoch here is a host loop of
+steps, logged every ``log_niter`` steps as the reference does).
+
+Noise: ``run_training`` takes ``noise_for(stage, epoch) -> noise`` (see
+train/epoch.py for the provider's sites) with stages ``"train"``,
+``"val_mi"``, ``"val"``, ``"test"`` and ``"final"``. The default,
+``make_noise_for``, seeds one generator per (stage, epoch) from the
+config's seed, so a resumed run draws what the uninterrupted run would
+have drawn from that epoch on; a test can replay the JAX package's keys.
 """
 from __future__ import annotations
 
+import math
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from ..config import ExperimentConfig
@@ -19,9 +35,26 @@ from ..data import BucketedPool, MonoTextData
 from ..models import VAE, build_text_vae
 from ..ops.build import resolve_device
 from ..utils.exp_utils import Logger
-from ..utils.jax_params import from_jax_params
-from .checkpoint import load_checkpoint
-from .epoch import Noise, make_au_fn, make_eval_fn, make_iwnll_fn, make_mi_fn, make_noise
+from ..utils.jax_params import from_jax_params, to_jax_params
+from .checkpoint import load_checkpoint, save_checkpoint
+from .epoch import (Noise, make_au_fn, make_eval_fn, make_iwnll_fn, make_mi_fn, make_noise,
+                    make_train_epoch)
+from .optim import state_from_tree, state_to_tree
+
+NoiseFor = Callable[[str, int], Noise]
+STAGES = ("train", "val_mi", "val", "test")
+
+
+def make_noise_for(seed: int, device) -> NoiseFor:
+    """One generator per (stage, epoch), seeded from ``seed``; the final
+    evaluation's is seeded with ``seed + 1`` as in a standalone ``--eval``."""
+
+    def noise_for(stage: str, epoch: int) -> Noise:
+        if stage == "final":
+            return make_noise(seed + 1, device)
+        return make_noise((seed * 8 + STAGES.index(stage)) * 100_003 + epoch, device)
+
+    return noise_for
 
 
 def dataset_is_labeled(cfg: ExperimentConfig) -> bool:
@@ -80,25 +113,198 @@ def run_final_eval(cfg: ExperimentConfig, vae: VAE, pool: BucketedPool, log: Log
     return results
 
 
+def _snapshot(vae: VAE) -> Dict[str, torch.Tensor]:
+    return {k: v.detach().clone() for k, v in vae.state_dict().items()}
+
+
+def run_training(cfg: ExperimentConfig, vae: VAE, train_pool: BucketedPool,
+                 val_pool: BucketedPool, test_pool: BucketedPool, log: Logger,
+                 resume_state: Optional[Dict] = None,
+                 noise_for: Optional[NoiseFor] = None) -> Dict:
+    """The training lifecycle (module docstring); ``vae`` holds the initial
+    (or loaded) parameters and ends holding the best ones. Returns the final
+    evaluation's results plus ``history``, ``best_val_loss``, ``save_path``."""
+    if cfg.resume and not cfg.load_path:
+        raise SystemExit("--resume requires --load_path (a checkpoint to "
+                         "continue from)")
+    if cfg.iw_nsamples > cfg.iw_batch and cfg.iw_nsamples % cfg.iw_batch:
+        raise SystemExit(
+            f"--iw_nsamples {cfg.iw_nsamples} must be divisible by "
+            f"--iw_batch {cfg.iw_batch} (the IW estimator runs in "
+            f"iw_batch-sample chunks)")
+    if cfg.warm_up <= 0 and cfg.kl_start < 1.0:
+        raise SystemExit(
+            f"--warm_up {cfg.warm_up} with --kl_start {cfg.kl_start}: a "
+            "non-positive anneal window cannot reach kl_weight 1.0; use "
+            "--kl_start 1.0 for no annealing or a positive --warm_up")
+    dev = next(vae.parameters()).device
+    noise_for = noise_for or make_noise_for(cfg.seed, dev)
+    epoch_fn, opt_init = make_train_epoch(vae, train_pool, cfg)
+    opt_state = opt_init()
+    val_eval = make_eval_fn(vae, val_pool)
+    val_mi = make_mi_fn(vae, val_pool)
+    test_eval = make_eval_fn(vae, test_pool)
+
+    kl_weight = np.float32(cfg.kl_start)
+    lr = float(cfg.lr)
+    aggressive = bool(cfg.aggressive)
+    pre_mi = 0.0
+    best_loss = math.inf
+    best_params = _snapshot(vae)
+    decay_cnt = 0
+    not_improved = 0
+    start_epoch = 0
+    save_path = cfg.save_path or f"models/{cfg.dataset}/model.ckpt"
+    if resume_state:
+        if resume_state.get("mid_epoch"):
+            raise SystemExit("this checkpoint holds a mid-epoch position (an autosave); "
+                             "mid-epoch resume is not ported to this package — resume "
+                             "from the best-val checkpoint instead")
+        kl_weight = np.float32(resume_state.get("kl_weight", kl_weight))
+        lr = float(resume_state.get("lr", lr))
+        aggressive = bool(resume_state.get("aggressive", aggressive))
+        pre_mi = float(resume_state.get("pre_mi", pre_mi))
+        best_loss = float(resume_state.get("best_loss",
+                                           resume_state.get("val", {}).get("loss", best_loss)))
+        decay_cnt = int(resume_state.get("decay_cnt", 0))
+        not_improved = int(resume_state.get("not_improved", 0))
+        start_epoch = int(resume_state.get("epoch", -1)) + 1
+        if "opt_state" in resume_state:
+            opt_state = state_from_tree(resume_state["opt_state"], dev)
+        log.info(f"[resume] from epoch {start_epoch} (kl_weight {float(kl_weight):.4f}, "
+                 f"lr {lr:.4f}, aggressive {aggressive})")
+    rng = np.random.RandomState(cfg.seed)
+    for _ in range(start_epoch):  # keep the shuffle stream aligned
+        rng.permutation(train_pool.num_batches)
+    history = []
+    log.info(f"[train] {cfg.epochs} epochs, {train_pool.num_batches} "
+             f"batches/epoch, aggressive={aggressive}")
+
+    global_step = start_epoch * train_pool.num_batches
+    t_start = time.time()
+    report = torch.zeros(5, device=dev)
+
+    def on_step(i, kl_w, aux):
+        nonlocal report, global_step
+        report = report + aux
+        global_step += 1
+        if cfg.log_niter and global_step % cfg.log_niter == 0:
+            rl, rr, rk, rn, _ = report.tolist()
+            rn = max(rn, 1.0)
+            log.info(f"epoch {epoch}, iter {global_step}: avg_loss {rl / rn:.4f}, "
+                     f"kl {rk / rn:.4f}, recon {rr / rn:.4f}, kl_weight "
+                     f"{float(kl_w):.4f}, time {time.time() - t_start:.1f}s")
+            report = torch.zeros(5, device=dev)
+
+    for epoch in range(start_epoch, cfg.epochs):
+        t0 = time.time()
+        order = rng.permutation(train_pool.num_batches)
+        was_aggressive = aggressive
+        opt_state, kl_weight, sums, inner_iters = epoch_fn(
+            opt_state, noise_for("train", epoch), kl_weight, lr, order, aggressive,
+            on_step=on_step)
+        loss_s, rec_s, kl_s, n_sent, n_words = sums.tolist()
+        dt = time.time() - t0
+        ran = train_pool.num_batches + inner_iters
+        log.info(f"epoch {epoch}: loss {loss_s / n_sent:.4f} "
+                 f"rec {rec_s / n_sent:.4f} kl {kl_s / n_sent:.4f} "
+                 f"kl_weight {float(kl_weight):.4f} inner_iters {inner_iters} "
+                 f"({dt:.1f}s, {ran / max(dt, 1e-9):.1f} steps/s)")
+
+        # --- epoch-level MI plateau: permanent aggressive switch-off ----
+        if aggressive:
+            with torch.no_grad():
+                cur_mi = val_mi(noise_for("val_mi", epoch))
+            log.info(f"epoch {epoch}: val MI {cur_mi:.4f} (prev {pre_mi:.4f})")
+            if cur_mi < pre_mi:
+                aggressive = False
+                log.info(f"epoch {epoch}: MI plateau — aggressive OFF permanently")
+            pre_mi = cur_mi
+
+        # --- validation ELBO + best checkpoint + LR plateau decay -------
+        with torch.no_grad():
+            val = val_eval(noise_for("val", epoch))
+        log.info(f"epoch {epoch}: VAL loss {val['loss']:.4f} rec {val['rec']:.4f} "
+                 f"kl {val['kl']:.4f} nll {val['nll']:.4f} ppl {val['ppl']:.2f}")
+        log.metric(epoch=epoch, train_loss=loss_s / n_sent, val_loss=val["loss"],
+                   val_kl=val["kl"], kl_weight=float(kl_weight), lr=lr,
+                   inner_iters=inner_iters, aggressive=aggressive,
+                   epoch_aggressive=was_aggressive, epoch_seconds=dt,
+                   steps_per_sec=ran / max(dt, 1e-9))
+        history.append({"epoch": epoch, **{f"val_{k}": v for k, v in val.items()}})
+
+        if cfg.test_nepoch and (epoch + 1) % cfg.test_nepoch == 0:
+            with torch.no_grad():
+                te = test_eval(noise_for("test", epoch))
+            log.info(f"epoch {epoch}: TEST loss {te['loss']:.4f} "
+                     f"rec {te['rec']:.4f} kl {te['kl']:.4f} ppl {te['ppl']:.2f}")
+            log.metric(epoch=epoch, split="test_cadence", **{k: float(v) for k, v in te.items()})
+
+        if val["loss"] < best_loss:
+            best_loss = val["loss"]
+            best_params = _snapshot(vae)
+            not_improved = 0
+            save_checkpoint(save_path, to_jax_params(best_params), {
+                "opt_state": state_to_tree(opt_state),
+                "epoch": epoch, "kl_weight": float(kl_weight), "lr": lr,
+                "aggressive": aggressive, "pre_mi": pre_mi,
+                "best_loss": best_loss, "decay_cnt": decay_cnt,
+                "not_improved": not_improved,
+                "val": {k: float(v) for k, v in val.items()},
+                "dataset": cfg.dataset,
+            })
+        else:
+            not_improved += 1
+            if not_improved >= cfg.decay_epoch and epoch >= cfg.warm_up:
+                # the reference's plateau decay: lr * lr_decay, RELOAD the best
+                # parameters, rebuild both optimizers (fresh state)
+                lr *= cfg.lr_decay
+                decay_cnt += 1
+                not_improved = 0
+                vae.load_state_dict(best_params)
+                opt_state = opt_init()
+                log.info(f"epoch {epoch}: plateau — lr -> {lr:.4f} "
+                         f"(decay {decay_cnt}/{cfg.max_decay}), rolled back to best")
+                if decay_cnt >= cfg.max_decay:
+                    log.info("max decays reached — stopping")
+                    break
+
+    vae.load_state_dict(best_params)
+    with torch.no_grad():
+        results = run_final_eval(cfg, vae, test_pool, log, noise=noise_for("final", 0))
+    results["history"] = history
+    results["best_val_loss"] = best_loss
+    results["save_path"] = save_path
+    return results
+
+
 def train_text(cfg: ExperimentConfig, logger: Optional[Logger] = None,
                device="cuda") -> Dict:
     """``cfg.eval``: the final evaluation of ``cfg.load_path`` (or of the
-    seeded initial model when no checkpoint is given)."""
-    if not cfg.eval:
-        raise SystemExit("training is not ported to vae_lagging_encoder_tpu_torch yet; "
-                         "this package runs the final evaluation only "
-                         "(--eval --load_path CKPT)")
+    seeded initial model when no checkpoint is given); otherwise training
+    (``run_training``) from the seeded initial model or, with ``--resume``,
+    from ``cfg.load_path`` and its saved state."""
     dev = resolve_device(device)
     log = logger or Logger()
     train_data, val_data, test_data = load_text_datasets(cfg)
     log.info(f"[data] train {len(train_data)} / val {len(val_data)} / "
              f"test {len(test_data)} sentences, vocab {len(train_data.vocab)}")
-    test_pool = BucketedPool(test_data.create_data_batch(cfg.batch_size, cfg.length_buckets),
-                             dev)
+
+    def pool(d):
+        return BucketedPool(d.create_data_batch(cfg.batch_size, cfg.length_buckets), dev)
+
+    test_pool = pool(test_data)
     vae = build_text_vae(cfg, len(train_data.vocab), device=dev)
+    extra = {}
     if cfg.load_path:
         params, extra = load_checkpoint(cfg.load_path)
         vae.load_state_dict(from_jax_params(params))
         log.info(f"[ckpt] loaded {cfg.load_path} (extra keys: {list(extra)})")
-    with torch.no_grad():
-        return run_final_eval(cfg, vae, test_pool, log)
+    if cfg.eval:
+        with torch.no_grad():
+            return run_final_eval(cfg, vae, test_pool, log)
+    train_pool, val_pool = pool(train_data), pool(val_data)
+    log.info(f"[data] train batches {train_pool.num_batches} over buckets "
+             f"{train_pool.lengths}")
+    return run_training(cfg, vae, train_pool, val_pool, test_pool, log,
+                        resume_state=extra if cfg.resume else None)
