@@ -7,12 +7,17 @@ Phases (each raises on failure; the script then exits non-zero):
 
 1. device and build: prints the card and its power limit, builds the CUDA
    kernels from ``vae_lagging_encoder_tpu_torch/csrc`` (one ``nvcc`` per
-   source, in parallel);
+   source, in parallel) and prints each tensor-core kernel's registers,
+   spills and its count of tensor-core (HMMA) and asynchronous-copy
+   (LDGSTS) instructions from the build logs;
 2. kernel checks at the Yahoo shapes of the evaluation and the training
    paths: each kernel against its plain PyTorch version on the card, in
    bf16 and f32 operand mode, with timings (CUDA events), the plain
    version's and a library call's time, and the least time the card could
-   take (``bound_ms``);
+   take (``bound_ms``); the forward without residuals also at the
+   encoder's 32 rows (``*_rows32``) and under both row partitions in turns
+   (``ms_row_groups``), the backward also at a short last batch of 20
+   (``*_b20``);
 3. the evaluation slice end to end through the normal entry point: a
    Yahoo-shaped corpus and a Yahoo-width random model (seeded) are written
    to a temporary directory, ``cli.text.main([... "--eval" ...])`` runs the
@@ -26,11 +31,15 @@ Phases (each raises on failure; the script then exits non-zero):
    grad-mode CE per forward+backward plus the evaluation's launches; plain
    and aggressive steps/s are printed and the best checkpoint is loaded
    back; then one training step's loss and every gradient are cross-checked
-   against the plain versions on the same eps and dropout draws.
+   against the plain versions on the same eps and dropout draws, and three
+   forward+backward steps run under ``torch.profiler``: the top device
+   ops and the device's idle share go on a ``{"trace": ...}`` line (a
+   failure there is printed, not raised).
 
-Prints one JSON line per kernel, a ``{"kernels": [...]}`` line, and as the
-last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
-result, when no CUDA device is available or the port's package is missing.
+Prints one JSON line per kernel, a ``{"trace": ...}`` line, a
+``{"kernels": [...]}`` line, and as the last line ``{"ok": true,
+"device": {...}}``. Exits non-zero, printing no result, when no CUDA
+device is available or the port's package is missing.
 """
 from __future__ import annotations
 
@@ -111,6 +120,29 @@ def lengths_like_yahoo(rng, n, cap):
 
 # ---------------------------------------------------------------- phase 2
 def check_lstm(save_residuals: bool, rows: int, ni: int, launches_key: str, dev):
+    """The LSTM forward at ``rows``; the forward without residuals also at
+    the encoder's 32 rows and, at ``rows``, under one and two row groups
+    timed in turns (1, 2, 2, 1)."""
+    r = _check_lstm(save_residuals, rows, ni, launches_key, dev)
+    if not save_residuals:
+        from vae_lagging_encoder_tpu_torch.ops import lstm_cuda
+
+        small = _check_lstm(False, B, NI, launches_key, dev)
+        r.update({f"{k}_rows32": small[k] for k in ("err_f32", "err_bf16", "ms", "plain_ms",
+                                                     "library_ms", "bound_ms")})
+        xw, mask, wh, h0, c0 = r.pop("inputs")
+        nsm = torch.cuda.get_device_properties(dev).multi_processor_count
+        plans = {R: lstm_cuda.infer_plan(rows, NH, nsm, row_groups=R) for R in (1, 2)}
+        turns = {1: [], 2: []}
+        for R in (1, 2, 2, 1):
+            turns[R].append(time_ms(lambda: lstm_cuda.lstm_infer(xw, mask, wh, h0, c0, plans[R])))
+        r["ms_row_groups"] = {str(R): v for R, v in turns.items()}
+        r["plan"] = repr(lstm_cuda.infer_plan(rows, NH, nsm))
+    r.pop("inputs", None)
+    return r
+
+
+def _check_lstm(save_residuals: bool, rows: int, ni: int, launches_key: str, dev):
     from vae_lagging_encoder_tpu_torch.ops import lstm_cuda
 
     g = torch.Generator(device="cpu").manual_seed(1 if save_residuals else 2)
@@ -133,7 +165,8 @@ def check_lstm(save_residuals: bool, rows: int, ni: int, launches_key: str, dev)
         err = max(float((a - r).abs().max()) for a, r in zip(got, ref))
         errs[mode] = err
         if not err <= TOL[("lstm", mode)]:
-            raise AssertionError(f"{launches_key} {mode}: max abs err {err} > {TOL[('lstm', mode)]}")
+            raise AssertionError(f"{launches_key} rows {rows} {mode}: max abs err {err} > "
+                                 f"{TOL[('lstm', mode)]}")
     whb = wh32.bfloat16()
     ms = time_ms(lambda: lstm_cuda.lstm_seq(xw, mask, whb, h0, c0, save_residuals))
     plain_ms = time_ms(lambda: lstm_cuda.lstm_seq_plain(xw, mask, whb, h0, c0, save_residuals), reps=5)
@@ -147,7 +180,8 @@ def check_lstm(save_residuals: bool, rows: int, ni: int, launches_key: str, dev)
     bms, by = bound(ops, nbytes, PEAK_BF16)
     return dict(err_f32=errs["f32"], err_bf16=errs["bf16"], ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bms, bound_by=by,
-                shape=f"T {T}, rows {rows}, input {ni}, H {H}, wh bf16")
+                shape=f"T {T}, rows {rows}, input {ni}, H {H}, wh bf16",
+                inputs=(xw, mask, whb, h0, c0))
 
 
 def check_ce(dev):
@@ -186,11 +220,20 @@ def check_ce(dev):
 
 def check_lstm_bwd(dev):
     """``lstm_bwd`` against ``lstm_bwd_plain`` on the residuals of one
-    masked forward at the training shape (T 96, B 32, H 1024)."""
+    masked forward at the training shape (T 96, B 32, H 1024), and at a
+    short last batch of 20 rows (``*_b20``)."""
+    r = _check_lstm_bwd(B, 5, dev)
+    short = _check_lstm_bwd(20, 9, dev)
+    r.update({f"{k}_b20": short[k] for k in ("err_f32", "err_bf16", "ms", "plain_ms",
+                                             "library_ms", "bound_ms")})
+    return r
+
+
+def _check_lstm_bwd(rows: int, seed: int, dev):
     from vae_lagging_encoder_tpu_torch.ops import lstm_cuda
 
-    g = torch.Generator(device="cpu").manual_seed(5)
-    T, H, rows = T_CHECK, NH, B
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    T, H = T_CHECK, NH
     x = torch.randn(T, rows, NI, generator=g)
     wx = torch.empty(NI, 4 * H).uniform_(-0.05, 0.05, generator=g)
     wh32 = torch.empty(H, 4 * H).uniform_(-1 / math.sqrt(H), 1 / math.sqrt(H), generator=g)
@@ -200,7 +243,7 @@ def check_lstm_bwd(dev):
     dhs = 0.1 * torch.randn(T, rows, H, generator=g)
     dhT = 0.1 * torch.randn(rows, H, generator=g)
     dcT = 0.1 * torch.randn(rows, H, generator=g)
-    lens = lengths_like_yahoo(np.random.RandomState(6), rows, T)
+    lens = lengths_like_yahoo(np.random.RandomState(seed + 1), rows, T)
     mask = torch.from_numpy((np.arange(T)[:, None] < lens[None, :]).astype(np.float32))
     x, wx, wh32, b, h0, c0, dhs, dhT, dcT, mask = (
         a.to(dev) for a in (x, wx, wh32, b, h0, c0, dhs, dhT, dcT, mask))
@@ -214,7 +257,7 @@ def check_lstm_bwd(dev):
         torch.cuda.synchronize()
         errs[mode] = max(float((a - r).abs().max()) for a, r in zip(got, ref))
         if not errs[mode] <= TOL[("lstm_bwd", mode)]:
-            raise AssertionError(f"lstm_bwd {mode}: max abs err {errs[mode]} > "
+            raise AssertionError(f"lstm_bwd B {rows} {mode}: max abs err {errs[mode]} > "
                                  f"{TOL[('lstm_bwd', mode)]}")
     ms = time_ms(lambda: lstm_cuda.lstm_bwd(*args["bf16"]))
     plain_ms = time_ms(lambda: lstm_cuda.lstm_bwd_plain(*args["bf16"]), reps=5)
@@ -607,11 +650,64 @@ def grad_cross_check(train_pool, cfg, dev):
 
 
 GRAD_TOL = 5e-2
+TRACE_STEPS = 3
+
+
+def trace_steps(train_pool, cfg, dev):
+    """Three forward+backward steps (the gradient cross-check's step, its
+    weights unscaled) under ``torch.profiler`` after one warm-up step: the
+    device ops by total device time, and the device's idle share, the part
+    of the window's host wall time (ending in a synchronize) that no device
+    op covers."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vae_lagging_encoder_tpu_torch.models import build_text_vae
+    from vae_lagging_encoder_tpu_torch.train.aggressive import make_grad_on
+    from vae_lagging_encoder_tpu_torch.train.epoch import make_loss_fn
+
+    vae = build_text_vae(cfg, VOCAB, device=dev, generator=torch.Generator().manual_seed(13))
+    grad_on = make_grad_on(vae, make_loss_fn(vae, nsamples=1, train=True))
+    g = torch.Generator(device=dev).manual_seed(14)
+
+    def draw(site, shape):
+        return (torch.randn if site == "eps" else torch.rand)(shape, generator=g, device=dev)
+
+    def step(i):
+        with torch.enable_grad():
+            grad_on(train_pool.batch(i % train_pool.num_batches), draw, 0.5)
+
+    step(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(TRACE_STEPS):
+            step(i + 1)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:  # union of the device intervals
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    ops = sorted(((getattr(e, "self_device_time_total", None)
+                   or getattr(e, "self_cuda_time_total", 0), e.count, e.key)
+                  for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                 reverse=True)
+    if not busy:
+        return {"steps": TRACE_STEPS, "device_time": "none: key_averages() shows no device time",
+                "wall_ms": wall_us / 1e3}
+    return {"steps": TRACE_STEPS, "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "idle_share": max(0.0, 1.0 - busy / wall_us),
+            "top_device_ops": [{"name": k[:80], "calls": n, "ms": t / 1e3,
+                                "share_of_busy": t / busy} for t, n, k in ops[:10]]}
 
 KERNELS = [
     ("lstm_fwd_residuals", "vae_lagging_encoder_tpu_torch/csrc/lstm_fwd.cu",
      "vae_lagging_encoder_tpu/ops/lstm_pallas.py:67", ("lstm", True, B, NI)),
-    ("lstm_fwd_infer", "vae_lagging_encoder_tpu_torch/csrc/lstm_fwd.cu",
+    ("lstm_fwd_infer", "vae_lagging_encoder_tpu_torch/csrc/lstm_infer.cu",
      "vae_lagging_encoder_tpu/ops/lstm_pallas.py:166", ("lstm", False, B * IW_CHUNK, NI + NZ)),
     ("lstm_bwd", "vae_lagging_encoder_tpu_torch/csrc/lstm_bwd.cu",
      "vae_lagging_encoder_tpu/ops/lstm_pallas.py:269", ("lstm_bwd",)),
@@ -646,6 +742,13 @@ def main() -> int:
         f"torch {torch.__version__} cuda {torch.version.cuda}")
     build_s = build.build()
     log(f"[build] {len(build.SOURCES)} CUDA sources built in {build_s:.1f} s")
+    for name in ("lstm_infer", "lstm_bwd"):
+        rep = build.kernel_report(name)
+        log(json.dumps({"build": name, "kernels": rep}))
+        census = [k for k in rep if "hmma" in k]
+        if census and not any(k["hmma"] and k["ldgsts"] for k in census):
+            raise AssertionError(f"{name}: no kernel with both tensor-core (HMMA) and "
+                                 f"asynchronous-copy (LDGSTS) instructions: {rep}")
 
     # phase 2 — kernels against their plain versions at the slice's shapes
     results = {}
@@ -689,6 +792,10 @@ def main() -> int:
         gx = grad_cross_check(train_pool, tcfg, dev)
         log(f"[train] gradient cross-check vs plain versions (one step, Yahoo width, weights "
             f"x10): {json.dumps(gx)} (tolerance {GRAD_TOL})")
+        try:
+            trace = trace_steps(train_pool, tcfg, dev)
+        except Exception as e:  # the trace informs; it never fails the run
+            trace = {"error": f"{type(e).__name__}: {e}"}
 
     train_launches = {k: sum(r["launches"][k] for r in train_runs.values()) for k in launches}
     kernels = []
@@ -707,7 +814,10 @@ def main() -> int:
                         "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"], "shape": r["shape"],
-                        **{k: r[k] for k in ("spill_err_bf16", "port_fwd_bwd_ms") if k in r}})
+                        **{k: v for k, v in r.items() if k not in (
+                            "name", "source", "replaces", "err_bf16", "err_f32", "ms", "plain_ms",
+                            "bound_ms", "bound_by", "library_ms", "shape")}})
+    print(json.dumps({"trace": trace}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

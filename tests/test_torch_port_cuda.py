@@ -65,6 +65,35 @@ def test_ce_kernel_matches_plain_on_cuda(bf16):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [160, 163])
+def test_lstm_infer_tensor_core_plans_match_plain_on_cuda(rows):
+    """The bf16 forward without residuals (csrc/lstm_infer.cu) at several
+    m-tiles per block (163: a partial last tile), H 256, under both row
+    partitions and the plan ``lstm_seq`` picks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    g = torch.Generator().manual_seed(7)
+    T, H = 9, 256
+    xw = torch.randn(T, rows, 4 * H, generator=g).cuda()
+    mask = (torch.rand(T, rows, generator=g) > 0.3).float().cuda()
+    wh = (0.1 * torch.randn(H, 4 * H, generator=g)).bfloat16().cuda()
+    h0, c0 = (0.1 * torch.randn(rows, H, generator=g)).cuda(), torch.zeros(rows, H).cuda()
+    ref = lstm_cuda.lstm_seq_plain(xw, mask, wh, h0, c0)
+    nsm = torch.cuda.get_device_properties(0).multi_processor_count
+    runs = [lambda: lstm_cuda.lstm_seq(xw, mask, wh, h0, c0)] + [
+        (lambda R=R: lstm_cuda.lstm_infer(xw, mask, wh, h0, c0,
+                                          lstm_cuda.infer_plan(rows, H, nsm, row_groups=R)))
+        for R in (1, 2)]
+    for run in runs:
+        n = build.LAUNCHES["lstm_fwd_infer"]
+        got = run()
+        torch.cuda.synchronize()
+        assert build.LAUNCHES["lstm_fwd_infer"] == n + 1
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b, atol=2e-3, rtol=0)
+
+
 def _lstm_bwd_inputs(T, B, H, wh_dtype, seed):
     g = torch.Generator().manual_seed(seed)
     xw = torch.randn(T, B, 4 * H, generator=g)
@@ -91,6 +120,26 @@ def test_lstm_bwd_kernel_matches_plain_on_cuda(wh_dtype):
     assert build.LAUNCHES["lstm_bwd"] == n + 1
     # f32: summation order only (~1e-7 here); bf16: a flipped rounding of one
     # da value (~1e-3 relative) times a wh entry of ~0.1
+    tol = 1e-5 if wh_dtype == torch.float32 else 1e-3
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [20, 64])
+@pytest.mark.parametrize("wh_dtype", [torch.float32, torch.bfloat16])
+def test_lstm_bwd_kernel_matches_plain_at_batch_sizes_on_cuda(B, wh_dtype):
+    """A short last batch (B 20: one partial m-tile pair) and B 64 (four
+    m-tiles in one pass) at H 256."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    args = _lstm_bwd_inputs(7, B, 256, wh_dtype, seed=4)
+    n = build.LAUNCHES["lstm_bwd"]
+    got = lstm_cuda.lstm_bwd(*args)
+    ref = lstm_cuda.lstm_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["lstm_bwd"] == n + 1
+    # the tolerances of test_lstm_bwd_kernel_matches_plain_on_cuda
     tol = 1e-5 if wh_dtype == torch.float32 else 1e-3
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b, atol=tol, rtol=0)

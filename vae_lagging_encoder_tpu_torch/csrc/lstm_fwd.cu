@@ -2,7 +2,8 @@
 //
 // Replaces the JAX package's Pallas TPU kernels
 //   ops/lstm_pallas.py::_fwd_kernel   (kSaveResiduals = true:  hs, cs, gates, hT, cT)
-//   ops/lstm_pallas.py::_infer_kernel (kSaveResiduals = false: hs, hT, cT)
+//   ops/lstm_pallas.py::_infer_kernel (kSaveResiduals = false: hs, hT, cT), f32 wh
+//                                     only; with bf16 wh it is lstm_infer.cu
 // Per step t, for gates (i, f, g, o) = (sigmoid, sigmoid, tanh, sigmoid) of
 //   a = xw[t] + h_{t-1}.astype(wh.dtype) @ wh          (f32 accumulation)
 //   c_raw = f * c + i * g;  h_raw = o * tanh(c_raw)
@@ -28,8 +29,12 @@
 // step reads hs[t]. Every block thus reads all of h_{t-1} (B*H*4 bytes) from
 // L2 each step, this design's own traffic cost. The cell state c lives in
 // cT (each element read and written by one thread only).
-// The product runs on CUDA cores (FMA), not tensor cores: a first version
-// that is right; wgmma/mma tiles are later work.
+// The product runs on CUDA cores (FMA). With f32 wh that is the route's
+// definition (tensor cores have no exact f32 product; TF32 keeps 10 bits of
+// mantissa). The bf16 residual-saving forward still pays this design's
+// per-step staging of h_{t-1}; lstm_infer.cu's tensor-core design (a bf16 h
+// ring in mma fragment order, cp.async staging, M split across warps) is
+// the model for moving it onto tensor cores.
 //
 // Any T >= 1 and any B; H is limited by the shared memory of one block.
 // Reads of data written during the kernel (hs, cT) use __ldcg (L2, not L1).
@@ -216,9 +221,10 @@ cudaError_t launch(const float* xw, const float* mask, const void* wh_raw,
 
 extern "C" {
 
-// xw [T, B, 4H] f32; mask [T, B] f32; wh [H, 4H] bf16 (wh_bf16 = 1) or f32;
-// h0, c0 [B, H] f32. Writes hs [T, B, H], hT, cT [B, H] and, when
-// save_residuals, cs [T, B, H] and gates [T, B, 4H] (activations i, f, g, o).
+// xw [T, B, 4H] f32; mask [T, B] f32; wh [H, 4H] bf16 (wh_bf16 = 1, only with
+// save_residuals) or f32; h0, c0 [B, H] f32. Writes hs [T, B, H], hT, cT
+// [B, H] and, when save_residuals, cs [T, B, H] and gates [T, B, 4H]
+// (activations i, f, g, o).
 // All arrays contiguous on the current device. Returns a cudaError_t.
 int lstm_fwd(const float* xw, const float* mask, const void* wh, int wh_bf16,
              const float* h0, const float* c0, float* hs, float* cs, float* gates,
@@ -226,9 +232,8 @@ int lstm_fwd(const float* xw, const float* mask, const void* wh, int wh_bf16,
              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (wh_bf16) {
-    return save_residuals
-        ? launch<__nv_bfloat16, true>(xw, mask, wh, h0, c0, hs, cs, gates, hT, cT, T, B, H, s)
-        : launch<__nv_bfloat16, false>(xw, mask, wh, h0, c0, hs, cs, gates, hT, cT, T, B, H, s);
+    if (!save_residuals) return cudaErrorInvalidValue;  // the tensor-core lstm_infer.cu
+    return launch<__nv_bfloat16, true>(xw, mask, wh, h0, c0, hs, cs, gates, hT, cT, T, B, H, s);
   }
   return save_residuals
       ? launch<float, true>(xw, mask, wh, h0, c0, hs, cs, gates, hT, cT, T, B, H, s)

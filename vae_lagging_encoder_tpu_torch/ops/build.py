@@ -9,7 +9,10 @@ shared library with a plain C interface, which is loaded with ``ctypes``:
 The file name carries a hash of the source and the flags, so an edited
 source is rebuilt and a stale library is never loaded. ``nvcc``'s output
 (``-Xptxas -v``: registers, shared memory, spills) is kept beside the
-library as ``<name>-<hash>.log``. Nothing here runs at import time.
+library as ``<name>-<hash>.log``, followed by a census of each kernel's
+tensor-core (``HMMA``) and asynchronous-copy (``LDGSTS``) instructions from
+``cuobjdump -sass``; ``kernel_report`` reads both back. Nothing here runs at
+import time.
 
 This module is the port's counterpart of ``ops/vmem.py::pallas_available``
 in the JAX package: where that probe decided whether the Pallas kernels
@@ -24,18 +27,19 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 import torch
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
-SOURCES = ("lstm_fwd", "lstm_bwd", "ce_fwd")
+SOURCES = ("lstm_fwd", "lstm_infer", "lstm_bwd", "ce_fwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -107,10 +111,63 @@ def build(names: Iterable[str] = SOURCES) -> float:
             failed.append(f"{name}: nvcc exit {rc}\n"
                           + path.with_suffix(".log").read_text()[-4000:])
         else:
+            with open(path.with_suffix(".log"), "a") as f:
+                f.write(_sass_census(tmp, nvcc))
             os.replace(tmp, path)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0
+
+
+SASS_COUNTED = ("HMMA", "LDGSTS")
+
+
+def _sass_census(lib: Path, nvcc: str) -> str:
+    """``sass <function> HMMA <n> LDGSTS <n>`` lines for each kernel in
+    ``lib``, from ``cuobjdump -sass`` beside ``nvcc``."""
+    tool = Path(nvcc).parent / "cuobjdump"
+    if not tool.is_file():
+        return "sass census: cuobjdump not found\n"
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True).stdout
+    lines, fn, counts = [], None, {}
+
+    def flush():
+        if fn:
+            lines.append(f"sass {fn} " + " ".join(f"{k} {counts[k]}" for k in SASS_COUNTED))
+
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            flush()
+            fn, counts = m.group(1), dict.fromkeys(SASS_COUNTED, 0)
+        elif fn:
+            for k in SASS_COUNTED:
+                counts[k] += bool(re.search(rf"\b{k}\b", line))
+    flush()
+    return "".join(l + "\n" for l in lines)
+
+
+def kernel_report(name: str) -> List[Dict]:
+    """Per kernel of ``csrc/<name>.cu`` (built): registers, stack and spill
+    bytes from ``-Xptxas -v``, and the SASS census, read from the build
+    log. Kernels are named by their mangled symbol."""
+    text = _lib_path(name).with_suffix(".log").read_text()
+    info: Dict[str, Dict] = {}
+    fn = None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+            info[fn] = {"function": fn}
+        elif fn and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)):
+            info[fn].update(stack_bytes=int(m.group(1)), spill_bytes=int(m.group(2)))
+        elif fn and (m := re.search(r"Used (\d+) registers", line)):
+            info[fn]["registers"] = int(m.group(1))
+        elif m := re.match(r"sass (\S+) (.*)", line):
+            vals = m.group(2).split()
+            info.setdefault(m.group(1), {"function": m.group(1)}).update(
+                {k.lower(): int(v) for k, v in zip(vals[::2], vals[1::2])})
+    return list(info.values())
 
 
 def library(name: str) -> ctypes.CDLL:

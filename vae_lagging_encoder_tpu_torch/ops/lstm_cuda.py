@@ -5,9 +5,15 @@ plain versions + the autograd Function.
   ``ops/lstm_pallas.py::_fwd_kernel`` (``save_residuals=True``: also the
   cell states and gate activations a backward pass needs) and
   ``_infer_kernel`` (``save_residuals=False``); it launches
-  ``csrc/lstm_fwd.cu``.
+  ``csrc/lstm_infer.cu`` (tensor cores) for the bf16 forward without
+  residuals and ``csrc/lstm_fwd.cu`` otherwise.
 - ``lstm_bwd`` is the counterpart of ``_bwd_kernel`` (the reverse-time
-  sweep); it launches ``csrc/lstm_bwd.cu``.
+  sweep); it launches ``csrc/lstm_bwd.cu`` (tensor cores with bf16 ``wh``,
+  CUDA cores with f32).
+- ``infer_plan`` / ``bwd_plan`` compute the launch plans of the two
+  tensor-core kernels (blocks, units per block, warps, m-tiles per pass,
+  pipeline stages, shared memory), which the kernels check;
+  ``plan_owners`` lists which (block, warp) owns each (row, unit) pair.
 - ``LSTMSeqFn`` is the counterpart of ``lstm_seq_fused`` with its
   ``_fused_fwd``/``_fused_bwd``: the residual-saving forward, then the
   backward sweep and dWh = h_prev^T da as one matrix product.
@@ -24,16 +30,204 @@ the KEPT state at masked steps.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import build
 
 _ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _ARGTYPES[3] = ctypes.c_int  # wh_bf16
-_BWD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-_BWD_ARGTYPES[3] = ctypes.c_int  # wh_bf16
+_BWD_F32_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+# --------------------------------------------------------------- launch plans
+# Constants the tensor-core kernels are written for (csrc/lstm_mma.cuh,
+# csrc/lstm_infer.cu, csrc/lstm_bwd.cu); tests/test_torch_port_lstm_plan.py
+# reads them back from the sources.
+MMA_STAGES = 4          # kStages: cp.async ring depth per warp
+MAX_WARPS = 16          # kMaxWarps
+SMEM_MAX = 232448       # dynamic shared memory one H100 block may opt into
+# (n_sub, m_group) instantiations of each kernel. The forward keeps
+# m_group x 4 n_sub accumulator tiles per lane (<= 64 f32 registers).
+INFER_VARIANTS = ((1, 1), (1, 2), (1, 3), (1, 4), (2, 1), (2, 2))
+BWD_VARIANTS = tuple((nt, mg) for nt in (1, 2) for mg in (1, 2, 3, 4))
+# ctypes order of the plan fields after (T, rows, H), as the C entry points
+# name them
+INFER_PLAN_ARGS = ("row_groups", "n_sub", "m_tiles_per_block", "warps", "k_split", "m_group",
+                   "k_chunk", "stages", "smem_bytes")
+BWD_PLAN_ARGS = ("n_sub", "warps", "m_group", "k_chunk", "stages", "smem_bytes")
+# lstm_infer and lstm_bwd_bf16: pointers, (T, rows, H), the plan, the stream
+INFER_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * (3 + len(INFER_PLAN_ARGS))
+                  + [ctypes.c_void_p])
+BWD_BF16_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * (3 + len(BWD_PLAN_ARGS))
+                     + [ctypes.c_void_p])
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclass(frozen=True)
+class MMAPlan:
+    """Launch plan of a tensor-core LSTM kernel.
+
+    ``kind`` "infer" (``csrc/lstm_infer.cu``: the product is rows x H times
+    H x 4J; ``warps`` = m-tile columns x ``k_split`` K slices, the slices
+    summed through shared memory) or "bwd" (``csrc/lstm_bwd.cu``: rows x 4H
+    times 4H x J; every warp takes a K slice of all rows). Blocks are
+    ``row_groups`` x ``unit_groups``; block (r, u) owns units [u J, u J + J),
+    J = 8 n_sub, for the 16-row m-tiles [r m_tiles_per_block, ...). Each
+    warp keeps ``m_group`` m-tiles of accumulators per pass and stages
+    ``k_chunk`` k-steps per cp.async stage, ``stages`` deep."""
+    kind: str
+    rows: int
+    H: int
+    row_groups: int
+    n_sub: int
+    warps: int
+    m_group: int
+    k_chunk: int
+    k_split: int = 1
+    stages: int = MMA_STAGES
+
+    @property
+    def units_per_block(self) -> int:
+        return 8 * self.n_sub
+
+    @property
+    def unit_groups(self) -> int:
+        return _cdiv(self.H, self.units_per_block)
+
+    @property
+    def blocks(self) -> int:
+        return self.row_groups * self.unit_groups
+
+    @property
+    def m_tiles(self) -> int:
+        return _cdiv(self.rows, 16)
+
+    @property
+    def m_tiles_per_block(self) -> int:
+        return _cdiv(self.m_tiles, self.row_groups)
+
+    @property
+    def k_steps(self) -> int:
+        return _cdiv(self.H if self.kind == "infer" else 4 * self.H, 16)
+
+    @property
+    def threads(self) -> int:
+        return 32 * self.warps
+
+    @property
+    def m_columns(self) -> int:
+        """Warps that own m-tiles (the forward's K slice 0)."""
+        return self.warps // self.k_split
+
+    @property
+    def smem_bytes(self) -> int:
+        """wh's B fragments + each warp's cp.async ring (+ the backward's
+        K-split partial tiles); the kernels compute the same."""
+        ring = self.warps * self.stages * self.k_chunk * self.m_group * 512
+        if self.kind == "infer":
+            return (self.k_steps * 4 * self.n_sub * 256 + ring
+                    + (self.k_split - 1) * self.m_columns * self.m_group * 4 * self.n_sub * 512)
+        return (self.k_steps * self.n_sub * 256 + ring
+                + self.warps * self.m_group * self.n_sub * 512)
+
+    @property
+    def ring_elems(self) -> int:
+        """bf16 elements of the two-slot operand ring in mma fragment order."""
+        return 2 * self.m_tiles * self.k_steps * 256
+
+    def args(self) -> Tuple[int, ...]:
+        names = INFER_PLAN_ARGS if self.kind == "infer" else BWD_PLAN_ARGS
+        return tuple(getattr(self, n) for n in names)
+
+
+def _n_sub(H: int, row_groups: int, nsm: int) -> int:
+    """Fewest 8-unit n-tiles per gate so that the grid has <= nsm blocks."""
+    nt = 1
+    while row_groups * _cdiv(H, 8 * nt) > nsm:
+        nt += 1
+    return nt
+
+
+def infer_plan(rows: int, H: int, nsm: int, row_groups: int = 1) -> MMAPlan:
+    """The forward's plan. Rows split into ``row_groups`` groups: 2 halves
+    the h bytes each block reads per step at the cost of 16 units per
+    block, and measured no faster than 1 at 640 rows on the H100 (PERF.md),
+    so the wrapper runs 1. Up to 16 m-tile columns, each warp owning every
+    WM-th m-tile of its group; when a group has fewer than 16 m-tiles, the
+    spare warps split K instead. The deepest pipeline stage (k_chunk <= 4)
+    that fits. Raises when no instantiated plan fits."""
+    R = row_groups
+    nt = _n_sub(H, R, nsm)
+    mtb = _cdiv(_cdiv(rows, 16), R)
+    wm = min(MAX_WARPS, mtb)
+    wk = min(MAX_WARPS // wm, _cdiv(H, 16))
+    mg = min(4 // nt, _cdiv(mtb, wm))
+    for ck in range(4, 0, -1):
+        plan = MMAPlan("infer", rows, H, R, nt, wm * wk, mg, ck, wk)
+        if (nt, mg) in INFER_VARIANTS and plan.smem_bytes <= SMEM_MAX:
+            return plan
+    raise ValueError(f"lstm_seq: no tensor-core plan for rows {rows}, H {H} on {nsm} SMs "
+                     "(H too large for one block's shared memory)")
+
+
+def bwd_plan(B: int, H: int, nsm: int) -> MMAPlan:
+    """The backward's plan: all rows in every block (row_groups 1), warps
+    split the 4H reduction (up to 16), the largest m-tile pass (<= 4) and
+    then the deepest pipeline stage (k_chunk <= 4 / m_group) that fit."""
+    nt = _n_sub(H, 1, nsm)
+    W = min(MAX_WARPS, _cdiv(4 * H, 16))
+    for mg in range(min(4, _cdiv(B, 16)), 0, -1):
+        for ck in range(4 // mg, 0, -1):
+            plan = MMAPlan("bwd", B, H, 1, nt, W, mg, ck)
+            if (nt, mg) in BWD_VARIANTS and plan.smem_bytes <= SMEM_MAX:
+                return plan
+    raise ValueError(f"lstm_bwd: no tensor-core plan for B {B}, H {H} on {nsm} SMs "
+                     "(H too large for one block's shared memory)")
+
+
+def plan_owners(plan: MMAPlan) -> np.ndarray:
+    """[rows * H, 3] int array: for each (row, unit) pair of the plan's
+    problem (row-major), the (block, warp, count) that the kernel assigns
+    it, where count is how many (block, warp) own it (1 when the plan is a
+    partition). Mirrors the kernels' index arithmetic."""
+    rows, H, J = plan.rows, plan.H, plan.units_per_block
+    owner = np.full((rows, H, 2), -1, np.int64)
+    count = np.zeros((rows, H), np.int64)
+
+    def own(r, u, b, w):
+        ok = (r < rows) & (u < H)
+        r, u = r[ok], u[ok]
+        np.add.at(count, (r, u), 1)
+        owner[r, u, 0], owner[r, u, 1] = b, (w[ok] if np.ndim(w) else w)
+
+    if plan.kind == "infer":
+        mtb = plan.m_tiles_per_block
+        for b in range(plan.blocks):
+            rg, ug = divmod(b, plan.unit_groups)
+            units = np.arange(ug * J, ug * J + J)
+            for w in range(plan.m_columns):  # K slice 0 owns the pairs
+                for mt in range(rg * mtb + w, min(plan.m_tiles, (rg + 1) * mtb), plan.m_columns):
+                    r, u = np.meshgrid(np.arange(mt * 16, mt * 16 + 16), units, indexing="ij")
+                    own(r.ravel(), u.ravel(), b, w)
+    else:
+        s = np.arange(plan.m_group * plan.n_sub * 128)
+        c, lane, nt, m = s & 3, (s >> 2) & 31, (s >> 7) % plan.n_sub, (s >> 7) // plan.n_sub
+        for b in range(plan.blocks):
+            for mt0 in range(0, plan.m_tiles, plan.m_group):
+                r = (mt0 + m) * 16 + (lane >> 2) + 8 * (c >> 1)
+                u = b * J + nt * 8 + 2 * (lane & 3) + (c & 1)
+                own(r, u, b, (s % plan.threads) // 32)
+    return np.concatenate([owner.reshape(-1, 2), count.reshape(-1, 1)], axis=1)
+
+
+def _num_sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def lstm_seq_plain(xw: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
@@ -108,8 +302,10 @@ def lstm_bwd_plain(gates: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     return da, dh, dc
 
 
-def _lib(name: str, argtypes) -> ctypes.CDLL:
-    lib = build.library(name)
+def _lib(name: str, argtypes, source: Optional[str] = None) -> ctypes.CDLL:
+    """The library of ``csrc/<source or name>.cu`` with the C function
+    ``name`` typed."""
+    lib = build.library(source or name)
     fn = getattr(lib, name)
     if fn.argtypes is None:
         fn.argtypes = argtypes
@@ -150,6 +346,8 @@ def lstm_seq(xw: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     if T == 0:
         return lstm_seq_plain(xw, mask, wh, h0, c0, save_residuals)
     xw, mask, wh, h0, c0 = (a.contiguous() for a in (xw, mask, wh, h0, c0))
+    if wh.dtype == torch.bfloat16 and not save_residuals:
+        return lstm_infer(xw, mask, wh, h0, c0, infer_plan(B, H, _num_sms(xw.device)))
     hs = torch.empty((T, B, H), device=xw.device)
     hT = torch.empty((B, H), device=xw.device)
     cT = torch.empty((B, H), device=xw.device)
@@ -168,6 +366,30 @@ def lstm_seq(xw: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     build.LAUNCHES["lstm_fwd_residuals" if save_residuals else "lstm_fwd_infer"] += 1
     if save_residuals:
         return hs, cs, gates, hT, cT
+    return hs, hT, cT
+
+
+def lstm_infer(xw: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor, h0: torch.Tensor,
+               c0: torch.Tensor, plan: MMAPlan) -> Tuple[torch.Tensor, ...]:
+    """The bf16 forward without residuals on ``csrc/lstm_infer.cu`` with
+    ``plan`` (``infer_plan``): ``(hs, hT, cT)``. Takes contiguous CUDA
+    tensors that passed ``lstm_seq``'s checks; ``lstm_seq`` calls it."""
+    T, B, H4 = xw.shape
+    H = H4 // 4
+    if (plan.kind, plan.rows, plan.H) != ("infer", B, H) or wh.dtype != torch.bfloat16:
+        raise ValueError(f"lstm_infer: plan {plan} does not fit rows {B}, H {H}, wh {wh.dtype}")
+    hs = torch.empty((T, B, H), device=xw.device)
+    hT = torch.empty((B, H), device=xw.device)
+    cT = torch.empty((B, H), device=xw.device)
+    ring = torch.zeros(plan.ring_elems, device=xw.device, dtype=torch.bfloat16)
+    lib = _lib("lstm_infer", INFER_ARGTYPES)
+    with torch.cuda.device(xw.device):
+        err = lib.lstm_infer(
+            xw.data_ptr(), mask.data_ptr(), wh.data_ptr(), h0.data_ptr(), c0.data_ptr(),
+            hs.data_ptr(), hT.data_ptr(), cT.data_ptr(), ring.data_ptr(), T, B, H,
+            *plan.args(), torch.cuda.current_stream(xw.device).cuda_stream)
+    build.check(lib, err, "lstm_infer")
+    build.LAUNCHES["lstm_fwd_infer"] += 1
     return hs, hT, cT
 
 
@@ -191,16 +413,24 @@ def lstm_bwd(gates: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     gates, mask, wh, c_prev, dhs, dhT, dcT = (
         a.contiguous() for a in (gates, mask, wh, c_prev, dhs, dhT, dcT))
     da = torch.empty((T, B, H4), device=gates.device)
-    da_r = torch.empty((2, B, H4), device=gates.device, dtype=wh.dtype)
     dh0 = torch.empty((B, H), device=gates.device)
     dc0 = torch.empty((B, H), device=gates.device)
-    lib = _lib("lstm_bwd", _BWD_ARGTYPES)
-    with torch.cuda.device(gates.device):
-        err = lib.lstm_bwd(
-            gates.data_ptr(), mask.data_ptr(), wh.data_ptr(), int(wh.dtype == torch.bfloat16),
-            c_prev.data_ptr(), dhs.data_ptr(), dhT.data_ptr(), dcT.data_ptr(),
-            da.data_ptr(), da_r.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), T, B, H,
-            torch.cuda.current_stream(gates.device).cuda_stream)
+    ptrs = (gates.data_ptr(), mask.data_ptr(), wh.data_ptr(), c_prev.data_ptr(),
+            dhs.data_ptr(), dhT.data_ptr(), dcT.data_ptr(), da.data_ptr())
+    stream = torch.cuda.current_stream(gates.device).cuda_stream
+    if wh.dtype == torch.bfloat16:
+        plan = bwd_plan(B, H, _num_sms(gates.device))
+        ring = torch.zeros(plan.ring_elems, device=gates.device, dtype=torch.bfloat16)
+        lib = _lib("lstm_bwd_bf16", BWD_BF16_ARGTYPES, source="lstm_bwd")
+        with torch.cuda.device(gates.device):
+            err = lib.lstm_bwd_bf16(*ptrs, ring.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
+                                    T, B, H, *plan.args(), stream)
+    else:
+        da_r = torch.empty((2, B, H4), device=gates.device)
+        lib = _lib("lstm_bwd_f32", _BWD_F32_ARGTYPES, source="lstm_bwd")
+        with torch.cuda.device(gates.device):
+            err = lib.lstm_bwd_f32(*ptrs, da_r.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
+                                   T, B, H, stream)
     build.check(lib, err, "lstm_bwd")
     build.LAUNCHES["lstm_bwd"] += 1
     return da, dh0, dc0
