@@ -15,9 +15,9 @@ Phases (each raises on failure; the script then exits non-zero):
    bf16 and f32 operand mode, with timings (CUDA events), the plain
    version's and a library call's time, and the least time the card could
    take (``bound_ms``); the forward without residuals also at the
-   encoder's 32 rows (``*_rows32``) and under both row partitions in turns
-   (``ms_row_groups``), the backward also at a short last batch of 20
-   (``*_b20``);
+   encoder's 32 rows (``*_rows32``), the backward also at a short last
+   batch of 20 (``*_b20``) and, like for like with cuDNN's backward, as the
+   port's whole backward of the layer (``port_bwd_ms``);
 3. the evaluation slice end to end through the normal entry point: a
    Yahoo-shaped corpus and a Yahoo-width random model (seeded) are written
    to a temporary directory, ``cli.text.main([... "--eval" ...])`` runs the
@@ -121,8 +121,7 @@ def lengths_like_yahoo(rng, n, cap):
 # ---------------------------------------------------------------- phase 2
 def check_lstm(save_residuals: bool, rows: int, ni: int, launches_key: str, dev):
     """The LSTM forward at ``rows``; the forward without residuals also at
-    the encoder's 32 rows and, at ``rows``, under one and two row groups
-    timed in turns (1, 2, 2, 1)."""
+    the encoder's 32 rows, with the launch plan of ``rows``."""
     r = _check_lstm(save_residuals, rows, ni, launches_key, dev)
     if not save_residuals:
         from vae_lagging_encoder_tpu_torch.ops import lstm_cuda
@@ -130,15 +129,8 @@ def check_lstm(save_residuals: bool, rows: int, ni: int, launches_key: str, dev)
         small = _check_lstm(False, B, NI, launches_key, dev)
         r.update({f"{k}_rows32": small[k] for k in ("err_f32", "err_bf16", "ms", "plain_ms",
                                                      "library_ms", "bound_ms")})
-        xw, mask, wh, h0, c0 = r.pop("inputs")
         nsm = torch.cuda.get_device_properties(dev).multi_processor_count
-        plans = {R: lstm_cuda.infer_plan(rows, NH, nsm, row_groups=R) for R in (1, 2)}
-        turns = {1: [], 2: []}
-        for R in (1, 2, 2, 1):
-            turns[R].append(time_ms(lambda: lstm_cuda.lstm_infer(xw, mask, wh, h0, c0, plans[R])))
-        r["ms_row_groups"] = {str(R): v for R, v in turns.items()}
         r["plan"] = repr(lstm_cuda.infer_plan(rows, NH, nsm))
-    r.pop("inputs", None)
     return r
 
 
@@ -180,8 +172,7 @@ def _check_lstm(save_residuals: bool, rows: int, ni: int, launches_key: str, dev
     bms, by = bound(ops, nbytes, PEAK_BF16)
     return dict(err_f32=errs["f32"], err_bf16=errs["bf16"], ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bms, bound_by=by,
-                shape=f"T {T}, rows {rows}, input {ni}, H {H}, wh bf16",
-                inputs=(xw, mask, whb, h0, c0))
+                shape=f"T {T}, rows {rows}, input {ni}, H {H}, wh bf16")
 
 
 def check_ce(dev):
@@ -225,7 +216,7 @@ def check_lstm_bwd(dev):
     r = _check_lstm_bwd(B, 5, dev)
     short = _check_lstm_bwd(20, 9, dev)
     r.update({f"{k}_b20": short[k] for k in ("err_f32", "err_bf16", "ms", "plain_ms",
-                                             "library_ms", "bound_ms")})
+                                             "library_ms", "port_bwd_ms", "bound_ms")})
     return r
 
 
@@ -261,7 +252,13 @@ def _check_lstm_bwd(rows: int, seed: int, dev):
                                  f"{TOL[('lstm_bwd', mode)]}")
     ms = time_ms(lambda: lstm_cuda.lstm_bwd(*args["bf16"]))
     plain_ms = time_ms(lambda: lstm_cuda.lstm_bwd_plain(*args["bf16"]), reps=5)
-    # library: cuDNN's nn.LSTM (bf16) forward + backward, minus its forward
+    # This kernel computes da, dh0 and dc0 only. cuDNN's nn.LSTM (bf16)
+    # backward computes the layer's whole backward: dx, dW_ih, dW_hh and the
+    # biases. Like for like is the port's whole backward of the same layer:
+    # LSTMSeqFn's (this kernel and the dWh product) and the input
+    # projection's (dx, dWx, db). Each backward alone, on a retained graph,
+    # timed in turns (cuDNN, port, port, cuDNN); cuDNN's forward+backward
+    # minus its forward (PR 2's yardstick) beside them.
     ref_lstm = torch.nn.LSTM(NI, H, device=dev, dtype=torch.bfloat16)
     ref_lstm.flatten_parameters()
     xb = x.bfloat16().requires_grad_()
@@ -272,14 +269,28 @@ def _check_lstm_bwd(rows: int, seed: int, dev):
         out.backward(gb)
 
     with torch.enable_grad():
-        lib_ms = time_ms(fwd_bwd) - time_ms(lambda: ref_lstm(xb))
+        lib_out = ref_lstm(xb)[0]
+        lib_leaves = (xb, *ref_lstm.parameters())
+        leaves = [a.clone().requires_grad_() for a in (x, wx, b, wh32.bfloat16())]
+        xr, wxr, br, whr = leaves
+        port_out = lstm_cuda.LSTMSeqFn.apply(
+            (xr.reshape(T * rows, NI) @ wxr + br).reshape(T, rows, 4 * H), mask, whr, h0, c0)[0]
+        bwds = {"library": lambda: torch.autograd.grad(lib_out, lib_leaves, gb, retain_graph=True),
+                "port": lambda: torch.autograd.grad(port_out, leaves, dhs, retain_graph=True)}
+        turns = {"library": [], "port": []}
+        for k in ("library", "port", "port", "library"):
+            turns[k].append(time_ms(bwds[k], reps=10))
+        lib_diff_ms = time_ms(fwd_bwd) - time_ms(lambda: ref_lstm(xb))
     # the products of the real (unmasked) steps; each input read once, each output written once
     ops = 2.0 * float(mask.sum()) * 4 * H * H
     nbytes = 4.0 * (T * rows * 4 * H + T * rows + 2 * T * rows * H + 2 * rows * H
                     + T * rows * 4 * H + 2 * rows * H) + 2.0 * H * 4 * H
     bms, by = bound(ops, nbytes, PEAK_BF16)
     return dict(err_f32=errs["f32"], err_bf16=errs["bf16"], ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=bms, bound_by=by,
+                library_ms=float(np.median(turns["library"])),
+                port_bwd_ms=float(np.median(turns["port"])),
+                library_ms_turns=turns["library"], port_bwd_ms_turns=turns["port"],
+                library_fwd_bwd_minus_fwd_ms=lib_diff_ms, bound_ms=bms, bound_by=by,
                 shape=f"T {T}, B {rows}, H {H}, wh bf16, masked")
 
 
@@ -746,7 +757,10 @@ def main() -> int:
         rep = build.kernel_report(name)
         log(json.dumps({"build": name, "kernels": rep}))
         census = [k for k in rep if "hmma" in k]
-        if census and not any(k["hmma"] and k["ldgsts"] for k in census):
+        if not census:
+            raise AssertionError(f"{name}: no SASS census in the build log (is cuobjdump "
+                                 f"beside nvcc?): {rep}")
+        if not any(k["hmma"] and k["ldgsts"] for k in census):
             raise AssertionError(f"{name}: no kernel with both tensor-core (HMMA) and "
                                  f"asynchronous-copy (LDGSTS) instructions: {rep}")
 

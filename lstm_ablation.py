@@ -1,24 +1,26 @@
-"""Ablations of the tensor-core LSTM kernels, timed on the card.
+#!/usr/bin/env python3
+"""Ablations of the PyTorch port's tensor-core LSTM kernels, timed on the card.
 
-    python -m vae_lagging_encoder_tpu_torch.ops.lstm_ablation
+    python3 lstm_ablation.py
 
 Builds copies of ``csrc/lstm_infer.cu`` and ``csrc/lstm_bwd.cu`` with one
 part of the per-step work removed (the tensor-core products, the cp.async
 copies of the operand ring, the shared-memory reads of the A or B
 fragments, the whole k-loop, the cell epilogue, the backward's L2
-prefetch), and times each beside the intact kernel at the main paths'
-shapes: the forward at
-T 96, H 1024 with 640 rows (the IW decoder) and 32 rows (the encoder), the
+prefetch), and times each beside the intact kernel through the port's own
+wrappers (``ops/lstm_cuda.py::lstm_infer`` and ``lstm_bwd``), with the
+variant's library in place of the built one. Shapes: the forward at T 96,
+H 1024 with 640 rows (the IW decoder) and 32 rows (the encoder), the
 backward at B 32. The time an ablation saves is what that part costs when
-the rest runs. Launch-plan alternatives (the forward's row groups, the
-backward's k-chunk) are timed the same way. The ablated kernels compute
-wrong values; only their times are read.
+the rest runs. The backward's other k-chunks are timed the same way. The
+ablated kernels compute wrong values; only their times are read.
 
 Prints the card and its power limit, then one JSON line per shape: median
 CUDA-event milliseconds of each variant, the intact kernel timed first and
 last. Needs one CUDA GPU and ``nvcc``; builds into ``build/lstm_ablation``.
 Each ablation is a text substitution in the source: when the source
-changes, a substitution that no longer applies raises.
+changes, a substitution that no longer applies raises. A development tool:
+nothing in the package or its tests imports it.
 """
 from __future__ import annotations
 
@@ -28,15 +30,15 @@ import json
 import shutil
 import subprocess
 import sys
-from typing import Dict, Tuple
+from typing import Callable, Dict
 
 import numpy as np
 import torch
 
-from . import build, lstm_cuda
+from vae_lagging_encoder_tpu_torch.ops import build, lstm_cuda
 
 T, H = 96, 1024
-ABLATIONS: Dict[str, Dict[str, Tuple[str, str]]] = {
+ABLATIONS = {
     "lstm_infer": {
         "no_mma": ("if (live[m]) mma_bf16(acc[m][nt], af[m], bf);",
                    "if (live[m]) acc[m][nt][0] += __uint_as_float(af[m].x ^ bf.x);"),
@@ -62,7 +64,7 @@ ABLATIONS: Dict[str, Dict[str, Tuple[str, str]]] = {
 OUT_DIR = build.BUILD_DIR.parent / "lstm_ablation"
 
 
-def _build_variants(name: str) -> Dict[str, ctypes.CDLL]:
+def build_variants(name: str) -> Dict[str, ctypes.CDLL]:
     """The intact source and each ablation, one ``nvcc`` each, in parallel."""
     src = (build.CSRC_DIR / f"{name}.cu").read_text()
     d = OUT_DIR / name
@@ -88,7 +90,7 @@ def _build_variants(name: str) -> Dict[str, ctypes.CDLL]:
     return libs
 
 
-def _time_ms(fn, reps: int = 10) -> float:
+def time_ms(fn: Callable[[], object], reps: int = 10) -> float:
     fn()
     torch.cuda.synchronize()
     times = []
@@ -102,7 +104,34 @@ def _time_ms(fn, reps: int = 10) -> float:
     return float(np.median(times))
 
 
-def _inputs(rows: int, seed: int, dev):
+def time_with(name: str, lib: ctypes.CDLL, fn: Callable[[], object]) -> float:
+    """``fn`` timed with ``lib`` as the library of ``csrc/<name>.cu``."""
+    saved = build._LIBS.get(name)
+    build._LIBS[name] = lib
+    try:
+        return time_ms(fn)
+    finally:
+        if saved is None:
+            del build._LIBS[name]
+        else:
+            build._LIBS[name] = saved
+
+
+def run(name: str, libs: Dict[str, ctypes.CDLL], fn: Callable[[], object],
+        alternatives: Dict[str, Callable[[], object]]) -> Dict[str, float]:
+    """The intact kernel first and last, every ablation and alternative
+    (run with the intact library) between."""
+    out = {"intact": time_with(name, libs["intact"], fn)}
+    for k, lib in libs.items():
+        if k != "intact":
+            out[k] = time_with(name, lib, fn)
+    for k, alt in alternatives.items():
+        out[k] = time_with(name, libs["intact"], alt)
+    out["intact_again"] = time_with(name, libs["intact"], fn)
+    return out
+
+
+def inputs(rows: int, seed: int, dev):
     g = torch.Generator().manual_seed(seed)
     xw = (0.5 * torch.randn(T, rows, 4 * H, generator=g)).to(dev)
     wh = torch.empty(H, 4 * H).uniform_(-H ** -0.5, H ** -0.5, generator=g).bfloat16().to(dev)
@@ -113,44 +142,16 @@ def _inputs(rows: int, seed: int, dev):
     return xw, mask, wh, h0.contiguous(), c0.contiguous()
 
 
-def _infer_call(lib, plan, xw, mask, wh, h0, c0):
-    dev = xw.device
-    hs = torch.empty((T, plan.rows, H), device=dev)
-    hT, cT = torch.empty((plan.rows, H), device=dev), torch.empty((plan.rows, H), device=dev)
-    ring = torch.zeros(plan.ring_elems, device=dev, dtype=torch.bfloat16)
-    err = lib.lstm_infer(xw.data_ptr(), mask.data_ptr(), wh.data_ptr(), h0.data_ptr(),
-                         c0.data_ptr(), hs.data_ptr(), hT.data_ptr(), cT.data_ptr(),
-                         ring.data_ptr(), T, plan.rows, H, *plan.args(),
-                         torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"lstm_infer: CUDA error {err}")
-
-
-def _bwd_call(lib, plan, gates, mask, wh, c_prev, dhs, dhT, dcT):
-    dev = gates.device
-    B = plan.rows
-    da = torch.empty((T, B, 4 * H), device=dev)
-    dh0, dc0 = torch.empty((B, H), device=dev), torch.empty((B, H), device=dev)
-    ring = torch.zeros(plan.ring_elems, device=dev, dtype=torch.bfloat16)
-    err = lib.lstm_bwd_bf16(gates.data_ptr(), mask.data_ptr(), wh.data_ptr(), c_prev.data_ptr(),
-                            dhs.data_ptr(), dhT.data_ptr(), dcT.data_ptr(), da.data_ptr(),
-                            ring.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), T, B, H,
-                            *plan.args(), torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"lstm_bwd_bf16: CUDA error {err}")
-
-
-def _run(libs, call, plans, args) -> Dict[str, float]:
-    """The intact kernel first and last, every ablation and plan between."""
-    out = {"intact": _time_ms(lambda: call(libs["intact"], plans["intact"], *args))}
-    for k, lib in libs.items():
-        if k != "intact":
-            out[k] = _time_ms(lambda: call(lib, plans["intact"], *args))
-    for k, plan in plans.items():
-        if k != "intact":
-            out[k] = _time_ms(lambda: call(libs["intact"], plan, *args))
-    out["intact_again"] = _time_ms(lambda: call(libs["intact"], plans["intact"], *args))
-    return out
+def bwd_with_plan(plan: lstm_cuda.MMAPlan, args) -> Callable[[], object]:
+    """``lstm_bwd(*args)`` launched with ``plan`` instead of ``bwd_plan``'s."""
+    def call():
+        saved = lstm_cuda.bwd_plan
+        lstm_cuda.bwd_plan = lambda B, H, nsm: plan
+        try:
+            return lstm_cuda.lstm_bwd(*args)
+        finally:
+            lstm_cuda.bwd_plan = saved
+    return call
 
 
 def main() -> int:
@@ -162,21 +163,14 @@ def main() -> int:
                          capture_output=True, text=True).stdout.strip()
     print(f"{torch.cuda.get_device_name(0)} | {smi}", flush=True)
     nsm = torch.cuda.get_device_properties(dev).multi_processor_count
-    ilibs, blibs = _build_variants("lstm_infer"), _build_variants("lstm_bwd")
-    for lib in ilibs.values():
-        lib.lstm_infer.argtypes = lstm_cuda.INFER_ARGTYPES
-    for lib in blibs.values():
-        lib.lstm_bwd_bf16.argtypes = lstm_cuda.BWD_BF16_ARGTYPES
+    ilibs, blibs = build_variants("lstm_infer"), build_variants("lstm_bwd")
     for rows in (640, 32):
         plan = lstm_cuda.infer_plan(rows, H, nsm)
-        plans = {"intact": plan}
-        alt = lstm_cuda.infer_plan(rows, H, nsm, row_groups=2)
-        if alt != plan:
-            plans["row_groups_2"] = alt
-        ms = _run(ilibs, _infer_call, plans, _inputs(rows, rows, dev))
+        xw, mask, wh, h0, c0 = inputs(rows, rows, dev)
+        ms = run("lstm_infer", ilibs, lambda: lstm_cuda.lstm_infer(xw, mask, wh, h0, c0, plan), {})
         print(json.dumps({"kernel": "lstm_fwd_infer", "rows": rows, "plan": repr(plan),
                           "ms": ms}), flush=True)
-    xw, mask, wh, h0, c0 = _inputs(32, 5, dev)
+    xw, mask, wh, h0, c0 = inputs(32, 5, dev)
     _, cs, gates, _, _ = lstm_cuda.lstm_seq_plain(xw, mask, wh, h0, c0, True)
     g = torch.Generator().manual_seed(6)
     dhs = (0.1 * torch.randn(T, 32, H, generator=g)).to(dev)
@@ -184,12 +178,12 @@ def main() -> int:
     args = (gates, mask, wh, torch.cat([c0[None], cs[:-1]]), dhs, dhT.contiguous(),
             dcT.contiguous())
     plan = lstm_cuda.bwd_plan(32, H, nsm)
-    plans = {"intact": plan}
+    alts = {}
     for ck in (1, 2, 4):
         alt = dataclasses.replace(plan, k_chunk=ck)
         if ck != plan.k_chunk and alt.smem_bytes <= lstm_cuda.SMEM_MAX:
-            plans[f"k_chunk_{ck}"] = alt
-    ms = _run(blibs, _bwd_call, plans, args)
+            alts[f"k_chunk_{ck}"] = bwd_with_plan(alt, args)
+    ms = run("lstm_bwd", blibs, lambda: lstm_cuda.lstm_bwd(*args), alts)
     print(json.dumps({"kernel": "lstm_bwd", "rows": 32, "plan": repr(plan), "ms": ms}), flush=True)
     return 0
 

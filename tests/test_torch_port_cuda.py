@@ -69,8 +69,9 @@ def test_ce_kernel_matches_plain_on_cuda(bf16):
 @pytest.mark.parametrize("rows", [160, 163])
 def test_lstm_infer_tensor_core_plans_match_plain_on_cuda(rows):
     """The bf16 forward without residuals (csrc/lstm_infer.cu) at several
-    m-tiles per block (163: a partial last tile), H 256, under both row
-    partitions and the plan ``lstm_seq`` picks."""
+    m-tiles per block (163: a partial last tile), H 256, under the plan
+    ``lstm_seq`` picks (8 units a block) and the plan for a card with 16
+    SMs (16 units a block, as H > 8 x the SM count needs)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     g = torch.Generator().manual_seed(7)
@@ -80,11 +81,10 @@ def test_lstm_infer_tensor_core_plans_match_plain_on_cuda(rows):
     wh = (0.1 * torch.randn(H, 4 * H, generator=g)).bfloat16().cuda()
     h0, c0 = (0.1 * torch.randn(rows, H, generator=g)).cuda(), torch.zeros(rows, H).cuda()
     ref = lstm_cuda.lstm_seq_plain(xw, mask, wh, h0, c0)
-    nsm = torch.cuda.get_device_properties(0).multi_processor_count
-    runs = [lambda: lstm_cuda.lstm_seq(xw, mask, wh, h0, c0)] + [
-        (lambda R=R: lstm_cuda.lstm_infer(xw, mask, wh, h0, c0,
-                                          lstm_cuda.infer_plan(rows, H, nsm, row_groups=R)))
-        for R in (1, 2)]
+    plan16 = lstm_cuda.infer_plan(rows, H, 16)
+    assert plan16.n_sub == 2
+    runs = [lambda: lstm_cuda.lstm_seq(xw, mask, wh, h0, c0),
+            lambda: lstm_cuda.lstm_infer(xw, mask, wh, h0, c0, plan16)]
     for run in runs:
         n = build.LAUNCHES["lstm_fwd_infer"]
         got = run()

@@ -3,7 +3,8 @@
 ``ops/lstm_cuda.py::infer_plan`` and ``bwd_plan`` compute the partition
 that ``csrc/lstm_infer.cu`` and the bf16 path of ``csrc/lstm_bwd.cu`` run
 with. At the main paths' shapes (32 and 640 rows, H 1024) and odd ones, on
-an H100's 132 SMs, each plan must
+an H100 SXM's 132 SMs and an H100 PCIe's 114 (where H 1024 needs 16 units
+per block), each plan must
 
 - give every (row, unit) pair to exactly one (block, warp), as the
   kernels' index arithmetic (mirrored by ``plan_owners``) assigns it;
@@ -22,6 +23,7 @@ import pytest
 from vae_lagging_encoder_tpu_torch.ops import build, lstm_cuda
 
 NSM = 132  # H100 SXM
+NSM_PCIE = 114  # H100 PCIe
 CSRC = build.CSRC_DIR
 
 
@@ -39,19 +41,15 @@ def _entry_params(src, fn):
     return [p.split()[-1].lstrip("*") for p in sig.split(",")]
 
 
-def _plan(kind, rows, H, row_groups):
-    if kind == "bwd":
-        return lstm_cuda.bwd_plan(rows, H, NSM)
-    return lstm_cuda.infer_plan(rows, H, NSM, row_groups=row_groups)
-
-
 @pytest.mark.parametrize("H", [32, 200, 1024])
 @pytest.mark.parametrize("rows", [1, 20, 32, 37, 640])
-@pytest.mark.parametrize("kind,row_groups", [("infer", 1), ("infer", 2), ("bwd", 1)])
-def test_lstm_mma_plan(kind, row_groups, rows, H):
-    plan = _plan(kind, rows, H, row_groups)
+@pytest.mark.parametrize("nsm", [NSM, NSM_PCIE])
+@pytest.mark.parametrize("kind", ["infer", "bwd"])
+def test_lstm_mma_plan(kind, nsm, rows, H):
+    plan = (lstm_cuda.infer_plan if kind == "infer" else lstm_cuda.bwd_plan)(rows, H, nsm)
     assert (plan.kind, plan.rows, plan.H) == (kind, rows, H)
-    assert plan.row_groups == row_groups
+    # the fewest units per block that fit the grid on the SMs
+    assert plan.n_sub == (1 if H <= 8 * nsm else 2)
 
     owners = lstm_cuda.plan_owners(plan)
     assert owners.shape == (rows * H, 3)
@@ -60,7 +58,7 @@ def test_lstm_mma_plan(kind, row_groups, rows, H):
     assert owners[:, 0].min() >= 0 and owners[:, 1].min() >= 0
 
     assert plan.smem_bytes <= 232448
-    assert plan.blocks <= NSM
+    assert plan.blocks <= nsm
     assert 1 <= plan.warps <= 16 and plan.threads == 32 * plan.warps
     assert plan.warps % plan.k_split == 0 and plan.k_chunk >= 1
     assert plan.ring_elems == 2 * plan.m_tiles * plan.k_steps * 256
@@ -89,9 +87,7 @@ def test_lstm_mma_plan_main_paths():
     split over the 16 warps."""
     iw, enc, bwd = (lstm_cuda.infer_plan(640, 1024, NSM), lstm_cuda.infer_plan(32, 1024, NSM),
                     lstm_cuda.bwd_plan(32, 1024, NSM))
-    assert (iw.row_groups, iw.units_per_block, iw.blocks, iw.warps, iw.k_split, iw.m_group) == \
-        (1, 8, 128, 16, 1, 3)
-    assert (enc.row_groups, enc.units_per_block, enc.blocks, enc.warps, enc.k_split) == \
-        (1, 8, 128, 16, 8)
+    assert (iw.units_per_block, iw.blocks, iw.warps, iw.k_split, iw.m_group) == (8, 128, 16, 1, 3)
+    assert (enc.units_per_block, enc.blocks, enc.warps, enc.k_split) == (8, 128, 16, 8)
     assert (bwd.units_per_block, bwd.blocks, bwd.warps, bwd.m_group) == (8, 128, 16, 2)
     assert np.all(lstm_cuda.plan_owners(bwd)[:, 2] == 1)

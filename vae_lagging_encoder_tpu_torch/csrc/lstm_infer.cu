@@ -26,21 +26,22 @@
 // At 32 rows (the encoder) the barrier and the epilogue dominate.
 //
 // Design:
-// - Persistent cooperative grid of R x U blocks (launch plan from
-//   ops/lstm_cuda.py::infer_plan): row group r of R, unit group u of U.
-//   Block (r, u) owns hidden units [u*J, u*J + J), J = 8 * NT, for the rows
-//   of its row group, keeps their four gate columns of wh resident in shared
-//   memory in B-fragment order (KS x 4NT x 256 B; 64 KB at J 8), and waits
-//   at one grid.sync() per step. R = 2 (J 16, 128 KB of wh) halves the L2
-//   bytes per step, but L2 bandwidth is not what bounds a step; R = 1 runs.
+// - Persistent cooperative grid (launch plan from
+//   ops/lstm_cuda.py::infer_plan). Block u owns hidden units [u*J, u*J + J),
+//   J = 8 * NT, for every row, keeps their four gate columns of wh resident
+//   in shared memory in B-fragment order (KS x 4NT x 256 B; 64 KB at J 8),
+//   and waits at one grid.sync() per step. NT = 2 serves H > 8 x the SM
+//   count. Splitting the rows over two groups of blocks (J 16, 128 KB of wh)
+//   would halve the L2 bytes per step, but measured no faster at 640 rows
+//   (PERF.md): L2 bandwidth is not what bounds a step.
 // - The product runs on the tensor cores: n-tile q*NT + j is gate q of
 //   units [j*8, j*8 + 8), so the lane holding a (row, unit) accumulator holds
 //   all four of its gates and applies the cell in registers.
-// - Warps split the rows: warp w of WM owns 16-row m-tiles w, w + WM, ...
-//   of its row group, MG m-tiles x 4NT n-tiles of f32 accumulators per
-//   pass. A block with fewer than 16 m-tiles (32 rows: 2) runs 16 warps all
-//   the same, the spare ones as WK K slices whose partial tiles are summed
-//   through shared memory into the slice-0 warp, which owns the pairs.
+// - Warps split the rows: warp w of WM owns 16-row m-tiles w, w + WM, ...,
+//   MG m-tiles x 4NT n-tiles of f32 accumulators per pass. With fewer than
+//   16 m-tiles (32 rows: 2) a block runs 16 warps all the same, the spare
+//   ones as WK K slices whose partial tiles are summed through shared memory
+//   into the slice-0 warp, which owns the pairs.
 // - h is rounded once, where it is produced: the lane that computes h_t
 //   writes the f32 hs the caller gets and a bf16 copy into a two-slot ring
 //   in A-fragment order (lstm_mma.cuh), its four values of an 8-unit block
@@ -94,22 +95,20 @@ lstm_infer_kernel(const float* __restrict__ xw, const float* __restrict__ mask,
                   const __nv_bfloat16* __restrict__ wh, const float* __restrict__ h0,
                   const float* __restrict__ c0, float* __restrict__ hs, float* __restrict__ hT,
                   float* __restrict__ cT, __nv_bfloat16* __restrict__ ring, int T_, int rows,
-                  int H, int R, int MTB, int WK, int CK) {
+                  int H, int WK, int CK) {
   constexpr int NTILES = 4 * NT;  // n-tile q * NT + j: gate q, units [j*8, j*8 + 8)
   constexpr int J = 8 * NT;
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem[];
   const int KS = cdiv(H, 16), MT = cdiv(rows, 16);
   const int W = blockDim.x >> 5, WM = W / WK;
-  const int U = gridDim.x / R;
-  const int rg = blockIdx.x / U, u0 = (blockIdx.x % U) * J;
-  const int mt_end = min(MT, (rg + 1) * MTB);
+  const int u0 = blockIdx.x * J;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wm = warp % WM, wk = warp / WM;  // m-tile column, K slice
   const int g = lane >> 2, tig = lane & 3;
   const int KSW = cdiv(KS, WK);
   const int ks0 = min(KS, wk * KSW), ks1 = min(KS, ks0 + KSW);
-  const int n_pass = cdiv(MTB, WM * MG);  // the same in every warp
+  const int n_pass = cdiv(MT, WM * MG);  // the same in every warp
   const size_t H4 = 4 * (size_t)H;
   const size_t slot_elems = (size_t)MT * KS * kTileElems;
   const bool vec = (H & 1) == 0;  // float2 accesses are 8-byte aligned
@@ -161,8 +160,8 @@ lstm_infer_kernel(const float* __restrict__ xw, const float* __restrict__ mask,
       bool live[MG];
 #pragma unroll
       for (int m = 0; m < MG; ++m) {
-        mts[m] = rg * MTB + wm + (pass * MG + m) * WM;
-        live[m] = mts[m] < mt_end;
+        mts[m] = wm + (pass * MG + m) * WM;
+        live[m] = mts[m] < MT;
       }
       float acc[MG][NTILES][4];
 #pragma unroll
@@ -317,15 +316,15 @@ size_t smem_bytes_for(int H, int NT, int W, int WK, int MG, int CK) {
 template <int NT, int MG>
 cudaError_t launch(const float* xw, const float* mask, const __nv_bfloat16* wh, const float* h0,
                    const float* c0, float* hs, float* hT, float* cT, __nv_bfloat16* ring,
-                   int T_, int rows, int H, int R, int MTB, int W, int WK, int CK, size_t smem,
+                   int T_, int rows, int H, int W, int WK, int CK, size_t smem,
                    cudaStream_t stream) {
-  const int grid = R * cdiv(H, 8 * NT);
+  const int grid = cdiv(H, 8 * NT);
   auto kern = lstm_infer_kernel<NT, MG>;
   cudaError_t err = check_cooperative((const void*)kern, grid, W * 32, smem);
   if (err != cudaSuccess) return err;
   void* args[] = {(void*)&xw, (void*)&mask, (void*)&wh, (void*)&h0, (void*)&c0, (void*)&hs,
                   (void*)&hT, (void*)&cT, (void*)&ring, (void*)&T_, (void*)&rows, (void*)&H,
-                  (void*)&R, (void*)&MTB, (void*)&WK, (void*)&CK};
+                  (void*)&WK, (void*)&CK};
   err = cudaLaunchCooperativeKernel((void*)kern, dim3(grid), dim3(W * 32), args, smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -338,20 +337,18 @@ extern "C" {
 // xw [T, rows, 4H] f32, mask [T, rows] f32, wh [H, 4H] bf16, h0, c0 [rows, H]
 // f32. Writes hs [T, rows, H], hT, cT [rows, H] (f32); ring is the bf16 h
 // ring [2, ceil(rows/16), ceil(H/16), 256], zeros on entry. The launch plan
-// (ops/lstm_cuda.py::infer_plan): row_groups R, n_sub NT (J = 8 NT units per
-// block), m_tiles_per_block, warps W, k_split WK (W / WK m-tile columns),
-// m_group MG, k_chunk CK (k-steps per pipeline stage), stages, smem_bytes;
-// it is checked here and refused with cudaErrorInvalidValue when it is not
+// (ops/lstm_cuda.py::infer_plan): n_sub NT (J = 8 NT units per block), warps
+// W, k_split WK (W / WK m-tile columns), m_group MG, k_chunk CK (k-steps per
+// pipeline stage), stages, smem_bytes; it is checked here and refused with cudaErrorInvalidValue when it is not
 // one this kernel was built for. Returns a cudaError_t.
 int lstm_infer(const float* xw, const float* mask, const void* wh, const float* h0,
                const float* c0, float* hs, float* hT, float* cT, void* ring, int T, int rows,
-               int H, int row_groups, int n_sub, int m_tiles_per_block, int warps, int k_split,
-               int m_group, int k_chunk, int stages, int smem_bytes, void* stream) {
-  const int R = row_groups, NT = n_sub, MTB = m_tiles_per_block, W = warps, WK = k_split,
-            MG = m_group, CK = k_chunk;
-  if (T < 1 || rows < 1 || H < 1 || R < 1 || W < 1 || W > kMaxWarps || WK < 1 || W % WK
-      || CK < 1 || stages != kStages || MTB < 1 || (long long)MTB * R < cdiv(rows, 16)
-      || smem_bytes < 0 || (size_t)smem_bytes != smem_bytes_for(H, NT, W, WK, MG, CK))
+               int H, int n_sub, int warps, int k_split, int m_group, int k_chunk, int stages,
+               int smem_bytes, void* stream) {
+  const int NT = n_sub, W = warps, WK = k_split, MG = m_group, CK = k_chunk;
+  if (T < 1 || rows < 1 || H < 1 || W < 1 || W > kMaxWarps || WK < 1 || W % WK || CK < 1
+      || stages != kStages || smem_bytes < 0
+      || (size_t)smem_bytes != smem_bytes_for(H, NT, W, WK, MG, CK))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* w = static_cast<const __nv_bfloat16*>(wh);
@@ -359,8 +356,7 @@ int lstm_infer(const float* xw, const float* mask, const void* wh, const float* 
   const size_t sm = smem_bytes;
 #define LSTM_INFER_CASE(nt, mg)                                                                 \
   if (NT == nt && MG == mg)                                                                     \
-    return launch<nt, mg>(xw, mask, w, h0, c0, hs, hT, cT, r, T, rows, H, R, MTB, W, WK, CK,   \
-                          sm, s);
+    return launch<nt, mg>(xw, mask, w, h0, c0, hs, hT, cT, r, T, rows, H, W, WK, CK, sm, s);
   LSTM_INFER_CASE(1, 1)
   LSTM_INFER_CASE(1, 2)
   LSTM_INFER_CASE(1, 3)

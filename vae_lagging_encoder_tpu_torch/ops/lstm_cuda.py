@@ -50,13 +50,14 @@ MMA_STAGES = 4          # kStages: cp.async ring depth per warp
 MAX_WARPS = 16          # kMaxWarps
 SMEM_MAX = 232448       # dynamic shared memory one H100 block may opt into
 # (n_sub, m_group) instantiations of each kernel. The forward keeps
-# m_group x 4 n_sub accumulator tiles per lane (<= 64 f32 registers).
+# m_group x 4 n_sub accumulator tiles per lane (<= 64 f32 registers); n_sub 2
+# (16 units per block) serves H > 8 x the SM count (H 1024 on a 114-SM
+# H100 PCIe).
 INFER_VARIANTS = ((1, 1), (1, 2), (1, 3), (1, 4), (2, 1), (2, 2))
 BWD_VARIANTS = tuple((nt, mg) for nt in (1, 2) for mg in (1, 2, 3, 4))
 # ctypes order of the plan fields after (T, rows, H), as the C entry points
 # name them
-INFER_PLAN_ARGS = ("row_groups", "n_sub", "m_tiles_per_block", "warps", "k_split", "m_group",
-                   "k_chunk", "stages", "smem_bytes")
+INFER_PLAN_ARGS = ("n_sub", "warps", "k_split", "m_group", "k_chunk", "stages", "smem_bytes")
 BWD_PLAN_ARGS = ("n_sub", "warps", "m_group", "k_chunk", "stages", "smem_bytes")
 # lstm_infer and lstm_bwd_bf16: pointers, (T, rows, H), the plan, the stream
 INFER_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * (3 + len(INFER_PLAN_ARGS))
@@ -76,15 +77,12 @@ class MMAPlan:
     ``kind`` "infer" (``csrc/lstm_infer.cu``: the product is rows x H times
     H x 4J; ``warps`` = m-tile columns x ``k_split`` K slices, the slices
     summed through shared memory) or "bwd" (``csrc/lstm_bwd.cu``: rows x 4H
-    times 4H x J; every warp takes a K slice of all rows). Blocks are
-    ``row_groups`` x ``unit_groups``; block (r, u) owns units [u J, u J + J),
-    J = 8 n_sub, for the 16-row m-tiles [r m_tiles_per_block, ...). Each
-    warp keeps ``m_group`` m-tiles of accumulators per pass and stages
+    times 4H x J; every warp takes a K slice of all rows). Block u owns
+    units [u J, u J + J), J = 8 n_sub, for every row. Each warp keeps ``m_group`` m-tiles of accumulators per pass and stages
     ``k_chunk`` k-steps per cp.async stage, ``stages`` deep."""
     kind: str
     rows: int
     H: int
-    row_groups: int
     n_sub: int
     warps: int
     m_group: int
@@ -97,20 +95,12 @@ class MMAPlan:
         return 8 * self.n_sub
 
     @property
-    def unit_groups(self) -> int:
-        return _cdiv(self.H, self.units_per_block)
-
-    @property
     def blocks(self) -> int:
-        return self.row_groups * self.unit_groups
+        return _cdiv(self.H, self.units_per_block)
 
     @property
     def m_tiles(self) -> int:
         return _cdiv(self.rows, 16)
-
-    @property
-    def m_tiles_per_block(self) -> int:
-        return _cdiv(self.m_tiles, self.row_groups)
 
     @property
     def k_steps(self) -> int:
@@ -146,30 +136,26 @@ class MMAPlan:
         return tuple(getattr(self, n) for n in names)
 
 
-def _n_sub(H: int, row_groups: int, nsm: int) -> int:
+def _n_sub(H: int, nsm: int) -> int:
     """Fewest 8-unit n-tiles per gate so that the grid has <= nsm blocks."""
     nt = 1
-    while row_groups * _cdiv(H, 8 * nt) > nsm:
+    while _cdiv(H, 8 * nt) > nsm:
         nt += 1
     return nt
 
 
-def infer_plan(rows: int, H: int, nsm: int, row_groups: int = 1) -> MMAPlan:
-    """The forward's plan. Rows split into ``row_groups`` groups: 2 halves
-    the h bytes each block reads per step at the cost of 16 units per
-    block, and measured no faster than 1 at 640 rows on the H100 (PERF.md),
-    so the wrapper runs 1. Up to 16 m-tile columns, each warp owning every
-    WM-th m-tile of its group; when a group has fewer than 16 m-tiles, the
-    spare warps split K instead. The deepest pipeline stage (k_chunk <= 4)
-    that fits. Raises when no instantiated plan fits."""
-    R = row_groups
-    nt = _n_sub(H, R, nsm)
-    mtb = _cdiv(_cdiv(rows, 16), R)
-    wm = min(MAX_WARPS, mtb)
+def infer_plan(rows: int, H: int, nsm: int) -> MMAPlan:
+    """The forward's plan: every block takes all rows. Up to 16 m-tile
+    columns, each warp owning every WM-th m-tile; when there are fewer than
+    16 m-tiles, the spare warps split K instead. The deepest pipeline stage
+    (k_chunk <= 4) that fits. Raises when no instantiated plan fits."""
+    nt = _n_sub(H, nsm)
+    mt = _cdiv(rows, 16)
+    wm = min(MAX_WARPS, mt)
     wk = min(MAX_WARPS // wm, _cdiv(H, 16))
-    mg = min(4 // nt, _cdiv(mtb, wm))
+    mg = min(4 // nt, _cdiv(mt, wm))
     for ck in range(4, 0, -1):
-        plan = MMAPlan("infer", rows, H, R, nt, wm * wk, mg, ck, wk)
+        plan = MMAPlan("infer", rows, H, nt, wm * wk, mg, ck, wk)
         if (nt, mg) in INFER_VARIANTS and plan.smem_bytes <= SMEM_MAX:
             return plan
     raise ValueError(f"lstm_seq: no tensor-core plan for rows {rows}, H {H} on {nsm} SMs "
@@ -177,14 +163,13 @@ def infer_plan(rows: int, H: int, nsm: int, row_groups: int = 1) -> MMAPlan:
 
 
 def bwd_plan(B: int, H: int, nsm: int) -> MMAPlan:
-    """The backward's plan: all rows in every block (row_groups 1), warps
-    split the 4H reduction (up to 16), the largest m-tile pass (<= 4) and
+    """The backward's plan: all rows in every block, warps split the 4H reduction (up to 16), the largest m-tile pass (<= 4) and
     then the deepest pipeline stage (k_chunk <= 4 / m_group) that fit."""
-    nt = _n_sub(H, 1, nsm)
+    nt = _n_sub(H, nsm)
     W = min(MAX_WARPS, _cdiv(4 * H, 16))
     for mg in range(min(4, _cdiv(B, 16)), 0, -1):
         for ck in range(4 // mg, 0, -1):
-            plan = MMAPlan("bwd", B, H, 1, nt, W, mg, ck)
+            plan = MMAPlan("bwd", B, H, nt, W, mg, ck)
             if (nt, mg) in BWD_VARIANTS and plan.smem_bytes <= SMEM_MAX:
                 return plan
     raise ValueError(f"lstm_bwd: no tensor-core plan for B {B}, H {H} on {nsm} SMs "
@@ -207,12 +192,10 @@ def plan_owners(plan: MMAPlan) -> np.ndarray:
         owner[r, u, 0], owner[r, u, 1] = b, (w[ok] if np.ndim(w) else w)
 
     if plan.kind == "infer":
-        mtb = plan.m_tiles_per_block
         for b in range(plan.blocks):
-            rg, ug = divmod(b, plan.unit_groups)
-            units = np.arange(ug * J, ug * J + J)
+            units = np.arange(b * J, b * J + J)
             for w in range(plan.m_columns):  # K slice 0 owns the pairs
-                for mt in range(rg * mtb + w, min(plan.m_tiles, (rg + 1) * mtb), plan.m_columns):
+                for mt in range(w, plan.m_tiles, plan.m_columns):
                     r, u = np.meshgrid(np.arange(mt * 16, mt * 16 + 16), units, indexing="ij")
                     own(r.ravel(), u.ravel(), b, w)
     else:
