@@ -8,22 +8,32 @@ Phases (each raises on failure; the script then exits non-zero):
 1. device and build: prints the card and its power limit, builds the CUDA
    kernels from ``vae_lagging_encoder_tpu_torch/csrc`` (one ``nvcc`` per
    source, in parallel) and prints each tensor-core kernel's registers,
-   spills and its count of tensor-core (HMMA) and asynchronous-copy
-   (LDGSTS) instructions from the build logs;
+   spills and its count of tensor-core (HMMA: mma.sync, HGMMA: wgmma) and
+   asynchronous-copy (LDGSTS: cp.async; UTMALDG, UBLKCP: TMA) instructions
+   from the build logs; a tensor-core source without both fails the run;
 2. kernel checks at the Yahoo shapes of the evaluation and the training
    paths: each kernel against its plain PyTorch version on the card, in
    bf16 and f32 operand mode, with timings (CUDA events), the plain
    version's and a library call's time, and the least time the card could
    take (``bound_ms``); the forward without residuals also at the
-   encoder's 32 rows (``*_rows32``), the backward also at a short last
-   batch of 20 (``*_b20``) and, like for like with cuDNN's backward, as the
-   port's whole backward of the layer (``port_bwd_ms``);
+   encoder's 32 rows (``*_rows32``), the residual-saving forward and the
+   backward also at a short last batch of 20 (``*_b20``), the CE also at a
+   ragged N and at the training shape's split plan (``*_n1000``,
+   ``*_n3040``). Library yardsticks compute what the kernel computes and
+   are timed in turns with it (library, port, port, library;
+   ``*_turns``): cuDNN's training forward for the residual-saving forward,
+   the library's forward alone for the grad-mode CE (its forward and
+   backward beside ``FusedCEFn``'s), and, for the backward, the port's
+   whole backward of the layer (``port_bwd_ms``) against cuDNN's;
 3. the evaluation slice end to end through the normal entry point: a
    Yahoo-shaped corpus and a Yahoo-width random model (seeded) are written
    to a temporary directory, ``cli.text.main([... "--eval" ...])`` runs the
    final evaluation (ELBO, MI, AU, 500-sample IW-NLL), the launch counters
    show the kernels ran, and one test batch is cross-checked against the
    plain versions at reduced ``iw_nsamples`` on the same injected noise;
+   one IW-NLL batch then runs under ``torch.profiler``: the top device ops
+   and the device's idle share go on a ``{"trace_iw": ...}`` line (a
+   failure there is printed, not raised);
 4. the training slice end to end through the same entry point, without
    ``--eval``: ``--epochs 2 --aggressive 1`` at Yahoo width on an 8-batch
    training split (vocabulary exactly 20004), then one plain epoch; the
@@ -36,8 +46,9 @@ Phases (each raises on failure; the script then exits non-zero):
    ops and the device's idle share go on a ``{"trace": ...}`` line (a
    failure there is printed, not raised).
 
-Prints one JSON line per kernel, a ``{"trace": ...}`` line, a
-``{"kernels": [...]}`` line, and as the last line ``{"ok": true,
+Prints one JSON line per kernel, ``{"trace_iw": ...}`` and
+``{"trace": ...}`` lines, a ``{"kernels": [...]}`` line, the card's name and
+power limit, and as the last line ``{"ok": true,
 "device": {...}}``. Exits non-zero, printing no result, when no CUDA
 device is available or the port's package is missing.
 """
@@ -119,25 +130,36 @@ def lengths_like_yahoo(rng, n, cap):
 
 
 # ---------------------------------------------------------------- phase 2
-def check_lstm(save_residuals: bool, rows: int, ni: int, launches_key: str, dev):
-    """The LSTM forward at ``rows``; the forward without residuals also at
-    the encoder's 32 rows, with the launch plan of ``rows``."""
-    r = _check_lstm(save_residuals, rows, ni, launches_key, dev)
-    if not save_residuals:
-        from vae_lagging_encoder_tpu_torch.ops import lstm_cuda
+def time_turns(fns, reps: int = 10):
+    """``fns`` = {"library": f, "port": g}: each timed (``time_ms``) in
+    turns library, port, port, library, so that a drift of the card's
+    clocks falls on both; returns the median and the turns of each."""
+    turns = {k: [] for k in fns}
+    for k in ("library", "port", "port", "library"):
+        turns[k].append(time_ms(fns[k], reps=reps))
+    return {k: (float(np.median(v)), v) for k, v in turns.items()}
 
-        small = _check_lstm(False, B, NI, launches_key, dev)
-        r.update({f"{k}_rows32": small[k] for k in ("err_f32", "err_bf16", "ms", "plain_ms",
+
+def check_lstm(save_residuals: bool, rows: int, ni: int, launches_key: str, dev):
+    """The LSTM forward at ``rows`` with the launch plan the wrapper picks;
+    the forward without residuals also at the encoder's 32 rows, the
+    residual-saving forward also at a short last batch of 20 (``*_b20``)."""
+    from vae_lagging_encoder_tpu_torch.ops import lstm_cuda
+
+    r = _check_lstm(save_residuals, rows, ni, launches_key, dev)
+    extra = (B, "rows32") if not save_residuals else (20, "b20")
+    small = _check_lstm(save_residuals, extra[0], NI, launches_key, dev)
+    r.update({f"{k}_{extra[1]}": small[k] for k in ("err_f32", "err_bf16", "ms", "plain_ms",
                                                      "library_ms", "bound_ms")})
-        nsm = torch.cuda.get_device_properties(dev).multi_processor_count
-        r["plan"] = repr(lstm_cuda.infer_plan(rows, NH, nsm))
+    nsm = torch.cuda.get_device_properties(dev).multi_processor_count
+    r["plan"] = repr(lstm_cuda.infer_plan(rows, NH, nsm, save_residuals))
     return r
 
 
 def _check_lstm(save_residuals: bool, rows: int, ni: int, launches_key: str, dev):
     from vae_lagging_encoder_tpu_torch.ops import lstm_cuda
 
-    g = torch.Generator(device="cpu").manual_seed(1 if save_residuals else 2)
+    g = torch.Generator(device="cpu").manual_seed((1 if save_residuals else 2) + rows)
     T, H = T_CHECK, NH
     x = torch.randn(T, rows, ni, generator=g)
     wx = torch.empty(ni, 4 * H).uniform_(-0.05, 0.05, generator=g)
@@ -160,53 +182,112 @@ def _check_lstm(save_residuals: bool, rows: int, ni: int, launches_key: str, dev
             raise AssertionError(f"{launches_key} rows {rows} {mode}: max abs err {err} > "
                                  f"{TOL[('lstm', mode)]}")
     whb = wh32.bfloat16()
-    ms = time_ms(lambda: lstm_cuda.lstm_seq(xw, mask, whb, h0, c0, save_residuals))
-    plain_ms = time_ms(lambda: lstm_cuda.lstm_seq_plain(xw, mask, whb, h0, c0, save_residuals), reps=5)
+    port = lambda: lstm_cuda.lstm_seq(xw, mask, whb, h0, c0, save_residuals)
+    ms = time_ms(port)
+    plain_ms = time_ms(lambda: lstm_cuda.lstm_seq_plain(xw, mask, whb, h0, c0, save_residuals),
+                       reps=5)
     ref_lstm = torch.nn.LSTM(ni, H, device=dev, dtype=torch.bfloat16)
     ref_lstm.flatten_parameters()
     xb = x.bfloat16()
-    lib_ms = time_ms(lambda: ref_lstm(xb))
+    out = {}
+    if save_residuals:
+        # cuDNN's training forward (grad on, x requiring grad: cuDNN writes
+        # the reserve space its backward reads), the like-for-like yardstick
+        # of a residual-saving forward; it also does the input projection
+        # (~13 GFLOP at B 32, tens of us), which the port does before the
+        # kernel. Timed in turns with the port's kernel.
+        xg = xb.clone().requires_grad_()
+        with torch.enable_grad():
+            t = time_turns({"library": lambda: ref_lstm(xg), "port": port})
+        lib_ms = t["library"][0]
+        out.update(library="cuDNN nn.LSTM bf16 training forward (grad on, reserve space)",
+                   library_ms_turns=t["library"][1], ms_turns=t["port"][1])
+    else:
+        lib_ms = time_ms(lambda: ref_lstm(xb))
+        out.update(library="cuDNN nn.LSTM bf16 forward (no grad)")
     ops = 2.0 * T * rows * H * 4 * H
     out_f = T * rows * H * (2 + 4 if save_residuals else 1) + 2 * rows * H
     nbytes = 4.0 * (T * rows * 4 * H + T * rows + 2 * rows * H + out_f) + 2.0 * H * 4 * H
     bms, by = bound(ops, nbytes, PEAK_BF16)
     return dict(err_f32=errs["f32"], err_bf16=errs["bf16"], ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bms, bound_by=by,
-                shape=f"T {T}, rows {rows}, input {ni}, H {H}, wh bf16")
+                shape=f"T {T}, rows {rows}, input {ni}, H {H}, wh bf16", **out)
 
 
-def check_ce(dev):
-    from vae_lagging_encoder_tpu_torch.ops import ce_cuda
+CE_RAGGED_N = 1000  # not a multiple of the kernel's 128-row tile
+CE_SPLIT_N = B * (T_CHECK - 1)  # 3040, the training shape: the vocab split over blocks
 
-    g = torch.Generator(device="cpu").manual_seed(4)
-    N = B * IW_CHUNK * (T_CHECK - 1)
+
+def ce_inputs(N: int, seed: int, dev):
+    g = torch.Generator(device="cpu").manual_seed(seed)
     h = torch.tanh(torch.randn(N, NH, generator=g)).to(dev)
     w = torch.empty(NH, VOCAB).uniform_(-0.05, 0.05, generator=g).to(dev)
     tgt = torch.randint(0, VOCAB, (N,), generator=g).to(dev)
-    errs = {}
+    return h, w, tgt
+
+
+def ce_errors(h, w, tgt, save: bool):
+    """The CE kernel (either mode) against ``ce_logp_plain`` in f32 and bf16
+    operand mode; raises beyond the tolerances. Returns {mode: max abs err
+    of logp and lse} and {mode: the spill's max abs err}."""
+    from vae_lagging_encoder_tpu_torch.ops import ce_cuda
+
+    kind, name = ("ce_train", "ce_fwd_train") if save else ("ce", "ce_fwd")
+    errs, spill_errs = {}, {}
     for mode, dt in (("f32", None), ("bf16", torch.bfloat16)):
-        got = ce_cuda.ce_forward(h, w, tgt, dt)
-        ref = ce_cuda.ce_logp_plain(h, w, tgt, dt)
+        got = ce_cuda.ce_forward(h, w, tgt, dt, save_logits=save)
+        ref = ce_cuda.ce_logp_plain(h, w, tgt, dt, save_logits=save)
         torch.cuda.synchronize()
-        err = max(float((a - r).abs().max()) for a, r in zip(got, ref))
-        errs[mode] = err
-        if not err <= TOL[("ce", mode)]:
-            raise AssertionError(f"ce_fwd {mode}: max abs err {err} > {TOL[('ce', mode)]}")
+        errs[mode] = max(float((a - r).abs().max()) for a, r in zip(got[:2], ref[:2]))
+        spill_ok = True
+        if save:
+            if tuple(got[2].shape) != tuple(ref[2].shape) or got[2].dtype != ref[2].dtype:
+                raise AssertionError(f"{name} {mode}: spill {tuple(got[2].shape)} {got[2].dtype}, "
+                                     f"expected {tuple(ref[2].shape)} {ref[2].dtype}")
+            d = (got[2].float() - ref[2].float()).abs()
+            spill_errs[mode] = float(d.max())
+            # f32: summation order; bf16: the two f32 logits may round to
+            # neighbouring bf16 values (one step), plus the f32 difference itself
+            spill_ok = bool((d <= (BF16_STEP * ref[2].float().abs() + 1e-5)).all()) \
+                if dt is not None else spill_errs[mode] <= TOL[(kind, "f32")]
+        if not (errs[mode] <= TOL[(kind, mode)] and spill_ok):
+            raise AssertionError(f"{name} N {h.shape[0]} {mode}: max abs err {errs[mode]} "
+                                 f"(tolerance {TOL[(kind, mode)]}), spill {spill_errs.get(mode)}")
+    return errs, spill_errs
+
+
+def check_ce(dev):
+    """The forward CE at the IW shape (N = 32 x 20 x 95 = 60800 rows, no
+    vocab split), and at a ragged N and the split plan's N 3040."""
+    from vae_lagging_encoder_tpu_torch.ops import ce_cuda
+
+    N = B * IW_CHUNK * (T_CHECK - 1)
+    h, w, tgt = ce_inputs(N, 4, dev)
+    errs, _ = ce_errors(h, w, tgt, False)
+    more = {}
+    for n, seed in ((CE_RAGGED_N, 14), (CE_SPLIT_N, 15)):
+        e, _ = ce_errors(*ce_inputs(n, seed, dev), False)
+        more.update({f"err_bf16_n{n}": e["bf16"], f"err_f32_n{n}": e["f32"]})
     hb, wb = h.bfloat16(), w.bfloat16()
-    ms = time_ms(lambda: ce_cuda.ce_forward(hb, wb, tgt))
+    port = lambda: ce_cuda.ce_forward(hb, wb, tgt)
+    ms = time_ms(port)
     plain_ms = time_ms(lambda: ce_cuda.ce_logp_plain(hb, wb, tgt), reps=5)
 
     def library():
         logits = torch.matmul(hb, wb).float()
         return logits.gather(1, tgt[:, None])[:, 0] - torch.logsumexp(logits, -1)
 
-    lib_ms = time_ms(library, reps=5)
+    t = time_turns({"library": library, "port": port}, reps=5)
     ops = 2.0 * N * NH * VOCAB
     nbytes = 2.0 * (N * NH + NH * VOCAB) + 4.0 * N + 8.0 * N
     bms, by = bound(ops, nbytes, PEAK_BF16)
+    nsm = torch.cuda.get_device_properties(dev).multi_processor_count
     return dict(err_f32=errs["f32"], err_bf16=errs["bf16"], ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=bms, bound_by=by,
-                shape=f"N {N}, nh {NH}, V {VOCAB}, bf16 operands")
+                library_ms=t["library"][0], library_ms_turns=t["library"][1],
+                ms_turns=t["port"][1], bound_ms=bms, bound_by=by,
+                library="bf16 matmul, f32 logsumexp, gather",
+                plan=repr(ce_cuda.ce_plan(N, NH, VOCAB, nsm)),
+                shape=f"N {N}, nh {NH}, V {VOCAB}, bf16 operands", **more)
 
 
 def check_lstm_bwd(dev):
@@ -291,39 +372,34 @@ def _check_lstm_bwd(rows: int, seed: int, dev):
                 port_bwd_ms=float(np.median(turns["port"])),
                 library_ms_turns=turns["library"], port_bwd_ms_turns=turns["port"],
                 library_fwd_bwd_minus_fwd_ms=lib_diff_ms, bound_ms=bms, bound_by=by,
+                library="cuDNN nn.LSTM bf16 backward alone (dx, dW_ih, dW_hh, biases); "
+                        "port_bwd_ms: the port's backward of the same layer",
                 shape=f"T {T}, B {rows}, H {H}, wh bf16, masked")
 
 
 def check_ce_train(dev):
     """The grad-mode CE (logp, the logsumexp of the rounded logits and the
     spilled logits) against its plain version at the training shape
-    (N = 32 x 95 rows)."""
+    (N = 32 x 95 rows: the split plan) and at a ragged N."""
     from vae_lagging_encoder_tpu_torch.ops import ce_cuda
 
-    g = torch.Generator(device="cpu").manual_seed(8)
-    N = B * (T_CHECK - 1)
-    h = torch.tanh(torch.randn(N, NH, generator=g)).to(dev)
-    w = torch.empty(NH, VOCAB).uniform_(-0.05, 0.05, generator=g).to(dev)
-    tgt = torch.randint(0, VOCAB, (N,), generator=g).to(dev)
-    errs, spill_errs = {}, {}
-    for mode, dt in (("f32", None), ("bf16", torch.bfloat16)):
-        logp, lse, spill = ce_cuda.ce_forward(h, w, tgt, dt, save_logits=True)
-        rlogp, rlse, rspill = ce_cuda.ce_logp_plain(h, w, tgt, dt, save_logits=True)
-        torch.cuda.synchronize()
-        errs[mode] = max(float((logp - rlogp).abs().max()), float((lse - rlse).abs().max()))
-        d = (spill.float() - rspill.float()).abs()
-        spill_errs[mode] = float(d.max())
-        # f32: summation order; bf16: the two f32 logits may round to
-        # neighbouring bf16 values (one step), plus the f32 difference itself
-        spill_ok = bool((d <= (BF16_STEP * rspill.float().abs() + 1e-5)).all()) \
-            if dt is not None else spill_errs[mode] <= TOL[("ce_train", "f32")]
-        if not (errs[mode] <= TOL[("ce_train", mode)] and spill_ok):
-            raise AssertionError(f"ce_fwd_train {mode}: max abs err {errs[mode]} "
-                                 f"(tolerance {TOL[('ce_train', mode)]}), spill {spill_errs[mode]}")
+    N = CE_SPLIT_N
+    h, w, tgt = ce_inputs(N, 8, dev)
+    errs, spill_errs = ce_errors(h, w, tgt, True)
+    e, se = ce_errors(*ce_inputs(CE_RAGGED_N, 18, dev), True)
+    more = {f"err_bf16_n{CE_RAGGED_N}": e["bf16"], f"err_f32_n{CE_RAGGED_N}": e["f32"],
+            f"spill_err_bf16_n{CE_RAGGED_N}": se["bf16"]}
     hb, wb = h.bfloat16(), w.bfloat16()
-    ms = time_ms(lambda: ce_cuda.ce_forward(hb, wb, tgt, save_logits=True))
+    port = lambda: ce_cuda.ce_forward(hb, wb, tgt, save_logits=True)
+    ms = time_ms(port)
     plain_ms = time_ms(lambda: ce_cuda.ce_logp_plain(hb, wb, tgt, save_logits=True), reps=5)
-    gout = torch.randn(N, generator=g).to(dev)
+    gout = torch.randn(N, generator=torch.Generator().manual_seed(9)).to(dev)
+
+    def library_fwd():  # the same function: bf16 logits, lse of the rounded logits, gather
+        logits = torch.matmul(hb, wb)
+        lf = logits.float()
+        lse = torch.logsumexp(lf, -1)
+        return lf.gather(1, tgt[:, None])[:, 0] - lse, lse, logits
 
     def library():  # bf16 matmul + log_softmax + gather, forward and backward
         logits = torch.matmul(hr, wr).float()
@@ -332,17 +408,22 @@ def check_ce_train(dev):
     def port_fwd_bwd():  # the port's FusedCEFn forward (this kernel) + backward
         ce_cuda.FusedCEFn.apply(hr, wr, tgt, torch.bfloat16).backward(gout)
 
+    t = time_turns({"library": library_fwd, "port": port})
     hr, wr = hb.clone().requires_grad_(), wb.clone().requires_grad_()
     with torch.enable_grad():
-        lib_ms = time_ms(library, reps=5)
-        fused_ms = time_ms(port_fwd_bwd, reps=5)
+        tb = time_turns({"library": library, "port": port_fwd_bwd}, reps=5)
     ops = 2.0 * N * NH * VOCAB
     nbytes = 2.0 * (N * NH + NH * VOCAB + N * VOCAB) + 4.0 * N + 8.0 * N
     bms, by = bound(ops, nbytes, PEAK_BF16)
+    nsm = torch.cuda.get_device_properties(dev).multi_processor_count
     return dict(err_f32=errs["f32"], err_bf16=errs["bf16"], spill_err_bf16=spill_errs["bf16"],
-                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, port_fwd_bwd_ms=fused_ms,
-                bound_ms=bms, bound_by=by,
-                shape=f"N {N}, nh {NH}, V {VOCAB}, bf16 operands, bf16 spill")
+                ms=ms, plain_ms=plain_ms, library_ms=t["library"][0],
+                library_ms_turns=t["library"][1], ms_turns=t["port"][1],
+                library="bf16 matmul (bf16 logits), f32 logsumexp of them, gather: forward only",
+                library_fwd_bwd_ms=tb["library"][0], library_fwd_bwd_ms_turns=tb["library"][1],
+                port_fwd_bwd_ms=tb["port"][0], port_fwd_bwd_ms_turns=tb["port"][1],
+                bound_ms=bms, bound_by=by, plan=repr(ce_cuda.ce_plan(N, NH, VOCAB, nsm)),
+                shape=f"N {N}, nh {NH}, V {VOCAB}, bf16 operands, bf16 spill", **more)
 
 
 # ---------------------------------------------------------------- phase 3
@@ -666,13 +747,8 @@ TRACE_STEPS = 3
 
 def trace_steps(train_pool, cfg, dev):
     """Three forward+backward steps (the gradient cross-check's step, its
-    weights unscaled) under ``torch.profiler`` after one warm-up step: the
-    device ops by total device time, and the device's idle share, the part
-    of the window's host wall time (ending in a synchronize) that no device
-    op covers."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    weights unscaled) under ``torch.profiler`` after one warm-up step
+    (``profiled``)."""
     from vae_lagging_encoder_tpu_torch.models import build_text_vae
     from vae_lagging_encoder_tpu_torch.train.aggressive import make_grad_on
     from vae_lagging_encoder_tpu_torch.train.epoch import make_loss_fn
@@ -690,10 +766,19 @@ def trace_steps(train_pool, cfg, dev):
 
     step(0)
     torch.cuda.synchronize()
+    return profiled(lambda: [step(i + 1) for i in range(TRACE_STEPS)], steps=TRACE_STEPS)
+
+
+def profiled(fn, **head):
+    """``fn()`` under ``torch.profiler``, ending in a synchronize: the device
+    ops by total device time, and the device's idle share, the part of the
+    window's host wall time that no device op covers."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for i in range(TRACE_STEPS):
-            step(i + 1)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
@@ -708,15 +793,38 @@ def trace_steps(train_pool, cfg, dev):
                   for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
                  reverse=True)
     if not busy:
-        return {"steps": TRACE_STEPS, "device_time": "none: key_averages() shows no device time",
+        return {**head, "device_time": "none: key_averages() shows no device time",
                 "wall_ms": wall_us / 1e3}
-    return {"steps": TRACE_STEPS, "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+    return {**head, "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "idle_share": max(0.0, 1.0 - busy / wall_us),
             "top_device_ops": [{"name": k[:80], "calls": n, "ms": t / 1e3,
                                 "share_of_busy": t / busy} for t, n, k in ops[:10]]}
 
+
+def trace_iw(pool, ck, cfg, vocab_size, dev):
+    """One IW-NLL batch (the first test batch, ``cfg.iw_nsamples`` samples
+    in chunks of ``cfg.iw_batch``, the smoke checkpoint's weights) under
+    ``torch.profiler`` after one untraced warm-up batch."""
+    from vae_lagging_encoder_tpu_torch.models import build_text_vae
+    from vae_lagging_encoder_tpu_torch.train.checkpoint import load_checkpoint
+    from vae_lagging_encoder_tpu_torch.utils.jax_params import from_jax_params
+
+    vae = build_text_vae(cfg, vocab_size, device=dev)
+    vae.load_state_dict(from_jax_params(load_checkpoint(str(ck))[0]))
+    x, mask, _ = next(iter(pool))
+    g = torch.Generator(device=dev).manual_seed(15)
+
+    def batch():
+        with torch.no_grad():
+            vae.nll_iw(x, mask, cfg.iw_nsamples, cfg.iw_batch, generator=g)
+
+    batch()
+    torch.cuda.synchronize()
+    return profiled(batch, batches=1, sentences=int(x.shape[0]), iw_nsamples=cfg.iw_nsamples)
+
+
 KERNELS = [
-    ("lstm_fwd_residuals", "vae_lagging_encoder_tpu_torch/csrc/lstm_fwd.cu",
+    ("lstm_fwd_residuals", "vae_lagging_encoder_tpu_torch/csrc/lstm_infer.cu",
      "vae_lagging_encoder_tpu/ops/lstm_pallas.py:67", ("lstm", True, B, NI)),
     ("lstm_fwd_infer", "vae_lagging_encoder_tpu_torch/csrc/lstm_infer.cu",
      "vae_lagging_encoder_tpu/ops/lstm_pallas.py:166", ("lstm", False, B * IW_CHUNK, NI + NZ)),
@@ -753,16 +861,21 @@ def main() -> int:
         f"torch {torch.__version__} cuda {torch.version.cuda}")
     build_s = build.build()
     log(f"[build] {len(build.SOURCES)} CUDA sources built in {build_s:.1f} s")
-    for name in ("lstm_infer", "lstm_bwd"):
+    # the tensor-core kernels: lstm_infer (both LSTM forwards) and lstm_bwd
+    # on mma.sync (HMMA) with cp.async (LDGSTS); ce_fwd on wgmma (HGMMA)
+    for name in ("lstm_infer", "lstm_bwd", "ce_fwd"):
         rep = build.kernel_report(name)
         log(json.dumps({"build": name, "kernels": rep}))
         census = [k for k in rep if "hmma" in k]
         if not census:
             raise AssertionError(f"{name}: no SASS census in the build log (is cuobjdump "
                                  f"beside nvcc?): {rep}")
-        if not any(k["hmma"] and k["ldgsts"] for k in census):
-            raise AssertionError(f"{name}: no kernel with both tensor-core (HMMA) and "
-                                 f"asynchronous-copy (LDGSTS) instructions: {rep}")
+        tc = [x.lower() for x in build.TENSOR_CORE_SASS]
+        cp = [x.lower() for x in build.ASYNC_COPY_SASS]
+        if not any(any(k[x] for x in tc) and any(k[x] for x in cp) for k in census):
+            raise AssertionError(f"{name}: no kernel with both tensor-core "
+                                 f"({build.TENSOR_CORE_SASS}) and asynchronous-copy "
+                                 f"({build.ASYNC_COPY_SASS}) instructions: {rep}")
 
     # phase 2 — kernels against their plain versions at the slice's shapes
     results = {}
@@ -796,6 +909,10 @@ def main() -> int:
         err, nll_mean = cross_check(pool, ck, cfg, vsize, dev)
         log(f"[slice] cross-check vs plain versions on one batch (IW {IW_CROSS_SAMPLES}): "
             f"max abs err {err:.3e} nats (tolerance {CROSS_TOL}), mean IW-NLL {nll_mean:.3f}")
+        try:
+            trace_iw_res = trace_iw(pool, ck, cfg, vsize, dev)
+        except Exception as e:  # the trace informs; it never fails the run
+            trace_iw_res = {"error": f"{type(e).__name__}: {e}"}
 
         # phase 4 — the training slice end to end through the CLI
         train_runs, steps, train_pool, tcfg = run_training_slice(
@@ -827,10 +944,12 @@ def main() -> int:
                         "tolerance_f32": TOL[(spec[0], "f32")],
                         "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"], "shape": r["shape"],
+                        "library_ms": r["library_ms"], "library": r.get("library"),
+                        "shape": r["shape"],
                         **{k: v for k, v in r.items() if k not in (
                             "name", "source", "replaces", "err_bf16", "err_f32", "ms", "plain_ms",
-                            "bound_ms", "bound_by", "library_ms", "shape")}})
+                            "bound_ms", "bound_by", "library_ms", "library", "shape")}})
+    print(json.dumps({"trace_iw": trace_iw_res}), flush=True)
     print(json.dumps({"trace": trace}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

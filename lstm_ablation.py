@@ -10,8 +10,9 @@ fragments, the whole k-loop, the cell epilogue, the backward's L2
 prefetch), and times each beside the intact kernel through the port's own
 wrappers (``ops/lstm_cuda.py::lstm_infer`` and ``lstm_bwd``), with the
 variant's library in place of the built one. Shapes: the forward at T 96,
-H 1024 with 640 rows (the IW decoder) and 32 rows (the encoder), the
-backward at B 32. The time an ablation saves is what that part costs when
+H 1024 with 640 rows (the IW decoder) and 32 rows (the encoder), and with
+its residuals at 32 rows (the training forward, ``lstm_fwd_residuals``);
+the backward at B 32. The time an ablation saves is what that part costs when
 the rest runs. The backward's other k-chunks are timed the same way. The
 ablated kernels compute wrong values; only their times are read.
 
@@ -164,12 +165,13 @@ def main() -> int:
     print(f"{torch.cuda.get_device_name(0)} | {smi}", flush=True)
     nsm = torch.cuda.get_device_properties(dev).multi_processor_count
     ilibs, blibs = build_variants("lstm_infer"), build_variants("lstm_bwd")
-    for rows in (640, 32):
-        plan = lstm_cuda.infer_plan(rows, H, nsm)
+    for rows, res in ((640, False), (32, False), (32, True)):
+        plan = lstm_cuda.infer_plan(rows, H, nsm, res)
         xw, mask, wh, h0, c0 = inputs(rows, rows, dev)
-        ms = run("lstm_infer", ilibs, lambda: lstm_cuda.lstm_infer(xw, mask, wh, h0, c0, plan), {})
-        print(json.dumps({"kernel": "lstm_fwd_infer", "rows": rows, "plan": repr(plan),
-                          "ms": ms}), flush=True)
+        ms = run("lstm_infer", ilibs,
+                 lambda: lstm_cuda.lstm_infer(xw, mask, wh, h0, c0, plan, res), {})
+        print(json.dumps({"kernel": "lstm_fwd_residuals" if res else "lstm_fwd_infer",
+                          "rows": rows, "plan": repr(plan), "ms": ms}), flush=True)
     xw, mask, wh, h0, c0 = inputs(32, 5, dev)
     _, cs, gates, _, _ = lstm_cuda.lstm_seq_plain(xw, mask, wh, h0, c0, True)
     g = torch.Generator().manual_seed(6)

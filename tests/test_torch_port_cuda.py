@@ -94,6 +94,63 @@ def test_lstm_infer_tensor_core_plans_match_plain_on_cuda(rows):
             torch.testing.assert_close(a, b, atol=2e-3, rtol=0)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [20, 64])
+def test_lstm_residual_forward_matches_plain_on_cuda(B):
+    """The bf16 residual-saving forward (csrc/lstm_infer.cu with
+    kSaveResiduals) at a short last batch (B 20: a partial m-tile pair) and
+    B 64 (four m-tiles), H 256, under the plan ``lstm_seq`` picks (8 units a
+    block) and the plan for a card with 16 SMs (16 units a block): hs, cs,
+    gates, hT and cT against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    g = torch.Generator().manual_seed(11)
+    T, H = 9, 256
+    xw = torch.randn(T, B, 4 * H, generator=g).cuda()
+    mask = (torch.rand(T, B, generator=g) > 0.3).float().cuda()
+    wh = (0.1 * torch.randn(H, 4 * H, generator=g)).bfloat16().cuda()
+    h0 = (0.1 * torch.randn(B, H, generator=g)).cuda()
+    c0 = (0.1 * torch.randn(B, H, generator=g)).cuda()
+    ref = lstm_cuda.lstm_seq_plain(xw, mask, wh, h0, c0, True)
+    plan16 = lstm_cuda.infer_plan(B, H, 16, save_residuals=True)
+    assert plan16.n_sub == 2
+    runs = [lambda: lstm_cuda.lstm_seq(xw, mask, wh, h0, c0, True),
+            lambda: lstm_cuda.lstm_infer(xw, mask, wh, h0, c0, plan16, True)]
+    for run in runs:
+        n = dict(build.LAUNCHES)
+        got = run()
+        torch.cuda.synchronize()
+        assert build.LAUNCHES["lstm_fwd_residuals"] == n["lstm_fwd_residuals"] + 1
+        assert build.LAUNCHES["lstm_fwd_infer"] == n["lstm_fwd_infer"]
+        assert len(got) == 5
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b, atol=2e-3, rtol=0)
+
+
+@pytest.mark.cuda
+def test_lstm_fwd_refuses_bf16_wh_on_cuda():
+    """csrc/lstm_fwd.cu keeps only f32 wh: the C entry point refuses bf16 wh
+    (the tensor-core lstm_infer.cu takes it), and the refusal raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    T, B, H = 3, 4, 16
+    xw, mask = torch.zeros(T, B, 4 * H, device="cuda"), torch.ones(T, B, device="cuda")
+    wh = torch.zeros(H, 4 * H, device="cuda", dtype=torch.bfloat16)
+    h0, c0 = torch.zeros(B, H, device="cuda"), torch.zeros(B, H, device="cuda")
+    hs, cs = torch.empty(T, B, H, device="cuda"), torch.empty(T, B, H, device="cuda")
+    gates = torch.empty(T, B, 4 * H, device="cuda")
+    hT, cT = torch.empty(B, H, device="cuda"), torch.empty(B, H, device="cuda")
+    lib = lstm_cuda._lib("lstm_fwd", lstm_cuda._ARGTYPES)
+    for save in (0, 1):
+        err = lib.lstm_fwd(xw.data_ptr(), mask.data_ptr(), wh.data_ptr(), 1, h0.data_ptr(),
+                           c0.data_ptr(), hs.data_ptr(), cs.data_ptr(), gates.data_ptr(),
+                           hT.data_ptr(), cT.data_ptr(), T, B, H, save,
+                           torch.cuda.current_stream().cuda_stream)
+        assert err != 0
+        with pytest.raises(RuntimeError, match="lstm_fwd"):
+            build.check(lib, err, "lstm_fwd")
+
+
 def _lstm_bwd_inputs(T, B, H, wh_dtype, seed):
     g = torch.Generator().manual_seed(seed)
     xw = torch.randn(T, B, 4 * H, generator=g)
@@ -196,3 +253,32 @@ def test_lstm_run_gradient_through_kernel_on_cuda():
         n = build.LAUNCHES["lstm_fwd_infer"]
         lstm_run(p, x, kernel_route=True)
         assert build.LAUNCHES["lstm_fwd_infer"] == n + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("save", [False, True])
+@pytest.mark.parametrize("n", [1000, 3040])
+def test_ce_kernel_at_yahoo_width_on_cuda(n, save):
+    """The bf16 CE at nh 1024, V 20004 (a ragged last vocab tile): N 3040
+    (the training shape: 24 row tiles, the vocab split over 5 blocks each)
+    and N 1000 (a ragged last row tile), both modes; the spill is the
+    [N, V] view of the padded [N, Vp] buffer. Tolerances: chip_smoke.py's
+    CE checks (bf16 operands: summation order only; the spill within one
+    bf16 step)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    h, w, tgt = _ce_inputs(n=n, nh=1024, vocab=20004, seed=n)
+    args = (torch.from_numpy(h).cuda(), torch.from_numpy(w).cuda(), torch.from_numpy(tgt).cuda())
+    name = "ce_fwd_train" if save else "ce_fwd"
+    launches = build.LAUNCHES[name]
+    got = ce_cuda.ce_forward(*args, torch.bfloat16, save_logits=save)
+    ref = ce_cuda.ce_logp_plain(*args, torch.bfloat16, save_logits=save)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[name] == launches + 1
+    torch.testing.assert_close(got[0], ref[0], atol=1e-3, rtol=0)
+    torch.testing.assert_close(got[1], ref[1], atol=1e-3, rtol=0)
+    if save:
+        spill, rspill = got[2], ref[2]
+        assert spill.shape == (n, 20004) and spill.dtype == torch.bfloat16
+        d = (spill.float() - rspill.float()).abs()
+        assert bool((d <= 2.0 ** -7 * rspill.float().abs() + 1e-5).all())

@@ -79,15 +79,44 @@ def test_lstm_mma_plan(kind, nsm, rows, H):
     assert len(plan.args()) == len(names) and all(isinstance(a, int) for a in plan.args())
 
 
+@pytest.mark.parametrize("H", [200, 1024])
+@pytest.mark.parametrize("rows", [20, 32, 37, 64, 640])
+@pytest.mark.parametrize("nsm", [NSM, NSM_PCIE])
+def test_lstm_residual_plan(nsm, rows, H):
+    """The residual-saving forward (``save_residuals``) runs on
+    ``csrc/lstm_infer.cu`` too: its plan is a partition that fits, its
+    (n_sub, m_group) is a built residual instantiation (LSTM_RESID_CASE),
+    and up to 16 m-tiles (the training batch B 32, a short last batch of
+    20) it is the plan of the forward without residuals."""
+    plan = lstm_cuda.infer_plan(rows, H, nsm, save_residuals=True)
+    assert (plan.kind, plan.rows, plan.H) == ("infer", rows, H)
+    assert plan.n_sub == (1 if H <= 8 * nsm else 2)
+    owners = lstm_cuda.plan_owners(plan)
+    assert (owners[:, 2] == 1).all(), "a (row, unit) pair is owned by no or several warps"
+    assert plan.smem_bytes <= 232448 and plan.blocks <= nsm and 1 <= plan.warps <= 16
+    src = _source("lstm_infer.cu")
+    built = {tuple(map(int, m)) for m in re.findall(r"^\s*LSTM_RESID_CASE\((\d+), (\d+)\)", src,
+                                                      re.M)}
+    assert built == set(lstm_cuda.RESID_VARIANTS)
+    assert (plan.n_sub, plan.m_group) in built
+    if plan.m_tiles <= 16:
+        assert plan == lstm_cuda.infer_plan(rows, H, nsm)
+    assert _entry_params(src, "lstm_infer")[-len(lstm_cuda.INFER_PLAN_ARGS) - 2] == \
+        "save_residuals"
+
+
 def test_lstm_mma_plan_main_paths():
     """The plans the main paths run, 128 blocks of 16 warps and 8 units
     each: the IW decoder's 640 rows with one m-tile column per warp (three
-    m-tiles per pass); the encoder's 32 rows as two m-tile columns x 8 K
-    slices; the training backward's 32 rows as one pass of two m-tiles, K
-    split over the 16 warps."""
+    m-tiles per pass); the encoder's 32 rows, and the training forward's
+    (with residuals), as two m-tile columns x 8 K slices; the training
+    backward's 32 rows as one pass of two m-tiles, K split over the 16
+    warps."""
     iw, enc, bwd = (lstm_cuda.infer_plan(640, 1024, NSM), lstm_cuda.infer_plan(32, 1024, NSM),
                     lstm_cuda.bwd_plan(32, 1024, NSM))
+    train = lstm_cuda.infer_plan(32, 1024, NSM, save_residuals=True)
     assert (iw.units_per_block, iw.blocks, iw.warps, iw.k_split, iw.m_group) == (8, 128, 16, 1, 3)
     assert (enc.units_per_block, enc.blocks, enc.warps, enc.k_split) == (8, 128, 16, 8)
+    assert train == enc and train.m_group == 1
     assert (bwd.units_per_block, bwd.blocks, bwd.warps, bwd.m_group) == (8, 128, 16, 2)
     assert np.all(lstm_cuda.plan_owners(bwd)[:, 2] == 1)

@@ -1,46 +1,42 @@
-// Masked-carry LSTM forward over a whole sequence, for Hopper (sm_90a).
+// Masked-carry LSTM forward over a whole sequence with f32 wh, for Hopper
+// (sm_90a), on CUDA cores.
 //
-// Replaces the JAX package's Pallas TPU kernels
+// Replaces the JAX package's Pallas TPU kernels for f32 wh:
 //   ops/lstm_pallas.py::_fwd_kernel   (kSaveResiduals = true:  hs, cs, gates, hT, cT)
-//   ops/lstm_pallas.py::_infer_kernel (kSaveResiduals = false: hs, hT, cT), f32 wh
-//                                     only; with bf16 wh it is lstm_infer.cu
+//   ops/lstm_pallas.py::_infer_kernel (kSaveResiduals = false: hs, hT, cT)
+// With bf16 wh, both forms are lstm_infer.cu (tensor cores); lstm_fwd refuses
+// wh_bf16 = 1 with cudaErrorInvalidValue.
 // Per step t, for gates (i, f, g, o) = (sigmoid, sigmoid, tanh, sigmoid) of
-//   a = xw[t] + h_{t-1}.astype(wh.dtype) @ wh          (f32 accumulation)
+//   a = xw[t] + h_{t-1} @ wh                            (f32 products)
 //   c_raw = f * c + i * g;  h_raw = o * tanh(c_raw)
 //   h = m * h_raw + (1 - m) * h;  c = m * c_raw + (1 - m) * c   (m = mask[t, row])
 // hs[t] / cs[t] are the KEPT states, as in the TPU kernels.
 //
 // What bounds it on the H100: the recurrence is serial in t, and each step is
 // a skinny product [B, H] x [H, 4H] that cannot start before the previous
-// step's h is complete everywhere. Re-reading wh (8 MB in bf16 at H = 1024)
+// step's h is complete everywhere. Re-reading wh (16 MB in f32 at H = 1024)
 // every step from device memory would make the sequence bound by bytes; the
 // least work is 2*T*B*H*4H operations plus one read of xw and one write of hs.
 //
 // Design: one persistent cooperative grid of ceil(H / J) blocks, J =
 // ceil(H / #SMs), so every block is resident at once. Block b owns hidden
 // units [b*J, b*J + J) and keeps their four gate columns of wh in shared
-// memory for the whole sequence ([H][J][4], 64 KB in bf16 at H = 1024, J = 8),
-// so wh is read from device memory once. Each step a block streams h_{t-1}
-// (kept in hs[t-1], L2-resident) through shared memory in chunks of KC (LB
-// loads in flight per thread), rounded to wh's type as the TPU kernel does,
+// memory for the whole sequence ([H][J][4]), so wh is read from device memory
+// once. Each step a block streams h_{t-1} (kept in hs[t-1], L2-resident)
+// through shared memory in chunks of KC (LB loads in flight per thread),
 // accumulates in f32 registers (4 rows x 4 gates per thread), applies the
 // cell and the masked carry for its units, writes h_t into hs[t], and waits
-// at a grid-wide barrier (cooperative_groups grid.sync) before the next
-// step reads hs[t]. Every block thus reads all of h_{t-1} (B*H*4 bytes) from
-// L2 each step, this design's own traffic cost. The cell state c lives in
-// cT (each element read and written by one thread only).
-// The product runs on CUDA cores (FMA). With f32 wh that is the route's
-// definition (tensor cores have no exact f32 product; TF32 keeps 10 bits of
-// mantissa). The bf16 residual-saving forward still pays this design's
-// per-step staging of h_{t-1}; lstm_infer.cu's tensor-core design (a bf16 h
-// ring in mma fragment order, cp.async staging, M split across warps) is
-// the model for moving it onto tensor cores.
+// at a grid-wide barrier (cooperative_groups grid.sync) before the next step
+// reads hs[t]. The cell state c lives in cT (each element read and written
+// by one thread only). The product runs on CUDA cores (FMA): that is the f32
+// route's definition (tensor cores have no exact f32 product; TF32 keeps 10
+// bits of mantissa). The f32 route serves the f32 checks and models whose H
+// keeps wh in f32; the main paths' bf16 wh never reaches it.
 //
 // Any T >= 1 and any B; H is limited by the shared memory of one block.
 // Reads of data written during the kernel (hs, cT) use __ldcg (L2, not L1).
 
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace cg = cooperative_groups;
@@ -52,30 +48,14 @@ constexpr int ROWS = 4;          // rows per thread
 constexpr int LB = 16;           // global loads a thread keeps in flight while staging
 constexpr int MAX_THREADS = 256;
 
-__device__ __forceinline__ float round_to(float v, float) { return v; }
-__device__ __forceinline__ float round_to(float v, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-__device__ __forceinline__ void load4(const float* p, float w[4]) {
-  float4 v = *reinterpret_cast<const float4*>(p);
-  w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float w[4]) {
-  uint2 raw = *reinterpret_cast<const uint2*>(p);
-  float2 a = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&raw.x));
-  float2 b = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&raw.y));
-  w[0] = a.x; w[1] = a.y; w[2] = b.x; w[3] = b.y;
-}
-
 __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
 
 __host__ __device__ __forceinline__ size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
-template <typename T, bool kSaveResiduals>
+template <bool kSaveResiduals>
 __global__ void lstm_fwd_kernel(const float* __restrict__ xw,
                                 const float* __restrict__ mask,
-                                const T* __restrict__ wh,
+                                const float* __restrict__ wh,
                                 const float* __restrict__ h0,
                                 const float* __restrict__ c0,
                                 float* hs, float* cs, float* gates,
@@ -86,8 +66,8 @@ __global__ void lstm_fwd_kernel(const float* __restrict__ xw,
   const int G = blockDim.x / J;             // row groups of ROWS rows
   const int BR = G * ROWS;                  // rows per tile
   const int ld_h = BR + 4;                  // padded row of the staged chunk
-  T* w_s = reinterpret_cast<T*>(smem);      // [H][J][4]
-  float* h_s = reinterpret_cast<float*>(smem + align16(sizeof(T) * 4 * (size_t)H * J));
+  float* w_s = reinterpret_cast<float*>(smem);  // [H][J][4]
+  float* h_s = reinterpret_cast<float*>(smem + align16(sizeof(float) * 4 * (size_t)H * J));
 
   const int tid = threadIdx.x;
   const int jj = tid % J, g = tid / J;
@@ -97,7 +77,7 @@ __global__ void lstm_fwd_kernel(const float* __restrict__ xw,
   for (int idx = tid; idx < H * J * 4; idx += blockDim.x) {
     const int q = idx % 4, jl = (idx / 4) % J, k = idx / (4 * J);
     const int u = blockIdx.x * J + jl;
-    w_s[idx] = u < H ? wh[(size_t)k * 4 * H + (size_t)q * H + u] : T(0.f);
+    w_s[idx] = u < H ? wh[(size_t)k * 4 * H + (size_t)q * H + u] : 0.f;
   }
   __syncthreads();
 
@@ -127,7 +107,7 @@ __global__ void lstm_fwd_kernel(const float* __restrict__ xw,
 #pragma unroll
           for (int u = 0; u < LB; ++u) {
             const int idx = base + u * blockDim.x + tid;
-            if (idx < n_el) h_s[(idx % KC) * ld_h + idx / KC] = round_to(v[u], T(0.f));
+            if (idx < n_el) h_s[(idx % KC) * ld_h + idx / KC] = v[u];
           }
         }
         __syncthreads();
@@ -135,8 +115,8 @@ __global__ void lstm_fwd_kernel(const float* __restrict__ xw,
 #pragma unroll 8
         for (int k = 0; k < kn; ++k) {
           const float4 hv = *reinterpret_cast<const float4*>(h_s + k * ld_h + g * ROWS);
-          float w[4];
-          load4(w_s + ((size_t)(kc + k) * J + jj) * 4, w);
+          const float4 wv = *reinterpret_cast<const float4*>(w_s + ((size_t)(kc + k) * J + jj) * 4);
+          const float w[4] = {wv.x, wv.y, wv.z, wv.w};
           const float hr[ROWS] = {hv.x, hv.y, hv.z, hv.w};
 #pragma unroll
           for (int i = 0; i < ROWS; ++i)
@@ -179,8 +159,8 @@ __global__ void lstm_fwd_kernel(const float* __restrict__ xw,
   }
 }
 
-template <typename T, bool kSaveResiduals>
-cudaError_t launch(const float* xw, const float* mask, const void* wh_raw,
+template <bool kSaveResiduals>
+cudaError_t launch(const float* xw, const float* mask, const float* wh,
                    const float* h0, const float* c0, float* hs, float* cs,
                    float* gates, float* hT, float* cT, int T_, int B, int H,
                    cudaStream_t stream) {
@@ -199,16 +179,15 @@ cudaError_t launch(const float* xw, const float* mask, const void* wh_raw,
   if (G < 1) G = 1;
   const int block = J * G;
   if (block > 1024) return cudaErrorInvalidValue;
-  const size_t smem = align16(sizeof(T) * 4 * (size_t)H * J)
+  const size_t smem = align16(sizeof(float) * 4 * (size_t)H * J)
                       + sizeof(float) * KC * (size_t)(G * ROWS + 4);
   if (smem > (size_t)smem_max) return cudaErrorInvalidValue;
-  auto kern = lstm_fwd_kernel<T, kSaveResiduals>;
+  auto kern = lstm_fwd_kernel<kSaveResiduals>;
   if ((err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
     return err;
   int per_sm = 0;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, block, smem))) return err;
   if (per_sm * nsm < grid) return cudaErrorCooperativeLaunchTooLarge;
-  const T* wh = static_cast<const T*>(wh_raw);
   void* args[] = {(void*)&xw, (void*)&mask, (void*)&wh, (void*)&h0, (void*)&c0,
                   (void*)&hs, (void*)&cs, (void*)&gates, (void*)&hT, (void*)&cT,
                   (void*)&T_, (void*)&B, (void*)&H, (void*)&J};
@@ -221,23 +200,21 @@ cudaError_t launch(const float* xw, const float* mask, const void* wh_raw,
 
 extern "C" {
 
-// xw [T, B, 4H] f32; mask [T, B] f32; wh [H, 4H] bf16 (wh_bf16 = 1, only with
-// save_residuals) or f32; h0, c0 [B, H] f32. Writes hs [T, B, H], hT, cT
-// [B, H] and, when save_residuals, cs [T, B, H] and gates [T, B, 4H]
-// (activations i, f, g, o).
+// xw [T, B, 4H] f32; mask [T, B] f32; wh [H, 4H] f32 (wh_bf16 = 0; bf16 wh
+// is lstm_infer.cu's and refused here); h0, c0 [B, H] f32. Writes hs
+// [T, B, H], hT, cT [B, H] and, when save_residuals, cs [T, B, H] and gates
+// [T, B, 4H] (activations i, f, g, o).
 // All arrays contiguous on the current device. Returns a cudaError_t.
 int lstm_fwd(const float* xw, const float* mask, const void* wh, int wh_bf16,
              const float* h0, const float* c0, float* hs, float* cs, float* gates,
              float* hT, float* cT, int T, int B, int H, int save_residuals,
              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (wh_bf16) {
-    if (!save_residuals) return cudaErrorInvalidValue;  // the tensor-core lstm_infer.cu
-    return launch<__nv_bfloat16, true>(xw, mask, wh, h0, c0, hs, cs, gates, hT, cT, T, B, H, s);
-  }
+  if (wh_bf16) return cudaErrorInvalidValue;  // the tensor-core lstm_infer.cu
+  const auto* w = static_cast<const float*>(wh);
   return save_residuals
-      ? launch<float, true>(xw, mask, wh, h0, c0, hs, cs, gates, hT, cT, T, B, H, s)
-      : launch<float, false>(xw, mask, wh, h0, c0, hs, cs, gates, hT, cT, T, B, H, s);
+      ? launch<true>(xw, mask, w, h0, c0, hs, cs, gates, hT, cT, T, B, H, s)
+      : launch<false>(xw, mask, w, h0, c0, hs, cs, gates, hT, cT, T, B, H, s);
 }
 
 const char* kernel_error_string(int err) {

@@ -1,15 +1,16 @@
-// Masked-carry LSTM forward without residuals, bf16 wh, on the tensor cores
-// of Hopper (sm_90a).
+// Masked-carry LSTM forward, bf16 wh, on the tensor cores of Hopper (sm_90a).
 //
-// Replaces the JAX package's Pallas TPU kernel
-//   ops/lstm_pallas.py::_infer_kernel  (pallas_call at line 238)
+// Replaces the JAX package's Pallas TPU kernels
+//   ops/lstm_pallas.py::_infer_kernel  (pallas_call at line 238): kSaveResiduals = false
+//   ops/lstm_pallas.py::_fwd_kernel    (pallas_call at line 126): kSaveResiduals = true,
+//     which also writes the residuals a backward pass needs: cs [T, rows, H]
+//     (the kept c) and gates [T, rows, 4H] (the activations i, f, g, o)
 // Per step t, for gates (i, f, g, o) = (sigmoid, sigmoid, tanh, sigmoid) of
 //   a = xw[t] + bf16(h_{t-1}) @ wh                      (f32 accumulation)
 //   c_raw = f * c + i * g;  h_raw = o * tanh(c_raw)
 //   h = m * h_raw + (1 - m) * h;  c = m * c_raw + (1 - m) * c   (m = mask[t, row])
-// Outputs hs [T, rows, H] (the KEPT h), hT, cT. xw [T, rows, 4H] f32, wh
-// [H, 4H] bf16. The f32-wh forward and the residual-saving forward are
-// lstm_fwd.cu.
+// Outputs hs [T, rows, H] (the KEPT h), hT, cT (and the residuals). xw
+// [T, rows, 4H] f32, wh [H, 4H] bf16. The f32-wh forward is lstm_fwd.cu.
 //
 // What bounds it on the H100, at the IW decoder's shape (T 96, rows 640,
 // H 1024; 128 blocks of 8 units):
@@ -23,7 +24,10 @@
 //   traffic per SM per k-step, about as long as that k-step's mma issue;
 // - the cell epilogue streams xw (1.0 GB over the call, 10.5 MB a step)
 //   and reads and writes the f32 state.
-// At 32 rows (the encoder) the barrier and the epilogue dominate.
+// At 32 rows (the encoder, and every training forward) the barrier and the
+// epilogue dominate. The residuals add 5 floats of stores per (row, unit)
+// and step to the epilogue (20 KB a step at 32 rows); the product, the ring
+// and the barrier are the same.
 //
 // Design:
 // - Persistent cooperative grid (launch plan from
@@ -52,7 +56,8 @@
 //   round trip, no transposition, no integer division in the loop, and no
 //   barrier between warps (a lane reads only what it copied itself).
 // - The epilogue's loads and stores are float2 (a lane's two units are
-//   adjacent; four lanes cover a row's 32-byte sector).
+//   adjacent; four lanes cover a row's 32-byte sector), the residuals too:
+//   cs like cT, and each gate's activations of the lane's two units.
 // - wh in f32 stays on CUDA cores (lstm_fwd.cu): tensor cores have no exact
 //   f32 product (TF32 keeps 10 bits of mantissa), and the f32 route is
 //   defined by f32 products.
@@ -89,13 +94,13 @@ __device__ __forceinline__ void st2(float* p, float a, float b, bool ok0, bool o
 }
 __device__ __forceinline__ float pick(float2 v, int e) { return e ? v.y : v.x; }
 
-template <int NT, int MG>
+template <int NT, int MG, bool kSaveResiduals>
 __global__ void __launch_bounds__(kMaxWarps * 32, 1)
 lstm_infer_kernel(const float* __restrict__ xw, const float* __restrict__ mask,
                   const __nv_bfloat16* __restrict__ wh, const float* __restrict__ h0,
-                  const float* __restrict__ c0, float* __restrict__ hs, float* __restrict__ hT,
-                  float* __restrict__ cT, __nv_bfloat16* __restrict__ ring, int T_, int rows,
-                  int H, int WK, int CK) {
+                  const float* __restrict__ c0, float* __restrict__ hs, float* __restrict__ cs,
+                  float* __restrict__ gates, float* __restrict__ hT, float* __restrict__ cT,
+                  __nv_bfloat16* __restrict__ ring, int T_, int rows, int H, int WK, int CK) {
   constexpr int NTILES = 4 * NT;  // n-tile q * NT + j: gate q, units [j*8, j*8 + 8)
   constexpr int J = 8 * NT;
   cg::grid_group grid = cg::this_grid();
@@ -273,17 +278,17 @@ lstm_infer_kernel(const float* __restrict__ xw, const float* __restrict__ mask,
           float hk[4];
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            float ck[2];
+            float ck[2], act[4][2];  // act[q][e]: gate q of unit + e
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               const int c = 2 * h + e;
-              const float ig = sigmoid(pick(x[h][0], e) + acc[m][j][c]);
-              const float fg = sigmoid(pick(x[h][1], e) + acc[m][NT + j][c]);
-              const float gg = tanhf(pick(x[h][2], e) + acc[m][2 * NT + j][c]);
-              const float og = sigmoid(pick(x[h][3], e) + acc[m][3 * NT + j][c]);
+              act[0][e] = sigmoid(pick(x[h][0], e) + acc[m][j][c]);
+              act[1][e] = sigmoid(pick(x[h][1], e) + acc[m][NT + j][c]);
+              act[2][e] = tanhf(pick(x[h][2], e) + acc[m][2 * NT + j][c]);
+              act[3][e] = sigmoid(pick(x[h][3], e) + acc[m][3 * NT + j][c]);
               const float c_prev = pick(cp[h], e), h_prev = pick(hp[h], e);
-              const float c_raw = fg * c_prev + ig * gg;
-              const float h_raw = og * tanhf(c_raw);
+              const float c_raw = act[1][e] * c_prev + act[0][e] * act[2][e];
+              const float h_raw = act[3][e] * tanhf(c_raw);
               const bool ok = rok[h] && uok[e];
               hk[c] = ok ? mk[h] * h_raw + (1.f - mk[h]) * h_prev : 0.f;
               ck[e] = mk[h] * c_raw + (1.f - mk[h]) * c_prev;
@@ -293,6 +298,13 @@ lstm_infer_kernel(const float* __restrict__ xw, const float* __restrict__ mask,
             st2(hs + (size_t)t * rows * H + so, hk[2 * h], hk[2 * h + 1], ok0, ok1, vec);
             st2(cT + so, ck[0], ck[1], ok0, ok1, vec);
             if (t == T_ - 1) st2(hT + so, hk[2 * h], hk[2 * h + 1], ok0, ok1, vec);
+            if (kSaveResiduals) {
+              st2(cs + (size_t)t * rows * H + so, ck[0], ck[1], ok0, ok1, vec);
+              float* gt = gates + ((size_t)t * rows + row[h]) * H4 + unit;
+#pragma unroll
+              for (int q = 0; q < 4; ++q)
+                st2(gt + (size_t)q * H, act[q][0], act[q][1], ok0, ok1, vec);
+            }
           }
           // hk of invalid pairs is 0: the ring's padding stays zero
           __nv_bfloat162 lo = __floats2bfloat162_rn(hk[0], hk[1]);
@@ -313,18 +325,18 @@ size_t smem_bytes_for(int H, int NT, int W, int WK, int MG, int CK) {
          + (size_t)(WK - 1) * (W / WK) * MG * 4 * NT * 512;
 }
 
-template <int NT, int MG>
+template <int NT, int MG, bool kSaveResiduals>
 cudaError_t launch(const float* xw, const float* mask, const __nv_bfloat16* wh, const float* h0,
-                   const float* c0, float* hs, float* hT, float* cT, __nv_bfloat16* ring,
-                   int T_, int rows, int H, int W, int WK, int CK, size_t smem,
-                   cudaStream_t stream) {
+                   const float* c0, float* hs, float* cs, float* gates, float* hT, float* cT,
+                   __nv_bfloat16* ring, int T_, int rows, int H, int W, int WK, int CK,
+                   size_t smem, cudaStream_t stream) {
   const int grid = cdiv(H, 8 * NT);
-  auto kern = lstm_infer_kernel<NT, MG>;
+  auto kern = lstm_infer_kernel<NT, MG, kSaveResiduals>;
   cudaError_t err = check_cooperative((const void*)kern, grid, W * 32, smem);
   if (err != cudaSuccess) return err;
   void* args[] = {(void*)&xw, (void*)&mask, (void*)&wh, (void*)&h0, (void*)&c0, (void*)&hs,
-                  (void*)&hT, (void*)&cT, (void*)&ring, (void*)&T_, (void*)&rows, (void*)&H,
-                  (void*)&WK, (void*)&CK};
+                  (void*)&cs, (void*)&gates, (void*)&hT, (void*)&cT, (void*)&ring, (void*)&T_,
+                  (void*)&rows, (void*)&H, (void*)&WK, (void*)&CK};
   err = cudaLaunchCooperativeKernel((void*)kern, dim3(grid), dim3(W * 32), args, smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -335,35 +347,46 @@ cudaError_t launch(const float* xw, const float* mask, const __nv_bfloat16* wh, 
 extern "C" {
 
 // xw [T, rows, 4H] f32, mask [T, rows] f32, wh [H, 4H] bf16, h0, c0 [rows, H]
-// f32. Writes hs [T, rows, H], hT, cT [rows, H] (f32); ring is the bf16 h
-// ring [2, ceil(rows/16), ceil(H/16), 256], zeros on entry. The launch plan
-// (ops/lstm_cuda.py::infer_plan): n_sub NT (J = 8 NT units per block), warps
-// W, k_split WK (W / WK m-tile columns), m_group MG, k_chunk CK (k-steps per
-// pipeline stage), stages, smem_bytes; it is checked here and refused with cudaErrorInvalidValue when it is not
-// one this kernel was built for. Returns a cudaError_t.
+// f32. Writes hs [T, rows, H], hT, cT [rows, H] (f32) and, when
+// save_residuals, cs [T, rows, H] and gates [T, rows, 4H] (f32; null
+// otherwise); ring is the bf16 h ring [2, ceil(rows/16), ceil(H/16), 256],
+// zeros on entry. The launch plan (ops/lstm_cuda.py::infer_plan): n_sub NT
+// (J = 8 NT units per block), warps W, k_split WK (W / WK m-tile columns),
+// m_group MG, k_chunk CK (k-steps per pipeline stage), stages, smem_bytes;
+// it is checked here and refused with cudaErrorInvalidValue when it is not
+// one this kernel was built for (LSTM_INFER_CASE without residuals,
+// LSTM_RESID_CASE with them). Returns a cudaError_t.
 int lstm_infer(const float* xw, const float* mask, const void* wh, const float* h0,
-               const float* c0, float* hs, float* hT, float* cT, void* ring, int T, int rows,
-               int H, int n_sub, int warps, int k_split, int m_group, int k_chunk, int stages,
-               int smem_bytes, void* stream) {
+               const float* c0, float* hs, float* cs, float* gates, float* hT, float* cT,
+               void* ring, int T, int rows, int H, int save_residuals, int n_sub, int warps,
+               int k_split, int m_group, int k_chunk, int stages, int smem_bytes, void* stream) {
   const int NT = n_sub, W = warps, WK = k_split, MG = m_group, CK = k_chunk;
   if (T < 1 || rows < 1 || H < 1 || W < 1 || W > kMaxWarps || WK < 1 || W % WK || CK < 1
       || stages != kStages || smem_bytes < 0
-      || (size_t)smem_bytes != smem_bytes_for(H, NT, W, WK, MG, CK))
+      || (size_t)smem_bytes != smem_bytes_for(H, NT, W, WK, MG, CK)
+      || (save_residuals && (!cs || !gates)))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* w = static_cast<const __nv_bfloat16*>(wh);
   auto* r = static_cast<__nv_bfloat16*>(ring);
   const size_t sm = smem_bytes;
-#define LSTM_INFER_CASE(nt, mg)                                                                 \
-  if (NT == nt && MG == mg)                                                                     \
-    return launch<nt, mg>(xw, mask, w, h0, c0, hs, hT, cT, r, T, rows, H, W, WK, CK, sm, s);
+#define LSTM_CASE(nt, mg, res)                                                                  \
+  if (NT == nt && MG == mg && !save_residuals == !res)                                          \
+    return launch<nt, mg, res>(xw, mask, w, h0, c0, hs, cs, gates, hT, cT, r, T, rows, H, W,   \
+                               WK, CK, sm, s);
+#define LSTM_INFER_CASE(nt, mg) LSTM_CASE(nt, mg, false)
+#define LSTM_RESID_CASE(nt, mg) LSTM_CASE(nt, mg, true)
   LSTM_INFER_CASE(1, 1)
   LSTM_INFER_CASE(1, 2)
   LSTM_INFER_CASE(1, 3)
   LSTM_INFER_CASE(1, 4)
   LSTM_INFER_CASE(2, 1)
   LSTM_INFER_CASE(2, 2)
+  LSTM_RESID_CASE(1, 1)
+  LSTM_RESID_CASE(2, 1)
+#undef LSTM_RESID_CASE
 #undef LSTM_INFER_CASE
+#undef LSTM_CASE
   return cudaErrorInvalidValue;
 }
 

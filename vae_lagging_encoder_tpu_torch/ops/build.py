@@ -10,9 +10,10 @@ The file name carries a hash of the source and the flags, so an edited
 source is rebuilt and a stale library is never loaded. ``nvcc``'s output
 (``-Xptxas -v``: registers, shared memory, spills) is kept beside the
 library as ``<name>-<hash>.log``, followed by a census of each kernel's
-tensor-core (``HMMA``) and asynchronous-copy (``LDGSTS``) instructions from
-``cuobjdump -sass``; ``kernel_report`` reads both back. Nothing here runs at
-import time.
+tensor-core instructions (``HMMA``: ``mma.sync``; ``HGMMA``: ``wgmma``) and
+asynchronous copies (``LDGSTS``: ``cp.async``; ``UTMALDG``: TMA tile loads;
+``UBLKCP``: bulk copies) from ``cuobjdump -sass``; ``kernel_report`` reads
+both back. Nothing here runs at import time.
 
 This module is the port's counterpart of ``ops/vmem.py::pallas_available``
 in the JAX package: where that probe decided whether the Pallas kernels
@@ -119,12 +120,14 @@ def build(names: Iterable[str] = SOURCES) -> float:
     return time.perf_counter() - t0
 
 
-SASS_COUNTED = ("HMMA", "LDGSTS")
+SASS_COUNTED = ("HMMA", "HGMMA", "LDGSTS", "UTMALDG", "UBLKCP")
+TENSOR_CORE_SASS = ("HMMA", "HGMMA")
+ASYNC_COPY_SASS = ("LDGSTS", "UTMALDG", "UBLKCP")
 
 
 def _sass_census(lib: Path, nvcc: str) -> str:
-    """``sass <function> HMMA <n> LDGSTS <n>`` lines for each kernel in
-    ``lib``, from ``cuobjdump -sass`` beside ``nvcc``."""
+    """``sass <function> HMMA <n> HGMMA <n> ...`` lines (``SASS_COUNTED``)
+    for each kernel in ``lib``, from ``cuobjdump -sass`` beside ``nvcc``."""
     tool = Path(nvcc).parent / "cuobjdump"
     if not tool.is_file():
         return "sass census: cuobjdump not found\n"

@@ -8,8 +8,14 @@ the autograd Function.
 (``save_logits=True``): it also returns the logits rounded to the operand
 type as the backward's residual, and as ``lse`` the logsumexp of those
 rounded logits (``s2``), so each backward softmax row sums to exactly 1.
-On a CUDA tensor it launches ``csrc/ce_fwd.cu`` (``ce_fwd`` or
-``ce_fwd_train``, or raises); on a CPU tensor it runs ``ce_logp_plain``.
+On a CUDA tensor it launches ``csrc/ce_fwd.cu`` (counted as ``ce_fwd`` or
+``ce_fwd_train``; raises on what the kernel does not take); on a CPU
+tensor it runs ``ce_logp_plain``. With bf16 operands (the main paths) the
+kernel runs on the tensor cores (wgmma) under the launch plan ``ce_plan``,
+which the kernel checks; it reads h in bf16 as it is (a copy only where a
+row is not 16-byte aligned), packs W (f32 or bf16) into a zero-padded
+K-major bf16 copy W^T [Vp, Kp] itself, and spills into [N, Vp], returned
+as the [:, :V] view.
 
 ``FusedCEFn`` is the counterpart of ``_fused_ce`` with its
 ``_fused_ce_fwd``/``_fused_ce_bwd``: the grad-mode forward, then the
@@ -23,15 +29,111 @@ to XLA.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
 
 from . import build
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_TRAIN_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 PLAIN_ROW_CHUNK = 8192  # rows of [rows, V] logits the plain version holds at once
+
+# --------------------------------------------------------------- launch plan
+# Constants the bf16 kernel is built for (csrc/ce_fwd.cu: kWarpgroups, kBN,
+# kBK, kStages, kAlign); tests/test_torch_port_ce_plan.py reads them back.
+CE_WARPGROUPS = 2       # 64-row wgmma warpgroups a block
+CE_BLOCK_N = 256        # vocab columns a tile (wgmma n)
+CE_BLOCK_K = 64         # K slab: 128 bytes of bf16, the 128-byte swizzle
+CE_STAGES = 4           # shared-memory ring depth
+CE_ALIGN = 1024         # ring alignment of the swizzle
+# ctypes order of the plan fields after the layout, as the C entry point names them
+CE_PLAN_ARGS = ("block_m", "block_n", "block_k", "stages", "splits", "blocks", "smem_bytes")
+_BF16_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * (8 + len(CE_PLAN_ARGS))
+                  + [ctypes.c_void_p])
+_F32_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _round_up(a: int, b: int) -> int:
+    return _cdiv(a, b) * b
+
+
+@dataclass(frozen=True)
+class CEPlan:
+    """Launch plan of the bf16 CE kernel for h [N, nh], W [nh, V].
+
+    Block b takes row tile ``b % row_tiles`` (``block_m`` rows) and the
+    vocab tiles ``vocab_range(b // row_tiles)``; the ``splits`` blocks of a
+    row tile partition the ``vocab_tiles`` tiles of ``block_n`` columns.
+    Operands: h read in place with row stride ``ldh`` (a zero-padded copy
+    when nh is not a multiple of 8), W as W^T ``[Vp, Kp]`` zero-padded to
+    whole tiles and K slabs; the grad-mode spill is ``[N, Vp]``."""
+    N: int
+    nh: int
+    V: int
+    splits: int
+    block_m: int = 64 * CE_WARPGROUPS
+    block_n: int = CE_BLOCK_N
+    block_k: int = CE_BLOCK_K
+    stages: int = CE_STAGES
+
+    @property
+    def row_tiles(self) -> int:
+        return _cdiv(self.N, self.block_m)
+
+    @property
+    def vocab_tiles(self) -> int:
+        return _cdiv(self.V, self.block_n)
+
+    @property
+    def Vp(self) -> int:
+        return self.vocab_tiles * self.block_n
+
+    @property
+    def Kp(self) -> int:
+        return _round_up(self.nh, self.block_k)
+
+    @property
+    def ldh(self) -> int:
+        return _round_up(self.nh, 8)
+
+    @property
+    def blocks(self) -> int:
+        return self.row_tiles * self.splits
+
+    @property
+    def stage_bytes(self) -> int:
+        return (self.block_m + self.block_n) * self.block_k * 2
+
+    @property
+    def smem_bytes(self) -> int:
+        """The ring, plus slack to align it to the swizzle's 1024 bytes."""
+        return self.stages * self.stage_bytes + CE_ALIGN
+
+    def vocab_range(self, split: int) -> Tuple[int, int]:
+        """Vocab tiles [t0, t1) of ``split``, as the kernel computes them."""
+        nv = self.vocab_tiles
+        return split * nv // self.splits, (split + 1) * nv // self.splits
+
+    def args(self) -> Tuple[int, ...]:
+        return tuple(getattr(self, n) for n in CE_PLAN_ARGS)
+
+
+def ce_plan(N: int, nh: int, V: int, nsm: int) -> CEPlan:
+    """The bf16 kernel's plan. One block fits an SM (its ring takes 193 KB
+    of shared memory), so with fewer row tiles than SMs the vocab tiles of
+    each row tile are split over the most blocks that still run in one wave
+    (``nsm // row_tiles``, at most one tile each); with as many row tiles as
+    SMs or more, no split."""
+    one = CEPlan(N, nh, V, 1)
+    return CEPlan(N, nh, V, max(1, min(one.vocab_tiles, nsm // one.row_tiles)))
+
+
+def _num_sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def ce_logp_plain(h: torch.Tensor, w: torch.Tensor, tgt: torch.Tensor,
@@ -62,6 +164,7 @@ def ce_logp_plain(h: torch.Tensor, w: torch.Tensor, tgt: torch.Tensor,
 
 
 def _lib(name: str, argtypes) -> ctypes.CDLL:
+    """``csrc/ce_fwd.cu``'s library with the C function ``name`` typed."""
     lib = build.library("ce_fwd")
     fn = getattr(lib, name)
     if fn.argtypes is None:
@@ -89,22 +192,47 @@ def ce_forward(h: torch.Tensor, w: torch.Tensor, tgt: torch.Tensor,
         raise ValueError("ce_forward: all inputs must be on one device")
     V = w.shape[1]
     dt = operand_dtype or torch.float32
-    h = h.to(dt).contiguous()
-    w = w.to(dt).contiguous()
+    dev = h.device
     tgt = tgt.to(torch.int32).contiguous()
-    logp = torch.empty((N,), device=h.device)
-    lse = torch.empty((N,), device=h.device)
-    spill = torch.empty((N, V), device=h.device, dtype=dt) if save_logits else None
+    logp = torch.empty((N,), device=dev)
+    lse = torch.empty((N,), device=dev)
     if N == 0:
+        spill = torch.empty((0, V), device=dev, dtype=dt) if save_logits else None
         return (logp, lse) + ((spill,) if save_logits else ())
     name = "ce_fwd_train" if save_logits else "ce_fwd"
-    lib = _lib(name, _TRAIN_ARGTYPES if save_logits else _ARGTYPES)
-    args = (h.data_ptr(), w.data_ptr(), tgt.data_ptr(), logp.data_ptr(), lse.data_ptr()) \
-        + ((spill.data_ptr(),) if save_logits else ()) \
-        + (N, nh, V, int(dt == torch.bfloat16), torch.cuda.current_stream(h.device).cuda_stream)
-    with torch.cuda.device(h.device):
-        err = getattr(lib, name)(*args)
-    build.check(lib, err, name)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if dt == torch.bfloat16:
+        plan = ce_plan(N, nh, V, _num_sms(dev))
+        h = h.to(dt).contiguous()
+        if plan.ldh != nh:
+            h = torch.nn.functional.pad(h, (0, plan.ldh - nh))
+        elif h.data_ptr() % 16:
+            h = h.clone()
+        if w.dtype not in (torch.float32, torch.bfloat16):
+            w = w.float()
+        w = w.contiguous()
+        wt = torch.empty((plan.Vp, plan.Kp), device=dev, dtype=dt)  # the kernel fills it
+        spill = torch.empty((N, plan.Vp), device=dev, dtype=dt) if save_logits else None
+        part = torch.empty((4, plan.splits, N), device=dev) if plan.splits > 1 else None
+        lib = _lib("ce_fwd_bf16", _BF16_ARGTYPES)
+        with torch.cuda.device(dev):
+            err = lib.ce_fwd_bf16(
+                h.data_ptr(), w.data_ptr(), wt.data_ptr(), tgt.data_ptr(), logp.data_ptr(),
+                lse.data_ptr(), spill.data_ptr() if save_logits else None,
+                part.data_ptr() if part is not None else None, N, nh, V, plan.ldh, plan.Vp,
+                plan.Kp, int(w.dtype == torch.float32), int(save_logits), *plan.args(), stream)
+        build.check(lib, err, name)
+        spill = spill[:, :V] if save_logits else None
+    else:
+        h = h.float().contiguous()
+        w = w.float().contiguous()
+        spill = torch.empty((N, V), device=dev) if save_logits else None
+        lib = _lib("ce_fwd_f32", _F32_ARGTYPES)
+        with torch.cuda.device(dev):
+            err = lib.ce_fwd_f32(h.data_ptr(), w.data_ptr(), tgt.data_ptr(), logp.data_ptr(),
+                                 lse.data_ptr(), spill.data_ptr() if save_logits else None,
+                                 N, nh, V, int(save_logits), stream)
+        build.check(lib, err, name)
     build.LAUNCHES[name] += 1
     return (logp, lse) + ((spill,) if save_logits else ())
 

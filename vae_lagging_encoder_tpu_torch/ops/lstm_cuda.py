@@ -5,8 +5,8 @@ plain versions + the autograd Function.
   ``ops/lstm_pallas.py::_fwd_kernel`` (``save_residuals=True``: also the
   cell states and gate activations a backward pass needs) and
   ``_infer_kernel`` (``save_residuals=False``); it launches
-  ``csrc/lstm_infer.cu`` (tensor cores) for the bf16 forward without
-  residuals and ``csrc/lstm_fwd.cu`` otherwise.
+  ``csrc/lstm_infer.cu`` (tensor cores) for bf16 ``wh``, with or without
+  residuals, and ``csrc/lstm_fwd.cu`` (CUDA cores) for f32 ``wh``.
 - ``lstm_bwd`` is the counterpart of ``_bwd_kernel`` (the reverse-time
   sweep); it launches ``csrc/lstm_bwd.cu`` (tensor cores with bf16 ``wh``,
   CUDA cores with f32).
@@ -52,15 +52,18 @@ SMEM_MAX = 232448       # dynamic shared memory one H100 block may opt into
 # (n_sub, m_group) instantiations of each kernel. The forward keeps
 # m_group x 4 n_sub accumulator tiles per lane (<= 64 f32 registers); n_sub 2
 # (16 units per block) serves H > 8 x the SM count (H 1024 on a 114-SM
-# H100 PCIe).
+# H100 PCIe). The residual-saving forward runs at the training batch (up to
+# 16 m-tiles, one m-tile a warp per pass); more rows take more passes.
 INFER_VARIANTS = ((1, 1), (1, 2), (1, 3), (1, 4), (2, 1), (2, 2))
+RESID_VARIANTS = ((1, 1), (2, 1))
 BWD_VARIANTS = tuple((nt, mg) for nt in (1, 2) for mg in (1, 2, 3, 4))
 # ctypes order of the plan fields after (T, rows, H), as the C entry points
 # name them
 INFER_PLAN_ARGS = ("n_sub", "warps", "k_split", "m_group", "k_chunk", "stages", "smem_bytes")
 BWD_PLAN_ARGS = ("n_sub", "warps", "m_group", "k_chunk", "stages", "smem_bytes")
-# lstm_infer and lstm_bwd_bf16: pointers, (T, rows, H), the plan, the stream
-INFER_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * (3 + len(INFER_PLAN_ARGS))
+# lstm_infer: pointers, (T, rows, H, save_residuals), the plan, the stream;
+# lstm_bwd_bf16: pointers, (T, rows, H), the plan, the stream
+INFER_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * (4 + len(INFER_PLAN_ARGS))
                   + [ctypes.c_void_p])
 BWD_BF16_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * (3 + len(BWD_PLAN_ARGS))
                      + [ctypes.c_void_p])
@@ -144,20 +147,23 @@ def _n_sub(H: int, nsm: int) -> int:
     return nt
 
 
-def infer_plan(rows: int, H: int, nsm: int) -> MMAPlan:
+def infer_plan(rows: int, H: int, nsm: int, save_residuals: bool = False) -> MMAPlan:
     """The forward's plan: every block takes all rows. Up to 16 m-tile
     columns, each warp owning every WM-th m-tile; when there are fewer than
-    16 m-tiles, the spare warps split K instead. The deepest pipeline stage
-    (k_chunk <= 4) that fits. Raises when no instantiated plan fits."""
+    16 m-tiles, the spare warps split K instead. The most m-tiles a pass
+    that the kernel was built for (``INFER_VARIANTS``, or
+    ``RESID_VARIANTS`` with ``save_residuals``), then the deepest pipeline
+    stage (k_chunk <= 4) that fits. Raises when no instantiated plan fits."""
     nt = _n_sub(H, nsm)
     mt = _cdiv(rows, 16)
     wm = min(MAX_WARPS, mt)
     wk = min(MAX_WARPS // wm, _cdiv(H, 16))
-    mg = min(4 // nt, _cdiv(mt, wm))
-    for ck in range(4, 0, -1):
-        plan = MMAPlan("infer", rows, H, nt, wm * wk, mg, ck, wk)
-        if (nt, mg) in INFER_VARIANTS and plan.smem_bytes <= SMEM_MAX:
-            return plan
+    variants = RESID_VARIANTS if save_residuals else INFER_VARIANTS
+    for mg in range(min(4 // nt, _cdiv(mt, wm)), 0, -1):
+        for ck in range(4, 0, -1):
+            plan = MMAPlan("infer", rows, H, nt, wm * wk, mg, ck, wk)
+            if (nt, mg) in variants and plan.smem_bytes <= SMEM_MAX:
+                return plan
     raise ValueError(f"lstm_seq: no tensor-core plan for rows {rows}, H {H} on {nsm} SMs "
                      "(H too large for one block's shared memory)")
 
@@ -329,8 +335,9 @@ def lstm_seq(xw: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     if T == 0:
         return lstm_seq_plain(xw, mask, wh, h0, c0, save_residuals)
     xw, mask, wh, h0, c0 = (a.contiguous() for a in (xw, mask, wh, h0, c0))
-    if wh.dtype == torch.bfloat16 and not save_residuals:
-        return lstm_infer(xw, mask, wh, h0, c0, infer_plan(B, H, _num_sms(xw.device)))
+    if wh.dtype == torch.bfloat16:
+        plan = infer_plan(B, H, _num_sms(xw.device), save_residuals)
+        return lstm_infer(xw, mask, wh, h0, c0, plan, save_residuals)
     hs = torch.empty((T, B, H), device=xw.device)
     hT = torch.empty((B, H), device=xw.device)
     cT = torch.empty((B, H), device=xw.device)
@@ -339,7 +346,7 @@ def lstm_seq(xw: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     lib = _lib("lstm_fwd", _ARGTYPES)
     with torch.cuda.device(xw.device):
         err = lib.lstm_fwd(
-            xw.data_ptr(), mask.data_ptr(), wh.data_ptr(), int(wh.dtype == torch.bfloat16),
+            xw.data_ptr(), mask.data_ptr(), wh.data_ptr(), 0,
             h0.data_ptr(), c0.data_ptr(), hs.data_ptr(),
             cs.data_ptr() if save_residuals else None,
             gates.data_ptr() if save_residuals else None,
@@ -353,10 +360,12 @@ def lstm_seq(xw: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
 
 
 def lstm_infer(xw: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor, h0: torch.Tensor,
-               c0: torch.Tensor, plan: MMAPlan) -> Tuple[torch.Tensor, ...]:
-    """The bf16 forward without residuals on ``csrc/lstm_infer.cu`` with
-    ``plan`` (``infer_plan``): ``(hs, hT, cT)``. Takes contiguous CUDA
-    tensors that passed ``lstm_seq``'s checks; ``lstm_seq`` calls it."""
+               c0: torch.Tensor, plan: MMAPlan,
+               save_residuals: bool = False) -> Tuple[torch.Tensor, ...]:
+    """The bf16 forward on ``csrc/lstm_infer.cu`` with ``plan``
+    (``infer_plan``): ``(hs, hT, cT)``, or with ``save_residuals``
+    ``(hs, cs, gates, hT, cT)``. Takes contiguous CUDA tensors that passed
+    ``lstm_seq``'s checks; ``lstm_seq`` calls it."""
     T, B, H4 = xw.shape
     H = H4 // 4
     if (plan.kind, plan.rows, plan.H) != ("infer", B, H) or wh.dtype != torch.bfloat16:
@@ -364,15 +373,21 @@ def lstm_infer(xw: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor, h0: torch
     hs = torch.empty((T, B, H), device=xw.device)
     hT = torch.empty((B, H), device=xw.device)
     cT = torch.empty((B, H), device=xw.device)
+    cs = torch.empty((T, B, H), device=xw.device) if save_residuals else None
+    gates = torch.empty((T, B, H4), device=xw.device) if save_residuals else None
     ring = torch.zeros(plan.ring_elems, device=xw.device, dtype=torch.bfloat16)
     lib = _lib("lstm_infer", INFER_ARGTYPES)
     with torch.cuda.device(xw.device):
         err = lib.lstm_infer(
             xw.data_ptr(), mask.data_ptr(), wh.data_ptr(), h0.data_ptr(), c0.data_ptr(),
-            hs.data_ptr(), hT.data_ptr(), cT.data_ptr(), ring.data_ptr(), T, B, H,
-            *plan.args(), torch.cuda.current_stream(xw.device).cuda_stream)
+            hs.data_ptr(), cs.data_ptr() if save_residuals else None,
+            gates.data_ptr() if save_residuals else None, hT.data_ptr(), cT.data_ptr(),
+            ring.data_ptr(), T, B, H, int(save_residuals), *plan.args(),
+            torch.cuda.current_stream(xw.device).cuda_stream)
     build.check(lib, err, "lstm_infer")
-    build.LAUNCHES["lstm_fwd_infer"] += 1
+    build.LAUNCHES["lstm_fwd_residuals" if save_residuals else "lstm_fwd_infer"] += 1
+    if save_residuals:
+        return hs, cs, gates, hT, cT
     return hs, hT, cT
 
 
