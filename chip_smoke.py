@@ -44,10 +44,26 @@ Phases (each raises on failure; the script then exits non-zero):
    against the plain versions on the same eps and dropout draws, and three
    forward+backward steps run under ``torch.profiler``: the top device
    ops and the device's idle share go on a ``{"trace": ...}`` line (a
-   failure there is printed, not raised).
+   failure there is printed, not raised);
+5. the image slice end to end through ``cli.image.main`` at the full
+   OmniGlot config (B 50, ResNet encoder (64, 64, 64), PixelCNN 8 x 64 with
+   a 7x7 first kernel, nz 32, Adam 1e-3): a synthetic-substitute ``.npz``
+   (400 training images, 8 batches; 100 validation, 200 test), ``--epochs 2
+   --aggressive 1 --warm_up 1 --kl_start 0.1``, then one plain epoch, then
+   ``--eval`` of the best checkpoint at the default 500/100 IW; results
+   finite, AU in [0, 32], the checkpoints load strictly, no kernel of the
+   text path launched; one training batch's loss and gradients and a
+   16-image IW-NLL at 30 samples on the card against the port's CPU f32
+   path (tolerances stated there); three training steps and one IW batch
+   under ``torch.profiler``. The convs are cuDNN's (no hand-written kernel
+   is owed on this path: the JAX package's are XLA convs, not Pallas).
+   The precision flags stay at PyTorch's defaults, as the CLI runs them.
 
-Prints one JSON line per kernel, ``{"trace_iw": ...}`` and
-``{"trace": ...}`` lines, a ``{"kernels": [...]}`` line, the card's name and
+Prints one JSON line per kernel, ``{"trace_iw": ...}``, ``{"trace": ...}``,
+``{"image": ...}`` (steps/s, IW images/s, per-evaluator seconds, peak
+device memory), ``{"image_cross_check": ...}``, ``{"trace_image": ...}``
+and ``{"trace_image_iw": ...}`` lines, a ``{"kernels": [...]}`` line (its
+``launches_by_path`` with the image paths' counts, 0), the card's name and
 power limit, and as the last line ``{"ok": true,
 "device": {...}}``. Exits non-zero, printing no result, when no CUDA
 device is available or the port's package is missing.
@@ -823,6 +839,208 @@ def trace_iw(pool, ck, cfg, vocab_size, dev):
     return profiled(batch, batches=1, sentences=int(x.shape[0]), iw_nsamples=cfg.iw_nsamples)
 
 
+# ---------------------------------------------------------------- phase 5
+IMG_SPLITS = {"train": 400, "val": 100, "test": 200}  # 8 training batches of 50
+IMG_NZ = 32
+IMG_TRAIN_IW = 100       # --iw_nsamples of the training runs' final evaluations
+IMG_CROSS_ROWS, IMG_CROSS_IW = 16, 30  # IW cross-check: 2 chunks of 25, the second padded
+# Card against the port's CPU f32 path, both f32 with TF32 off, on the same
+# weights, binarization and eps: only the order of the sums (cuDNN's
+# algorithms against the CPU's) differs. Per-image BCE sums of ~100-300
+# nats then agree to ~1e-6 relative; gradients, sums over 50 x 784 pixels,
+# to ~1e-5 of each leaf's scale. TF32 (10-bit mantissa) would miss both by
+# ~10x.
+IMG_LOSS_RTOL = 2e-5
+IMG_GRAD_TOL = 2e-4      # of each leaf's largest entry, and of the global norm
+IMG_IW_RTOL = 2e-5       # per-image IW-NLL
+
+
+def write_omniglot_npz(path: Path):
+    """The port's synthetic OmniGlot substitute (class-structured glyphs;
+    train, val and test on disjoint prototypes) at IMG_SPLITS' sizes."""
+    from vae_lagging_encoder_tpu_torch.data import omniglot as og
+
+    sizes, og._SYNTH_SIZES = og._SYNTH_SIZES, dict(IMG_SPLITS)
+    try:
+        data = og._synthetic_omniglot(seed=1)
+    finally:
+        og._SYNTH_SIZES = sizes
+        og._SYNTH_CACHE.pop(1, None)
+    np.savez(path, **data)
+    return data
+
+
+def run_image_cli(argv, exp_dir: Path):
+    """``cli.image.main(argv)`` with the counters set to 0 just before it;
+    returns the launches, per-epoch metrics, the test results and the
+    per-evaluator seconds, the wall seconds and the peak device memory."""
+    from vae_lagging_encoder_tpu_torch.cli import image as cli_image
+    from vae_lagging_encoder_tpu_torch.ops import build
+
+    log(f"[image] python -m vae_lagging_encoder_tpu_torch.cli.image {' '.join(argv)}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    rc = cli_image.main(argv + ["--exp_dir", str(exp_dir)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    if rc != 0:
+        raise AssertionError(f"cli.image.main returned {rc}")
+    records = [json.loads(l) for l in (exp_dir / "log.metrics.jsonl").read_text().splitlines()]
+    return dict(launches=launches, epochs=[r for r in records if "val_loss" in r],
+                results=next(r for r in records if r.get("split") == "test"),
+                seconds=next(r for r in records if r.get("split") == "test_seconds"),
+                wall=wall, max_memory_allocated=torch.cuda.max_memory_allocated())
+
+
+def check_image_results(name, run):
+    res = run["results"]
+    vals = [res[k] for k in ("elbo_loss", "rec", "kl", "mi", "iw_nll", "iw_ppl")] + \
+        [e[k] for e in run["epochs"] for k in ("train_loss", "val_loss")]
+    if not all(math.isfinite(v) for v in vals) or not 0 <= res["au"] <= IMG_NZ:
+        raise AssertionError(f"image {name}: non-finite or out-of-range results {res}")
+    if any(run["launches"].values()):
+        raise AssertionError(f"image {name}: the image path launched a text kernel "
+                             f"{run['launches']}")
+
+
+def run_image_slice(tmp: Path, dev):
+    """Phase 5: the aggressive run, one plain epoch and ``--eval`` of the
+    best checkpoint through ``cli.image.main`` at the full OmniGlot config."""
+    from vae_lagging_encoder_tpu_torch.config import get_config
+    from vae_lagging_encoder_tpu_torch.models import build_image_vae
+    from vae_lagging_encoder_tpu_torch.train.checkpoint import load_checkpoint
+    from vae_lagging_encoder_tpu_torch.utils.jax_params import from_jax_params
+
+    npz = tmp / "omniglot.npz"
+    data = write_omniglot_npz(npz)
+    cfg = get_config("omniglot", train_data=str(npz))
+    runs = {}
+    for name, extra in (("aggressive", ["--epochs", "2", "--aggressive", "1"]),
+                        ("plain", ["--epochs", "1", "--aggressive", "0"])):
+        ck = tmp / f"image_{name}.ckpt"
+        argv = ["--dataset", "omniglot", "--train_data", str(npz), *extra, "--warm_up", "1",
+                "--kl_start", "0.1", "--iw_nsamples", str(IMG_TRAIN_IW), "--save_path", str(ck)]
+        runs[name] = run_image_cli(argv, tmp / f"exp_image_{name}")
+        check_image_results(name, runs[name])
+        log(f"[image] {name}: epochs {json.dumps(runs[name]['epochs'])}; results "
+            f"{json.dumps(runs[name]['results'])}; whole CLI {runs[name]['wall']:.2f} s")
+        params, extra_state = load_checkpoint(str(ck))
+        vae = build_image_vae(cfg, device=dev)
+        vae.load_state_dict(from_jax_params(params))  # strict: every name and shape
+        if "opt_state" not in extra_state or extra_state["epoch"] not in range(
+                len(runs[name]["epochs"])):
+            raise AssertionError(f"image {name}: checkpoint extras {sorted(extra_state)}")
+    ck = tmp / "image_aggressive.ckpt"
+    runs["eval"] = run_image_cli(["--dataset", "omniglot", "--train_data", str(npz), "--eval",
+                                  "--load_path", str(ck)], tmp / "exp_image_eval")
+    check_image_results("eval", runs["eval"])
+    steps = {mode: [e["steps_per_sec"] for r in (runs["aggressive"], runs["plain"])
+                    for e in r["epochs"] if bool(e["epoch_aggressive"]) == (mode == "aggressive")]
+             for mode in ("aggressive", "plain")}
+    return runs, steps, data, ck, cfg
+
+
+def image_cross_check(data, ck, cfg, dev):
+    """One training batch (loss and every gradient leaf) and the IW-NLL of
+    IMG_CROSS_ROWS test images at IMG_CROSS_IW samples, on the card and with
+    the port's CPU f32 path, on the best checkpoint's weights and the same
+    binarization and eps."""
+    from vae_lagging_encoder_tpu_torch.models import build_image_vae
+    from vae_lagging_encoder_tpu_torch.train.aggressive import grads_of, make_grad_on
+    from vae_lagging_encoder_tpu_torch.train.checkpoint import load_checkpoint
+    from vae_lagging_encoder_tpu_torch.train.epoch import make_image_loss_fn
+    from vae_lagging_encoder_tpu_torch.train.optim import clip_scale
+    from vae_lagging_encoder_tpu_torch.utils.jax_params import from_jax_params
+
+    g = torch.Generator().manual_seed(21)
+    probs = torch.from_numpy(data["train"][:cfg.batch_size])
+    rw = torch.ones(cfg.batch_size)
+    draws = {"bin": torch.rand(probs.shape, generator=g),
+             "eps": torch.randn((cfg.batch_size, 1, IMG_NZ), generator=g)}
+    x_iw = (torch.rand((IMG_CROSS_ROWS, 28, 28, 1), generator=g)
+            < torch.from_numpy(data["test"][:IMG_CROSS_ROWS])).float()
+    eps_iw = torch.randn((IMG_CROSS_ROWS, IMG_CROSS_IW, IMG_NZ), generator=g)
+    params = from_jax_params(load_checkpoint(str(ck))[0])
+
+    def run(device):
+        vae = build_image_vae(cfg, device=device)
+        vae.load_state_dict(params)
+        grad_on = make_grad_on(vae, make_image_loss_fn(vae, nsamples=1, train=True))
+        with torch.enable_grad():
+            aux = grad_on((probs.to(device), rw.to(device)),
+                          lambda site, shape: draws[site].to(device), 0.7)
+        grads = {k: v.double().cpu() for k, v in grads_of(dict(vae.named_parameters())).items()}
+        with torch.no_grad():
+            nll = vae.nll_iw(x_iw.to(device), None, IMG_CROSS_IW, IMG_CROSS_IW,
+                             noise=lambda j, shape: eps_iw.to(device))
+        return (float(aux[0].detach()), grads, float(clip_scale(grads, cfg.clip_grad)[1]),
+                nll.double().cpu())
+
+    loss_c, grads_c, norm_c, nll_c = run(dev)
+    loss_p, grads_p, norm_p, nll_p = run("cpu")
+    rel = {k: float((grads_c[k] - grads_p[k]).abs().max()) / max(float(grads_p[k].abs().max()),
+                                                                  1e-30) for k in grads_p}
+    worst = max(rel, key=rel.get)
+    out = dict(loss=loss_c, loss_rel=abs(loss_c - loss_p) / abs(loss_p), norm=norm_c,
+               norm_rel=abs(norm_c - norm_p) / norm_p, worst_leaf=worst, worst_rel=rel[worst],
+               leaves=len(rel), iw_nll_mean=float(nll_c.mean()),
+               iw_rel=float(((nll_c - nll_p).abs() / nll_p.abs()).max()))
+    finite = all(torch.isfinite(v).all() for v in grads_c.values()) and bool(
+        torch.isfinite(nll_c).all())
+    if not (finite and out["loss_rel"] <= IMG_LOSS_RTOL and rel[worst] <= IMG_GRAD_TOL
+            and out["norm_rel"] <= IMG_GRAD_TOL and out["iw_rel"] <= IMG_IW_RTOL):
+        raise AssertionError(f"image cross-check against the CPU: {out} (tolerances loss "
+                             f"{IMG_LOSS_RTOL}, gradients {IMG_GRAD_TOL}, IW {IMG_IW_RTOL}), "
+                             f"finite {finite}")
+    return out
+
+
+def trace_image(data, ck, cfg, dev):
+    """``{"trace_image"}``: three training steps (forward+backward, B 50)
+    after one warm-up step; ``{"trace_image_iw"}``: one IW-NLL batch (50
+    test images, ``cfg.iw_nsamples`` samples in chunks of ``cfg.iw_batch``)
+    after one warm-up batch. Both on the best checkpoint's weights."""
+    from vae_lagging_encoder_tpu_torch.models import build_image_vae
+    from vae_lagging_encoder_tpu_torch.train.aggressive import make_grad_on
+    from vae_lagging_encoder_tpu_torch.train.checkpoint import load_checkpoint
+    from vae_lagging_encoder_tpu_torch.train.epoch import make_image_loss_fn
+    from vae_lagging_encoder_tpu_torch.utils.jax_params import from_jax_params
+
+    vae = build_image_vae(cfg, device=dev)
+    vae.load_state_dict(from_jax_params(load_checkpoint(str(ck))[0]))
+    g = torch.Generator(device=dev).manual_seed(22)
+    probs = torch.from_numpy(data["train"][:cfg.batch_size]).to(dev)
+    rw = torch.ones(cfg.batch_size, device=dev)
+    grad_on = make_grad_on(vae, make_image_loss_fn(vae, nsamples=1, train=True))
+
+    def draw(site, shape):
+        return (torch.rand if site == "bin" else torch.randn)(shape, generator=g, device=dev)
+
+    def step():
+        with torch.enable_grad():
+            grad_on((probs, rw), draw, 0.5)
+
+    step()
+    torch.cuda.synchronize()
+    train = profiled(lambda: [step() for _ in range(TRACE_STEPS)], steps=TRACE_STEPS)
+    x = (torch.rand(probs.shape, generator=g, device=dev)
+         < torch.from_numpy(data["test"][:cfg.batch_size]).to(dev)).float()
+
+    def batch():
+        with torch.no_grad():
+            vae.nll_iw(x, None, cfg.iw_nsamples, cfg.iw_batch, generator=g)
+
+    batch()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    iw = profiled(batch, batches=1, images=int(x.shape[0]), iw_nsamples=cfg.iw_nsamples)
+    iw["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    return train, iw
+
+
 KERNELS = [
     ("lstm_fwd_residuals", "vae_lagging_encoder_tpu_torch/csrc/lstm_infer.cu",
      "vae_lagging_encoder_tpu/ops/lstm_pallas.py:67", ("lstm", True, B, NI)),
@@ -850,9 +1068,15 @@ def main() -> int:
     sys.path.insert(0, str(repo))
     from vae_lagging_encoder_tpu_torch.ops import build
 
-    # phase 1 — device and build
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    marks = [time.perf_counter()]
+
+    def phase_done(name: str) -> None:
+        marks.append(time.perf_counter())
+        log(f"[phase {name}] {marks[-1] - marks[-2]:.1f} s")
+
+    # phase 1 — device and build (the precision flags stay at PyTorch's
+    # defaults, as ``python -m ...cli.image`` runs: the image convs turn
+    # TF32 off themselves, ops/conv.py)
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -876,6 +1100,7 @@ def main() -> int:
             raise AssertionError(f"{name}: no kernel with both tensor-core "
                                  f"({build.TENSOR_CORE_SASS}) and asynchronous-copy "
                                  f"({build.ASYNC_COPY_SASS}) instructions: {rep}")
+    phase_done("1")
 
     # phase 2 — kernels against their plain versions at the slice's shapes
     results = {}
@@ -889,6 +1114,7 @@ def main() -> int:
             r.update(name=name, source=source, replaces=replaces)
             results[name] = r
             log(json.dumps({"kernel_check": r}))
+    phase_done("2")
 
     # phase 3 — the slice end to end through the CLI
     with tempfile.TemporaryDirectory() as td:
@@ -913,6 +1139,7 @@ def main() -> int:
             trace_iw_res = trace_iw(pool, ck, cfg, vsize, dev)
         except Exception as e:  # the trace informs; it never fails the run
             trace_iw_res = {"error": f"{type(e).__name__}: {e}"}
+        phase_done("3")
 
         # phase 4 — the training slice end to end through the CLI
         train_runs, steps, train_pool, tcfg = run_training_slice(
@@ -927,13 +1154,43 @@ def main() -> int:
             trace = trace_steps(train_pool, tcfg, dev)
         except Exception as e:  # the trace informs; it never fails the run
             trace = {"error": f"{type(e).__name__}: {e}"}
+        phase_done("4")
+
+        # phase 5 — the image slice end to end through cli.image
+        img_runs, img_steps, img_data, img_ck, img_cfg = run_image_slice(Path(td), dev)
+        phase_done("5, the CLI runs")
+        ev = img_runs["eval"]
+        img_line = {"steps_per_sec": img_steps,
+                    "iw_images_per_sec": IMG_SPLITS["test"] / ev["seconds"]["iw"],
+                    "eval_seconds": {k: ev["seconds"][k] for k in ("elbo", "mi", "au", "iw")},
+                    "eval_max_memory_allocated": ev["max_memory_allocated"],
+                    "train_max_memory_allocated": max(img_runs[k]["max_memory_allocated"]
+                                                      for k in ("aggressive", "plain")),
+                    "eval_results": ev["results"], "device": torch.cuda.get_device_name(0),
+                    "nvidia_smi": smi}
+        log(f"[image] steps/s aggressive {json.dumps(img_steps['aggressive'])}, plain "
+            f"{json.dumps(img_steps['plain'])}; IW-NLL ({img_cfg.iw_nsamples} samples, chunks "
+            f"of {img_cfg.iw_batch}) {img_line['iw_images_per_sec']:.3f} images/s on "
+            f"{torch.cuda.get_device_name(0)} ({smi})")
+        img_cross = image_cross_check(img_data, img_ck, img_cfg, dev)
+        log(f"[image] card against the CPU f32 path: {json.dumps(img_cross)} (tolerances loss "
+            f"{IMG_LOSS_RTOL}, gradients {IMG_GRAD_TOL}, IW {IMG_IW_RTOL})")
+        phase_done("5, the cross-check")
+        try:
+            trace_img, trace_img_iw = trace_image(img_data, img_ck, img_cfg, dev)
+        except Exception as e:  # the traces inform; they never fail the run
+            trace_img = trace_img_iw = {"error": f"{type(e).__name__}: {e}"}
+        phase_done("5, the traces")
 
     train_launches = {k: sum(r["launches"][k] for r in train_runs.values()) for k in launches}
     kernels = []
     for name, source, replaces, spec in KERNELS:
         r = results[name]
         tol = TOL[(spec[0], "bf16")]
-        by_path = {"eval": launches[name], "train": train_launches[name]}
+        by_path = {"eval": launches[name], "train": train_launches[name],
+                   "image_train": sum(img_runs[k]["launches"][name]
+                                      for k in ("aggressive", "plain")),
+                   "image_eval": img_runs["eval"]["launches"][name]}
         if not sum(by_path.values()):
             raise AssertionError(f"{name} was launched no time on the main paths: {by_path}")
         kernels.append({"name": name, "route": "cuda", "source": source,
@@ -951,6 +1208,10 @@ def main() -> int:
                             "bound_ms", "bound_by", "library_ms", "library", "shape")}})
     print(json.dumps({"trace_iw": trace_iw_res}), flush=True)
     print(json.dumps({"trace": trace}), flush=True)
+    print(json.dumps({"image": img_line}), flush=True)
+    print(json.dumps({"image_cross_check": img_cross}), flush=True)
+    print(json.dumps({"trace_image": trace_img}), flush=True)
+    print(json.dumps({"trace_image_iw": trace_img_iw}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -10,6 +10,10 @@
   wrote; without ``--eval`` it trains, writes a best checkpoint with its
   optimizer state that the JAX package reads, and ``--resume`` continues
   from it exactly as the uninterrupted run went on.
+- The same for the image model, whose parameter and Adam-moment trees hold
+  lists: a checkpoint either package writes loads in the other, and
+  ``cli.image --device cpu`` trains at tiny width on an ``.npz``, resumes
+  exactly and evaluates its best checkpoint.
 """
 import ast
 import json
@@ -24,18 +28,23 @@ import numpy as np
 import pytest
 import torch
 
+from vae_lagging_encoder_tpu.models import build_image_vae as jax_build_image
 from vae_lagging_encoder_tpu.models import build_text_vae as jax_build
 from vae_lagging_encoder_tpu.config import get_config as jax_get_config
+from vae_lagging_encoder_tpu.train import optim as jax_optim
 from vae_lagging_encoder_tpu.train.checkpoint import load_checkpoint as jax_load
 from vae_lagging_encoder_tpu.train.checkpoint import save_checkpoint as jax_save
+from vae_lagging_encoder_tpu_torch.cli import image as cli_image
 from vae_lagging_encoder_tpu_torch.cli import text as cli_text
-from vae_lagging_encoder_tpu_torch.config import get_config
-from vae_lagging_encoder_tpu_torch.models import build_text_vae
+from vae_lagging_encoder_tpu_torch.config import DATASET_CONFIGS, get_config
+from vae_lagging_encoder_tpu_torch.models import build_image_vae, build_text_vae
+from vae_lagging_encoder_tpu_torch.train import optim
 from vae_lagging_encoder_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from vae_lagging_encoder_tpu_torch.utils.jax_params import from_jax_params, to_jax_params
 
 REPO = Path(__file__).resolve().parent.parent
 SMALL = dict(ni=8, enc_nh=12, dec_nh=12, nz=3)
+IMAGE_SMALL = dict(nz=3, enc_layers=(4, 4), dec_layers=2, dec_filters=4, dec_kernel_size=5)
 
 
 def _no_cuda():
@@ -93,6 +102,16 @@ def test_default_device_is_cuda_and_raises_without_it(tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         cli_text.main(["--eval", "--exp_dir", str(tmp_path / "exp"), "--train_data",
                        str(tmp_path / "missing.txt")])
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_image_vae(get_config("omniglot", **IMAGE_SMALL))
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli_image.main(["--exp_dir", str(tmp_path / "exp_image"), "--train_data",
+                        str(tmp_path / "missing.pt")])
+    # each CLI refuses the other modality's dataset
+    with pytest.raises(SystemExit, match="not an image dataset"):
+        cli_image.main(["--dataset", "yahoo"])
+    with pytest.raises(SystemExit, match="not a text dataset"):
+        cli_text.main(["--dataset", "omniglot"])
 
 
 @pytest.mark.parametrize("alone", [False, True])
@@ -203,3 +222,82 @@ def test_cli_without_eval_trains_and_resumes(tmp_path):
     # schedule, shuffle and draws all carried over
     for k in ("train_loss", "val_loss", "kl_weight", "lr", "inner_iters", "aggressive"):
         assert resumed[0][k] == full[2][k], (k, resumed[0][k], full[2][k])
+
+
+def _jax_image(seed):
+    """The JAX image model at IMAGE_SMALL, its params and an Adam state one
+    step in (moments nonzero), all numpy."""
+    jvae = jax_build_image(jax_get_config("omniglot", **IMAGE_SMALL))
+    params = jax.device_get(jvae.init(jax.random.PRNGKey(seed)))
+    init, adam = jax_optim.make_optimizer("adam")
+    grads = jax.tree.map(lambda p: np.full_like(p, 0.5), params["enc"])
+    _, state = adam(params["enc"], grads, init(params["enc"]), 1e-3)
+    return jvae, params, jax.device_get(state)
+
+
+def test_image_checkpoint_loads_in_both_packages(tmp_path):
+    x = (np.random.RandomState(0).rand(3, 28, 28, 1) > 0.5).astype(np.float32)
+    # JAX -> port: parameters (lists of blocks and layers) and Adam moments
+    jvae, params, state = _jax_image(1)
+    jax_save(str(tmp_path / "jax.ckpt"), params, {"opt_state": {"enc": state}})
+    p, e = load_checkpoint(str(tmp_path / "jax.ckpt"))
+    vae = build_image_vae(get_config("omniglot", **IMAGE_SMALL), device="cpu")
+    vae.load_state_dict(from_jax_params(p))  # strict: every name and shape
+    st = optim.state_from_tree(e["opt_state"], "cpu")["enc"]
+    assert isinstance(state["m"]["blocks"], list)
+    assert st["m"]["blocks.1.conv2"].abs().sum() > 0 and int(st["t"]) == 1
+    # port -> JAX: the encoder gives the same (mu, logvar) in both packages
+    with torch.no_grad():
+        for prm in vae.parameters():
+            prm.add_(torch.randn(prm.shape, generator=torch.Generator().manual_seed(2)) * 0.1)
+        mu, logvar = vae.enc(torch.from_numpy(x))
+    save_checkpoint(str(tmp_path / "port.ckpt"), to_jax_params(vae.state_dict()),
+                    {"opt_state": optim.state_to_tree({"enc": st})})
+    pj, ej = jax_load(str(tmp_path / "port.ckpt"))
+    assert isinstance(pj["enc"]["blocks"], list) and isinstance(pj["dec"]["layers"], list)
+    assert isinstance(ej["opt_state"]["enc"]["v"]["blocks"], list)
+    mu_j, logvar_j = jvae.encoder.forward(jax.tree.map(np.asarray, pj["enc"]), x)
+    np.testing.assert_allclose(mu.numpy(), np.asarray(mu_j), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(logvar.numpy(), np.asarray(logvar_j), atol=1e-5, rtol=1e-5)
+
+
+def test_cli_image_trains_resumes_and_evaluates(tmp_path, monkeypatch):
+    monkeypatch.setitem(DATASET_CONFIGS, "omniglot",
+                        DATASET_CONFIGS["omniglot"].replace(**IMAGE_SMALL))
+    rng = np.random.RandomState(0)
+    np.savez(tmp_path / "omni.npz", **{k: (rng.rand(n, 28, 28, 1) ** 3).astype(np.float32)
+                                       for k, n in (("train", 24), ("val", 8), ("test", 8))})
+    common = ["--dataset", "omniglot", "--device", "cpu", "--train_data",
+              str(tmp_path / "omni.npz"), "--batch_size", "8", "--iw_nsamples", "4",
+              "--iw_batch", "2", "--warm_up", "1", "--aggressive", "1"]
+
+    def run(name, *extra):
+        rc = cli_image.main([*common, "--exp_dir", str(tmp_path / name), *extra])
+        assert rc == 0
+        recs = [json.loads(l) for l in
+                (tmp_path / name / "log.metrics.jsonl").read_text().splitlines()]
+        return [r for r in recs if "val_loss" in r], next(r for r in recs
+                                                          if r.get("split") == "test")
+
+    full, _ = run("full", "--epochs", "2", "--save_path", str(tmp_path / "full.ckpt"))
+    ck = tmp_path / "first.ckpt"
+    first, res = run("first", "--epochs", "1", "--save_path", str(ck))
+    assert first[0]["inner_iters"] > 0
+    for k in ("elbo_loss", "rec", "kl", "mi", "iw_nll", "iw_ppl"):
+        assert np.isfinite(res[k]), (k, res)
+    assert 0 <= res["au"] <= IMAGE_SMALL["nz"]
+    params, extra = jax_load(str(ck))  # the JAX package reads the port's checkpoint
+    assert extra["epoch"] == 0 and isinstance(extra["opt_state"]["dec"]["m"]["layers"], list)
+    assert extra["opt_state"]["enc"]["v"]["blocks"][0]["down"].shape == (3, 3, 1, 4)
+    resumed, _ = run("resumed", "--epochs", "2", "--save_path", str(tmp_path / "r.ckpt"),
+                     "--load_path", str(ck), "--resume")
+    assert [m["epoch"] for m in resumed] == [1]
+    # the same epoch as the uninterrupted run: parameters, Adam state,
+    # schedule, shuffle and draws all carried over
+    for k in ("train_loss", "val_loss", "kl_weight", "lr", "inner_iters", "aggressive"):
+        assert resumed[0][k] == full[1][k], (k, resumed[0][k], full[1][k])
+    # --eval on the best checkpoint: the final evaluation of the same weights
+    # on the same seeded noise as the training run's final evaluation
+    _, ev = run("eval", "--eval", "--load_path", str(ck))
+    for k in ("elbo_loss", "rec", "kl", "mi", "au", "iw_nll"):
+        assert ev[k] == res[k], (k, ev[k], res[k])

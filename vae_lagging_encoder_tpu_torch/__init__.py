@@ -6,7 +6,8 @@ models, ops (the hand-written CUDA kernels' wrappers and their build),
 train, cli, utils; CUDA sources are in ``csrc/``. Entry points run on the
 GPU ("cuda") unless the caller passes ``device="cpu"``.
 
-Ported so far: the text VAE's final evaluation (ELBO, MI, active units,
-importance-weighted NLL) — ``python -m vae_lagging_encoder_tpu_torch.cli.text
---eval --load_path CKPT``.
+Ported so far: training and the final evaluation (ELBO, MI, active units,
+importance-weighted NLL) of the text VAE — ``python -m
+vae_lagging_encoder_tpu_torch.cli.text`` — and of the OmniGlot image VAE —
+``python -m vae_lagging_encoder_tpu_torch.cli.image``.
 """

@@ -24,6 +24,9 @@ from .common import build_parser, config_from_args, make_run_logger
 def main(argv=None) -> int:
     args = build_parser(default_dataset="yahoo").parse_args(argv)
     cfg = config_from_args(args)
+    if cfg.model_type != "text":
+        raise SystemExit(f"--dataset {cfg.dataset} is not a text dataset; "
+                         "use vae_lagging_encoder_tpu_torch.cli.image")
     with make_run_logger(cfg, "text") as log:
         log.info(f"[config] {cfg}")
         results = train_text(cfg, log, device=args.device)

@@ -1,8 +1,8 @@
-"""Per-dataset experiment configuration (text datasets).
+"""Per-dataset experiment configuration.
 
 The port's own copy of ``vae_lagging_encoder_tpu/config/base.py``: the same
-``ExperimentConfig`` field names and the same text entries of
-``DATASET_CONFIGS`` (yahoo, yelp, docs_english, synthetic), merged with CLI
+``ExperimentConfig`` field names and the same entries of
+``DATASET_CONFIGS`` (yahoo, yelp, docs_english, synthetic, omniglot), merged with CLI
 flags the same way (flags win; see cli/common.py).
 
 ``use_pallas`` keeps its name and meaning: True selects the kernel route
@@ -124,6 +124,16 @@ DATASET_CONFIGS = {
                            batch_size=32, epochs=40, warm_up=10, kl_start=0.1,
                            dec_dropout_in=0.0, dec_dropout_out=0.0,
                            length_buckets=(8, 16, 24, 32, 48, 64)),
+    # the reference's config/config_omniglot.py params; Adam 1e-3 as the
+    # JAX package chose (SGD lr 1.0 diverges on the PixelCNN stack there)
+    "omniglot": ExperimentConfig(
+        dataset="omniglot", model_type="image",
+        train_data="datasets/omniglot_data/omniglot.pt",
+        val_data="", test_data="",
+        batch_size=50, epochs=500, nz=32, warm_up=10, kl_start=0.1,
+        optim="adam", lr=1e-3,
+        dec_dropout_in=0.0, dec_dropout_out=0.0,
+    ),
 }
 
 

@@ -1,5 +1,7 @@
-from .pool import BucketedPool
+from .omniglot import ensure_omniglot_dataset, image_batches, load_omniglot
+from .pool import BucketedPool, ImagePool, Pool
 from .text import MonoTextData, TextBatch
 from .vocab import Vocab
 
-__all__ = ["BucketedPool", "MonoTextData", "TextBatch", "Vocab"]
+__all__ = ["BucketedPool", "ImagePool", "Pool", "MonoTextData", "TextBatch", "Vocab",
+           "ensure_omniglot_dataset", "image_batches", "load_omniglot"]

@@ -1,16 +1,18 @@
-"""Device-resident bucketed batch pool.
+"""Device-resident batch pools.
 
-Counterpart of ``vae_lagging_encoder_tpu/data/pool.py::BucketedPool``: the
-padded batches are stacked once per bucket length into tensors on the
+Counterpart of ``vae_lagging_encoder_tpu/data/pool.py``. ``BucketedPool``
+stacks the padded text batches once per bucket length into tensors on the
 device — tokens [n_b, B, L_b] int64, mask [n_b, B, L_b] f32, row_weight
-[n_b, B] f32 — and iterated in the JAX package's flat order: buckets by
-ascending length, then batch index inside a bucket. Flat batch ``i`` is the
-``i`` the JAX evaluators fold into their per-batch key, so noise injected
-by batch index lines up with the reference. ``coords`` maps a flat index
-to (bucket, index in bucket) by ``searchsorted`` over the cumulative counts,
-as the JAX package's ``sample_coords`` maps its uniform draw; ``batch``
-reads one batch. Both run on the host (the bucket decides the sequence
-length, so the caller needs it there anyway).
+[n_b, B] f32; ``ImagePool`` holds one bucket of image batches — probs
+[n_b, B, H, W, C] f32 (grayscale probabilities, binarized in the loss),
+row_weight [n_b, B]. Both iterate in the JAX package's flat order: buckets
+by ascending length, then batch index inside a bucket. Flat batch ``i`` is
+the ``i`` the JAX evaluators fold into their per-batch key, so noise
+injected by batch index lines up with the reference. ``coords`` maps a flat
+index to (bucket, index in bucket) by ``searchsorted`` over the cumulative
+counts, as the JAX package's ``sample_coords`` maps its uniform draw;
+``batch`` reads one batch. Both run on the host (for text the bucket
+decides the sequence length, so the caller needs it there anyway).
 """
 from __future__ import annotations
 
@@ -19,26 +21,17 @@ from typing import Iterator, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from .omniglot import image_batches
 from .text import TextBatch
 
 
-class BucketedPool:
-    def __init__(self, batches: Sequence[TextBatch], device):
-        if not batches:
-            raise ValueError("empty batch list")
-        groups = {}
-        for b in batches:
-            groups.setdefault(b.seq_len, []).append(b)
-        self.lengths: Tuple[int, ...] = tuple(sorted(groups))
-        self.arrays: List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = []
-        for L in self.lengths:
-            grp = groups[L]
-            self.arrays.append((
-                torch.from_numpy(np.stack([g.tokens for g in grp]).astype(np.int64)).to(device),
-                torch.from_numpy(np.stack([g.mask for g in grp])).to(device),
-                torch.from_numpy(np.stack([g.row_weight for g in grp])).to(device),
-            ))
-        self.counts = [len(groups[L]) for L in self.lengths]
+class Pool:
+    """Batches stacked per bucket in ``arrays``; flat-order access."""
+
+    arrays: List[Tuple[torch.Tensor, ...]]
+
+    def _finalize(self, counts: Sequence[int]) -> None:
+        self.counts = list(counts)
         self.cum = np.concatenate([[0], np.cumsum(self.counts)]).astype(np.int64)
         self.num_batches = int(self.cum[-1])
 
@@ -49,13 +42,46 @@ class BucketedPool:
         bucket = int(np.searchsorted(self.cum, flat, side="right") - 1)
         return bucket, int(flat - self.cum[bucket])
 
-    def batch(self, flat: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Flat batch ``flat``: ``(tokens [B, L], mask [B, L], row_weight [B])``."""
+    def batch(self, flat: int) -> Tuple[torch.Tensor, ...]:
+        """Flat batch ``flat``: one tensor per array of its bucket."""
         bucket, idx = self.coords(flat)
         return tuple(a[idx] for a in self.arrays[bucket])
 
-    def __iter__(self) -> Iterator[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
-        """Batches ``(tokens [B, L], mask [B, L], row_weight [B])`` in flat order."""
-        for tokens, mask, row_weight in self.arrays:
-            for i in range(tokens.shape[0]):
-                yield tokens[i], mask[i], row_weight[i]
+    def __iter__(self) -> Iterator[Tuple[torch.Tensor, ...]]:
+        """Batches in flat order."""
+        for arrs in self.arrays:
+            for i in range(arrs[0].shape[0]):
+                yield tuple(a[i] for a in arrs)
+
+
+class BucketedPool(Pool):
+    """Text batches: ``(tokens [B, L], mask [B, L], row_weight [B])``."""
+
+    def __init__(self, batches: Sequence[TextBatch], device):
+        if not batches:
+            raise ValueError("empty batch list")
+        groups = {}
+        for b in batches:
+            groups.setdefault(b.seq_len, []).append(b)
+        self.lengths: Tuple[int, ...] = tuple(sorted(groups))
+        self.arrays = []
+        for L in self.lengths:
+            grp = groups[L]
+            self.arrays.append((
+                torch.from_numpy(np.stack([g.tokens for g in grp]).astype(np.int64)).to(device),
+                torch.from_numpy(np.stack([g.mask for g in grp])).to(device),
+                torch.from_numpy(np.stack([g.row_weight for g in grp])).to(device),
+            ))
+        self._finalize([len(groups[L]) for L in self.lengths])
+
+
+class ImagePool(Pool):
+    """Image batches: ``(probs [B, H, W, C], row_weight [B])``; a partial
+    last batch is zero-padded with row_weight 0 (``image_batches``)."""
+
+    def __init__(self, images: np.ndarray, batch_size: int, device):
+        stacked, w = image_batches(images, batch_size)
+        if not len(stacked):
+            raise ValueError("no images")
+        self.arrays = [(torch.from_numpy(stacked).to(device), torch.from_numpy(w).to(device))]
+        self._finalize([stacked.shape[0]])

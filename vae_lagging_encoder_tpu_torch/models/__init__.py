@@ -2,8 +2,10 @@ import torch
 
 from ..ops.build import resolve_device
 from .dec_lstm import LSTMDecoder
+from .dec_pixelcnn import PixelCNNDecoderV2
 from .decoder import DecoderBase
 from .enc_lstm import GaussianLSTMEncoder
+from .enc_resnet import ResNetEncoderV2
 from .encoder import (GaussianEncoderBase, calc_mi, eval_inference_dist,
                       gaussian_kl, reparameterize)
 from .vae import VAE
@@ -26,8 +28,24 @@ def build_text_vae(cfg, vocab_size: int, device="cuda",
     return vae.to(dev)
 
 
+def build_image_vae(cfg, device="cuda", generator: torch.Generator | None = None) -> VAE:
+    """The OmniGlot model of an ExperimentConfig (ResNet encoder + PixelCNN
+    decoder), initialised with the JAX package's recipe from ``generator``
+    (default: seeded with ``cfg.seed``) on the CPU and then moved to ``device``."""
+    dev = resolve_device(device)
+    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    enc = ResNetEncoderV2(cfg.nz, channels=cfg.enc_layers, img_size=cfg.img_size,
+                          compute_dtype=dtype)
+    dec = PixelCNNDecoderV2(cfg.nz, img_size=cfg.img_size, n_layers=cfg.dec_layers,
+                            filters=cfg.dec_filters, first_kernel=cfg.dec_kernel_size,
+                            compute_dtype=dtype)
+    vae = VAE(enc, dec)
+    vae.reset_parameters(generator or torch.Generator().manual_seed(cfg.seed))
+    return vae.to(dev)
+
+
 __all__ = [
     "DecoderBase", "GaussianEncoderBase", "GaussianLSTMEncoder", "LSTMDecoder",
-    "VAE", "build_text_vae", "calc_mi", "eval_inference_dist", "gaussian_kl",
-    "reparameterize",
+    "PixelCNNDecoderV2", "ResNetEncoderV2", "VAE", "build_image_vae", "build_text_vae",
+    "calc_mi", "eval_inference_dist", "gaussian_kl", "reparameterize",
 ]

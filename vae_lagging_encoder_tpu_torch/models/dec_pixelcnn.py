@@ -1,0 +1,109 @@
+"""Conditional PixelCNN decoder p(x|z) over binarized images.
+
+Counterpart of ``vae_lagging_encoder_tpu/models/dec_pixelcnn.py`` (the
+reference's PixelCNNDecoderV2), training and evaluation paths:
+
+- ``n_layers`` masked convs of ``filters`` channels (the first
+  ``first_kernel`` x ``first_kernel`` with mask A, which blocks the current
+  pixel; the rest ``kernel`` x ``kernel`` with mask B), the masks folded
+  into the weights and the masked taps computed densely, as in the JAX
+  package;
+- z conditions every layer: ``z @ wz`` added with the bias in f32 before
+  the ELU, the result cast back to ``compute_dtype`` for the next conv;
+- a 1x1 output conv in f32 -> one Bernoulli logit per pixel;
+- ``reconstruct_error``: the per-image summed BCE-with-logits, in one
+  teacher-forced pass over all pixels. The z-sample axis runs in chunks of
+  ``iw_chunk`` samples (z zero-padded to a whole number of chunks), which
+  bounds the memory of an IW pass; under autograd each chunk is recomputed
+  in the backward (``torch.utils.checkpoint``, as ``jax.checkpoint``).
+
+Parameters keep the JAX layouts (HWIO ``w``, ``wz`` [nz, C]). Rows are
+z-major, row n = k * B + b. Generation (the autoregressive samplers) is
+not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from ..ops.conv import masked_conv2d
+from .decoder import DecoderBase
+from .lstm_core import uniform_
+
+
+class _Layer(nn.Module):
+    def __init__(self, k: int, cin: int, cout: int, nz: int):
+        super().__init__()
+        self.w = nn.Parameter(torch.empty(k, k, cin, cout))
+        self.b = nn.Parameter(torch.empty(cout))
+        self.wz = nn.Parameter(torch.empty(nz, cout))
+
+
+class PixelCNNDecoderV2(DecoderBase):
+    def __init__(self, nz: int, img_size: Tuple[int, int, int] = (28, 28, 1),
+                 n_layers: int = 8, filters: int = 64, first_kernel: int = 7,
+                 kernel: int = 3, compute_dtype: torch.dtype = torch.float32,
+                 iw_chunk: int = 25):
+        super().__init__()
+        self.nz, self.img_size, self.n_layers, self.filters = nz, tuple(img_size), n_layers, filters
+        self.compute_dtype = compute_dtype
+        self.iw_chunk = iw_chunk
+        C = img_size[2]
+        self.layers = nn.ModuleList(
+            _Layer(first_kernel if i == 0 else kernel, C if i == 0 else filters, filters, nz)
+            for i in range(n_layers))
+        self.out_w = nn.Parameter(torch.empty(1, 1, filters, C))
+        self.out_b = nn.Parameter(torch.empty(C))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """The JAX package's recipe: w, wz and out_w U(-0.05, 0.05), biases 0."""
+        with torch.no_grad():
+            for layer in self.layers:
+                uniform_(layer.w, 0.05, generator)
+                layer.b.zero_()
+                uniform_(layer.wz, 0.05, generator)
+            uniform_(self.out_w, 0.05, generator)
+            self.out_b.zero_()
+
+    def _logits(self, x: torch.Tensor, z_flat: torch.Tensor) -> torch.Tensor:
+        """x [N, H, W, C] binary canvas, z_flat [N, nz] -> Bernoulli logits [N, H, W, C]."""
+        cd = self.compute_dtype
+        h = x.to(cd)
+        for i, layer in enumerate(self.layers):
+            shift = (z_flat @ layer.wz + layer.b)[:, None, None, :]  # f32 [N, 1, 1, C]
+            h = masked_conv2d(h, layer.w.to(cd), include_center=i > 0)
+            h = F.elu(h.float() + shift).to(cd)
+        return masked_conv2d(h.float(), self.out_w, include_center=True) + self.out_b
+
+    def decode(self, x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        """Teacher-forced logits: x [B, H, W, C], z [B, K, nz] -> [B, K, H, W, C]."""
+        B, K = x.shape[0], z.shape[1]
+        xk = x[None].expand(K, *x.shape).reshape(K * B, *x.shape[1:])
+        logits = self._logits(xk, z.transpose(0, 1).reshape(K * B, self.nz))
+        return logits.reshape(K, B, *x.shape[1:]).transpose(0, 1)
+
+    def _rec_chunk(self, x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        logits = self.decode(x, z)
+        nll = (torch.clamp(logits, min=0) - logits * x[:, None]
+               + torch.log1p(torch.exp(-torch.abs(logits))))  # stable BCE-with-logits
+        return torch.sum(nll, dim=(2, 3, 4))
+
+    def reconstruct_error(self, x: torch.Tensor, mask: Optional[torch.Tensor],
+                          z: torch.Tensor, draw=None) -> torch.Tensor:
+        """-log p(x|z) per (image, z-sample): [B, K]. ``mask`` and ``draw``
+        are unused (the image decoder has no padding and no dropout)."""
+        B, K = x.shape[0], z.shape[1]
+        c = self.iw_chunk
+        if K <= c:
+            return self._rec_chunk(x, z)
+        K_pad = -(-K // c) * c
+        if K_pad != K:
+            z = torch.cat([z, z.new_zeros((B, K_pad - K, self.nz))], dim=1)
+        grad = torch.is_grad_enabled()
+        out = [checkpoint(self._rec_chunk, x, z[:, s:s + c], use_reentrant=False) if grad
+               else self._rec_chunk(x, z[:, s:s + c]) for s in range(0, K_pad, c)]
+        return torch.cat(out, dim=1)[:, :K]

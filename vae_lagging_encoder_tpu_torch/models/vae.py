@@ -24,7 +24,8 @@ from .encoder import eval_inference_dist, gaussian_kl
 
 
 class VAE(nn.Module):
-    """``x`` is (tokens [B, T], mask [B, T]) for text."""
+    """``x`` is (tokens [B, T], mask [B, T]) for text and (images
+    [B, H, W, C] binarized, mask None) for images."""
 
     def __init__(self, encoder: nn.Module, decoder: nn.Module):
         super().__init__()
@@ -43,7 +44,7 @@ class VAE(nn.Module):
     def loss(self, x, mask=None, row_weight=None, kl_weight: float = 1.0,
              nsamples: int = 1, eps=None, generator=None, draw=None
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Per-sentence (loss, rec, kl), each [B].
+        """Per-sentence (loss, rec, kl), each [B] (per image for images).
 
         loss = rec + kl_weight * KL, rec = E_{z~q}[-log p(x|z)] averaged over
         ``nsamples`` (``eps`` [B, nsamples, nz]); zero-weight pad rows are

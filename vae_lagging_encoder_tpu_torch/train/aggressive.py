@@ -27,7 +27,7 @@ from typing import Callable, Dict
 
 import torch
 
-from ..data.pool import BucketedPool
+from ..data.pool import Pool
 from .optim import clip_scale
 
 
@@ -50,7 +50,7 @@ def make_grad_on(model: torch.nn.Module, loss_fn: Callable) -> Callable:
     return grad_on
 
 
-def make_aggressive_inner(grad_on: Callable, pool: BucketedPool,
+def make_aggressive_inner(grad_on: Callable, pool: Pool,
                           params: Dict[str, torch.Tensor], enc_params: Dict[str, torch.Tensor],
                           clip_grad: float, burn_max_iters: int, burn_window: int,
                           opt_update: Callable) -> Callable:

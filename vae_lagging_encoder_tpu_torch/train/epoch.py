@@ -2,23 +2,34 @@
 importance-weighted NLL.
 
 Counterparts of ``vae_lagging_encoder_tpu/train/epoch.py``:
-``make_loss_fn`` (training and evaluation mode), the step body of
+``make_loss_fn`` (text) and ``make_image_loss_fn`` (images: a fresh
+Bernoulli binarization, then the same loss), each in training and
+evaluation mode, the eval binarization ``binarize_prep``, the step body of
 ``make_train_epoch``, and the evaluators ``make_eval_fn``, ``make_mi_fn``,
 ``make_au_fn``, ``make_iwnll_fn``. Where the JAX package compiles one fused
 program per epoch or per evaluator, here each is a host loop over batches
 that accumulates on the device and reads the sums back once at the end.
+A batch is ``(tokens, mask, row_weight)`` for text and ``(probs,
+row_weight)`` for images; the MI, AU and IW evaluators take a ``prep``
+that turns it into ``(x, mask, row_weight)`` (``unpack`` for text,
+``binarize_prep`` for images), and the unit of the PPL is a predicted
+word for text, a pixel for images (``unit_count``).
 
 Noise comes from a ``noise(i, site, shape)`` provider. Evaluators pass the
 flat batch index ``i`` and sites ``"elbo"`` (eps [B, nsamples, nz]),
-``"mi"`` ([B, 1, nz]) and ``"iw<j>"`` for IW chunk ``j`` ([B, ns, nz]). A
-training epoch passes the step's index ``i`` for the outer step and
-``(i, sub)`` for sub-iteration ``sub`` of its aggressive inner loop, with
-sites ``"eps"`` (normal [B, nsamples, nz]), ``"keep_in"`` / ``"keep_out"``
+``"mi"`` ([B, 1, nz]) and ``"iw<j>"`` for IW chunk ``j`` ([B, ns, nz]), and
+for images the binarization uniforms ``"elbo_bin"``, ``"mi_bin"``,
+``"au_bin"`` (one draw per batch that both AU passes use) and ``"iw_bin"``
+([B, H, W, C]). A training epoch passes the step's index ``i`` for the
+outer step and ``(i, sub)`` for sub-iteration ``sub`` of its aggressive
+inner loop, with sites ``"eps"`` (normal [B, nsamples, nz]), ``"bin"``
+(images: the binarization uniforms), ``"keep_in"`` / ``"keep_out"``
 (uniform [0, 1) dropout draws) and, in the inner loop, ``"pick"``: an int
 uniform in ``[0, shape[0])``, the flat index of the sub-iteration's batch.
 ``make_noise`` draws from seeded ``torch.Generator``s (picks on the host, so
 that choosing a batch never waits for the device); a test can instead hand
-in the JAX package's exact draws.
+in the JAX package's exact draws. A binarization is ``uniform < probs``,
+which is what the JAX package's ``bernoulli(key, probs)`` computes.
 """
 from __future__ import annotations
 
@@ -29,7 +40,7 @@ import torch
 
 import numpy as np
 
-from ..data.pool import BucketedPool
+from ..data.pool import Pool
 from ..models.vae import VAE
 from .aggressive import grads_of, make_aggressive_inner, make_grad_on
 from .optim import clip_scale, make_optimizer
@@ -39,14 +50,15 @@ Noise = Callable[[object, str, Tuple[int, ...]], object]
 
 def make_noise(seed: int, device) -> Noise:
     """Draws from generators seeded with ``seed``: normals for the eps sites,
-    uniforms for ``"keep_*"``, a host-side int for ``"pick"``."""
+    uniforms for ``"keep_*"`` and the ``"*bin"`` sites, a host-side int for
+    ``"pick"``."""
     g = torch.Generator(device=device).manual_seed(seed)
     g_host = torch.Generator().manual_seed(seed)
 
     def noise(i, site: str, shape: Tuple[int, ...]):
         if site == "pick":
             return int(torch.randint(shape[0], (), generator=g_host))
-        if site.startswith("keep"):
+        if site.startswith("keep") or site.endswith("bin"):
             return torch.rand(shape, generator=g, device=device)
         return torch.randn(shape, generator=g, device=device)
 
@@ -60,28 +72,62 @@ def _safe_exp(x: float) -> float:
         return float("inf")
 
 
-def make_loss_fn(vae: VAE, nsamples: int = 1, train: bool = False) -> Callable:
-    """Evaluation mode: ``loss_fn(batch, eps)``; training mode:
-    ``loss_fn(batch, draw, kl_weight)`` with the step's ``draw(site, shape)``
-    (dropout on). Both return ``(mean_loss, (loss_sum, rec_sum, kl_sum,
-    n_sents, n_words))`` for ``batch = (tokens, mask, row_weight)``;
-    mean_loss, the objective, is per real sentence."""
+def unit_count(x, mask, row_weight) -> torch.Tensor:
+    """Units of the PPL: predicted words for text, pixels for images."""
+    if mask is not None:
+        return (mask[:, 1:] * row_weight[:, None]).sum()
+    return row_weight.sum() * float(np.prod(x.shape[1:]))
 
-    def loss_fn(batch, noise, kl_weight=1.0):
-        tokens, mask, row_weight = batch
-        eps, draw = (None, noise) if train else (noise, None)
-        loss, rec, kl = vae.loss(tokens, mask, row_weight, kl_weight=kl_weight,
-                                 nsamples=nsamples, eps=eps, draw=draw)
+
+def unpack(batch, uniform):
+    """Eval prep of text batches: ``(tokens, mask, row_weight)`` as they are."""
+    return batch
+
+
+def binarize_prep(batch, uniform):
+    """Eval prep of image batches: ``(probs, row_weight)`` -> ``(x, None,
+    row_weight)``, x a fresh binarization ``uniform(probs.shape) < probs``."""
+    probs, row_weight = batch
+    return (uniform(tuple(probs.shape)) < probs).to(probs.dtype), None, row_weight
+
+
+def make_loss_fn(vae: VAE, nsamples: int = 1, train: bool = False) -> Callable:
+    """``loss_fn(batch, draw, kl_weight=1.0) -> (mean_loss, (loss_sum,
+    rec_sum, kl_sum, n_sents, n_words))`` for ``batch = (x, mask,
+    row_weight)``; mean_loss, the objective, is per real sentence (image).
+    ``draw(site, shape)`` gives the step's draws: in training mode all of
+    them (eps and the dropout uniforms), in evaluation mode eps only."""
+
+    def loss_fn(batch, draw, kl_weight=1.0):
+        x, mask, row_weight = batch
+        if train:
+            noise = dict(draw=draw)
+        else:
+            noise = dict(eps=draw("eps", (x.shape[0], nsamples, vae.nz)))
+        loss, rec, kl = vae.loss(x, mask, row_weight, kl_weight=kl_weight,
+                                 nsamples=nsamples, **noise)
         n_sents = row_weight.sum()
-        n_words = (mask[:, 1:] * row_weight[:, None]).sum()
         loss_sum = loss.sum()
         return loss_sum / torch.clamp(n_sents, min=1.0), (
-            loss_sum, rec.sum(), kl.sum(), n_sents, n_words)
+            loss_sum, rec.sum(), kl.sum(), n_sents, unit_count(x, mask, row_weight))
 
     return loss_fn
 
 
-def make_train_epoch(vae: VAE, pool: BucketedPool, cfg) -> Tuple[Callable, Callable]:
+def make_image_loss_fn(vae: VAE, nsamples: int = 1, train: bool = False) -> Callable:
+    """``make_loss_fn`` for ``batch = (probs, row_weight)``: the images are
+    binarized afresh on every call from ``draw("bin", probs.shape)``; the
+    "words" of the aux sums are pixels."""
+    loss_fn = make_loss_fn(vae, nsamples, train)
+
+    def image_loss_fn(batch, draw, kl_weight=1.0):
+        return loss_fn(binarize_prep(batch, lambda shape: draw("bin", shape)), draw, kl_weight)
+
+    return image_loss_fn
+
+
+def make_train_epoch(vae: VAE, pool: Pool, cfg,
+                     loss_fn: Callable | None = None) -> Tuple[Callable, Callable]:
     """``(epoch_fn, opt_init)``: the step loop of one training epoch and the
     initial ``{"enc": ..., "dec": ...}`` optimizer state (two separate
     optimizers, as the reference has).
@@ -95,8 +141,9 @@ def make_train_epoch(vae: VAE, pool: BucketedPool, cfg) -> Tuple[Callable, Calla
     update: decoder-only while aggressive, encoder and decoder otherwise,
     always with the clip over the full gradient. ``sums`` [5] (loss, rec,
     KL, sentences, words) accumulate on the device; ``on_step(i, kl_weight,
-    aux)`` is called after each outer step (the caller's log cadence)."""
-    loss_fn = make_loss_fn(vae, nsamples=cfg.nsamples, train=True)
+    aux)`` is called after each outer step (the caller's log cadence).
+    ``loss_fn`` (training mode) defaults to the text loss."""
+    loss_fn = loss_fn or make_loss_fn(vae, nsamples=cfg.nsamples, train=True)
     grad_on = make_grad_on(vae, loss_fn)
     opt_init_part, opt_update = make_optimizer(cfg.optim, momentum=cfg.momentum)
     params = dict(vae.named_parameters())
@@ -140,17 +187,20 @@ def make_train_epoch(vae: VAE, pool: BucketedPool, cfg) -> Tuple[Callable, Calla
     return epoch_fn, opt_init
 
 
-def make_eval_fn(vae: VAE, pool: BucketedPool, nsamples: int = 1) -> Callable:
+def make_eval_fn(vae: VAE, pool: Pool, nsamples: int = 1,
+                 loss_fn: Callable | None = None) -> Callable:
     """ELBO evaluation: ``eval_fn(noise) -> dict(loss, rec, kl, nll per
-    sentence; ppl; n_sents, n_words)``."""
-    loss_fn = make_loss_fn(vae, nsamples)
+    sentence; ppl; n_sents, n_words)``. ``loss_fn`` (evaluation mode)
+    defaults to the text loss; its draws ``"eps"`` and ``"bin"`` are the
+    sites ``"elbo"`` and ``"elbo_bin"``."""
+    loss_fn = loss_fn or make_loss_fn(vae, nsamples)
 
     @torch.no_grad()
     def eval_fn(noise: Noise) -> Dict[str, float]:
         sums = None
         for i, batch in enumerate(pool):
-            eps = noise(i, "elbo", (batch[0].shape[0], nsamples, vae.nz))
-            _, out = loss_fn(batch, eps)
+            _, out = loss_fn(batch, lambda site, shape, i=i: noise(
+                i, "elbo" if site == "eps" else f"elbo_{site}", shape))
             sums = out if sums is None else tuple(a + b for a, b in zip(sums, out))
         loss_s, rec_s, kl_s, n_sent, n_words = torch.stack(sums).tolist()
         return {"loss": loss_s / n_sent, "rec": rec_s / n_sent, "kl": kl_s / n_sent,
@@ -161,13 +211,19 @@ def make_eval_fn(vae: VAE, pool: BucketedPool, nsamples: int = 1) -> Callable:
     return eval_fn
 
 
-def make_mi_fn(vae: VAE, pool: BucketedPool) -> Callable:
+def _prepped(pool: Pool, prep: Callable, noise: Noise, site: str):
+    """``(i, (x, mask, row_weight))`` per batch, binarized (images) from site ``site``."""
+    for i, batch in enumerate(pool):
+        yield i, prep(batch, lambda shape, i=i: noise(i, site, shape))
+
+
+def make_mi_fn(vae: VAE, pool: Pool, prep: Callable = unpack) -> Callable:
     """Corpus MI: batch-size-weighted mean of per-batch MI estimates."""
 
     @torch.no_grad()
     def mi_fn(noise: Noise) -> float:
         mi_sum, n_sum = 0.0, 0.0
-        for i, (x, mask, row_weight) in enumerate(pool):
+        for i, (x, mask, row_weight) in _prepped(pool, prep, noise, "mi_bin"):
             eps = noise(i, "mi", (x.shape[0], 1, vae.nz))
             n = row_weight.sum()
             mi_sum = mi_sum + vae.calc_mi_q(x, mask, row_weight, eps) * n
@@ -178,19 +234,22 @@ def make_mi_fn(vae: VAE, pool: BucketedPool) -> Callable:
     return mi_fn
 
 
-def make_au_fn(vae: VAE, pool: BucketedPool, delta: float = 0.01) -> Callable:
-    """Active units: #dims with Var_x[mu(x)] > delta, in two passes."""
+def make_au_fn(vae: VAE, pool: Pool, delta: float = 0.01,
+               prep: Callable = unpack) -> Callable:
+    """Active units: #dims with Var_x[mu(x)] > delta, in two passes over the
+    same prepped batches (for images: one binarization per batch)."""
 
     @torch.no_grad()
-    def au_fn() -> Tuple[int, torch.Tensor]:
+    def au_fn(noise: Noise) -> Tuple[int, torch.Tensor]:
+        batches = [b for _, b in _prepped(pool, prep, noise, "au_bin")]
         mu_sum, n = 0.0, 0.0
-        for x, mask, row_weight in pool:
+        for x, mask, row_weight in batches:
             mu = vae.calc_infer_mean(x, mask)
             mu_sum = mu_sum + torch.sum(mu * row_weight[:, None], dim=0)
             n = n + row_weight.sum()
         mu_mean = mu_sum / torch.clamp(n, min=1.0)
         var_sum = 0.0
-        for x, mask, row_weight in pool:
+        for x, mask, row_weight in batches:
             mu = vae.calc_infer_mean(x, mask)
             var_sum = var_sum + torch.sum((mu - mu_mean) ** 2 * row_weight[:, None], dim=0)
         var = (var_sum / torch.clamp(n - 1.0, min=1.0)).cpu()
@@ -199,18 +258,18 @@ def make_au_fn(vae: VAE, pool: BucketedPool, delta: float = 0.01) -> Callable:
     return au_fn
 
 
-def make_iwnll_fn(vae: VAE, pool: BucketedPool, nsamples: int = 500,
-                  ns: int = 100) -> Callable:
+def make_iwnll_fn(vae: VAE, pool: Pool, nsamples: int = 500, ns: int = 100,
+                  prep: Callable = unpack) -> Callable:
     """Importance-weighted NLL + PPL over a pool (the reference's calc_iwnll)."""
 
     @torch.no_grad()
     def iwnll_fn(noise: Noise) -> Dict[str, float]:
         sums = torch.zeros(3, device=pool.arrays[0][0].device)
-        for i, (x, mask, row_weight) in enumerate(pool):
+        for i, (x, mask, row_weight) in _prepped(pool, prep, noise, "iw_bin"):
             nll = vae.nll_iw(x, mask, nsamples, ns,
                              noise=lambda j, shape, i=i: noise(i, f"iw{j}", shape))
             sums = sums + torch.stack([(nll * row_weight).sum(), row_weight.sum(),
-                                       (mask[:, 1:] * row_weight[:, None]).sum()])
+                                       unit_count(x, mask, row_weight)])
         nll_sum, n_sent, n_words = sums.tolist()
         return {"nll": nll_sum / n_sent, "ppl": _safe_exp(nll_sum / n_words),
                 "n_sents": n_sent, "n_words": n_words}

@@ -1,4 +1,5 @@
-"""Host-side entry points: training and the final evaluation of a text VAE.
+"""Host-side entry points: training and the final evaluation of the text and
+image VAEs.
 
 Counterpart of ``vae_lagging_encoder_tpu/train/loop.py``: ``run_training``
 (KL-annealed training with separate encoder and decoder optimizers, the
@@ -6,7 +7,9 @@ aggressive inner loop with its epoch-level MI-plateau permanent switch-off,
 per-epoch validation ELBO, the best checkpoint, LR plateau decay with
 rollback to the best parameters and fresh optimizer state, the test
 cadence, epoch-level ``--resume``, and the final evaluation on the best
-parameters), ``run_final_eval`` and ``train_text``.
+parameters), ``run_final_eval``, ``train_text`` and ``train_image``. The
+image path passes its loss (``make_image_loss_fn``) and eval prep
+(``binarize_prep``) through the same lifecycle.
 
 Not ported from ``run_training``: data and tensor parallelism, mid-epoch
 autosaves (``--autosave_niter``; a checkpoint holding a mid-epoch position
@@ -31,14 +34,14 @@ import numpy as np
 import torch
 
 from ..config import ExperimentConfig
-from ..data import BucketedPool, MonoTextData
-from ..models import VAE, build_text_vae
+from ..data import BucketedPool, ImagePool, MonoTextData, Pool, load_omniglot
+from ..models import VAE, build_image_vae, build_text_vae
 from ..ops.build import resolve_device
 from ..utils.exp_utils import Logger
 from ..utils.jax_params import from_jax_params, to_jax_params
 from .checkpoint import load_checkpoint, save_checkpoint
-from .epoch import (Noise, make_au_fn, make_eval_fn, make_iwnll_fn, make_mi_fn, make_noise,
-                    make_train_epoch)
+from .epoch import (Noise, binarize_prep, make_au_fn, make_eval_fn, make_image_loss_fn,
+                    make_iwnll_fn, make_mi_fn, make_noise, make_train_epoch, unpack)
 from .optim import state_from_tree, state_to_tree
 
 NoiseFor = Callable[[str, int], Noise]
@@ -73,12 +76,14 @@ def load_text_datasets(cfg: ExperimentConfig):
     return train, val, test
 
 
-def run_final_eval(cfg: ExperimentConfig, vae: VAE, pool: BucketedPool, log: Logger,
-                   noise: Optional[Noise] = None) -> Dict:
+def run_final_eval(cfg: ExperimentConfig, vae: VAE, pool: Pool, log: Logger,
+                   noise: Optional[Noise] = None, eval_loss_fn: Optional[Callable] = None,
+                   prep: Callable = unpack) -> Dict:
     """ELBO decomposition, MI, AU, IW-NLL + PPL over ``pool``.
 
     ``noise`` (see train/epoch.py) defaults to a generator seeded with
-    ``cfg.seed + 1``, shared by the evaluators in the order they run."""
+    ``cfg.seed + 1``, shared by the evaluators in the order they run.
+    ``eval_loss_fn`` and ``prep`` default to the text versions."""
     if cfg.iw_nsamples > cfg.iw_batch and cfg.iw_nsamples % cfg.iw_batch:
         raise SystemExit(
             f"--iw_nsamples {cfg.iw_nsamples} must be divisible by "
@@ -89,17 +94,18 @@ def run_final_eval(cfg: ExperimentConfig, vae: VAE, pool: BucketedPool, log: Log
     # each evaluator ends in one device->host read, so host-clock spans are
     # complete device spans
     t = [time.perf_counter()]
-    elbo = make_eval_fn(vae, pool)(noise)
+    elbo = make_eval_fn(vae, pool, loss_fn=eval_loss_fn)(noise)
     t.append(time.perf_counter())
-    mi = make_mi_fn(vae, pool)(noise)
+    mi = make_mi_fn(vae, pool, prep=prep)(noise)
     t.append(time.perf_counter())
-    au, _ = make_au_fn(vae, pool)()
+    au, _ = make_au_fn(vae, pool, prep=prep)(noise)
     t.append(time.perf_counter())
-    iw = make_iwnll_fn(vae, pool, nsamples=cfg.iw_nsamples, ns=cfg.iw_batch)(noise)
+    iw = make_iwnll_fn(vae, pool, nsamples=cfg.iw_nsamples, ns=cfg.iw_batch, prep=prep)(noise)
     t.append(time.perf_counter())
     seconds = dict(zip(("elbo", "mi", "au", "iw"), (b - a for a, b in zip(t, t[1:]))))
+    unit = "sentences" if cfg.model_type == "text" else "images"
     log.info("[time] " + " ".join(f"{k} {v:.3f}s" for k, v in seconds.items())
-             + f"; iw-nll {iw['n_sents'] / seconds['iw']:.2f} sentences/s")
+             + f"; iw-nll {iw['n_sents'] / seconds['iw']:.2f} {unit}/s")
     log.metric(split="test_seconds", **seconds)
     results = {
         "elbo_loss": float(elbo["loss"]), "rec": float(elbo["rec"]),
@@ -117,13 +123,16 @@ def _snapshot(vae: VAE) -> Dict[str, torch.Tensor]:
     return {k: v.detach().clone() for k, v in vae.state_dict().items()}
 
 
-def run_training(cfg: ExperimentConfig, vae: VAE, train_pool: BucketedPool,
-                 val_pool: BucketedPool, test_pool: BucketedPool, log: Logger,
+def run_training(cfg: ExperimentConfig, vae: VAE, train_pool: Pool, val_pool: Pool,
+                 test_pool: Pool, log: Logger, loss_fn: Optional[Callable] = None,
+                 eval_loss_fn: Optional[Callable] = None, prep: Callable = unpack,
                  resume_state: Optional[Dict] = None,
                  noise_for: Optional[NoiseFor] = None) -> Dict:
     """The training lifecycle (module docstring); ``vae`` holds the initial
-    (or loaded) parameters and ends holding the best ones. Returns the final
-    evaluation's results plus ``history``, ``best_val_loss``, ``save_path``."""
+    (or loaded) parameters and ends holding the best ones. ``loss_fn``
+    (training mode), ``eval_loss_fn`` and ``prep`` default to the text
+    versions. Returns the final evaluation's results plus ``history``,
+    ``best_val_loss``, ``save_path``."""
     if cfg.resume and not cfg.load_path:
         raise SystemExit("--resume requires --load_path (a checkpoint to "
                          "continue from)")
@@ -139,11 +148,11 @@ def run_training(cfg: ExperimentConfig, vae: VAE, train_pool: BucketedPool,
             "--kl_start 1.0 for no annealing or a positive --warm_up")
     dev = next(vae.parameters()).device
     noise_for = noise_for or make_noise_for(cfg.seed, dev)
-    epoch_fn, opt_init = make_train_epoch(vae, train_pool, cfg)
+    epoch_fn, opt_init = make_train_epoch(vae, train_pool, cfg, loss_fn=loss_fn)
     opt_state = opt_init()
-    val_eval = make_eval_fn(vae, val_pool)
-    val_mi = make_mi_fn(vae, val_pool)
-    test_eval = make_eval_fn(vae, test_pool)
+    val_eval = make_eval_fn(vae, val_pool, loss_fn=eval_loss_fn)
+    val_mi = make_mi_fn(vae, val_pool, prep=prep)
+    test_eval = make_eval_fn(vae, test_pool, loss_fn=eval_loss_fn)
 
     kl_weight = np.float32(cfg.kl_start)
     lr = float(cfg.lr)
@@ -271,7 +280,8 @@ def run_training(cfg: ExperimentConfig, vae: VAE, train_pool: BucketedPool,
 
     vae.load_state_dict(best_params)
     with torch.no_grad():
-        results = run_final_eval(cfg, vae, test_pool, log, noise=noise_for("final", 0))
+        results = run_final_eval(cfg, vae, test_pool, log, noise=noise_for("final", 0),
+                                 eval_loss_fn=eval_loss_fn, prep=prep)
     results["history"] = history
     results["best_val_loss"] = best_loss
     results["save_path"] = save_path
@@ -307,4 +317,34 @@ def train_text(cfg: ExperimentConfig, logger: Optional[Logger] = None,
     log.info(f"[data] train batches {train_pool.num_batches} over buckets "
              f"{train_pool.lengths}")
     return run_training(cfg, vae, train_pool, val_pool, test_pool, log,
+                        resume_state=extra if cfg.resume else None)
+
+
+def train_image(cfg: ExperimentConfig, logger: Optional[Logger] = None,
+                device="cuda") -> Dict:
+    """``train_text`` for the OmniGlot model: the splits of
+    ``load_omniglot(cfg.train_data)`` (the synthetic substitute, with a
+    warning, when the file is missing), the image loss and the eval
+    binarization."""
+    dev = resolve_device(device)
+    log = logger or Logger()
+    train_imgs, val_imgs, test_imgs = load_omniglot(cfg.train_data)
+    log.info(f"[data] omniglot train {len(train_imgs)} / val {len(val_imgs)} / "
+             f"test {len(test_imgs)} images")
+    test_pool = ImagePool(test_imgs, cfg.batch_size, dev)
+    vae = build_image_vae(cfg, device=dev)
+    eval_loss_fn = make_image_loss_fn(vae, nsamples=1, train=False)
+    extra = {}
+    if cfg.load_path:
+        params, extra = load_checkpoint(cfg.load_path)
+        vae.load_state_dict(from_jax_params(params))
+        log.info(f"[ckpt] loaded {cfg.load_path} (extra keys: {list(extra)})")
+    if cfg.eval:
+        with torch.no_grad():
+            return run_final_eval(cfg, vae, test_pool, log, eval_loss_fn=eval_loss_fn,
+                                  prep=binarize_prep)
+    return run_training(cfg, vae, ImagePool(train_imgs, cfg.batch_size, dev),
+                        ImagePool(val_imgs, cfg.batch_size, dev), test_pool, log,
+                        loss_fn=make_image_loss_fn(vae, nsamples=cfg.nsamples, train=True),
+                        eval_loss_fn=eval_loss_fn, prep=binarize_prep,
                         resume_state=extra if cfg.resume else None)

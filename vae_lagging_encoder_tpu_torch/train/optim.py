@@ -119,7 +119,8 @@ def make_optimizer(name: str = "sgd", momentum: float = 0.0, b1: float = 0.9,
 
 def state_to_tree(state: Dict[str, dict]) -> Dict[str, dict]:
     """``{"enc": state, "dec": state}`` -> the JAX package's opt_state tree
-    of numpy arrays (per-parameter dicts nested as its parameter trees)."""
+    of numpy arrays (per-parameter dicts nested as its parameter trees,
+    lists included: ``to_jax_params``)."""
     return {part: {k: to_jax_params(v) if isinstance(v, dict)
                    else v.detach().cpu().numpy().copy()
                    for k, v in s.items()}
@@ -127,7 +128,8 @@ def state_to_tree(state: Dict[str, dict]) -> Dict[str, dict]:
 
 
 def state_from_tree(tree: Dict[str, dict], device) -> Dict[str, dict]:
-    """Inverse of ``state_to_tree`` (also reads a JAX-written opt_state)."""
+    """Inverse of ``state_to_tree`` (also reads a JAX-written opt_state;
+    the moments' trees, lists included, flatten as ``from_jax_params``)."""
     out = {}
     for part, s in tree.items():
         out[part] = {}
