@@ -57,14 +57,34 @@ Phases (each raises on failure; the script then exits non-zero):
    path (tolerances stated there); three training steps and one IW batch
    under ``torch.profiler``. The convs are cuDNN's (no hand-written kernel
    is owed on this path: the JAX package's are XLA convs, not Pallas).
-   The precision flags stay at PyTorch's defaults, as the CLI runs them.
+   The precision flags stay at PyTorch's defaults, as the CLI runs them;
+6. generation and the toy probe through the CLIs: (a) ``cli.text.main``
+   with ``--sample_from_prior`` (greedy, sample, beam; 32 sentences, at most
+   100 tokens) and ``--reconstruct`` (greedy, beam; the 96 sentences of
+   phase 3's test split) on phase 4's best checkpoint, line and launch counts
+   checked (the encoder's ``lstm_fwd_infer`` once per reconstructed batch,
+   nothing else), then greedy, sample and beam decoding on the card against
+   the port's CPU path on the same z and Gumbel draws, tolerant of
+   near-ties (``GEN_TOL``), on phase 4's weights and on phase 3's random
+   ones times 10; (b) ``cli.image.main`` with
+   ``--sample_from_prior`` and ``--reconstruct`` (50 images each) on phase
+   5's best checkpoint, the PNGs' sizes checked, then the sampled canvas
+   teacher-forced through the incremental sampler against the dense logits
+   on the card and on the CPU (``IMG_LOGIT_TOL``), and the dense sampler
+   on 4 images against the fast one on the same uniforms; (c) the synthetic
+   corpus written by the port's ``ensure_synthetic_dataset`` into the
+   temporary directory, then ``cli.toy.main`` with ``--aggressive 0`` and
+   ``1`` (2 epochs on 96 training sentences, 96 probe sentences), the
+   pickles read back and their epoch -1 pairs held against the CPU path.
 
 Prints one JSON line per kernel, ``{"trace_iw": ...}``, ``{"trace": ...}``,
 ``{"image": ...}`` (steps/s, IW images/s, per-evaluator seconds, peak
-device memory), ``{"image_cross_check": ...}``, ``{"trace_image": ...}``
-and ``{"trace_image_iw": ...}`` lines, a ``{"kernels": [...]}`` line (its
-``launches_by_path`` with the image paths' counts, 0), the card's name and
-power limit, and as the last line ``{"ok": true,
+device memory), ``{"image_cross_check": ...}``, ``{"trace_image": ...}``,
+``{"trace_image_iw": ...}`` and ``{"generate": ...}`` (sentences/s,
+images/s, the cross-checks, the toy's seconds per probe and per epoch)
+lines, a ``{"kernels": [...]}`` line (its ``launches_by_path`` with the
+image, generation and toy paths' counts), the card's name and power
+limit, and as the last line ``{"ok": true,
 "device": {...}}``. Exits non-zero, printing no result, when no CUDA
 device is available or the port's package is missing.
 """
@@ -1041,6 +1061,336 @@ def trace_image(data, ck, cfg, dev):
     return train, iw
 
 
+# ---------------------------------------------------------------- phase 6
+GEN_N, GEN_LEN = 32, 100       # --num_samples and --max_decode_len of the prior runs
+GEN_REC_N = 224                # --num_samples of the reconstructions: the 7 test batches
+GEN_BEAM_ROWS = 8              # rows of the beam cross-check (the CPU side is slow)
+# Card against the port's CPU path, f32 on both (TF32 off), the order of
+# the sums aside: a decode step's logits (O(10)) agree to ~1e-5. A chosen token's logit (+ Gumbel) must be within this of
+# the CPU's maximum at its step; a beam hypothesis that differs must score
+# (length-normalized log-prob, rescored on the CPU) within it of the CPU's.
+GEN_TOL = 1e-4
+IMG_GEN_N = 50
+IMG_DENSE_N = 4                # images of the dense sampler
+IMG_TIE = 1e-5                 # |u - sigmoid(logit)| below which a pixel may flip
+# PixelCNN logits: incremental against dense on the card, both against the
+# CPU's dense logits; f32 with TF32 off everywhere, so only the order of
+# the sums differs: ~1e-6 on logits of O(1) (measured on an H100 80GB
+# HBM3 at 700 W); 100x that leaves room for cuDNN's choice of algorithm.
+IMG_LOGIT_TOL = 1e-4
+TOY_TRAIN, TOY_EPOCHS, TOY_PLOT = 96, 2, 96  # training sentences, epochs, probe sentences
+TOY_TOL = 1e-4                 # epoch -1 pairs, card against the CPU
+
+
+def run_cli(main, argv, exp_dir: Path, name: str):
+    """``main(argv + --exp_dir)`` with the counters set to 0 just before it;
+    returns the launches, the ``split="generate"`` or toy metric records and
+    the wall seconds."""
+    from vae_lagging_encoder_tpu_torch.ops import build
+
+    log(f"[generate] {name} {' '.join(argv)}")
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    rc = main(argv + ["--exp_dir", str(exp_dir)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    if rc != 0:
+        raise AssertionError(f"{name} returned {rc}")
+    records = [json.loads(l) for l in (exp_dir / "log.metrics.jsonl").read_text().splitlines()]
+    return launches, records, wall
+
+
+def run_text_generation(tmp: Path, train_path: Path, test_path: Path, ck: Path, cfg):
+    """6a: ``cli.text.main`` with ``--sample_from_prior`` (greedy, sample,
+    beam) and ``--reconstruct`` (greedy, beam) on phase 4's best checkpoint;
+    line counts and launch counts checked, sentences/s from the CLI's record."""
+    from vae_lagging_encoder_tpu_torch.cli import text as cli_text
+    from vae_lagging_encoder_tpu_torch.data import MonoTextData
+
+    vocab = MonoTextData(str(train_path), label=True).vocab
+    test_batches = MonoTextData(str(test_path), label=True, vocab=vocab).create_data_batch(
+        cfg.batch_size, cfg.length_buckets)
+    out = {}
+    for mode, strategy in (("sample_from_prior", "greedy"), ("sample_from_prior", "sample"),
+                           ("sample_from_prior", "beam"), ("reconstruct", "greedy"),
+                           ("reconstruct", "beam")):
+        prior = mode == "sample_from_prior"
+        n = GEN_N if prior else GEN_REC_N
+        path = tmp / f"gen_{mode}_{strategy}.txt"
+        argv = ["--dataset", "yahoo", f"--{mode}", "--decoding_strategy", strategy,
+                "--load_path", str(ck), "--num_samples", str(n), "--max_decode_len",
+                str(GEN_LEN), "--output_file", str(path), "--train_data", str(train_path),
+                "--test_data", str(test_path)]
+        launches, records, wall = run_cli(cli_text.main, argv, tmp / f"exp_gen_{mode}_{strategy}",
+                                          "cli.text")
+        rec = next(r for r in records if r.get("split") == "generate")
+        lines = path.read_text().split("\n")[:-1]
+        n_batches = 0 if prior else len(test_batches[:-(-n // cfg.batch_size)])
+        want_lines = n if prior else min(n, int(sum(b.row_weight.sum()
+                                                    for b in test_batches[:n_batches])))
+        want = {k: 0 for k in launches}
+        want["lstm_fwd_infer"] = n_batches  # the encoder, once per test batch
+        if len(lines) != want_lines or rec["sentences"] != want_lines or launches != want:
+            raise AssertionError(f"cli.text {mode} {strategy}: {len(lines)} lines (expected "
+                                 f"{want_lines}), launches {launches} (expected {want})")
+        key = f"{'prior' if prior else 'reconstruct'}_{strategy}"
+        out[key] = dict(sentences=len(lines), seconds=rec["seconds"],
+                        sentences_per_sec=len(lines) / rec["seconds"], cli_wall=wall,
+                        launches=launches, words=sum(len(l.split()) for l in lines),
+                        first_line=lines[0][:120] if lines else "")
+        log(f"[generate] text {key}: {json.dumps(out[key])}")
+    return out
+
+
+def gumbel_cpu(step: int, shape):
+    """Step ``step``'s Gumbel draws, made on the CPU from a seed of their own
+    (the same for the card and the CPU run)."""
+    g = torch.Generator().manual_seed(1000 + step)
+    u = torch.rand(shape, generator=g).clamp_(min=torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def teacher_forced_gaps(dec, z, toks, noise):
+    """The card's tokens ``toks`` [N, L] fed through the CPU decoder ``dec``:
+    per live step, the CPU's max of logits (+ noise) minus the chosen
+    token's; returns the largest gap and the rows where the CPU's argmax
+    differs somewhere."""
+    from vae_lagging_encoder_tpu_torch.data.vocab import BOS_ID, EOS_ID
+    from vae_lagging_encoder_tpu_torch.models.lstm_core import lstm_bias
+
+    N, L = toks.shape
+    h, c = dec._init_state(z)
+    bias = lstm_bias(dec.lstm)
+    tok = torch.full((N,), BOS_ID, dtype=torch.long)
+    done = torch.zeros(N, dtype=torch.bool)
+    worst, differ = 0.0, torch.zeros(N, dtype=torch.bool)
+    for t in range(L):
+        logits, h, c = dec._step(tok, z, h, c, bias)
+        if noise is not None:
+            logits = logits + noise(t, tuple(logits.shape))
+        chosen = toks[:, t]
+        gap = logits.max(-1).values - logits.gather(1, chosen[:, None])[:, 0]
+        live = ~done
+        if live.any():
+            worst = max(worst, float(gap[live].max()))
+        differ |= live & (chosen != logits.argmax(-1))
+        tok = chosen
+        done = done | (chosen == EOS_ID)
+    return worst, int(differ.sum())
+
+
+def rescore_cpu(dec, z_row, seq):
+    """Length-normalized log-prob of ``seq`` (<s> .. ) under the CPU decode step."""
+    from vae_lagging_encoder_tpu_torch.models.lstm_core import lstm_bias
+
+    h, c = dec._init_state(z_row[None])
+    bias = lstm_bias(dec.lstm)
+    total = 0.0
+    for a, b in zip(seq[:-1], seq[1:]):
+        logits, h, c = dec._step(torch.tensor([a]), z_row[None], h, c, bias)
+        total += float(torch.log_softmax(logits[0].double(), -1)[b])
+    return total / len(seq)
+
+
+def text_generation_cross_check(ck, cfg, dev, scale: float = 1.0):
+    """Greedy, sample (on shared Gumbel draws) and beam decoding on the card
+    against the port's CPU path on the same z, tolerant of near-ties; the
+    checkpoint's weights times ``scale``."""
+    from vae_lagging_encoder_tpu_torch.models import build_text_vae
+    from vae_lagging_encoder_tpu_torch.train.checkpoint import load_checkpoint
+    from vae_lagging_encoder_tpu_torch.utils.jax_params import from_jax_params
+
+    params = {k: v * scale for k, v in from_jax_params(load_checkpoint(str(ck))[0]).items()}
+    vae_c, vae_p = (build_text_vae(cfg, VOCAB, device=d) for d in (dev, "cpu"))
+    vae_c.load_state_dict(params)
+    vae_p.load_state_dict(params)
+    z = torch.randn((GEN_N, NZ), generator=torch.Generator().manual_seed(31))
+    zc = z.to(dev)
+    out = {}
+    with torch.no_grad():
+        for name, noise in (("greedy", None), ("sample", gumbel_cpu)):
+            card_noise = None if noise is None else (lambda t, shape: gumbel_cpu(t, shape).to(dev))
+            toks = vae_c.dec._generate(zc, GEN_LEN, card_noise).cpu()
+            gap, differ = teacher_forced_gaps(vae_p.dec, z, toks, noise)
+            out[name] = dict(max_gap=gap, rows_differing=differ, rows=GEN_N)
+            if not gap <= GEN_TOL:
+                raise AssertionError(f"{name} decoding: a chosen token is {gap} below the CPU's "
+                                     f"maximum (tolerance {GEN_TOL})")
+        zb = z[:GEN_BEAM_ROWS]
+        card = vae_c.dec.beam_search_decode(zb.to(dev), 5, GEN_LEN)
+        cpu = vae_p.dec.beam_search_decode(zb, 5, GEN_LEN)
+        gaps = [abs(rescore_cpu(vae_p.dec, zb[n], a) - rescore_cpu(vae_p.dec, zb[n], b))
+                for n, (a, b) in enumerate(zip(card, cpu)) if a != b]
+        out["beam"] = dict(rows=GEN_BEAM_ROWS, rows_differing=len(gaps),
+                           max_score_gap=max(gaps, default=0.0),
+                           lengths=[len(a) for a in card])
+        if not max(gaps, default=0.0) <= GEN_TOL:
+            raise AssertionError(f"beam: hypotheses differ by {max(gaps)} in normalized score "
+                                 f"(tolerance {GEN_TOL})")
+    return out
+
+
+def png_size(path: Path):
+    blob = path.read_bytes()
+    if blob[:8] != b"\x89PNG\r\n\x1a\n" or blob[12:16] != b"IHDR":
+        raise AssertionError(f"{path} is not a PNG")
+    return tuple(int.from_bytes(blob[a:a + 4], "big") for a in (16, 20))  # (width, height)
+
+
+def run_image_generation(tmp: Path, npz: Path, ck: Path):
+    """6b: ``cli.image.main`` with ``--sample_from_prior`` and
+    ``--reconstruct`` (50 each) on phase 5's best checkpoint."""
+    from vae_lagging_encoder_tpu_torch.cli import image as cli_image
+
+    out = {}
+    for mode, cells in (("sample_from_prior", IMG_GEN_N), ("reconstruct", 2 * IMG_GEN_N)):
+        png = tmp / f"gen_{mode}.png"
+        argv = ["--dataset", "omniglot", "--train_data", str(npz), f"--{mode}",
+                "--num_samples", str(IMG_GEN_N), "--load_path", str(ck), "--output_file", str(png)]
+        launches, records, wall = run_cli(cli_image.main, argv, tmp / f"exp_gen_{mode}",
+                                          "cli.image")
+        rec = next(r for r in records if r.get("split") == "generate")
+        size = png_size(png)
+        want = (10 * 30, -(-cells // 10) * 30)  # 10 columns of 28 + 2 border pixels
+        if size != want or any(launches.values()) or rec["images"] != IMG_GEN_N:
+            raise AssertionError(f"cli.image {mode}: PNG {size} (expected {want}), launches "
+                                 f"{launches}, record {rec}")
+        key = "prior" if mode == "sample_from_prior" else "reconstruct"
+        out[key] = dict(images=IMG_GEN_N, seconds=rec["seconds"],
+                        images_per_sec=IMG_GEN_N / rec["seconds"], cli_wall=wall,
+                        png=list(size), launches=launches)
+        log(f"[generate] image {key}: {json.dumps(out[key])}")
+    return out
+
+
+def image_generation_cross_check(ck, cfg, dev):
+    """The sampled canvas teacher-forced through the incremental sampler on
+    the card against the dense logits on the card and on the CPU; the dense
+    sampler on IMG_DENSE_N images against the fast one on the same uniforms."""
+    from vae_lagging_encoder_tpu_torch.models import build_image_vae
+    from vae_lagging_encoder_tpu_torch.train.checkpoint import load_checkpoint
+    from vae_lagging_encoder_tpu_torch.utils.jax_params import from_jax_params
+
+    params = from_jax_params(load_checkpoint(str(ck))[0])
+    vae_c, vae_p = (build_image_vae(cfg, device=d) for d in (dev, "cpu"))
+    vae_c.load_state_dict(params)
+    vae_p.load_state_dict(params)
+    z = torch.randn((IMG_GEN_N, IMG_NZ), generator=torch.Generator().manual_seed(41))
+    zc = z.to(dev)
+    with torch.no_grad():
+        canvas = vae_c.dec.sample(zc, generator=torch.Generator(dev).manual_seed(42))
+        _, inc = vae_c.dec._incremental_pixels(zc, force_image=canvas)
+        dense = vae_c.dec._logits(canvas, zc)
+        dense_cpu = vae_p.dec._logits(canvas.cpu(), z)
+        errs = dict(incremental_vs_dense=float((inc - dense).abs().max()),
+                    dense_vs_cpu=float((dense.cpu() - dense_cpu).abs().max()),
+                    incremental_vs_cpu=float((inc.cpu() - dense_cpu).abs().max()),
+                    max_abs_logit=float(dense_cpu.abs().max()),
+                    ink=float(canvas.mean()))
+        if not max(errs[k] for k in ("incremental_vs_dense", "dense_vs_cpu",
+                                     "incremental_vs_cpu")) <= IMG_LOGIT_TOL:
+            raise AssertionError(f"PixelCNN logits: {errs} (tolerance {IMG_LOGIT_TOL})")
+        H, W, C = cfg.img_size
+        us = torch.rand((H * W, IMG_DENSE_N, C),
+                        generator=torch.Generator().manual_seed(43)).to(dev)
+        z4 = zc[:IMG_DENSE_N]
+        t0 = time.perf_counter()
+        fast = vae_c.dec.sample(z4, noise=lambda p, shape: us[p])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dense_s = vae_c.dec.sample(z4, noise=lambda p, shape: us[p], fast=False)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        _, fast_logits = vae_c.dec._incremental_pixels(z4, force_image=fast)
+        prob = torch.sigmoid(fast_logits).reshape(IMG_DENSE_N, H * W)
+        diff = (fast != dense_s).reshape(IMG_DENSE_N, H * W)
+        u = us[:, :, 0].T
+        excused = 0
+        for n in range(IMG_DENSE_N):  # after a near-tie flips, the rest may differ
+            hits = torch.nonzero(diff[n])
+            if len(hits):
+                p = int(hits[0])
+                if not float((u[n, p] - prob[n, p]).abs()) < IMG_TIE:
+                    raise AssertionError(f"dense sampler image {n} differs from the fast one at "
+                                         f"pixel {p}, |u - p| = "
+                                         f"{float((u[n, p] - prob[n, p]).abs())}")
+                excused += 1
+    errs.update(dense_sampler_pixels_differing=int(diff.sum()), images_excused=excused,
+                fast_sampler_ms=(t1 - t0) * 1e3, dense_sampler_ms=(t2 - t1) * 1e3,
+                dense_images=IMG_DENSE_N)
+    return errs
+
+
+def run_toy(tmp: Path):
+    """6c: the corpus written by the port's ``ensure_synthetic_dataset`` in a
+    directory without one, then ``cli.toy.main`` with ``--aggressive 0`` and
+    ``1`` on a training split cut to TOY_TRAIN sentences; the pickles are
+    read back and the epoch -1 pairs held against the CPU path."""
+    import os
+    import pickle
+
+    from vae_lagging_encoder_tpu_torch.cli import toy as cli_toy
+    from vae_lagging_encoder_tpu_torch.config import get_config
+    from vae_lagging_encoder_tpu_torch.data import BucketedPool, MonoTextData
+    from vae_lagging_encoder_tpu_torch.data.synthetic import ensure_synthetic_dataset
+    from vae_lagging_encoder_tpu_torch.models import build_text_vae
+
+    root = tmp / "toy"
+    root.mkdir()
+    cwd = os.getcwd()
+    os.chdir(root)  # the synthetic config's paths are relative to the working directory
+    try:
+        t0 = time.perf_counter()
+        paths = ensure_synthetic_dataset()
+        corpus = {s: dict(bytes=Path(p).stat().st_size,
+                          sentences=len(Path(p).read_text().splitlines()))
+                  for s, p in paths.items()}
+        corpus["seconds"] = time.perf_counter() - t0
+        log(f"[toy] corpus {json.dumps(corpus)}")
+        cut = root / "toy.train.txt"
+        cut.write_text("".join(Path(paths["train"]).read_text().splitlines(True)[:TOY_TRAIN]))
+        grid = cli_toy.z_grid(-20.0, 20.0, 0.1)
+        cfg = get_config("synthetic", train_data=str(cut))
+        train = MonoTextData(str(cut), label=True)
+        pool = BucketedPool(train.create_data_batch(cfg.batch_size, cfg.length_buckets), "cpu")
+        vae = build_text_vae(cfg, len(train.vocab), device="cpu")  # the CLI's seeded init
+        want = cli_toy.probe_pairs(vae, cli_toy.probe_batches(pool, TOY_PLOT), grid, TOY_PLOT)
+        runs = {}
+        for aggr in (0, 1):
+            argv = ["--dataset", "synthetic", "--train_data", str(cut), "--epochs",
+                    str(TOY_EPOCHS), "--aggressive", str(aggr), "--plot_niter", "1",
+                    "--num_plot", str(TOY_PLOT), "--plot_dir", "plots"]
+            launches, records, wall = run_cli(cli_toy.main, argv, root / f"exp_toy{aggr}",
+                                              "cli.toy")
+            with open(f"plots/synthetic_aggr{aggr}_seed{cfg.seed}.pkl", "rb") as fh:
+                trace = pickle.load(fh)
+            pairs = [t["pairs"] for t in trace]
+            ok = ([t["epoch"] for t in trace] == list(range(-1, TOY_EPOCHS))
+                  and all(isinstance(a, np.ndarray) and a.dtype == np.float32
+                          and a.shape == want.shape and np.isfinite(a).all()
+                          and (a[:, 0] >= float(grid[0])).all()
+                          and (a[:, 0] <= float(grid[-1])).all() for a in pairs))
+            err = float(np.abs(pairs[0] - want).max())
+            if not ok or err > TOY_TOL or any(launches.values()):
+                raise AssertionError(f"toy aggressive {aggr}: pickle well-formed {ok}, epoch -1 "
+                                     f"err {err} (tolerance {TOY_TOL}), launches {launches}")
+            probes = [r["seconds"] for r in records if r.get("split") == "toy_probe"]
+            epochs = [r for r in records if r.get("split") == "toy_epoch"]
+            runs[f"aggressive{aggr}"] = dict(
+                probe_seconds=probes, epoch_seconds=[e["seconds"] for e in epochs],
+                steps_per_sec=[e["steps"] / e["seconds"] for e in epochs],
+                inner_iters=[e["inner_iters"] for e in epochs], epoch_minus_1_err=err,
+                cli_wall=wall, launches=launches,
+                mean_abs_mu_last=float(np.abs(pairs[-1][:, 1]).mean()))
+            log(f"[toy] aggressive {aggr}: {json.dumps(runs[f'aggressive{aggr}'])}")
+    finally:
+        os.chdir(cwd)
+    return dict(corpus=corpus, train_sentences=TOY_TRAIN, train_batches=pool.num_batches,
+                probe_sentences=TOY_PLOT, grid_points=int(grid.shape[0]), **runs)
+
+
 KERNELS = [
     ("lstm_fwd_residuals", "vae_lagging_encoder_tpu_torch/csrc/lstm_infer.cu",
      "vae_lagging_encoder_tpu/ops/lstm_pallas.py:67", ("lstm", True, B, NI)),
@@ -1182,6 +1532,27 @@ def main() -> int:
             trace_img = trace_img_iw = {"error": f"{type(e).__name__}: {e}"}
         phase_done("5, the traces")
 
+        # phase 6 — generation and the toy probe through cli.text, cli.image, cli.toy
+        text_gen = run_text_generation(Path(td), Path(td) / "smoke.train.txt",
+                                       Path(td) / "yahoo.test.txt", Path(td) / "aggressive.ckpt",
+                                       tcfg)
+        # phase 4's trained weights (sentences end early) and phase 3's
+        # random ones x 10 (no EOS: every beam runs the 100 steps)
+        text_gen_x = {"trained": text_generation_cross_check(Path(td) / "aggressive.ckpt",
+                                                             tcfg, dev),
+                      "random_x10": text_generation_cross_check(Path(td) / "model.ckpt", tcfg,
+                                                                dev, scale=10.0)}
+        log(f"[generate] text card against the CPU path: {json.dumps(text_gen_x)} "
+            f"(tolerance {GEN_TOL})")
+        phase_done("6a, text generation")
+        img_gen = run_image_generation(Path(td), Path(td) / "omniglot.npz", img_ck)
+        img_gen_x = image_generation_cross_check(img_ck, img_cfg, dev)
+        log(f"[generate] image logits and samplers: {json.dumps(img_gen_x)} (tolerance "
+            f"{IMG_LOGIT_TOL}, ties {IMG_TIE})")
+        phase_done("6b, image generation")
+        toy = run_toy(Path(td))
+        phase_done("6c, the toy")
+
     train_launches = {k: sum(r["launches"][k] for r in train_runs.values()) for k in launches}
     kernels = []
     for name, source, replaces, spec in KERNELS:
@@ -1190,7 +1561,13 @@ def main() -> int:
         by_path = {"eval": launches[name], "train": train_launches[name],
                    "image_train": sum(img_runs[k]["launches"][name]
                                       for k in ("aggressive", "plain")),
-                   "image_eval": img_runs["eval"]["launches"][name]}
+                   "image_eval": img_runs["eval"]["launches"][name],
+                   "text_prior": sum(r["launches"][name] for k, r in text_gen.items()
+                                     if k.startswith("prior")),
+                   "text_reconstruct": sum(r["launches"][name] for k, r in text_gen.items()
+                                           if k.startswith("reconstruct")),
+                   "image_generate": sum(r["launches"][name] for r in img_gen.values()),
+                   "toy": sum(toy[k]["launches"][name] for k in ("aggressive0", "aggressive1"))}
         if not sum(by_path.values()):
             raise AssertionError(f"{name} was launched no time on the main paths: {by_path}")
         kernels.append({"name": name, "route": "cuda", "source": source,
@@ -1212,6 +1589,14 @@ def main() -> int:
     print(json.dumps({"image_cross_check": img_cross}), flush=True)
     print(json.dumps({"trace_image": trace_img}), flush=True)
     print(json.dumps({"trace_image_iw": trace_img_iw}), flush=True)
+    print(json.dumps({"generate": {
+        "text": {k: {m: r[m] for m in ("sentences", "seconds", "sentences_per_sec")}
+                 for k, r in text_gen.items()},
+        "text_cross_check": text_gen_x,
+        "image": {k: {m: r[m] for m in ("images", "seconds", "images_per_sec")}
+                  for k, r in img_gen.items()},
+        "image_cross_check": img_gen_x, "toy": toy, "max_decode_len": GEN_LEN,
+        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

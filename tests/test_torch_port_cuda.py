@@ -8,7 +8,9 @@ imports JAX, hence:
     python -m pytest tests/test_torch_port_cuda.py --noconftest -q
 
 Small odd shapes: partial row tiles, partial hidden-unit blocks, a ragged
-last vocab tile. Tolerances: f32 operands differ only in summation order;
+last vocab tile. Generation (plain PyTorch on the card) against the same
+calls on the CPU: the top-k tie order, greedy and beam decoding, the
+incremental PixelCNN sampler. Tolerances: f32 operands differ only in summation order;
 bf16 ``wh`` lets a last-bit difference in h (forward) or da (backward) flip
 a bf16 rounding of the next step's product input (see chip_smoke.py for the
 Yahoo-width checks).
@@ -17,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from vae_lagging_encoder_tpu_torch.models import LSTMDecoder, PixelCNNDecoderV2, dec_lstm
 from vae_lagging_encoder_tpu_torch.ops import build, ce_cuda, lstm_cuda
 
 
@@ -282,3 +285,55 @@ def test_ce_kernel_at_yahoo_width_on_cuda(n, save):
         assert spill.shape == (n, 20004) and spill.dtype == torch.bfloat16
         d = (spill.float() - rspill.float()).abs()
         assert bool((d <= 2.0 ** -7 * rspill.float().abs() + 1e-5).all())
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+@pytest.mark.cuda
+def test_topk_small_tie_order_on_cuda():
+    _need_cuda()
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(4, 3, 2000).astype(np.float32))
+    x[0, 0, 100:110] = x[0, 0, 50]
+    x[1, 1, :] = -np.inf
+    x[2, 2, ::2] = 3.25
+    for k in (1, 5, 15):
+        v, i = dec_lstm._topk_small(x.cuda(), k)
+        vc, ic = dec_lstm._topk_small(x, k)
+        assert torch.equal(v.cpu(), vc) and torch.equal(i.cpu(), ic)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["greedy", "beam"])
+def test_text_generation_on_cuda_matches_cpu(strategy):
+    _need_cuda()
+    dec = LSTMDecoder(50, 8, 32, 4, dropout_in=0.0, dropout_out=0.0)
+    dec.reset_parameters(torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        dec.pred.mul_(300.0)  # large margins: no near-ties between f32 sums
+    z = torch.randn(6, 4, generator=torch.Generator().manual_seed(2)) * 2
+    run = {"greedy": lambda d, zz: d.greedy_decode(zz, 12).tolist(),
+           "beam": lambda d, zz: d.beam_search_decode(zz, 3, 12)}[strategy]
+    want = run(dec, z)
+    assert run(dec.cuda(), z.cuda()) == want
+
+
+@pytest.mark.cuda
+def test_incremental_sampler_on_cuda():
+    _need_cuda()
+    dec = PixelCNNDecoderV2(3, img_size=(12, 12, 1), n_layers=3, filters=8)
+    dec.reset_parameters(torch.Generator().manual_seed(3))
+    g = torch.Generator().manual_seed(4)
+    z = torch.randn(3, 3, generator=g)
+    us = torch.rand(144, 3, 1, generator=g)
+    cpu = dec.sample(z, noise=lambda p, shape: us[p])
+    dec = dec.cuda()
+    canvas = dec.sample(z.cuda(), noise=lambda p, shape: us[p].cuda())
+    assert torch.equal(canvas.cpu(), cpu)
+    _, inc = dec._incremental_pixels(z.cuda(), force_image=canvas)
+    with torch.no_grad():
+        dense = dec._logits(canvas, z.cuda())
+    torch.testing.assert_close(inc, dense, atol=1e-5, rtol=0)

@@ -14,11 +14,15 @@
   lists: a checkpoint either package writes loads in the other, and
   ``cli.image --device cpu`` trains at tiny width on an ``.npz``, resumes
   exactly and evaluates its best checkpoint.
+- Generation: ``cli.text`` and ``cli.image`` with ``--sample_from_prior``
+  or ``--reconstruct``, and ``cli.toy``, raise without a card unless given
+  ``--device cpu``; with it they run on a checkpoint the JAX package wrote.
 """
 import ast
 import json
 import os
 import shutil
+import struct
 import subprocess
 import sys
 from pathlib import Path
@@ -36,6 +40,8 @@ from vae_lagging_encoder_tpu.train.checkpoint import load_checkpoint as jax_load
 from vae_lagging_encoder_tpu.train.checkpoint import save_checkpoint as jax_save
 from vae_lagging_encoder_tpu_torch.cli import image as cli_image
 from vae_lagging_encoder_tpu_torch.cli import text as cli_text
+from vae_lagging_encoder_tpu_torch.cli import toy as cli_toy
+from vae_lagging_encoder_tpu_torch.data import MonoTextData
 from vae_lagging_encoder_tpu_torch.config import DATASET_CONFIGS, get_config
 from vae_lagging_encoder_tpu_torch.models import build_image_vae, build_text_vae
 from vae_lagging_encoder_tpu_torch.train import optim
@@ -301,3 +307,83 @@ def test_cli_image_trains_resumes_and_evaluates(tmp_path, monkeypatch):
     _, ev = run("eval", "--eval", "--load_path", str(ck))
     for k in ("elbo_loss", "rec", "kl", "mi", "au", "iw_nll"):
         assert ev[k] == res[k], (k, ev[k], res[k])
+
+
+@pytest.mark.parametrize("entry", ["text_prior", "text_reconstruct", "image_prior",
+                                   "image_reconstruct", "toy"])
+def test_generation_entry_points_need_cuda(tmp_path, monkeypatch, entry):
+    _no_cuda()
+    monkeypatch.chdir(tmp_path)  # nothing is written outside it
+    mode = "--sample_from_prior" if entry.endswith("prior") else "--reconstruct"
+    run = {"text": lambda: cli_text.main([mode, "--load_path", "missing.ckpt",
+                                          "--exp_dir", "exp", "--train_data", "missing.txt"]),
+           "image": lambda: cli_image.main([mode, "--load_path", "missing.ckpt",
+                                            "--exp_dir", "exp", "--train_data", "missing.pt"]),
+           "toy": lambda: cli_toy.main(["--dataset", "synthetic", "--plot_dir", "plots"])}
+    with pytest.raises(RuntimeError, match="cuda"):
+        run[entry.split("_")[0]]()
+    assert not (tmp_path / "datasets").exists() and not (tmp_path / "plots").exists()
+
+
+@pytest.mark.parametrize("mode,strategy", [("sample_from_prior", "greedy"),
+                                           ("sample_from_prior", "sample"),
+                                           ("sample_from_prior", "beam"),
+                                           ("reconstruct", "greedy"),
+                                           ("reconstruct", "sample"),
+                                           ("reconstruct", "beam")])
+def test_cli_text_generates_on_jax_checkpoint(tmp_path, mode, strategy):
+    files = _corpus(tmp_path)
+    jax_save(str(tmp_path / "model.ckpt"), _jax_params(vocab=30, seed=3), {"epoch": 0})
+    out = tmp_path / "out.txt"
+    rc = cli_text.main(["--dataset", "yahoo", f"--{mode}", "--decoding_strategy", strategy,
+                        "--load_path", str(tmp_path / "model.ckpt"), "--device", "cpu",
+                        "--num_samples", "6", "--max_decode_len", "9", "--batch_size", "4",
+                        "--output_file", str(out), "--exp_dir", str(tmp_path / "exp"), *files,
+                        *(f"--{k}={v}" for k, v in SMALL.items())])
+    assert rc == 0
+    lines = out.read_text().split("\n")[:-1]
+    train = MonoTextData(str(tmp_path / "train.txt"), label=True)
+    if mode == "reconstruct":  # the real rows of the first two test batches
+        test = MonoTextData(str(tmp_path / "test.txt"), label=True, vocab=train.vocab)
+        want = int(sum(b.row_weight.sum() for b in test.create_data_batch(4)[:2]))
+    else:
+        want = 6
+    assert len(lines) == min(want, 6)
+    for line in lines:
+        words = line.split()
+        assert len(words) <= 9 and all(w in train.vocab.word2id for w in words)
+        assert not set(words) & {"<pad>", "<s>", "</s>"}
+    rec = next(json.loads(l) for l in (tmp_path / "exp" / "log.metrics.jsonl").read_text()
+               .splitlines() if '"generate"' in l)
+    assert rec["sentences"] == len(lines) and rec["strategy"] == strategy
+    assert rec["mode"] == ("prior" if mode == "sample_from_prior" else "reconstruct")
+
+
+def _png_size(path):
+    blob = Path(path).read_bytes()
+    assert blob[:8] == b"\x89PNG\r\n\x1a\n" and blob[12:16] == b"IHDR"
+    return struct.unpack(">II", blob[16:24])  # (width, height)
+
+
+@pytest.mark.parametrize("mode,n,size", [("sample_from_prior", 7, (7 * 30, 30)),
+                                         ("reconstruct", 5, (10 * 30, 30)),
+                                         ("reconstruct", 8, (10 * 30, 2 * 30))])
+def test_cli_image_generates_on_jax_checkpoint(tmp_path, monkeypatch, mode, n, size):
+    monkeypatch.setitem(DATASET_CONFIGS, "omniglot",
+                        DATASET_CONFIGS["omniglot"].replace(**IMAGE_SMALL))
+    rng = np.random.RandomState(1)
+    np.savez(tmp_path / "omni.npz", **{k: (rng.rand(m, 28, 28, 1) ** 3).astype(np.float32)
+                                       for k, m in (("train", 8), ("val", 4), ("test", 6))})
+    _, params, _ = _jax_image(4)
+    jax_save(str(tmp_path / "img.ckpt"), params, {})
+    rc = cli_image.main(["--dataset", "omniglot", f"--{mode}", "--num_samples", str(n),
+                         "--load_path", str(tmp_path / "img.ckpt"), "--device", "cpu",
+                         "--train_data", str(tmp_path / "omni.npz"),
+                         "--exp_dir", str(tmp_path / "exp")])
+    assert rc == 0
+    name = "samples.png" if mode == "sample_from_prior" else "recon.png"
+    assert _png_size(tmp_path / "exp" / name) == size  # 6 test images: 12 cells at most
+    rec = next(json.loads(l) for l in (tmp_path / "exp" / "log.metrics.jsonl").read_text()
+               .splitlines() if '"generate"' in l)
+    assert rec["images"] == (n if mode == "sample_from_prior" else min(n, 6))
+    assert rec["seconds"] > 0

@@ -11,6 +11,9 @@ import os
 import sys
 import time
 
+import numpy as np
+import torch
+
 from ..config import DATASET_CONFIGS, ExperimentConfig, get_config
 from ..utils.exp_utils import Logger, create_exp_dir
 
@@ -85,3 +88,10 @@ def make_run_logger(cfg: ExperimentConfig, kind: str) -> Logger:
         f"kls{cfg.kl_start}_warm{cfg.warm_up}_seed{cfg.seed}_{int(time.time())}")
     create_exp_dir(exp_dir, scripts_to_save=[sys.argv[0]] if sys.argv else None)
     return Logger(os.path.join(exp_dir, "log.txt"))
+
+
+def seeded_generator(device, seed: int, *stream: int) -> torch.Generator:
+    """A generator on ``device`` seeded from ``seed`` and the ids of a stream
+    (a use, a batch), so that each stream draws independently of the others."""
+    state = np.random.SeedSequence([seed, *stream]).generate_state(1, dtype=np.uint64)[0]
+    return torch.Generator(device).manual_seed(int(state >> np.uint64(1)))

@@ -2,7 +2,8 @@
 
 The port's own copy of ``vae_lagging_encoder_tpu/data/vocab.py``: word ids
 are built from the train file only and reused for val/test; specials
-``<pad> <unk> <s> </s>`` take ids 0..3; unknown words map to ``<unk>``.
+``<pad> <unk> <s> </s>`` take ids 0..3; unknown words map to ``<unk>``;
+``decode`` maps ids back to words, dropping the specials.
 """
 from __future__ import annotations
 
@@ -36,6 +37,9 @@ class Vocab:
             if word2id.get(sp) != i:
                 raise ValueError(f"special {sp!r} must have id {i}")
         self.word2id = word2id
+        self.id2word_ = [None] * len(word2id)
+        for w, i in word2id.items():
+            self.id2word_[i] = w
 
     @classmethod
     def from_corpus(cls, sentences: Iterable[List[str]]) -> "Vocab":
@@ -59,3 +63,8 @@ class Vocab:
     def encode(self, words: List[str]) -> List[int]:
         """<s> w1 ... wn </s> as ids (the reference wraps every sentence)."""
         return [BOS_ID] + [self[w] for w in words] + [EOS_ID]
+
+    def decode(self, ids: Iterable[int], strip_specials: bool = True) -> List[str]:
+        """Words of ``ids``; the specials are dropped unless ``strip_specials`` is False."""
+        return [self.id2word_[i] for i in ids
+                if not (strip_specials and self.id2word_[i] in _SPECIALS)]

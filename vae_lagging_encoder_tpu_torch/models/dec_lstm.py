@@ -1,4 +1,4 @@
-"""LSTM decoder p(x|z) for text: training and evaluation paths.
+"""LSTM decoder p(x|z) for text: training, evaluation and generation.
 
 Counterpart of ``vae_lagging_encoder_tpu/models/dec_lstm.py``
 (the reference's LSTMDecoder):
@@ -32,21 +32,50 @@ The JAX package routes to its CE kernel only when ``nh % 128 == 0`` (a TPU
 lane tile) and V >= 1024; the port drops the tile gate and keeps the
 vocab-size one (``ce_fusable``).
 
-Generation (greedy, sample, beam) is not ported yet.
+Generation runs one ``lstm_cell`` step at a time (never the kernel route,
+as in the JAX package), all rows at once on the tensors' device:
+
+- ``greedy_decode`` / ``sample_decode`` (``_generate``): ``max_len`` steps
+  of argmax, or of argmax(logits + Gumbel), which is what the JAX package's
+  ``categorical`` computes; a row emits PAD after its EOS. The Gumbel draws
+  come from ``noise(step, shape)`` (a test hands in the JAX package's
+  draws), else from ``generator``.
+- ``beam_search_decode``: ``backend="device"`` is ``_beam_search_batched``,
+  every row's beams in one batched step, one host read per step for the loop
+  condition; ``backend="host"`` is ``_beam_search_host``, the reference's
+  per-row loop on host numpy (``np.argpartition`` and Python's stable
+  sort, so that ties fall as in the JAX package), kept as the oracle.
+- ``_topk_small`` is ``lax.top_k``'s contract (descending, the lower index
+  first among ties), as a stable sort; ``torch.topk`` promises no tie order.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
+from ..data.vocab import BOS_ID, EOS_ID, PAD_ID
 from ..ops.ce_cuda import FusedCEFn, ce_forward
 from .decoder import DecoderBase
-from .lstm_core import LSTMParams, lstm_run, uniform_
+from .lstm_core import LSTMParams, lstm_bias, lstm_cell, lstm_run, uniform_
 
 
 Draw = Callable[[str, Tuple[int, ...]], torch.Tensor]
+StepNoise = Callable[[int, Tuple[int, ...]], torch.Tensor]
+
+
+def gumbel_noise(generator: Optional[torch.Generator], device) -> StepNoise:
+    """Gumbel(0, 1) draws from ``generator`` as the JAX package's ``gumbel``
+    makes them: -log(-log(u)), u uniform in [tiny, 1)."""
+    tiny = torch.finfo(torch.float32).tiny
+
+    def noise(step: int, shape: Tuple[int, ...]) -> torch.Tensor:
+        u = torch.rand(shape, generator=generator, device=device)
+        return -torch.log(-torch.log(u.clamp_(min=tiny)))
+
+    return noise
 
 
 def ce_fusable(vocab: int) -> bool:
@@ -153,3 +182,220 @@ class LSTMDecoder(DecoderBase):
 
         return torch.cat([rec_chunk(z[:, s:s + self.iw_chunk])
                           for s in range(0, z.shape[1], self.iw_chunk)], dim=1)
+
+    # ------------------------------------------------------------ generation
+    def _step(self, tok: torch.Tensor, z: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+              bias: torch.Tensor):
+        """One decode step for every row: tokens [N], z [N, nz] -> (logits [N, V], h, c)."""
+        xw = torch.cat([self.emb[tok], z], dim=-1) @ self.lstm.wx + bias
+        h, c = lstm_cell(h, c, xw, self.lstm.wh, self.compute_dtype)
+        return h @ self.pred, h, c
+
+    @torch.no_grad()
+    def _generate(self, z: torch.Tensor, max_len: int, noise: Optional[StepNoise]) -> torch.Tensor:
+        """z [N, nz] -> token ids [N, max_len] (from after <s>; PAD after </s>);
+        greedy without ``noise``."""
+        N = z.shape[0]
+        h, c = self._init_state(z)
+        bias = lstm_bias(self.lstm)
+        tok = torch.full((N,), BOS_ID, dtype=torch.long, device=z.device)
+        done = torch.zeros((N,), dtype=torch.bool, device=z.device)
+        out = []
+        for t in range(max_len):
+            logits, h, c = self._step(tok, z, h, c, bias)
+            if noise is not None:
+                logits = logits + noise(t, tuple(logits.shape))
+            tok = torch.where(done, PAD_ID, torch.argmax(logits, dim=-1))
+            done = done | (tok == EOS_ID)
+            out.append(tok)
+        return torch.stack(out, dim=1) if out else z.new_zeros((N, 0), dtype=torch.long)
+
+    def greedy_decode(self, z: torch.Tensor, max_len: int = 100) -> torch.Tensor:
+        return self._generate(z, max_len, None)
+
+    def sample_decode(self, z: torch.Tensor, max_len: int = 100,
+                      noise: Optional[StepNoise] = None,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Ancestral sampling: ``noise(step, (N, V))`` gives step ``step``'s
+        Gumbel draws; without it they come from ``generator``."""
+        return self._generate(z, max_len, noise or gumbel_noise(generator, z.device))
+
+    def beam_search_decode(self, z: torch.Tensor, beam_width: int = 5, max_len: int = 100,
+                           backend: str = "device") -> List[List[int]]:
+        """Beam search over a batch of latents; each row's hypothesis starts
+        with <s> and ends with </s> when one finished within ``max_len``."""
+        if backend == "device":
+            toks, lens = self._beam_search_batched(z, beam_width, max_len)
+            toks, lens = toks.tolist(), lens.tolist()
+            return [row[:n] for row, n in zip(toks, lens)]
+        if backend != "host":  # a typo must not silently pick the slow loop
+            raise ValueError(f"unknown beam backend {backend!r}")
+        return self._beam_search_host(z, beam_width, max_len)
+
+    @torch.no_grad()
+    def _beam_step(self, z, tok, h, c):
+        logits, h, c = self._step(tok, z, h, c, lstm_bias(self.lstm))
+        return torch.log_softmax(logits, dim=-1), h, c
+
+    @torch.no_grad()
+    def _beam_search_host(self, z: torch.Tensor, beam_width: int = 5,
+                          max_len: int = 100) -> List[List[int]]:
+        """The reference's BeamSearchNode loop, one row of z at a time."""
+        results = []
+        for n in range(z.shape[0]):
+            zn = z[n:n + 1]
+            beams = [([BOS_ID], 0.0, self._init_state(zn))]  # (tokens, logp, state)
+            done: List[Tuple[List[int], float]] = []
+            for _ in range(max_len):
+                cand = []
+                for toks, lp, (h, c) in beams:
+                    logp, h2, c2 = self._beam_step(
+                        zn, torch.tensor([toks[-1]], device=z.device), h, c)
+                    logp = logp[0].cpu().numpy()
+                    if beam_width < logp.shape[-1]:
+                        top = np.argpartition(-logp, beam_width)[:beam_width]
+                    else:  # tiny vocab: expand every token
+                        top = np.arange(logp.shape[-1])
+                    for t in top:
+                        cand.append((toks + [int(t)], lp + float(logp[t]), (h2, c2)))
+                cand.sort(key=lambda x: -x[1])
+                beams = []
+                for toks, lp, st in cand[: beam_width * 2]:
+                    if toks[-1] == EOS_ID:
+                        done.append((toks, lp / len(toks)))
+                    else:
+                        beams.append((toks, lp, st))
+                    if len(beams) >= beam_width:
+                        break
+                if not beams or len(done) >= beam_width:
+                    break
+            if not done:
+                done = [(b[0], b[1] / len(b[0])) for b in beams]
+            done.sort(key=lambda x: -x[1])
+            results.append(done[0][0])
+        return results
+
+    @torch.no_grad()
+    def _beam_search_batched(self, z: torch.Tensor, beam_width: int, max_len: int):
+        """All rows' beams in one batched step, as the JAX package's
+        ``_beam_search_batched``: returns ``(toks [N, max_len + 1], lens
+        [N])``, row n's hypothesis being ``toks[n, :lens[n]]``.
+
+        Each step merges every live beam's top-``beam_width`` continuations,
+        keeps the best ``2 * beam_width`` (the reference's candidate window)
+        and scans them in score order: EOS-ending candidates become finished
+        hypotheses scored by length-normalized logp, the rest refill the
+        live-beam slots until ``beam_width`` are filled (a cumulative count
+        over the sorted window in place of the host loop's break). A row ends
+        when ``beam_width`` hypotheses have finished or no beam is live.
+        Candidates whose total logp is -inf are dropped, as there."""
+        V, N, dev = self.vocab_size, z.shape[0], z.device
+        K = W = int(beam_width)
+        C1 = min(W, V)            # per-beam expansions (host: top-W / whole tiny vocab)
+        C2 = min(2 * W, K * C1)   # sorted candidate window (host: cand[:2W])
+        T = max_len + 1           # BOS + at most max_len generated tokens
+        NEG = float("-inf")
+        bias = lstm_bias(self.lstm)
+        h0, c0 = self._init_state(z)
+
+        def expand(a):  # [N, ...] -> [N, K, ...] beam copies
+            return a[:, None].expand(N, K, *a.shape[1:])
+
+        def rows(a, idx):  # a [N, K, ...] at beam indices idx [N, J] -> [N, J, ...]
+            return a.gather(1, idx.view(N, -1, *([1] * (a.dim() - 2))).expand(
+                N, idx.shape[1], *a.shape[2:]))
+
+        z_rep = expand(z).reshape(N * K, -1)
+        ar_k = torch.arange(K, device=dev)
+        slot0 = (ar_k == 0).expand(N, K)
+        ar_t = torch.arange(T, device=dev)
+        toks = torch.full((N, K, T), PAD_ID, dtype=torch.long, device=dev)
+        toks[:, :, 0] = BOS_ID
+        lens = torch.ones((N, K), dtype=torch.long, device=dev)
+        lp = torch.where(slot0, 0.0, NEG)
+        live = slot0
+        last = torch.full((N, K), BOS_ID, dtype=torch.long, device=dev)
+        h, c = expand(h0), expand(c0)
+        done_count = torch.zeros((N,), dtype=torch.long, device=dev)
+        best_score = torch.full((N,), NEG, device=dev)
+        best_toks = torch.full((N, T), PAD_ID, dtype=torch.long, device=dev)
+        best_len = torch.zeros((N,), dtype=torch.long, device=dev)
+        finished = torch.zeros((N,), dtype=torch.bool, device=dev)
+
+        t = 0
+        while t < max_len and not bool(finished.all()):  # one host read a step
+            logits, h2, c2 = self._step(last.reshape(-1), z_rep, h.reshape(N * K, -1),
+                                        c.reshape(N * K, -1), bias)
+            logp = torch.log_softmax(logits, dim=-1).reshape(N, K, V)
+            h2, c2 = h2.reshape(N, K, -1), c2.reshape(N, K, -1)
+
+            top_lp, top_tok = _topk_small(logp, C1)                  # [N, K, C1]
+            cand = torch.where(live[:, :, None], lp[:, :, None] + top_lp, NEG)
+            cs, ci = _topk_small(cand.reshape(N, K * C1), C2)        # [N, C2] desc
+            beam_i = ci // C1
+            tok_i = top_tok.reshape(N, K * C1).gather(1, ci)
+
+            valid = cs > NEG
+            is_eos = valid & (tok_i == EOS_ID)
+            live_inc = (valid & (tok_i != EOS_ID)).long()
+            cum_excl = torch.cumsum(live_inc, dim=1) - live_inc
+            processed = cum_excl < W          # host stops once W live slots fill
+
+            # refill the K live-beam slots from the processed prefix
+            sel = processed & live_inc.bool()
+            slot_match = sel[:, None, :] & (cum_excl[:, None, :] == ar_k[None, :, None])
+            has = slot_match.any(-1)                                  # [N, K]
+            src = slot_match.long().argmax(-1)                        # index into C2
+            parent = beam_i.gather(1, src)
+            new_tok = tok_i.gather(1, src)
+            new_lp = torch.where(has, cs.gather(1, src), NEG)
+            new_toks = rows(toks, parent)
+            new_lens = lens.gather(1, parent)
+            new_toks = torch.where(ar_t[None, None] == new_lens[:, :, None],
+                                   new_tok[:, :, None], new_toks)
+            new_lens = new_lens + 1
+
+            # finished hypotheses: EOS candidates within the processed prefix,
+            # scored by length-normalized total logp (len counts BOS..EOS)
+            eos_sel = processed & is_eos
+            cand_len = lens.gather(1, beam_i) + 1
+            norm = torch.where(eos_sel, cs / cand_len, NEG)
+            step_best, bi = norm.max(1).values, norm.argmax(1)
+            bparent = beam_i.gather(1, bi[:, None])
+            btoks = rows(toks, bparent)[:, 0]
+            blen = lens.gather(1, bparent)[:, 0]
+            btoks = torch.where(ar_t[None] == blen[:, None], EOS_ID, btoks)
+            improve = (step_best > best_score) & ~finished
+
+            done_count = done_count + torch.where(finished, 0, eos_sel.sum(1))
+            frz = finished                    # rows frozen BEFORE this step
+            finished = finished | (done_count >= W) | ~has.any(1)
+
+            def keep(old, new):
+                return torch.where(frz.view(N, *([1] * (new.dim() - 1))), old, new)
+
+            toks, lens, lp, live, last = (keep(toks, new_toks), keep(lens, new_lens),
+                                          keep(lp, new_lp), keep(live, has),
+                                          keep(last, new_tok))
+            h, c = keep(h, rows(h2, parent)), keep(c, rows(c2, parent))
+            best_score = torch.where(improve, step_best, best_score)
+            best_toks = torch.where(improve[:, None], btoks, best_toks)
+            best_len = torch.where(improve, blen + 1, best_len)
+            t += 1
+
+        # rows with no finished hypothesis fall back to the best live beam,
+        # normalized by its current length (host: `if not done: done = beams`)
+        li = torch.where(live, lp / lens, NEG).argmax(1)
+        ltoks = rows(toks, li[:, None])[:, 0]
+        llen = lens.gather(1, li[:, None])[:, 0]
+        use_done = done_count > 0
+        return (torch.where(use_done[:, None], best_toks, ltoks),
+                torch.where(use_done, best_len, llen))
+
+
+def _topk_small(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k`` over the last axis: values descending, the lower index
+    first among ties (-inf included). A stable descending sort keeps equal
+    values in index order; ``torch.topk`` promises no order among ties."""
+    vals, idxs = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idxs[..., :k]

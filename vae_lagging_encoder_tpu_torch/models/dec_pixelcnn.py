@@ -1,7 +1,7 @@
 """Conditional PixelCNN decoder p(x|z) over binarized images.
 
 Counterpart of ``vae_lagging_encoder_tpu/models/dec_pixelcnn.py`` (the
-reference's PixelCNNDecoderV2), training and evaluation paths:
+reference's PixelCNNDecoderV2), training, evaluation and sampling:
 
 - ``n_layers`` masked convs of ``filters`` channels (the first
   ``first_kernel`` x ``first_kernel`` with mask A, which blocks the current
@@ -17,22 +17,37 @@ reference's PixelCNNDecoderV2), training and evaluation paths:
   bounds the memory of an IW pass; under autograd each chunk is recomputed
   in the backward (``torch.utils.checkpoint``, as ``jax.checkpoint``).
 
+Sampling is autoregressive in raster order. ``sample(fast=True)`` is the
+cached incremental sampler (``_incremental_pixels``): per pixel, each
+layer's activation at that pixel only, from a zero-initialised padded
+canvas of earlier activations and the masked kernel flattened to one
+window product; the masks zero every not-yet-written position, so its
+logits equal the dense ``_logits`` (``force_image`` teacher-forces the
+canvas to show it). ``fast=False`` runs the dense forward once per pixel,
+the oracle. A pixel is 1 where ``u < sigmoid(logit)``, which is what the
+JAX package's ``bernoulli`` computes from its uniforms; the uniforms of
+pixel ``p`` (raster index) come from ``noise(p, (N, C))``, else from
+``generator``. Rounding follows the dense path under bf16: each window
+product is rounded to bf16 before the f32 epilogue, as the conv's output.
+
 Parameters keep the JAX layouts (HWIO ``w``, ``wz`` [nz, C]). Rows are
-z-major, row n = k * B + b. Generation (the autoregressive samplers) is
-not ported yet.
+z-major, row n = k * B + b.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.conv import masked_conv2d
+from ..ops.conv import causal_mask, masked_conv2d
 from .decoder import DecoderBase
 from .lstm_core import uniform_
+
+
+StepNoise = Callable[[int, Tuple[int, ...]], torch.Tensor]
 
 
 class _Layer(nn.Module):
@@ -50,6 +65,7 @@ class PixelCNNDecoderV2(DecoderBase):
                  iw_chunk: int = 25):
         super().__init__()
         self.nz, self.img_size, self.n_layers, self.filters = nz, tuple(img_size), n_layers, filters
+        self.kernels = [first_kernel] + [kernel] * (n_layers - 1)
         self.compute_dtype = compute_dtype
         self.iw_chunk = iw_chunk
         C = img_size[2]
@@ -107,3 +123,83 @@ class PixelCNNDecoderV2(DecoderBase):
         out = [checkpoint(self._rec_chunk, x, z[:, s:s + c], use_reentrant=False) if grad
                else self._rec_chunk(x, z[:, s:s + c]) for s in range(0, K_pad, c)]
         return torch.cat(out, dim=1)[:, :K]
+
+    # ------------------------------------------------------------ sampling
+    @torch.no_grad()
+    def _incremental_pixels(self, z_flat: torch.Tensor, noise: Optional[StepNoise] = None,
+                            force_image: Optional[torch.Tensor] = None,
+                            generator: Optional[torch.Generator] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Cached raster generation: returns ``(canvas [N, H, W, C], logits
+        [N, H, W, C])``; the written pixels are ``force_image``'s when given,
+        else Bernoulli samples."""
+        N = z_flat.shape[0]
+        H, W, C = self.img_size
+        cd = self.compute_dtype
+        ks = self.kernels
+        if noise is None and force_image is None:
+            noise = uniform_noise(generator, z_flat.device)
+        mats, conds, biases = [], [], []
+        for i, (layer, k) in enumerate(zip(self.layers, ks)):
+            w = layer.w * causal_mask(*layer.w.shape, include_center=i > 0,
+                                      dtype=layer.w.dtype, device=layer.w.device)
+            mats.append(w.reshape(k * k * w.shape[2], w.shape[3]).to(cd).float())
+            conds.append(z_flat @ layer.wz)
+            biases.append(layer.b)
+        out_w = self.out_w[0, 0]  # the 1x1 conv (mask B keeps the center)
+        # canvases[l] = input of layer l, padded by its margin k // 2;
+        # canvases[L] = the last hidden layer (read by the unpadded 1x1 conv)
+        widths = [C] + [self.filters] * self.n_layers
+        pads = [k // 2 for k in ks] + [0]
+        canvases = [z_flat.new_zeros((N, H + 2 * p, W + 2 * p, c)) for p, c in zip(pads, widths)]
+        logits = z_flat.new_zeros((N, H, W, C))
+        for p in range(H * W):
+            i, j = divmod(p, W)
+            for l, k in enumerate(ks):
+                win = canvases[l][:, i:i + k, j:j + k, :].reshape(N, -1)
+                # the dense conv's output is in compute_dtype: round the same way
+                acc = (win.to(cd).float() @ mats[l]).to(cd).float()
+                h = F.elu(acc + biases[l] + conds[l])
+                m = pads[l + 1]
+                canvases[l + 1][:, i + m, j + m, :] = h
+            logit = h.to(cd).float() @ out_w + self.out_b
+            logits[:, i, j, :] = logit
+            if force_image is not None:
+                pix = force_image[:, i, j, :]
+            else:
+                pix = (noise(p, (N, C)) < torch.sigmoid(logit)).float()
+            canvases[0][:, i + pads[0], j + pads[0], :] = pix
+        m0 = pads[0]
+        return canvases[0][:, m0:m0 + H, m0:m0 + W, :], logits
+
+    @torch.no_grad()
+    def sample(self, z_flat: torch.Tensor, noise: Optional[StepNoise] = None, fast: bool = True,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """z [N, nz] -> binary images [N, H, W, C], pixel by pixel in raster
+        order: the cached sampler (``fast``) or the dense forward per pixel."""
+        if fast:
+            return self._incremental_pixels(z_flat, noise, generator=generator)[0]
+        noise = noise or uniform_noise(generator, z_flat.device)
+        N = z_flat.shape[0]
+        H, W, C = self.img_size
+        canvas = z_flat.new_zeros((N, H, W, C))
+        for p in range(H * W):
+            i, j = divmod(p, W)
+            logit = self._logits(canvas, z_flat)[:, i, j, :]
+            canvas[:, i, j, :] = (noise(p, (N, C)) < torch.sigmoid(logit)).float()
+        return canvas
+
+    # the shared VAE.reconstruct interface (max_len is unused)
+    def greedy_decode(self, z_flat: torch.Tensor, max_len: int = 0) -> torch.Tensor:
+        """A sample with a fixed seed (0), as the JAX package's ``PRNGKey(0)``."""
+        return self.sample(z_flat, generator=torch.Generator(z_flat.device).manual_seed(0))
+
+    def sample_decode(self, z_flat: torch.Tensor, max_len: int = 0,
+                      noise: Optional[StepNoise] = None,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.sample(z_flat, noise, generator=generator)
+
+
+def uniform_noise(generator: Optional[torch.Generator], device) -> StepNoise:
+    """Uniform [0, 1) draws from ``generator``, one call per pixel."""
+    return lambda p, shape: torch.rand(shape, generator=generator, device=device)

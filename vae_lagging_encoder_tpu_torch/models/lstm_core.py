@@ -25,6 +25,10 @@ Routes (``kernel_route`` = the config's ``use_pallas``):
 At masked (pad) positions both routes emit the KEPT state, as the TPU
 kernels do; the JAX scan route emits the raw step output there. Callers
 read only unmasked positions and the final carry, where all agree.
+
+``lstm_cell`` is one step of the recurrence, ``wh`` in the compute dtype
+(f32 by default): the step of the JAX package's generation loops, which
+never take the kernel route, and so neither does the port's.
 """
 from __future__ import annotations
 
@@ -56,6 +60,22 @@ class LSTMParams(nn.Module):
             uniform_(p, scale, generator)
 
 
+def lstm_bias(params: LSTMParams) -> torch.Tensor:
+    """The effective gate bias ``b_ih + b_hh``."""
+    return params.b_ih + params.b_hh
+
+
+def lstm_cell(h: torch.Tensor, c: torch.Tensor, xw_t: torch.Tensor, wh: torch.Tensor,
+              compute_dtype: torch.dtype = torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One LSTM step given the input projection ``xw_t`` [N, 4H] (biases
+    included): h and ``wh`` rounded to ``compute_dtype``, the product in f32."""
+    cd = compute_dtype
+    gates = xw_t + h.to(cd).float() @ wh.to(cd).float()
+    i, f, g, o = gates.chunk(4, dim=-1)
+    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    return torch.sigmoid(o) * torch.tanh(c_new), c_new
+
+
 def lstm_run(params: LSTMParams, x: torch.Tensor,
              mask: Optional[torch.Tensor] = None,
              h0: Optional[torch.Tensor] = None,
@@ -73,7 +93,7 @@ def lstm_run(params: LSTMParams, x: torch.Tensor,
     H = params.wh.shape[0]
     cd = compute_dtype
     xw = ((x.reshape(B * T, -1).to(cd).float() @ params.wx.to(cd).float())
-          .reshape(B, T, 4 * H) + (params.b_ih + params.b_hh)).transpose(0, 1)
+          .reshape(B, T, 4 * H) + lstm_bias(params)).transpose(0, 1)
     m = mask.transpose(0, 1) if mask is not None else x.new_ones((T, B))
     if h0 is None:
         h0 = x.new_zeros((B, H))

@@ -2,14 +2,17 @@
 
 Counterpart of ``vae_lagging_encoder_tpu/models/vae.py`` (the reference's
 modules/vae.py): loss (per-sentence loss/rec/KL), eval_complete_ll,
-nll_iw (importance-weighted NLL in chunks of ``ns``), KL, calc_mi_q and
-calc_infer_mean. Submodules ``enc`` and ``dec`` mirror the JAX package's
-``{"enc": ..., "dec": ...}`` parameter tree.
+nll_iw (importance-weighted NLL in chunks of ``ns``), KL, calc_mi_q,
+calc_infer_mean, and generation and the toy's probe: sample_from_prior,
+reconstruct and calc_model_posterior_mean. Submodules ``enc`` and ``dec``
+mirror the JAX package's ``{"enc": ..., "dec": ...}`` parameter tree.
 
 Noise is explicit: each estimator takes ``eps`` (or, for ``nll_iw``, a
 ``noise(j, shape)`` callable per chunk) or a ``torch.Generator``; the
 training loss takes a ``draw(site, shape)`` callable for all of a step's
-draws (see ``loss``).
+draws (see ``loss``); ``reconstruct`` takes ``eps`` and the decoder's
+per-step ``noise``, or one generator for both, as the JAX package's
+``reconstruct`` uses one key for both.
 """
 from __future__ import annotations
 
@@ -36,6 +39,12 @@ class VAE(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.enc.reset_parameters(generator)
         self.dec.reset_parameters(generator)
+
+    def sample_from_prior(self, nsamples: int, generator: Optional[torch.Generator] = None
+                          ) -> torch.Tensor:
+        """z ~ N(0, I): [nsamples, nz] on the model's device."""
+        dev = next(self.parameters()).device
+        return torch.randn((nsamples, self.nz), generator=generator, device=dev)
 
     def eval_prior_dist(self, z: torch.Tensor) -> torch.Tensor:
         """log p(z) under N(0, I): [..., nz] -> [...]."""
@@ -99,3 +108,28 @@ class VAE(nn.Module):
         """mu(x) of the approximate posterior: [B, nz]."""
         mu, _ = self.enc(x, mask)
         return mu
+
+    @torch.no_grad()
+    def reconstruct(self, x, mask=None, decoding_strategy: str = "greedy", max_len: int = 100,
+                    eps=None, noise=None, generator: Optional[torch.Generator] = None):
+        """Decode one z ~ q(z|x) per row: text ids [B, max_len] (greedy,
+        sample) or hypotheses (beam); binary images [B, H, W, C]. ``eps``
+        [B, 1, nz] and the decoder's ``noise`` default to draws from
+        ``generator`` (eps first)."""
+        z, _ = self.enc.sample(x, mask, 1, eps, generator)
+        z_flat = z[:, 0, :]
+        if decoding_strategy == "greedy":
+            return self.dec.greedy_decode(z_flat, max_len)
+        if decoding_strategy == "sample":
+            return self.dec.sample_decode(z_flat, max_len, noise=noise, generator=generator)
+        if decoding_strategy == "beam":
+            return self.dec.beam_search_decode(z_flat, max_len=max_len)
+        raise ValueError(decoding_strategy)
+
+    def calc_model_posterior_mean(self, x, mask, z_grid: torch.Tensor) -> torch.Tensor:
+        """<z> under the model's posterior p(z|x) by quadrature on ``z_grid``
+        [G, nz]: p(z|x) proportional to p(x|z) p(z) on the grid; returns the
+        softmax-weighted grid mean [B, nz]."""
+        z = z_grid[None].expand(x.shape[0], *z_grid.shape)
+        w = torch.softmax(self.eval_complete_ll(x, mask, z), dim=1)  # [B, G]
+        return torch.einsum("bg,gz->bz", w, z_grid)

@@ -34,7 +34,8 @@ import numpy as np
 import torch
 
 from ..config import ExperimentConfig
-from ..data import BucketedPool, ImagePool, MonoTextData, Pool, load_omniglot
+from ..data import (BucketedPool, ImagePool, MonoTextData, Pool, ensure_synthetic_dataset,
+                    load_omniglot)
 from ..models import VAE, build_image_vae, build_text_vae
 from ..ops.build import resolve_device
 from ..utils.exp_utils import Logger
@@ -69,6 +70,11 @@ def dataset_is_labeled(cfg: ExperimentConfig) -> bool:
 
 
 def load_text_datasets(cfg: ExperimentConfig):
+    """(train, val, test) ``MonoTextData`` of the config's files; for
+    ``synthetic`` the corpus is written first where it is missing
+    (``ensure_synthetic_dataset``, relative to the working directory)."""
+    if cfg.dataset == "synthetic":
+        ensure_synthetic_dataset()
     label = dataset_is_labeled(cfg)
     train = MonoTextData(cfg.train_data, label=label)
     val = MonoTextData(cfg.val_data, label=label, vocab=train.vocab)
