@@ -19,7 +19,10 @@ Phases (each raises on failure; the script then exits non-zero):
    encoder's 32 rows (``*_rows32``), the residual-saving forward and the
    backward also at a short last batch of 20 (``*_b20``), the CE also at a
    ragged N and at the training shape's split plan (``*_n1000``,
-   ``*_n3040``). Library yardsticks compute what the kernel computes and
+   ``*_n3040``); the shapes of ``--nsamples 40`` training, a decoder chunk
+   of 20 samples x 32 sentences: the residual-saving forward and the
+   backward at 640 rows (``*_rows640``), the grad-mode CE at N 60800
+   (``*_n60800``, a 2.4 GB bf16 spill). Library yardsticks compute what the kernel computes and
    are timed in turns with it (library, port, port, library;
    ``*_turns``): cuDNN's training forward for the residual-saving forward,
    the library's forward alone for the grad-mode CE (its forward and
@@ -75,15 +78,40 @@ Phases (each raises on failure; the script then exits non-zero):
    corpus written by the port's ``ensure_synthetic_dataset`` into the
    temporary directory, then ``cli.toy.main`` with ``--aggressive 0`` and
    ``1`` (2 epochs on 96 training sentences, 96 probe sentences), the
-   pickles read back and their epoch -1 pairs held against the CPU path.
+   pickles read back and their epoch -1 pairs held against the CPU path;
+7. the rest of the single-card training lifecycle through ``cli.text`` at
+   the Yahoo width, on phase 4's corpus, from phase 3's random model: (a)
+   ``--epochs 2 --aggressive 1 --autosave_niter 4``, uninterrupted; the
+   same run stopped by ``run_training``'s ``_stop_after_steps`` hook after
+   14 steps (epoch 1; the last autosave, step 12, two steps behind) and
+   resumed with ``--resume --load_path <save_path>.auto``; then resumed
+   again from the autosave that run wrote at the end of epoch 1, with
+   ``--profile_dir`` (an epoch of 0 steps: trace, no dossier); every epoch
+   metric, final result and parameter against the uninterrupted run's,
+   within RESUME_BOUND (autosave every 4 steps rather than 3, so that an
+   autosave lands on the epoch's end); (b) one plain epoch of
+   ``--nsamples 40``: launch counts (per step the encoder's forward and
+   backward, and per chunk the forward, its recompute and the backward),
+   steps/s, peak memory, and one step's loss and gradients against the
+   plain versions on the card; (c) ``--profile_dir`` on one plain epoch:
+   ``DOSSIER.md`` with the epoch's 8 steps and the port's training kernels
+   among its top ops; (d) phase 3's model exported as the reference's
+   ``torch.save`` state_dict and as a legacy round-1 pickle, each through
+   ``--eval --load_path``: the numbers of phase 3's evaluation of the
+   ``.npz``; ref.pt -> .npz -> ref2.pt through ``torch_import.main``, bit
+   for bit; (e) ``docs_english`` built from this machine's site-packages by
+   the port's ``python -m vae_lagging_encoder_tpu_torch.data.english``, cut
+   to 2200 documents, and one plain epoch on the longest prefix of its
+   training split that makes at most 8 batches.
 
 Prints one JSON line per kernel, ``{"trace_iw": ...}``, ``{"trace": ...}``,
 ``{"image": ...}`` (steps/s, IW images/s, per-evaluator seconds, peak
 device memory), ``{"image_cross_check": ...}``, ``{"trace_image": ...}``,
-``{"trace_image_iw": ...}`` and ``{"generate": ...}`` (sentences/s,
-images/s, the cross-checks, the toy's seconds per probe and per epoch)
-lines, a ``{"kernels": [...]}`` line (its ``launches_by_path`` with the
-image, generation and toy paths' counts), the card's name and power
+``{"trace_image_iw": ...}``, ``{"generate": ...}`` (sentences/s,
+images/s, the cross-checks, the toy's seconds per probe and per epoch) and
+``{"lifecycle": ...}`` (phase 7) lines, a ``{"kernels": [...]}`` line (its
+``launches_by_path`` with the image, generation, toy and phase 7 paths'
+counts), the card's name and power
 limit, and as the last line ``{"ok": true,
 "device": {...}}``. Exits non-zero, printing no result, when no CUDA
 device is available or the port's package is missing.
@@ -179,15 +207,22 @@ def time_turns(fns, reps: int = 10):
 def check_lstm(save_residuals: bool, rows: int, ni: int, launches_key: str, dev):
     """The LSTM forward at ``rows`` with the launch plan the wrapper picks;
     the forward without residuals also at the encoder's 32 rows, the
-    residual-saving forward also at a short last batch of 20 (``*_b20``)."""
+    residual-saving forward also at a short last batch of 20 (``*_b20``) and
+    at the decoder's 640 rows of ``--nsamples 40`` training (``*_rows640``)."""
     from vae_lagging_encoder_tpu_torch.ops import lstm_cuda
 
     r = _check_lstm(save_residuals, rows, ni, launches_key, dev)
-    extra = (B, "rows32") if not save_residuals else (20, "b20")
-    small = _check_lstm(save_residuals, extra[0], NI, launches_key, dev)
-    r.update({f"{k}_{extra[1]}": small[k] for k in ("err_f32", "err_bf16", "ms", "plain_ms",
-                                                     "library_ms", "bound_ms")})
     nsm = torch.cuda.get_device_properties(dev).multi_processor_count
+    extras = [(B, NI, "rows32")] if not save_residuals else [
+        (20, NI, "b20"), (NSAMPLES_ROWS, NI + NZ, "rows640")]
+    for n, n_in, tag in extras:
+        more = _check_lstm(save_residuals, n, n_in, launches_key, dev)
+        r.update({f"{k}_{tag}": more[k] for k in ("err_f32", "err_bf16", "ms", "plain_ms",
+                                                  "library_ms", "bound_ms")})
+        if tag == "rows640":
+            r.update(library_ms_turns_rows640=more["library_ms_turns"],
+                     ms_turns_rows640=more["ms_turns"],
+                     plan_rows640=repr(lstm_cuda.infer_plan(n, NH, nsm, save_residuals)))
     r["plan"] = repr(lstm_cuda.infer_plan(rows, NH, nsm, save_residuals))
     return r
 
@@ -251,6 +286,8 @@ def _check_lstm(save_residuals: bool, rows: int, ni: int, launches_key: str, dev
 
 
 CE_RAGGED_N = 1000  # not a multiple of the kernel's 128-row tile
+NSAMPLES = 40       # phase 7's --nsamples: two decoder chunks of IW_CHUNK samples
+NSAMPLES_ROWS = B * IW_CHUNK  # 640 LSTM rows in one chunk of --nsamples 40 training
 CE_SPLIT_N = B * (T_CHECK - 1)  # 3040, the training shape: the vocab split over blocks
 
 
@@ -328,12 +365,18 @@ def check_ce(dev):
 
 def check_lstm_bwd(dev):
     """``lstm_bwd`` against ``lstm_bwd_plain`` on the residuals of one
-    masked forward at the training shape (T 96, B 32, H 1024), and at a
-    short last batch of 20 rows (``*_b20``)."""
+    masked forward at the training shape (T 96, B 32, H 1024), at a short
+    last batch of 20 rows (``*_b20``) and at the 640 rows of a 20-sample
+    chunk of ``--nsamples 40`` training (``*_rows640``)."""
+    from vae_lagging_encoder_tpu_torch.ops import lstm_cuda
+
     r = _check_lstm_bwd(B, 5, dev)
-    short = _check_lstm_bwd(20, 9, dev)
-    r.update({f"{k}_b20": short[k] for k in ("err_f32", "err_bf16", "ms", "plain_ms",
-                                             "library_ms", "port_bwd_ms", "bound_ms")})
+    for n, seed, tag in ((20, 9, "b20"), (NSAMPLES_ROWS, 10, "rows640")):
+        more = _check_lstm_bwd(n, seed, dev)
+        r.update({f"{k}_{tag}": more[k] for k in ("err_f32", "err_bf16", "ms", "plain_ms",
+                                                  "library_ms", "port_bwd_ms", "bound_ms")})
+    nsm = torch.cuda.get_device_properties(dev).multi_processor_count
+    r["plan_rows640"] = repr(lstm_cuda.bwd_plan(NSAMPLES_ROWS, NH, nsm))
     return r
 
 
@@ -416,15 +459,25 @@ def _check_lstm_bwd(rows: int, seed: int, dev):
 def check_ce_train(dev):
     """The grad-mode CE (logp, the logsumexp of the rounded logits and the
     spilled logits) against its plain version at the training shape
-    (N = 32 x 95 rows: the split plan) and at a ragged N."""
+    (N = 32 x 95 rows: the split plan), at a ragged N, and at the N 60800 of
+    a 20-sample chunk of ``--nsamples 40`` training (``*_n60800``)."""
+    r = _check_ce_train(CE_SPLIT_N, 8, dev)
+    e, se = ce_errors(*ce_inputs(CE_RAGGED_N, 18, dev), True)
+    r.update({f"err_bf16_n{CE_RAGGED_N}": e["bf16"], f"err_f32_n{CE_RAGGED_N}": e["f32"],
+              f"spill_err_bf16_n{CE_RAGGED_N}": se["bf16"]})
+    big = _check_ce_train(NSAMPLES_ROWS * (T_CHECK - 1), 19, dev)
+    r.update({f"{k}_n60800": big[k] for k in (
+        "err_f32", "err_bf16", "spill_err_bf16", "ms", "plain_ms", "library_ms",
+        "library_ms_turns", "ms_turns", "library_fwd_bwd_ms", "port_fwd_bwd_ms", "bound_ms",
+        "plan")})
+    return r
+
+
+def _check_ce_train(N: int, seed: int, dev):
     from vae_lagging_encoder_tpu_torch.ops import ce_cuda
 
-    N = CE_SPLIT_N
-    h, w, tgt = ce_inputs(N, 8, dev)
+    h, w, tgt = ce_inputs(N, seed, dev)
     errs, spill_errs = ce_errors(h, w, tgt, True)
-    e, se = ce_errors(*ce_inputs(CE_RAGGED_N, 18, dev), True)
-    more = {f"err_bf16_n{CE_RAGGED_N}": e["bf16"], f"err_f32_n{CE_RAGGED_N}": e["f32"],
-            f"spill_err_bf16_n{CE_RAGGED_N}": se["bf16"]}
     hb, wb = h.bfloat16(), w.bfloat16()
     port = lambda: ce_cuda.ce_forward(hb, wb, tgt, save_logits=True)
     ms = time_ms(port)
@@ -459,7 +512,7 @@ def check_ce_train(dev):
                 library_fwd_bwd_ms=tb["library"][0], library_fwd_bwd_ms_turns=tb["library"][1],
                 port_fwd_bwd_ms=tb["port"][0], port_fwd_bwd_ms_turns=tb["port"][1],
                 bound_ms=bms, bound_by=by, plan=repr(ce_cuda.ce_plan(N, NH, VOCAB, nsm)),
-                shape=f"N {N}, nh {NH}, V {VOCAB}, bf16 operands, bf16 spill", **more)
+                shape=f"N {N}, nh {NH}, V {VOCAB}, bf16 operands, bf16 spill")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -642,16 +695,16 @@ def run_train_cli(argv, exp_dir: Path):
     return launches, epochs, results, wall
 
 
-def expected_train_launches(epochs, n_train, val_pool, test_pool, cfg):
-    """Per forward+backward (outer step or inner sub-iteration): 2 LSTM
-    forwards with residuals, 2 backward sweeps, 1 grad-mode CE. Per epoch the
-    validation ELBO (encoder + decoder forward, CE per batch) and, after an
-    aggressive epoch, the validation MI (encoder); then the final evaluation."""
+def expected_train_launches(epochs, n_train, val_pool, test_pool, cfg, nsamples: int = 1):
+    """Per forward+backward (outer step or inner sub-iteration) the
+    launches of ``step_launches(nsamples)``. Per epoch the validation ELBO
+    (encoder + decoder forward, CE per batch) and, after an aggressive
+    epoch, the validation MI (encoder); then the final evaluation."""
     fb = sum(n_train + e["inner_iters"] for e in epochs)
     n_val = val_pool.num_batches
     mi_epochs = sum(bool(e["epoch_aggressive"]) for e in epochs)
     final = expected_launches(test_pool, cfg)
-    return {"lstm_fwd_residuals": 2 * fb, "lstm_bwd": 2 * fb, "ce_fwd_train": fb,
+    return {**{k: v * fb for k, v in step_launches(nsamples).items()},
             "lstm_fwd_infer": n_val * (2 * len(epochs) + mi_epochs) + final["lstm_fwd_infer"],
             "ce_fwd": n_val * len(epochs) + final["ce_fwd"]}
 
@@ -708,7 +761,7 @@ def run_training_slice(tmp: Path, test_path: Path, dev):
     return out, steps, train_pool, cfg
 
 
-def grad_cross_check(train_pool, cfg, dev):
+def grad_cross_check(train_pool, cfg, dev, nsamples: int = 1):
     """One training step at Yahoo width, dropout on: loss and every gradient
     with the kernels, and again with ``lstm_seq``, ``lstm_bwd`` and the CE
     swapped for their plain versions, on the same eps and dropout draws. The
@@ -738,7 +791,7 @@ def grad_cross_check(train_pool, cfg, dev):
                 shape, generator=g, device=dev)
         return draws[site]
 
-    grad_on = make_grad_on(vae, make_loss_fn(vae, nsamples=1, train=True))
+    grad_on = make_grad_on(vae, make_loss_fn(vae, nsamples=nsamples, train=True))
     params = dict(vae.named_parameters())
 
     def run():
@@ -758,7 +811,7 @@ def grad_cross_check(train_pool, cfg, dev):
         loss_p, grads_p, norm_p, launches_p = run()
     finally:
         lstm_cuda.lstm_seq, lstm_cuda.lstm_bwd, ce_cuda.ce_forward = saved
-    want = {"lstm_fwd_residuals": 2, "lstm_bwd": 2, "ce_fwd_train": 1}
+    want = step_launches(nsamples)
     if {k: launches_k[k] for k in want} != want or any(launches_p.values()):
         raise AssertionError(f"gradient cross-check routing: kernel run launched {launches_k}, "
                              f"plain run launched {launches_p}")
@@ -774,7 +827,19 @@ def grad_cross_check(train_pool, cfg, dev):
                              f"{norm_rel:.3e}, loss {loss_rel:.3e} (tolerance {GRAD_TOL}), "
                              f"finite {finite}")
     return dict(loss=loss_k, loss_rel=loss_rel, norm=norm_k, norm_rel=norm_rel,
-                worst_leaf=worst, worst_rel=rel[worst], leaves=len(rel))
+                worst_leaf=worst, worst_rel=rel[worst], leaves=len(rel), nsamples=nsamples,
+                launches=launches_k)
+
+
+def step_launches(nsamples: int = 1):
+    """Kernel launches of one forward+backward: the encoder's forward and
+    backward sweep, and per decoder chunk of IW_CHUNK samples its forward,
+    backward sweep and grad-mode CE; above one chunk each chunk's forward
+    (LSTM and CE) runs again in the backward (``torch.utils.checkpoint``)."""
+    chunks = -(-nsamples // IW_CHUNK)
+    fwd = 2 if chunks > 1 else 1
+    return {"lstm_fwd_residuals": 1 + fwd * chunks, "lstm_bwd": 1 + chunks,
+            "ce_fwd_train": fwd * chunks}
 
 
 GRAD_TOL = 5e-2
@@ -808,33 +873,22 @@ def trace_steps(train_pool, cfg, dev):
 def profiled(fn, **head):
     """``fn()`` under ``torch.profiler``, ending in a synchronize: the device
     ops by total device time, and the device's idle share, the part of the
-    window's host wall time that no device op covers."""
-    from torch.autograd import DeviceType
+    window's host wall time that no device op covers
+    (``utils/profiling.py::summarize_profile``)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from vae_lagging_encoder_tpu_torch.utils.profiling import summarize_profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    busy, end = 0.0, -math.inf
-    for a, b in spans:  # union of the device intervals
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    ops = sorted(((getattr(e, "self_device_time_total", None)
-                   or getattr(e, "self_cuda_time_total", 0), e.count, e.key)
-                  for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                 reverse=True)
-    if not busy:
+    summary = summarize_profile(prof, wall_us)
+    if summary is None:
         return {**head, "device_time": "none: key_averages() shows no device time",
                 "wall_ms": wall_us / 1e3}
-    return {**head, "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
-            "idle_share": max(0.0, 1.0 - busy / wall_us),
-            "top_device_ops": [{"name": k[:80], "calls": n, "ms": t / 1e3,
-                                "share_of_busy": t / busy} for t, n, k in ops[:10]]}
+    return {**head, **summary}
 
 
 def trace_iw(pool, ck, cfg, vocab_size, dev):
@@ -1391,6 +1445,282 @@ def run_toy(tmp: Path):
                 probe_sentences=TOY_PLOT, grid_points=int(grid.shape[0]), **runs)
 
 
+# ---------------------------------------------------------------- phase 7
+AUTOSAVE_NITER = 4    # 8 batches an epoch: autosaves at steps 4, 8, 12, 16
+STOP_AFTER = 14       # epoch 1, step 6: the last autosave (step 12) is 2 steps behind
+# The resumed run against the uninterrupted one on the card: the same
+# kernels and library calls on the same inputs in the same order. Measured
+# (NVIDIA H100 80GB HBM3, 700 W) to be bit for bit equal, so no difference
+# is allowed.
+RESUME_BOUND = 0.0
+ENGLISH_DOCS = 2200   # docs_english cut from 22000 documents
+ENGLISH_MAX_BATCHES = 8
+
+
+def text_pools(train_path: Path, others, cfg, dev):
+    """``BucketedPool``s of ``others`` on the vocabulary of ``train_path``."""
+    from vae_lagging_encoder_tpu_torch.data import BucketedPool, MonoTextData
+
+    vocab = MonoTextData(str(train_path), label=True).vocab
+    return [BucketedPool(MonoTextData(str(f), label=True, vocab=vocab)
+                         .create_data_batch(cfg.batch_size, cfg.length_buckets), dev)
+            for f in others]
+
+
+def run_text_cli(argv, exp_dir: Path, stop=None):
+    """``cli.text.main(argv + --exp_dir)`` with the counters and the peak
+    memory reset just before it; with ``stop``, ``run_training`` stops after
+    that many steps (its ``_stop_after_steps`` hook). Returns the launches,
+    the per-epoch metrics, the final results (None when stopped), the wall
+    seconds and the peak device memory."""
+    import functools
+
+    from vae_lagging_encoder_tpu_torch.cli import text as cli_text
+    from vae_lagging_encoder_tpu_torch.ops import build
+    from vae_lagging_encoder_tpu_torch.train import loop
+
+    log(f"[lifecycle] python -m vae_lagging_encoder_tpu_torch.cli.text {' '.join(argv)}"
+        + (f" (stopped after {stop} steps)" if stop else ""))
+    run_training = loop.run_training
+    if stop is not None:
+        loop.run_training = functools.partial(run_training, _stop_after_steps=stop)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        rc = cli_text.main(argv + ["--exp_dir", str(exp_dir)])
+    finally:
+        loop.run_training = run_training
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    if rc != 0:
+        raise AssertionError(f"cli.text.main returned {rc}")
+    records = [json.loads(l) for l in (exp_dir / "log.metrics.jsonl").read_text().splitlines()]
+    return dict(launches=launches, epochs=[r for r in records if "val_loss" in r],
+                results=next((r for r in records if r.get("split") == "test"), None),
+                wall=wall, max_memory_allocated=torch.cuda.max_memory_allocated())
+
+
+def max_param_diff(a: Path, b: Path):
+    """The largest difference of two checkpoints' parameters, each leaf's
+    relative to its largest entry, and the leaf where it is."""
+    from vae_lagging_encoder_tpu_torch.train.checkpoint import load_checkpoint
+    from vae_lagging_encoder_tpu_torch.utils.jax_params import from_jax_params
+
+    pa, pb = (from_jax_params(load_checkpoint(str(p))[0]) for p in (a, b))
+    if pa.keys() != pb.keys():
+        raise AssertionError(f"{a} and {b} hold different leaves")
+    rel = {k: float((pa[k] - pb[k]).abs().max()) / max(float(pa[k].abs().max()), 1e-30)
+           for k in pa}
+    worst = max(rel, key=rel.get)
+    return rel[worst], worst
+
+
+def autosave_resume(tmp: Path, files, init_ck: Path):
+    """7a: ``--epochs 2 --aggressive 1 --autosave_niter 4`` from phase 3's
+    random model, uninterrupted; the same run stopped after STOP_AFTER steps
+    (epoch 1), resumed with ``--resume --load_path <save_path>.auto`` to the
+    end; and resumed again from the autosave that run wrote at the end of
+    epoch 1 (its resumed epoch runs 0 steps) with ``--profile_dir``. Every
+    epoch metric, final result and parameter of the resumed runs against the
+    uninterrupted run's."""
+    from vae_lagging_encoder_tpu_torch.train.checkpoint import load_checkpoint
+
+    base = ["--dataset", "yahoo", "--epochs", "2", "--aggressive", "1", "--warm_up", "1",
+            "--kl_start", "0.1", "--iw_nsamples", str(TRAIN_IW), "--autosave_niter",
+            str(AUTOSAVE_NITER), *files]
+    full_ck, ck = tmp / "life_full.ckpt", tmp / "life_run.ckpt"
+    auto = Path(str(ck) + ".auto")
+    runs = {"full": run_text_cli([*base, "--load_path", str(init_ck), "--save_path",
+                                  str(full_ck)], tmp / "exp_life_full")}
+    runs["stopped"] = run_text_cli([*base, "--load_path", str(init_ck), "--save_path", str(ck)],
+                                   tmp / "exp_life_stopped", stop=STOP_AFTER)
+    mid = load_checkpoint(str(auto))[1]["mid_epoch"]
+    if not (mid["epoch"] == 1 and mid["global_step"] == STOP_AFTER // AUTOSAVE_NITER
+            * AUTOSAVE_NITER and runs["stopped"]["results"] is None):
+        raise AssertionError(f"7a: the stopped run's autosave {mid}")
+    resume = [*base, "--save_path", str(ck), "--resume", "--load_path", str(auto)]
+    runs["resumed"] = run_text_cli(resume, tmp / "exp_life_resumed")
+    mid2 = load_checkpoint(str(auto))[1]["mid_epoch"]
+    if not (mid2["epoch"] == 1 and mid2["next_start"] == mid2["num_batches"]):
+        raise AssertionError(f"7a: the resumed run's last autosave {mid2}")
+    auto_diff = max_param_diff(Path(str(full_ck) + ".auto"), auto)
+    prof = tmp / "profile_zero"
+    runs["resumed_at_end"] = run_text_cli([*resume, "--profile_dir", str(prof)],
+                                          tmp / "exp_life_end")
+    full = runs["full"]
+    hist_diff = 0.0
+    for name in ("resumed", "resumed_at_end"):
+        r = runs[name]
+        if [e["epoch"] for e in r["epochs"]] != [1]:
+            raise AssertionError(f"7a {name}: epochs {[e['epoch'] for e in r['epochs']]}")
+        for k in ("train_loss", "val_loss", "val_kl", "kl_weight"):
+            hist_diff = max(hist_diff, abs(r["epochs"][0][k] - full["epochs"][1][k]))
+        for k in ("inner_iters", "aggressive", "lr"):
+            if r["epochs"][0][k] != full["epochs"][1][k]:
+                raise AssertionError(f"7a {name}: {k} {r['epochs'][0][k]} != "
+                                     f"{full['epochs'][1][k]}")
+        for k in ("elbo_loss", "rec", "kl", "mi", "iw_nll"):
+            hist_diff = max(hist_diff, abs(r["results"][k] - full["results"][k]))
+    best_diff = max_param_diff(full_ck, ck)
+    if (prof / "DOSSIER.md").exists():
+        raise AssertionError("7a: a dossier was written for an epoch that ran 0 steps")
+    worst = max(auto_diff[0], best_diff[0], hist_diff)
+    out = dict(param_rel_diff_last_autosave=auto_diff[0], param_leaf_last_autosave=auto_diff[1],
+               param_rel_diff_best=best_diff[0], param_leaf_best=best_diff[1],
+               history_and_results_max_abs_diff=hist_diff, bound=RESUME_BOUND,
+               stop_after=STOP_AFTER, autosave_niter=AUTOSAVE_NITER, resumed_from=mid,
+               steps_per_sec_resumed=runs["resumed"]["epochs"][0]["steps_per_sec"],
+               walls={k: r["wall"] for k, r in runs.items()},
+               zero_step_trace=sorted(p.name for p in prof.iterdir()))
+    log(f"[lifecycle] 7a autosave/resume: {json.dumps(out)}")
+    if not worst <= RESUME_BOUND:
+        raise AssertionError(f"7a: the resumed run differs from the uninterrupted one by "
+                             f"{worst} (bound {RESUME_BOUND})")
+    return out, runs
+
+
+def train_nsamples(tmp: Path, files, train_pool, val_pool, test_pool, cfg, dev):
+    """7b: one plain epoch of ``--nsamples 40`` (two decoder chunks of 20)
+    through ``cli.text``; launch counts, steps/s and peak memory; then one
+    step's loss and gradients against the plain versions on the card."""
+    argv = ["--dataset", "yahoo", "--epochs", "1", "--aggressive", "0", "--warm_up", "1",
+            "--kl_start", "0.1", "--iw_nsamples", str(TRAIN_IW), "--nsamples", str(NSAMPLES),
+            "--save_path", str(tmp / "nsamples.ckpt"), *files]
+    run = run_text_cli(argv, tmp / "exp_nsamples")
+    want = expected_train_launches(run["epochs"], train_pool.num_batches, val_pool, test_pool,
+                                   cfg, nsamples=NSAMPLES)
+    vals = [run["results"][k] for k in ("elbo_loss", "rec", "kl", "iw_nll")] + \
+        [run["epochs"][0][k] for k in ("train_loss", "val_loss")]
+    if {k: run["launches"][k] for k in want} != want or not all(map(math.isfinite, vals)):
+        raise AssertionError(f"7b: launches {run['launches']} (expected {want}) or "
+                             f"non-finite values {vals}")
+    gx = grad_cross_check(train_pool, cfg, dev, nsamples=NSAMPLES)
+    out = dict(steps_per_sec=run["epochs"][0]["steps_per_sec"], launches=run["launches"],
+               launches_per_step=step_launches(NSAMPLES),
+               max_memory_allocated=run["max_memory_allocated"], wall=run["wall"],
+               results=run["results"], grad_cross_check=gx, grad_tolerance=GRAD_TOL)
+    log(f"[lifecycle] 7b --nsamples {NSAMPLES}: {json.dumps(out)}")
+    return out, run
+
+
+def profile_epoch(tmp: Path, files, train_pool):
+    """7c: ``--profile_dir`` on one plain epoch through ``cli.text``; the
+    dossier's steps are the epoch's and its top ops name the port's
+    training kernels."""
+    prof = tmp / "profile_epoch"
+    argv = ["--dataset", "yahoo", "--epochs", "1", "--aggressive", "0", "--warm_up", "1",
+            "--kl_start", "0.1", "--iw_nsamples", str(TRAIN_IW), "--profile_dir", str(prof),
+            "--save_path", str(tmp / "profiled.ckpt"), *files]
+    run = run_text_cli(argv, tmp / "exp_profiled")
+    summary = json.loads((prof / "DOSSIER.json").read_text())
+    top = [r["op"] for r in summary["table"][:15]]
+    need = ("lstm_bwd", "lstm_fwd_residuals", "ce_fwd_train")
+    if not ((prof / "DOSSIER.md").exists() and summary["steps"] == train_pool.num_batches
+            and all(k in top for k in need)):
+        raise AssertionError(f"7c: dossier steps {summary['steps']}, top ops {top}")
+    out = dict(steps=summary["steps"], device_busy_ms=summary["device_busy_ms"],
+               ms_per_step_device=summary["ms_per_step_device"],
+               categories=summary["categories"],
+               top_ops=[{k: r[k] for k in ("op", "category", "ms_per_step", "pct_device",
+                                           "calls")} for r in summary["table"][:10]],
+               wall=run["wall"], epoch_seconds=run["epochs"][0]["epoch_seconds"])
+    log(f"[lifecycle] 7c dossier: {json.dumps(out)}")
+    return out, run
+
+
+def reference_checkpoints(tmp: Path, paths, init_ck: Path, phase3_results, pool, cfg):
+    """7d: phase 3's random model exported in the reference's layout
+    (``torch.save`` of ``export_torch_state_dict``) and as a legacy round-1
+    pickle, each evaluated by ``cli.text --eval --load_path``: the same
+    numbers as phase 3's evaluation of the ``.npz``; then ref.pt -> .npz ->
+    ref2.pt through ``torch_import.main``, bit for bit."""
+    import pickle
+
+    from vae_lagging_encoder_tpu_torch.train.checkpoint import load_checkpoint
+    from vae_lagging_encoder_tpu_torch.utils import torch_import
+
+    params, _ = load_checkpoint(str(init_ck))
+    ref, legacy = tmp / "ref.pt", tmp / "legacy_round1.ckpt"
+    sd = torch_import.export_torch_state_dict(params)
+    torch.save(sd, str(ref))
+    with open(legacy, "wb") as fh:
+        pickle.dump({"params": params, "extra": {"note": "random init"}}, fh, protocol=4)
+    files = ["--train_data", str(paths["train"]), "--val_data", str(paths["valid"]),
+             "--test_data", str(paths["test"])]
+    runs, diffs = {}, {}
+    want = expected_launches(pool, cfg)
+    for name, path in (("reference_pt", ref), ("legacy_pickle", legacy)):
+        runs[name] = run_text_cli(["--dataset", "yahoo", "--eval", "--load_path", str(path),
+                                   *files], tmp / f"exp_{name}")
+        res = runs[name]["results"]
+        diffs[name] = {k: res[k] - phase3_results[k] for k in ("elbo_loss", "rec", "kl", "mi",
+                                                                "au", "iw_nll")}
+        if any(diffs[name].values()) or runs[name]["launches"] != want:
+            raise AssertionError(f"7d {name}: results {res} against phase 3's "
+                                 f"{phase3_results}; launches {runs[name]['launches']}")
+    npz, ref2 = tmp / "ref_converted.ckpt", tmp / "ref2.pt"
+    if torch_import.main([str(ref), str(npz)]) or torch_import.main([str(npz), str(ref2)]):
+        raise AssertionError("7d: torch_import.main failed")
+    back = torch.load(str(ref2), weights_only=True)
+    same_pt = back.keys() == sd.keys() and all(torch.equal(back[k], sd[k]) for k in sd)
+    same_npz = max_param_diff(init_ck, npz)[0] == 0.0
+    if not (same_pt and same_npz):
+        raise AssertionError(f"7d: round trip ref.pt -> .npz -> ref2.pt not exact "
+                             f"(state_dict {same_pt}, npz {same_npz})")
+    out = dict(results=runs["reference_pt"]["results"], differences=diffs,
+               round_trip_exact=True, tensors=len(sd),
+               walls={k: r["wall"] for k, r in runs.items()})
+    log(f"[lifecycle] 7d reference checkpoints: {json.dumps(out)}")
+    return out, runs
+
+
+def docs_english(tmp: Path):
+    """7e: the ``docs_english`` corpus built from this machine's
+    site-packages by ``python -m vae_lagging_encoder_tpu_torch.data.english``
+    (cut to ENGLISH_DOCS documents), then one plain epoch at the config
+    (Yahoo widths) through ``cli.text`` on the longest prefix of the
+    training split that makes at most ENGLISH_MAX_BATCHES batches."""
+    from vae_lagging_encoder_tpu_torch.config import get_config
+    from vae_lagging_encoder_tpu_torch.data import MonoTextData
+
+    root = tmp / "docs_english_data"
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "vae_lagging_encoder_tpu_torch.data.english",
+                    "--num_sentences", str(ENGLISH_DOCS), "--root", str(root)],
+                   check=True, cwd=str(Path(__file__).resolve().parent), timeout=600)
+    build_s = time.perf_counter() - t0
+    cfg = get_config("docs_english")
+    lines = (root / "docs_english.train.txt").read_text().splitlines(keepends=True)
+    cut = tmp / "docs_english.train_cut.txt"
+    n = len(lines)
+    while True:
+        cut.write_text("".join(lines[:n]))
+        nb = len(MonoTextData(str(cut), label=True).create_data_batch(cfg.batch_size,
+                                                                      cfg.length_buckets))
+        if nb <= ENGLISH_MAX_BATCHES:
+            break
+        n -= 8
+    vocab = len(MonoTextData(str(cut), label=True).vocab)
+    argv = ["--dataset", "docs_english", "--epochs", "1", "--aggressive", "0",
+            "--iw_nsamples", str(TRAIN_IW), "--train_data", str(cut),
+            "--val_data", str(root / "docs_english.valid.txt"),
+            "--test_data", str(root / "docs_english.test.txt"),
+            "--save_path", str(tmp / "docs_english.ckpt")]
+    run = run_text_cli(argv, tmp / "exp_docs_english")
+    vals = [run["results"][k] for k in ("elbo_loss", "rec", "kl", "iw_nll")]
+    if not all(map(math.isfinite, vals)):
+        raise AssertionError(f"7e: non-finite results {run['results']}")
+    out = dict(documents=ENGLISH_DOCS, build_seconds=build_s, train_documents=n,
+               train_batches=nb, vocab_size=vocab,
+               steps_per_sec=run["epochs"][0]["steps_per_sec"], results=run["results"],
+               wall=run["wall"], launches=run["launches"])
+    log(f"[lifecycle] 7e docs_english: {json.dumps(out)}")
+    return out, run
+
+
 KERNELS = [
     ("lstm_fwd_residuals", "vae_lagging_encoder_tpu_torch/csrc/lstm_infer.cu",
      "vae_lagging_encoder_tpu/ops/lstm_pallas.py:67", ("lstm", True, B, NI)),
@@ -1553,6 +1883,28 @@ def main() -> int:
         toy = run_toy(Path(td))
         phase_done("6c, the toy")
 
+        # phase 7 — the rest of the single-card training lifecycle, Yahoo width
+        tmp = Path(td)
+        files4 = ["--train_data", str(tmp / "smoke.train.txt"), "--val_data",
+                  str(tmp / "smoke.valid.txt"), "--test_data", str(tmp / "yahoo.test.txt")]
+        val_pool4, test_pool4 = text_pools(tmp / "smoke.train.txt", (tmp / "smoke.valid.txt",
+                                                                     tmp / "yahoo.test.txt"),
+                                           tcfg, dev)
+        life = {}
+        life["autosave_resume"], runs_a = autosave_resume(tmp, files4, ck)
+        phase_done("7a, autosave and resume")
+        life["train_nsamples40"], run_b = train_nsamples(tmp, files4, train_pool, val_pool4,
+                                                         test_pool4, tcfg, dev)
+        phase_done("7b, --nsamples 40")
+        life["profile_dir"], run_c = profile_epoch(tmp, files4, train_pool)
+        phase_done("7c, --profile_dir")
+        paths3 = {k: tmp / f"yahoo.{k}.txt" for k in ("train", "valid", "test")}
+        life["reference_checkpoints"], runs_d = reference_checkpoints(tmp, paths3, ck, res, pool,
+                                                                      cfg)
+        phase_done("7d, reference checkpoints")
+        life["docs_english"], run_e = docs_english(tmp)
+        phase_done("7e, docs_english")
+
     train_launches = {k: sum(r["launches"][k] for r in train_runs.values()) for k in launches}
     kernels = []
     for name, source, replaces, spec in KERNELS:
@@ -1567,7 +1919,12 @@ def main() -> int:
                    "text_reconstruct": sum(r["launches"][name] for k, r in text_gen.items()
                                            if k.startswith("reconstruct")),
                    "image_generate": sum(r["launches"][name] for r in img_gen.values()),
-                   "toy": sum(toy[k]["launches"][name] for k in ("aggressive0", "aggressive1"))}
+                   "toy": sum(toy[k]["launches"][name] for k in ("aggressive0", "aggressive1")),
+                   "autosave_resume": sum(r["launches"][name] for r in runs_a.values()),
+                   "train_nsamples40": run_b["launches"][name],
+                   "train_profiled": run_c["launches"][name],
+                   "eval_reference_ckpt": sum(r["launches"][name] for r in runs_d.values()),
+                   "docs_english": run_e["launches"][name]}
         if not sum(by_path.values()):
             raise AssertionError(f"{name} was launched no time on the main paths: {by_path}")
         kernels.append({"name": name, "route": "cuda", "source": source,
@@ -1597,6 +1954,8 @@ def main() -> int:
                   for k, r in img_gen.items()},
         "image_cross_check": img_gen_x, "toy": toy, "max_decode_len": GEN_LEN,
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}}), flush=True)
+    print(json.dumps({"lifecycle": {**life, "device": torch.cuda.get_device_name(0),
+                                    "nvidia_smi": smi}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

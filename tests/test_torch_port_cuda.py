@@ -337,3 +337,130 @@ def test_incremental_sampler_on_cuda():
     with torch.no_grad():
         dense = dec._logits(canvas, z.cuda())
     torch.testing.assert_close(inc, dense, atol=1e-5, rtol=0)
+
+
+# ---------------------------------------------- shapes of chunked training
+# --nsamples 40 at the Yahoo config decodes chunks of 20 samples x 32
+# sentences: the LSTM kernels at 640 rows, the grad-mode CE at N = 640 x 95.
+@pytest.mark.cuda
+@pytest.mark.parametrize("wh_dtype", [torch.float32, torch.bfloat16])
+def test_lstm_kernels_at_640_rows_on_cuda(wh_dtype):
+    """The residual-saving forward and the backward sweep at 640 rows, H
+    1024 (T 12 here; the tolerances of the tests above at H 200-256)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    g = torch.Generator().manual_seed(21)
+    T, B, H = 12, 640, 1024
+    xw = torch.randn(T, B, 4 * H, generator=g).cuda()
+    mask = (torch.rand(T, B, generator=g) > 0.2).float().cuda()
+    wh = (torch.rand(H, 4 * H, generator=g) * 2 - 1).div(H ** 0.5).to(wh_dtype).cuda()
+    h0, c0 = ((0.1 * torch.randn(B, H, generator=g)).cuda() for _ in range(2))
+    n = dict(build.LAUNCHES)
+    got = lstm_cuda.lstm_seq(xw, mask, wh, h0, c0, True)
+    ref = lstm_cuda.lstm_seq_plain(xw, mask, wh, h0, c0, True)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["lstm_fwd_residuals"] == n["lstm_fwd_residuals"] + 1
+    tol = 1e-5 if wh_dtype == torch.float32 else 2e-3
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, atol=tol, rtol=0)
+    _, cs, gates, _, _ = ref
+    c_prev = torch.cat([c0[None], cs[:-1]])
+    dhs = (0.1 * torch.randn(T, B, H, generator=g)).cuda()
+    dhT, dcT = ((0.1 * torch.randn(B, H, generator=g)).cuda() for _ in range(2))
+    args = (gates, mask, wh, c_prev, dhs, dhT, dcT)
+    got = lstm_cuda.lstm_bwd(*args)
+    ref = lstm_cuda.lstm_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["lstm_bwd"] == n["lstm_bwd"] + 1
+    tol = 1e-5 if wh_dtype == torch.float32 else 1e-3
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_ce_train_kernel_at_n60800_on_cuda():
+    """The grad-mode CE at N 60800, nh 1024, V 20004 (bf16 operands, the
+    2.4 GB bf16 spill) against its plain version: logp and lse within 1e-3,
+    the spill within one bf16 step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    g = torch.Generator().manual_seed(22)
+    N, nh, V = 60800, 1024, 20004
+    h = torch.tanh(torch.randn(N, nh, generator=g)).cuda()
+    w = torch.empty(nh, V).uniform_(-0.05, 0.05, generator=g).cuda()
+    tgt = torch.randint(0, V, (N,), generator=g).cuda()
+    n = build.LAUNCHES["ce_fwd_train"]
+    logp, lse, spill = ce_cuda.ce_forward(h, w, tgt, torch.bfloat16, save_logits=True)
+    rlogp, rlse, rspill = ce_cuda.ce_logp_plain(h, w, tgt, torch.bfloat16, save_logits=True)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["ce_fwd_train"] == n + 1
+    torch.testing.assert_close(logp, rlogp, atol=1e-3, rtol=0)
+    torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=0)
+    d = (spill.float() - rspill.float()).abs()
+    assert bool((d <= 2.0 ** -7 * rspill.float().abs() + 1e-5).all())
+
+
+@pytest.mark.cuda
+def test_mid_epoch_resume_on_cuda(tmp_path):
+    """A run stopped mid-epoch and resumed from its autosave on the card
+    (kernel route, H 128, a 1100-word vocabulary so the fused CE runs)
+    against the uninterrupted run: the same epochs, every metric and the
+    best parameters within RESUME_RTOL of their scale."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from vae_lagging_encoder_tpu_torch.config import get_config
+    from vae_lagging_encoder_tpu_torch.data import BucketedPool, MonoTextData
+    from vae_lagging_encoder_tpu_torch.models import build_text_vae
+    from vae_lagging_encoder_tpu_torch.train.checkpoint import load_checkpoint
+    from vae_lagging_encoder_tpu_torch.train.loop import run_training
+    from vae_lagging_encoder_tpu_torch.utils.exp_utils import Logger
+    from vae_lagging_encoder_tpu_torch.utils.jax_params import from_jax_params
+
+    rng = np.random.RandomState(0)
+    words = [f"w{i}" for i in range(1096)]
+    for split, n in (("train", 96), ("valid", 16), ("test", 16)):
+        lines = [" ".join(words[j] for j in rng.randint(0, 1096, rng.randint(5, 14)))
+                 for _ in range(n)]
+        if split == "train":
+            lines += [" ".join(words[i:i + 137]) for i in range(0, 1096, 137)]
+        (tmp_path / f"{split}.txt").write_text("".join(f"1\t{l}\n" for l in lines))
+
+    def run(name, stop=None, resume=None):
+        cfg = get_config("yahoo", ni=32, enc_nh=128, dec_nh=128, nz=4, batch_size=16,
+                         epochs=2, aggressive=True, warm_up=1, burn_max_iters=6, burn_window=2,
+                         iw_nsamples=4, iw_batch=2, autosave_niter=3,
+                         train_data=str(tmp_path / "train.txt"),
+                         val_data=str(tmp_path / "valid.txt"),
+                         test_data=str(tmp_path / "test.txt"),
+                         save_path=str(tmp_path / f"{name}.ckpt"))
+        train = MonoTextData(cfg.train_data, label=True)
+        pool = lambda f: BucketedPool(MonoTextData(f, label=True, vocab=train.vocab)
+                                      .create_data_batch(cfg.batch_size, (16, 160)), "cuda")
+        vae = build_text_vae(cfg, len(train.vocab), generator=torch.Generator().manual_seed(1))
+        assert vae.dec.fused_ce
+        extra = None
+        if resume:
+            params, extra = load_checkpoint(resume)
+            vae.load_state_dict(from_jax_params(params))
+        return run_training(cfg, vae, pool(cfg.train_data), pool(cfg.val_data),
+                            pool(cfg.test_data), Logger(), resume_state=extra,
+                            _stop_after_steps=stop)
+
+    full = run("full")
+    r = run("run", stop=9)
+    assert r["interrupted"] and load_checkpoint(r["autosave_path"])[1]["mid_epoch"]["epoch"] == 1
+    resumed = run("run", resume=r["autosave_path"])
+    assert [h["epoch"] for h in resumed["history"]] == [1]
+    for k, v in full["history"][1].items():
+        assert v == pytest.approx(resumed["history"][0][k], rel=RESUME_RTOL, abs=0), k
+    for k in ("elbo_loss", "iw_nll", "kl", "mi"):
+        assert resumed[k] == pytest.approx(full[k], rel=RESUME_RTOL, abs=0), k
+    a = from_jax_params(load_checkpoint(str(tmp_path / "full.ckpt"))[0])
+    b = from_jax_params(load_checkpoint(str(tmp_path / "run.ckpt"))[0])
+    for k in a:
+        assert float((a[k] - b[k]).abs().max()) <= RESUME_RTOL * float(a[k].abs().max()), k
+
+
+# the card's run of a step is deterministic on this path (see chip_smoke.py
+# phase 7a, which measures the same difference at the Yahoo width)
+RESUME_RTOL = 0.0

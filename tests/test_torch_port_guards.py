@@ -88,6 +88,34 @@ def test_port_modules_import_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+@pytest.mark.parametrize("module", ["utils.torch_import", "utils.profiling", "data.english"])
+def test_new_modules_import_no_jax(module):
+    """The modules ported with the training lifecycle, each imported alone;
+    utils/torch_import.py reaches outside the package for numpy and torch only."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module('vae_lagging_encoder_tpu_torch.{module}')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib',\n"
+        "             'vae_lagging_encoder_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    tree = ast.parse((REPO / "vae_lagging_encoder_tpu_torch" / f"{module.replace('.', '/')}.py")
+                     .read_text())
+    outside = {a.name.split(".")[0] for n in ast.walk(tree) if isinstance(n, ast.Import)
+               for a in n.names}
+    outside |= {n.module.split(".")[0] for n in ast.walk(tree)
+                if isinstance(n, ast.ImportFrom) and n.level == 0 and n.module}
+    allowed = {"__future__", "typing", "numpy", "torch", "argparse", "zipfile", "collections",
+               "glob", "gzip", "json", "math", "os", "re", "ast", "sysconfig", "warnings"}
+    assert outside <= allowed, outside - allowed
+    if module == "utils.torch_import":
+        assert outside - {"__future__", "typing", "argparse", "zipfile"} == {"numpy", "torch"}
+
+
 def test_chip_smoke_imports_no_jax():
     tree = ast.parse((REPO / "chip_smoke.py").read_text())
     names = set()

@@ -1,8 +1,11 @@
 """Shared CLI plumbing: the reference's flag names merged over the
 per-dataset configs (flags win), as in ``vae_lagging_encoder_tpu/cli/
-common.py``. ``--device`` takes the place of ``--jax_platform``; the JAX
-CLI's flags of what is not ported (DP/TP, autosaves, profiling, the XLA
-dispatch knobs, the compilation cache) are not offered."""
+common.py``. ``--device`` takes the place of ``--jax_platform``;
+``--autosave_niter`` and ``--profile_dir`` keep the JAX CLI's meanings.
+Not offered: DP/TP (``--dp_devices``, ``--tp_devices``), the compilation
+cache, and the XLA dispatch knobs ``--epoch_segment`` / ``--loop_unroll``
+(an epoch here is a host loop of steps, with nothing to segment or
+unroll)."""
 from __future__ import annotations
 
 import argparse
@@ -59,6 +62,13 @@ def build_parser(default_dataset: str = "yahoo") -> argparse.ArgumentParser:
                    choices=["float32", "bfloat16"])
     p.add_argument("--use_pallas", type=int, default=None,
                    help="1 = the kernel route (CUDA kernels on a GPU)")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="capture a torch.profiler trace of one epoch here and "
+                        "distill it into <profile_dir>/DOSSIER.md")
+    p.add_argument("--autosave_niter", type=int, default=None,
+                   help="mid-epoch autosave every N outer steps to "
+                        "<save_path>.auto; --resume --load_path <save_path>.auto "
+                        "restarts mid-epoch (0 = off)")
     p.add_argument("--train_data", type=str, default=None)
     p.add_argument("--val_data", type=str, default=None)
     p.add_argument("--test_data", type=str, default=None)

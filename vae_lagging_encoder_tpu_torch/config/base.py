@@ -75,7 +75,7 @@ class ExperimentConfig:
     log_niter: int = 50
     save_path: str = ""
     exp_dir: str = ""
-    profile_dir: str = ""
+    profile_dir: str = ""   # capture a torch.profiler trace of one epoch here
     # None = auto (the built-in corpora are "<label>\t<sentence>" lines);
     # an explicit --label 0/1 wins
     label: bool | None = None
@@ -87,6 +87,8 @@ class ExperimentConfig:
     dp_devices: int = 1
     tp_devices: int = 1
     loop_unroll: int = 1
+    # mid-epoch autosave every N outer training steps to <save_path>.auto
+    # (0 = off); --resume --load_path <save_path>.auto re-enters the epoch
     autosave_niter: int = 0
 
     def replace(self, **kw) -> "ExperimentConfig":
@@ -114,8 +116,8 @@ DATASET_CONFIGS = {
     "yelp": _text_cfg("yelp", ni=512, enc_nh=1024, dec_nh=1024, nz=32,
                       batch_size=32, epochs=100, warm_up=10, kl_start=0.1,
                       use_pallas=True),
-    # real-English docstring corpus at yahoo dims (data/english.py of the
-    # JAX package builds the files; this package only reads them)
+    # real-English docstring corpus at yahoo dims (written by
+    # python -m vae_lagging_encoder_tpu_torch.data.english)
     "docs_english": _text_cfg("docs_english", ni=512, enc_nh=1024,
                               dec_nh=1024, nz=32, batch_size=32, epochs=100,
                               warm_up=10, kl_start=0.1, use_pallas=True),

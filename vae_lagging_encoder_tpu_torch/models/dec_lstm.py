@@ -20,8 +20,15 @@ uniforms come from the caller's ``draw(site, shape)`` (sites ``"keep_in"``
 
 The z-sample axis is processed in chunks of ``iw_chunk`` samples (20 on
 the kernel route with a fusable vocab, 10 otherwise, as in the JAX
-package), which bounds the rows of each LSTM and CE call. Training takes
-at most one chunk (the reference draws one z per sentence).
+package), which bounds the rows of each LSTM and CE call. Above one chunk
+K is padded to whole chunks with zero z (the padding is sliced off), and
+with a gradient each chunk's forward runs under ``torch.utils.checkpoint``
+(recomputed in the backward, as the JAX package's ``jax.checkpoint``). In
+training every chunk ``c`` draws its own dropout, at sites ``"keep_in<c>"``
+[B, T, ni] and ``"keep_out<c>"`` [iw_chunk*B, T, nh] in chunk order (the
+JAX package's ``split(key, n_chunks)[c]``, split into the two dropout
+keys); the masks are drawn before the checkpointed function and passed in,
+so the recompute sees the same ones.
 
 On the kernel route the vocab projection + CE is the fused CE of
 ``ops/ce_cuda.py`` with bf16 operands (the JAX package's ``fused_ce_logp``
@@ -55,6 +62,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..data.vocab import BOS_ID, EOS_ID, PAD_ID
 from ..ops.ce_cuda import FusedCEFn, ce_forward
@@ -83,13 +91,18 @@ def ce_fusable(vocab: int) -> bool:
     return vocab >= 1024
 
 
-def dropout(x: torch.Tensor, rate: float, draw: Optional[Draw], site: str) -> torch.Tensor:
-    """The JAX package's ``_dropout``: identity outside training (no
-    ``draw``) or at rate 0, else ``x / keep`` where ``draw(site) < keep``."""
+def keep_mask(rate: float, draw: Optional[Draw], site: str,
+              shape: Tuple[int, ...]) -> Optional[torch.Tensor]:
+    """The keep-mask ``draw(site, shape) < 1 - rate`` of a dropout, or None
+    outside training (no ``draw``) or at rate 0 (nothing is drawn)."""
     if draw is None or rate <= 0.0:
-        return x
-    keep = 1.0 - rate
-    return torch.where(draw(site, tuple(x.shape)) < keep, x / keep, 0.0)
+        return None
+    return draw(site, shape) < 1.0 - rate
+
+
+def apply_keep(x: torch.Tensor, keep: Optional[torch.Tensor], rate: float) -> torch.Tensor:
+    """``x / (1 - rate)`` where ``keep``, else 0; ``x`` when ``keep`` is None."""
+    return x if keep is None else torch.where(keep, x / (1.0 - rate), 0.0)
 
 
 class LSTMDecoder(DecoderBase):
@@ -120,12 +133,18 @@ class LSTMDecoder(DecoderBase):
         c0 = z_flat @ self.trans
         return torch.tanh(c0), c0
 
+    def _keep_masks(self, draw: Optional[Draw], suffix: str, B: int, T: int, k: int):
+        """(keep_in [B, T, ni], keep_out [k*B, T, nh]) of one chunk, drawn at
+        sites ``"keep_in" + suffix`` and ``"keep_out" + suffix``, in that order."""
+        return (keep_mask(self.dropout_in, draw, "keep_in" + suffix, (B, T, self.ni)),
+                keep_mask(self.dropout_out, draw, "keep_out" + suffix, (k * B, T, self.nh)))
+
     def _hidden_states(self, tokens_in: torch.Tensor, z: torch.Tensor,
-                       draw: Optional[Draw] = None) -> torch.Tensor:
+                       keep_in: Optional[torch.Tensor] = None) -> torch.Tensor:
         """tokens_in [B, T], z [B, K, nz] -> LSTM outputs [K*B, T, nh], row k*B + b."""
         B, T = tokens_in.shape
         K = z.shape[1]
-        emb = dropout(self.emb[tokens_in], self.dropout_in, draw, "keep_in")
+        emb = apply_keep(self.emb[tokens_in], keep_in, self.dropout_in)
         emb_k = emb[None].expand(K, B, T, self.ni).reshape(K * B, T, self.ni)
         z_flat = z.transpose(0, 1).reshape(K * B, self.nz)
         z_seq = z_flat[:, None, :].expand(K * B, T, self.nz)
@@ -135,17 +154,20 @@ class LSTMDecoder(DecoderBase):
                            compute_dtype=self.compute_dtype)
         return outs
 
+    def _logits(self, tokens_in, z, keep_in=None, keep_out=None) -> torch.Tensor:
+        B, T = tokens_in.shape
+        K = z.shape[1]
+        cd = self.compute_dtype
+        outs = apply_keep(self._hidden_states(tokens_in, z, keep_in), keep_out, self.dropout_out)
+        logits = outs.reshape(-1, self.nh).to(cd).float() @ self.pred.to(cd).float()
+        return logits.reshape(K, B, T, self.vocab_size).permute(1, 0, 2, 3)
+
     def decode(self, tokens_in: torch.Tensor, z: torch.Tensor,
                draw: Optional[Draw] = None) -> torch.Tensor:
         """Teacher-forced logits: tokens_in [B, T], z [B, K, nz] -> [B, K, T, V]
         (with dropout when ``draw`` is given)."""
         B, T = tokens_in.shape
-        K = z.shape[1]
-        cd = self.compute_dtype
-        outs = dropout(self._hidden_states(tokens_in, z, draw), self.dropout_out, draw,
-                       "keep_out")
-        logits = outs.reshape(-1, self.nh).to(cd).float() @ self.pred.to(cd).float()
-        return logits.reshape(K, B, T, self.vocab_size).permute(1, 0, 2, 3)
+        return self._logits(tokens_in, z, *self._keep_masks(draw, "", B, T, z.shape[1]))
 
     def reconstruct_error(self, tokens: torch.Tensor, mask: torch.Tensor,
                           z: torch.Tensor, draw: Optional[Draw] = None) -> torch.Tensor:
@@ -155,33 +177,43 @@ class LSTMDecoder(DecoderBase):
         targets tokens[:, 1:], target mask mask[:, 1:]. ``draw`` selects
         training mode: dropout, and the CE that takes a gradient."""
         B, T = tokens.shape
-        if draw is not None and z.shape[1] > self.iw_chunk:
-            raise ValueError(f"training takes at most iw_chunk = {self.iw_chunk} z-samples "
-                             f"per sentence, got {z.shape[1]}")
+        K = z.shape[1]
+        train = draw is not None
 
-        def rec_chunk(z_chunk):  # [B, k, nz] -> [B, k]
+        def rec_chunk(z_chunk, keep_in, keep_out):  # [B, k, nz] -> [B, k]
             k = z_chunk.shape[1]
             if self.fused_ce:
-                outs = dropout(self._hidden_states(tokens[:, :-1], z_chunk, draw),
-                               self.dropout_out, draw, "keep_out")  # [k*B, T-1, nh]
+                outs = apply_keep(self._hidden_states(tokens[:, :-1], z_chunk, keep_in),
+                                  keep_out, self.dropout_out)  # [k*B, T-1, nh]
                 tgt = tokens[None, :, 1:].expand(k, B, T - 1).reshape(-1)
                 h = outs.reshape(-1, self.nh)
-                if draw is None:
-                    logp, _ = ce_forward(h, self.pred, tgt, torch.bfloat16)
-                else:
+                if train:
                     logp = FusedCEFn.apply(h, self.pred, tgt, torch.bfloat16)
+                else:
+                    logp, _ = ce_forward(h, self.pred, tgt, torch.bfloat16)
                 tok_lp = logp.reshape(k, B, T - 1).transpose(0, 1)
             else:
-                logits = self.decode(tokens[:, :-1], z_chunk, draw)  # [B, k, T-1, V]
+                logits = self._logits(tokens[:, :-1], z_chunk, keep_in, keep_out)
                 tgt = tokens[:, None, 1:].expand(B, k, T - 1)[..., None]
-                if draw is None:
-                    tok_lp = logits.gather(-1, tgt)[..., 0] - torch.logsumexp(logits, dim=-1)
-                else:
+                if train:
                     tok_lp = torch.log_softmax(logits, dim=-1).gather(-1, tgt)[..., 0]
+                else:
+                    tok_lp = logits.gather(-1, tgt)[..., 0] - torch.logsumexp(logits, dim=-1)
             return -torch.sum(tok_lp * mask[:, None, 1:], dim=-1)
 
-        return torch.cat([rec_chunk(z[:, s:s + self.iw_chunk])
-                          for s in range(0, z.shape[1], self.iw_chunk)], dim=1)
+        c = self.iw_chunk
+        if K <= c:
+            return rec_chunk(z, *self._keep_masks(draw, "", B, T - 1, K))
+        n_chunks = -(-K // c)
+        if n_chunks * c != K:
+            z = torch.cat([z, z.new_zeros((B, n_chunks * c - K, self.nz))], dim=1)
+        grad = torch.is_grad_enabled()
+        out = []
+        for j in range(n_chunks):
+            args = (z[:, j * c:(j + 1) * c], *self._keep_masks(draw, str(j), B, T - 1, c))
+            out.append(checkpoint(rec_chunk, *args, use_reentrant=False,
+                                  preserve_rng_state=False) if grad else rec_chunk(*args))
+        return torch.cat(out, dim=1)[:, :K]
 
     # ------------------------------------------------------------ generation
     def _step(self, tok: torch.Tensor, z: torch.Tensor, h: torch.Tensor, c: torch.Tensor,

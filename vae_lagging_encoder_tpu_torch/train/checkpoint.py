@@ -1,18 +1,23 @@
-"""Checkpoints in the JAX package's format, read and written with numpy only.
+"""Checkpoints in the JAX package's formats.
 
 The port's own reader/writer of ``vae_lagging_encoder_tpu/train/
-checkpoint.py``'s current format: a ``.npz`` archive of raw arrays named
-``a0, a1, ...`` plus ``__tree__``, a JSON skeleton of the nested
-dicts/lists/tuples and plain scalars, loaded with ``allow_pickle=False``.
-One checkpoint loads in both packages. Parameters travel as the JAX
-package's nested dict of numpy arrays (``utils/jax_params.py`` maps them
-to and from a ``state_dict``). The JAX package's legacy pickle and
-PyTorch-reference formats are not read here.
+checkpoint.py``: the current format is a ``.npz`` archive of raw arrays
+named ``a0, a1, ...`` plus ``__tree__``, a JSON skeleton of the nested
+dicts/lists/tuples and plain scalars, loaded with ``allow_pickle=False``;
+one checkpoint loads in both packages. ``load_checkpoint`` also reads the
+formats a user may arrive with: the JAX package's legacy round-1 pickle,
+through an unpickler that admits numpy array reconstruction only, and the
+reference's ``torch.save(vae.state_dict())`` (a zip with a ``data.pkl``
+member, or the legacy torch format), converted by utils/torch_import.py.
+Parameters travel as the JAX package's nested dict of numpy arrays
+(``utils/jax_params.py`` maps them to and from a ``state_dict``).
 """
 from __future__ import annotations
 
 import json
 import os
+import pickle
+import zipfile
 from typing import Any, Dict, Tuple
 
 import numpy as np
@@ -58,17 +63,57 @@ def save_checkpoint(path: str, params, extra: Dict[str, Any] | None = None) -> N
     os.replace(tmp, path)
 
 
+class _NumpyOnlyUnpickler(pickle.Unpickler):
+    """Legacy-pickle reader: admits numpy array and scalar reconstruction
+    only (no other class or callable, so loading executes no code)."""
+
+    _OK = {"_reconstruct", "ndarray", "dtype", "scalar", "_frombuffer"}
+
+    def find_class(self, module, name):
+        if module.split(".")[0] == "numpy" and (name in self._OK or module == "numpy.dtypes"):
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(f"checkpoint requested forbidden global {module}.{name}")
+
+
+class CheckpointFormatError(pickle.UnpicklingError, ValueError):
+    """A file that is no checkpoint of any readable format."""
+
+
 def load_checkpoint(path: str) -> Tuple[Any, Dict[str, Any]]:
-    """(params, extra) from a ``.npz`` checkpoint of this format."""
+    """(params, extra) from a checkpoint in any of the formats of the module
+    docstring. A file that is no zip and that both safe readers refuse (the
+    legacy pickle's and torch's ``weights_only`` one) raises
+    ``CheckpointFormatError`` naming both refusals."""
     with open(path, "rb") as fh:
         magic = fh.read(2)
-    if magic != b"PK":
-        raise ValueError(f"{path}: not a .npz checkpoint (the legacy pickle and "
-                         "PyTorch-reference formats are read by the JAX package only)")
-    with np.load(path, allow_pickle=False) as z:
-        if "__tree__" not in z.files:
-            raise ValueError(f"{path}: .npz archive without a __tree__ skeleton")
-        arrays = {k: z[k] for k in z.files if k != "__tree__"}
-        skel = json.loads(z["__tree__"].tobytes().decode("utf-8"))
-    state = _decode(skel, arrays)
+    if magic == b"PK":  # zip: the .npz format or a torch archive
+        with zipfile.ZipFile(path) as zf:
+            is_torch = any(n.endswith("data.pkl") for n in zf.namelist())
+        if is_torch:
+            from ..utils.torch_import import load_torch_checkpoint
+            return load_torch_checkpoint(path)
+        with np.load(path, allow_pickle=False) as z:
+            if "__tree__" not in z.files:
+                raise ValueError(f"{path}: .npz archive without a __tree__ skeleton")
+            arrays = {k: z[k] for k in z.files if k != "__tree__"}
+            skel = json.loads(z["__tree__"].tobytes().decode("utf-8"))
+        state = _decode(skel, arrays)
+        return state["params"], state.get("extra", {})
+    # the legacy round-1 pickle, or a legacy (pre-zip) torch save
+    try:
+        with open(path, "rb") as fh:
+            state = _NumpyOnlyUnpickler(fh).load()
+        if not (isinstance(state, dict) and "params" in state):
+            # a legacy torch save's first pickle is its magic number
+            raise pickle.UnpicklingError("not a checkpoint of this format")
+    except pickle.UnpicklingError as our_err:
+        from ..utils.torch_import import load_torch_checkpoint
+        try:
+            return load_torch_checkpoint(path)
+        except Exception as torch_err:
+            raise CheckpointFormatError(
+                f"{path}: not a loadable checkpoint (no .npz archive) — legacy-pickle "
+                f"reader: {our_err}; "
+                f"torch weights_only reader: {type(torch_err).__name__}: "
+                f"{torch_err}") from None
     return state["params"], state.get("extra", {})

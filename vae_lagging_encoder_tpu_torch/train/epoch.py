@@ -26,9 +26,12 @@ inner loop, with sites ``"eps"`` (normal [B, nsamples, nz]), ``"bin"``
 (images: the binarization uniforms), ``"keep_in"`` / ``"keep_out"``
 (uniform [0, 1) dropout draws) and, in the inner loop, ``"pick"``: an int
 uniform in ``[0, shape[0])``, the flat index of the sub-iteration's batch.
-``make_noise`` draws from seeded ``torch.Generator``s (picks on the host, so
-that choosing a batch never waits for the device); a test can instead hand
-in the JAX package's exact draws. A binarization is ``uniform < probs``,
+With more z-samples than the decoder's ``iw_chunk``, training draws its
+dropout per chunk ``c`` (sites ``"keep_in<c>"``, ``"keep_out<c>"``; see
+models/dec_lstm.py). ``GeneratorNoise`` draws from seeded ``torch.Generator``s
+(picks on the host, so that choosing a batch never waits for the device)
+whose states it can read and restore; a test can instead hand in the JAX
+package's exact draws. A binarization is ``uniform < probs``,
 which is what the JAX package's ``bernoulli(key, probs)`` computes.
 """
 from __future__ import annotations
@@ -48,21 +51,33 @@ from .optim import clip_scale, make_optimizer
 Noise = Callable[[object, str, Tuple[int, ...]], object]
 
 
-def make_noise(seed: int, device) -> Noise:
-    """Draws from generators seeded with ``seed``: normals for the eps sites,
-    uniforms for ``"keep_*"`` and the ``"*bin"`` sites, a host-side int for
-    ``"pick"``."""
-    g = torch.Generator(device=device).manual_seed(seed)
-    g_host = torch.Generator().manual_seed(seed)
+class GeneratorNoise:
+    """A ``noise(i, site, shape)`` provider drawing from two generators
+    seeded with ``seed``: normals for the eps sites and uniforms for
+    ``"keep*"`` and the ``"*bin"`` sites from one on ``device``, the int of
+    ``"pick"`` from one on the host. ``get_state`` / ``set_state`` read and
+    restore both generators, so that a mid-epoch autosave can carry them."""
 
-    def noise(i, site: str, shape: Tuple[int, ...]):
+    def __init__(self, seed: int, device):
+        self.device = device
+        self.g = torch.Generator(device=device).manual_seed(seed)
+        self.g_host = torch.Generator().manual_seed(seed)
+
+    def __call__(self, i, site: str, shape: Tuple[int, ...]):
         if site == "pick":
-            return int(torch.randint(shape[0], (), generator=g_host))
+            return int(torch.randint(shape[0], (), generator=self.g_host))
         if site.startswith("keep") or site.endswith("bin"):
-            return torch.rand(shape, generator=g, device=device)
-        return torch.randn(shape, generator=g, device=device)
+            return torch.rand(shape, generator=self.g, device=self.device)
+        return torch.randn(shape, generator=self.g, device=self.device)
 
-    return noise
+    def get_state(self) -> Dict[str, np.ndarray]:
+        """Both generators' states as uint8 numpy arrays."""
+        return {"device": self.g.get_state().numpy().copy(),
+                "host": self.g_host.get_state().numpy().copy()}
+
+    def set_state(self, state: Dict[str, np.ndarray]) -> None:
+        self.g.set_state(torch.from_numpy(np.asarray(state["device"], dtype=np.uint8)))
+        self.g_host.set_state(torch.from_numpy(np.asarray(state["host"], dtype=np.uint8)))
 
 
 def _safe_exp(x: float) -> float:
@@ -133,15 +148,20 @@ def make_train_epoch(vae: VAE, pool: Pool, cfg,
     optimizers, as the reference has).
 
     ``epoch_fn(opt_state, noise, kl_weight, lr, order, aggressive,
-    on_step=None) -> (opt_state, kl_weight, sums, inner_iters)`` runs one
-    outer step per flat batch index of ``order``. Each step anneals the KL
-    weight first (``min(1, kl_weight + anneal_rate)`` in f32, as at the top
-    of the reference's batch loop), then, while ``aggressive``, runs the
-    inner loop (encoder-only updates to a plateau), then takes the outer
-    update: decoder-only while aggressive, encoder and decoder otherwise,
-    always with the clip over the full gradient. ``sums`` [5] (loss, rec,
-    KL, sentences, words) accumulate on the device; ``on_step(i, kl_weight,
-    aux)`` is called after each outer step (the caller's log cadence).
+    on_step=None, start=0, sums=None, inner_iters=0) -> (opt_state,
+    kl_weight, sums, inner_iters)`` runs one outer step per flat batch
+    index of ``order[start:]`` (step ``i`` draws with index ``i``, so a run
+    re-entered at ``start`` draws what the whole epoch would have, given the
+    noise's state). Each step anneals the KL weight first (``min(1,
+    kl_weight + anneal_rate)`` in f32, as at the top of the reference's
+    batch loop), then, while ``aggressive``, runs the inner loop
+    (encoder-only updates to a plateau), then takes the outer update:
+    decoder-only while aggressive, encoder and decoder otherwise, always
+    with the clip over the full gradient. ``sums`` [5] (loss, rec, KL,
+    sentences, words; carried in from ``sums`` when re-entering) accumulate
+    on the device. ``on_step(i, kl_weight, aux, opt_state, sums,
+    inner_iters)`` is called after each outer step (the caller's log and
+    autosave cadence); when it returns True the epoch stops there.
     ``loss_fn`` (training mode) defaults to the text loss."""
     loss_fn = loss_fn or make_loss_fn(vae, nsamples=cfg.nsamples, train=True)
     grad_on = make_grad_on(vae, loss_fn)
@@ -159,10 +179,12 @@ def make_train_epoch(vae: VAE, pool: Pool, cfg,
         return {"enc": opt_init_part(enc), "dec": opt_init_part(dec)}
 
     def epoch_fn(opt_state, noise: Noise, kl_weight, lr: float, order, aggressive: bool,
-                 on_step: Callable | None = None):
-        sums = torch.zeros(5, device=next(iter(params.values())).device)
-        inner_iters = 0
-        for i, flat in enumerate(order):
+                 on_step: Callable | None = None, start: int = 0, sums=None,
+                 inner_iters: int = 0):
+        if sums is None:
+            sums = torch.zeros(5, device=next(iter(params.values())).device)
+        for i in range(start, len(order)):
+            flat = order[i]
             kl_weight = np.minimum(np.float32(1.0), np.float32(kl_weight) + anneal_rate)
             if aggressive:
                 opt_state, n_sub = inner(
@@ -180,8 +202,9 @@ def make_train_epoch(vae: VAE, pool: Pool, cfg,
                     ps, grads_of(ps), opt_state[part], lr, scale=scale, finite=finite)})
             aux = torch.stack([a.detach() for a in aux])
             sums = sums + aux
-            if on_step is not None:
-                on_step(i, kl_weight, aux)
+            if on_step is not None and on_step(i, kl_weight, aux, opt_state, sums,
+                                               inner_iters):
+                break
         return opt_state, kl_weight, sums, inner_iters
 
     return epoch_fn, opt_init

@@ -11,9 +11,12 @@ parameters), ``run_final_eval``, ``train_text`` and ``train_image``. The
 image path passes its loss (``make_image_loss_fn``) and eval prep
 (``binarize_prep``) through the same lifecycle.
 
-Not ported from ``run_training``: data and tensor parallelism, mid-epoch
-autosaves (``--autosave_niter``; a checkpoint holding a mid-epoch position
-is refused), ``--profile_dir``, and the XLA dispatch knobs
+Also as there: the mid-epoch autosave (``--autosave_niter``: every N outer
+steps the parameters, optimizer state, counters and epoch position are
+written atomically to ``<save_path>.auto``, which ``--resume`` re-enters at
+the next step) and ``--profile_dir`` (a ``torch.profiler`` trace of one
+epoch, distilled into ``DOSSIER.md`` by utils/profiling.py). Not ported:
+data and tensor parallelism, and the XLA dispatch knobs
 ``--epoch_segment`` / ``--loop_unroll`` (an epoch here is a host loop of
 steps, logged every ``log_niter`` steps as the reference does).
 
@@ -22,11 +25,18 @@ train/epoch.py for the provider's sites) with stages ``"train"``,
 ``"val_mi"``, ``"val"``, ``"test"`` and ``"final"``. The default,
 ``make_noise_for``, seeds one generator per (stage, epoch) from the
 config's seed, so a resumed run draws what the uninterrupted run would
-have drawn from that epoch on; a test can replay the JAX package's keys.
+have drawn from that epoch on; an autosave also carries the training
+noise's generator states (``NOISE_STATE_KEY``), so a run resumed mid-epoch
+draws what the uninterrupted run would have from that step on. A test can
+replay the JAX package's keys. The autosave's ``mid_epoch`` record has the
+JAX package's fields and meanings, so the port also reads the position and
+counters of an autosave the JAX package wrote; lacking this package's
+generator states, it continues from there on its own draws (and logs so).
 """
 from __future__ import annotations
 
 import math
+import os
 import time
 from typing import Callable, Dict, Optional
 
@@ -41,12 +51,14 @@ from ..ops.build import resolve_device
 from ..utils.exp_utils import Logger
 from ..utils.jax_params import from_jax_params, to_jax_params
 from .checkpoint import load_checkpoint, save_checkpoint
-from .epoch import (Noise, binarize_prep, make_au_fn, make_eval_fn, make_image_loss_fn,
-                    make_iwnll_fn, make_mi_fn, make_noise, make_train_epoch, unpack)
+from .epoch import (GeneratorNoise, Noise, binarize_prep, make_au_fn, make_eval_fn,
+                    make_image_loss_fn, make_iwnll_fn, make_mi_fn, make_train_epoch, unpack)
 from .optim import state_from_tree, state_to_tree
 
 NoiseFor = Callable[[str, int], Noise]
 STAGES = ("train", "val_mi", "val", "test")
+# the autosave's entry for the training noise's generator states
+NOISE_STATE_KEY = "torch_noise_state"
 
 
 def make_noise_for(seed: int, device) -> NoiseFor:
@@ -55,8 +67,8 @@ def make_noise_for(seed: int, device) -> NoiseFor:
 
     def noise_for(stage: str, epoch: int) -> Noise:
         if stage == "final":
-            return make_noise(seed + 1, device)
-        return make_noise((seed * 8 + STAGES.index(stage)) * 100_003 + epoch, device)
+            return GeneratorNoise(seed + 1, device)
+        return GeneratorNoise((seed * 8 + STAGES.index(stage)) * 100_003 + epoch, device)
 
     return noise_for
 
@@ -96,7 +108,7 @@ def run_final_eval(cfg: ExperimentConfig, vae: VAE, pool: Pool, log: Logger,
             f"--iw_batch {cfg.iw_batch} (the IW estimator runs in "
             f"iw_batch-sample chunks)")
     if noise is None:
-        noise = make_noise(cfg.seed + 1, pool.arrays[0][0].device)
+        noise = GeneratorNoise(cfg.seed + 1, pool.arrays[0][0].device)
     # each evaluator ends in one device->host read, so host-clock spans are
     # complete device spans
     t = [time.perf_counter()]
@@ -129,16 +141,68 @@ def _snapshot(vae: VAE) -> Dict[str, torch.Tensor]:
     return {k: v.detach().clone() for k, v in vae.state_dict().items()}
 
 
+def _check_mid_epoch(mid: Dict, cfg: ExperimentConfig, num_batches: int, best_loss: float,
+                     save_path: str) -> None:
+    """The refusals of a mid-epoch resume (JAX ``run_training``'s): another
+    ``--seed`` (the epoch's shuffle and the step offset would not match),
+    another number of training batches, or a missing best-val checkpoint
+    when one exists for the run (the rollback and the final evaluation
+    need the best parameters, and the autosave holds the current ones)."""
+    saved_seed = mid.get("seed")
+    if saved_seed is not None and int(saved_seed) != int(cfg.seed):
+        raise SystemExit(
+            f"mid-epoch resume: autosave was written with --seed {int(saved_seed)} but this "
+            f"run uses --seed {int(cfg.seed)} — the epoch shuffle would diverge and the "
+            f"skipped-batch offset would be meaningless. Resume with the original seed.")
+    saved_nb = mid.get("num_batches")
+    if saved_nb is not None and int(saved_nb) != int(num_batches):
+        raise SystemExit(
+            f"mid-epoch resume: autosave expects {int(saved_nb)} train batches but the pool "
+            f"has {num_batches} — the corpus or batching changed since the autosave; "
+            f"mid-epoch positions don't transfer.")
+    if math.isfinite(best_loss) and not os.path.exists(save_path):
+        raise SystemExit(
+            f"mid-epoch resume: a best-val checkpoint exists for this run (best_loss "
+            f"{best_loss:.4f}) but {save_path!r} is missing — LR-decay rollback and the "
+            f"final eval would silently use non-best params. Restore the best checkpoint "
+            f"or pass its --save_path.")
+
+
+def _write_dossier(cfg: ExperimentConfig, log: Logger, epoch: int, ran: int) -> None:
+    """DOSSIER.md of the profiled epoch's trace; skipped (and logged) when
+    the epoch ran no step or the trace has no device timeline."""
+    from ..utils.profiling import write_dossier
+
+    dossier_path = os.path.join(cfg.profile_dir, "DOSSIER.md")
+    if ran <= 0:
+        log.info("[profile] resumed epoch executed zero steps (autosave landed exactly at "
+                 "the epoch boundary) — nothing to distill, dossier skipped")
+        return
+    summary = write_dossier(cfg.profile_dir, steps=ran, out_path=dossier_path,
+                            title=f"Epoch-{epoch} profiler dossier ({cfg.dataset})")
+    if summary is None:
+        log.info("[profile] no device timeline in the trace (CPU runs emit none) — "
+                 "dossier skipped")
+        return
+    top = summary["table"][0]
+    log.info(f"[profile] dossier -> {dossier_path}: {summary['ms_per_step_device']:.2f} "
+             f"ms/step device; top op {top['op']} ({top['category']}) "
+             f"{top['pct_device']:.0f}%")
+
+
 def run_training(cfg: ExperimentConfig, vae: VAE, train_pool: Pool, val_pool: Pool,
                  test_pool: Pool, log: Logger, loss_fn: Optional[Callable] = None,
                  eval_loss_fn: Optional[Callable] = None, prep: Callable = unpack,
                  resume_state: Optional[Dict] = None,
-                 noise_for: Optional[NoiseFor] = None) -> Dict:
+                 noise_for: Optional[NoiseFor] = None,
+                 _stop_after_steps: Optional[int] = None) -> Dict:
     """The training lifecycle (module docstring); ``vae`` holds the initial
     (or loaded) parameters and ends holding the best ones. ``loss_fn``
     (training mode), ``eval_loss_fn`` and ``prep`` default to the text
     versions. Returns the final evaluation's results plus ``history``,
-    ``best_val_loss``, ``save_path``."""
+    ``best_val_loss``, ``save_path``. ``_stop_after_steps`` (a test hook)
+    returns ``{"interrupted": True, ...}`` right after that many outer steps
+    of this call, as a crash there would leave the run."""
     if cfg.resume and not cfg.load_path:
         raise SystemExit("--resume requires --load_path (a checkpoint to "
                          "continue from)")
@@ -159,6 +223,7 @@ def run_training(cfg: ExperimentConfig, vae: VAE, train_pool: Pool, val_pool: Po
     val_eval = make_eval_fn(vae, val_pool, loss_fn=eval_loss_fn)
     val_mi = make_mi_fn(vae, val_pool, prep=prep)
     test_eval = make_eval_fn(vae, test_pool, loss_fn=eval_loss_fn)
+    nb = train_pool.num_batches
 
     kl_weight = np.float32(cfg.kl_start)
     lr = float(cfg.lr)
@@ -170,11 +235,9 @@ def run_training(cfg: ExperimentConfig, vae: VAE, train_pool: Pool, val_pool: Po
     not_improved = 0
     start_epoch = 0
     save_path = cfg.save_path or f"models/{cfg.dataset}/model.ckpt"
+    autosave_path = save_path + ".auto"
+    mid = None
     if resume_state:
-        if resume_state.get("mid_epoch"):
-            raise SystemExit("this checkpoint holds a mid-epoch position (an autosave); "
-                             "mid-epoch resume is not ported to this package — resume "
-                             "from the best-val checkpoint instead")
         kl_weight = np.float32(resume_state.get("kl_weight", kl_weight))
         lr = float(resume_state.get("lr", lr))
         aggressive = bool(resume_state.get("aggressive", aggressive))
@@ -183,48 +246,123 @@ def run_training(cfg: ExperimentConfig, vae: VAE, train_pool: Pool, val_pool: Po
                                            resume_state.get("val", {}).get("loss", best_loss)))
         decay_cnt = int(resume_state.get("decay_cnt", 0))
         not_improved = int(resume_state.get("not_improved", 0))
-        start_epoch = int(resume_state.get("epoch", -1)) + 1
+        mid = resume_state.get("mid_epoch")
+        if mid:
+            # an autosave: re-enter the SAME epoch at the step after the save
+            start_epoch = int(mid["epoch"])
+            _check_mid_epoch(mid, cfg, nb, best_loss, save_path)
+            if math.isfinite(best_loss):
+                best_params = {k: v.to(dev) for k, v in
+                               from_jax_params(load_checkpoint(save_path)[0]).items()}
+        else:
+            start_epoch = int(resume_state.get("epoch", -1)) + 1
         if "opt_state" in resume_state:
             opt_state = state_from_tree(resume_state["opt_state"], dev)
-        log.info(f"[resume] from epoch {start_epoch} (kl_weight {float(kl_weight):.4f}, "
-                 f"lr {lr:.4f}, aggressive {aggressive})")
+        log.info(f"[resume] from epoch {start_epoch}"
+                 + (f" step {int(mid['global_step'])}" if mid else "")
+                 + f" (kl_weight {float(kl_weight):.4f}, lr {lr:.4f}, aggressive {aggressive})")
     rng = np.random.RandomState(cfg.seed)
     for _ in range(start_epoch):  # keep the shuffle stream aligned
-        rng.permutation(train_pool.num_batches)
+        rng.permutation(nb)
     history = []
-    log.info(f"[train] {cfg.epochs} epochs, {train_pool.num_batches} "
-             f"batches/epoch, aggressive={aggressive}")
+    log.info(f"[train] {cfg.epochs} epochs, {nb} batches/epoch, aggressive={aggressive}")
 
-    global_step = start_epoch * train_pool.num_batches
-    t_start = time.time()
+    global_step = start_epoch * nb
+    steps_since_log = 0
     report = torch.zeros(5, device=dev)
+    if mid:
+        global_step = int(mid["global_step"])
+        steps_since_log = int(mid.get("steps_since_log", 0))
+        report = torch.tensor([float(x) for x in mid["report"]], device=dev)
+    last_autosave = global_step
+    steps_run = 0
+    t_start = time.time()
 
-    def on_step(i, kl_w, aux):
-        nonlocal report, global_step
+    def on_step(i, kl_w, aux, opt_now, sums, inner_iters):
+        nonlocal report, global_step, steps_since_log, last_autosave, steps_run
         report = report + aux
         global_step += 1
-        if cfg.log_niter and global_step % cfg.log_niter == 0:
+        steps_since_log += 1
+        steps_run += 1
+        if cfg.log_niter and steps_since_log >= cfg.log_niter:
             rl, rr, rk, rn, _ = report.tolist()
             rn = max(rn, 1.0)
             log.info(f"epoch {epoch}, iter {global_step}: avg_loss {rl / rn:.4f}, "
                      f"kl {rk / rn:.4f}, recon {rr / rn:.4f}, kl_weight "
                      f"{float(kl_w):.4f}, time {time.time() - t_start:.1f}s")
             report = torch.zeros(5, device=dev)
+            steps_since_log = 0
+        if cfg.autosave_niter and global_step - last_autosave >= cfg.autosave_niter:
+            last_autosave = global_step
+            extra = {
+                "opt_state": state_to_tree(opt_now),
+                "epoch": epoch - 1, "kl_weight": float(kl_w), "lr": lr,
+                "aggressive": aggressive, "pre_mi": pre_mi, "best_loss": best_loss,
+                "decay_cnt": decay_cnt, "not_improved": not_improved, "dataset": cfg.dataset,
+                "mid_epoch": {
+                    "epoch": epoch, "seg": 1, "seed": int(cfg.seed), "num_batches": nb,
+                    "next_start": i + 1, "sums": sums.tolist(),
+                    "inner_iters": int(inner_iters), "report": report.tolist(),
+                    "steps_since_log": steps_since_log, "global_step": global_step,
+                },
+            }
+            if hasattr(noise, "get_state"):
+                extra[NOISE_STATE_KEY] = noise.get_state()
+            save_checkpoint(autosave_path, to_jax_params(vae.state_dict()), extra)
+        return _stop_after_steps is not None and steps_run >= _stop_after_steps
 
     for epoch in range(start_epoch, cfg.epochs):
         t0 = time.time()
-        order = rng.permutation(train_pool.num_batches)
+        order = rng.permutation(nb)
         was_aggressive = aggressive
+        noise = noise_for("train", epoch)
+        start, sums, inner0 = 0, None, 0
+        resumed = bool(mid) and epoch == start_epoch
+        if resumed:
+            start, inner0 = int(mid["next_start"]), int(mid["inner_iters"])
+            sums = torch.tensor([float(x) for x in mid["sums"]], device=dev)
+            if NOISE_STATE_KEY in resume_state and hasattr(noise, "set_state"):
+                noise.set_state(resume_state[NOISE_STATE_KEY])
+            elif hasattr(noise, "set_state"):
+                log.info(f"[resume] the autosave holds no generator state of this package "
+                         f"(written by the JAX package?): epoch {epoch} continues from step "
+                         f"{start} on this run's own draws")
+        # the first epoch after epoch 0 (or the only epoch this run executes)
+        profiler = None
+        if cfg.profile_dir and epoch == max(start_epoch, min(1, cfg.epochs - 1)):
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda"
+                                             else [])
+            profiler = profile(activities=acts)
+            profiler.start()
         opt_state, kl_weight, sums, inner_iters = epoch_fn(
-            opt_state, noise_for("train", epoch), kl_weight, lr, order, aggressive,
-            on_step=on_step)
+            opt_state, noise, kl_weight, lr, order, aggressive, on_step=on_step,
+            start=start, sums=sums, inner_iters=inner0)
+        if _stop_after_steps is not None and steps_run >= _stop_after_steps:
+            if profiler is not None:
+                profiler.stop()
+            log.info(f"[stop] after {steps_run} steps (test hook)")
+            return {"interrupted": True, "autosave_path": autosave_path,
+                    "autosave_taken": os.path.exists(autosave_path)}
         loss_s, rec_s, kl_s, n_sent, n_words = sums.tolist()
+        # a resumed epoch counts only the steps this process ran
+        ran = nb - start + inner_iters - inner0
+        if profiler is not None:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            profiler.stop()
+            os.makedirs(cfg.profile_dir, exist_ok=True)
+            trace = os.path.join(cfg.profile_dir, f"epoch{epoch}.pt.trace.json.gz")
+            profiler.export_chrome_trace(trace)
+            log.info(f"[profile] trace for epoch {epoch} written to {trace}")
+            _write_dossier(cfg, log, epoch, ran)
         dt = time.time() - t0
-        ran = train_pool.num_batches + inner_iters
         log.info(f"epoch {epoch}: loss {loss_s / n_sent:.4f} "
                  f"rec {rec_s / n_sent:.4f} kl {kl_s / n_sent:.4f} "
                  f"kl_weight {float(kl_weight):.4f} inner_iters {inner_iters} "
-                 f"({dt:.1f}s, {ran / max(dt, 1e-9):.1f} steps/s)")
+                 f"({dt:.1f}s, {ran / max(dt, 1e-9):.1f} steps/s"
+                 f"{' post-resume' if resumed else ''})")
 
         # --- epoch-level MI plateau: permanent aggressive switch-off ----
         if aggressive:
