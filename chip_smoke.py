@@ -674,25 +674,49 @@ def write_train_corpus(d: Path):
     return paths
 
 
-def run_train_cli(argv, exp_dir: Path):
-    """``cli.text.main(argv)`` with the counters set to 0 just before it;
-    returns the launches, per-epoch metrics, final results and wall seconds."""
-    from vae_lagging_encoder_tpu_torch.cli import text as cli_text
-    from vae_lagging_encoder_tpu_torch.ops import build
+def run_cli(main, argv, exp_dir: Path, name: str, stop=None):
+    """``main(argv + --exp_dir)`` (``name`` is the module under the port's
+    package) with the counters and the peak device memory reset just
+    before it; with ``stop``, ``run_training`` stops after that many steps
+    (its ``_stop_after_steps`` hook). Returns the launches, the metric
+    records and the wall seconds."""
+    import functools
 
-    log(f"[train] python -m vae_lagging_encoder_tpu_torch.cli.text {' '.join(argv)}")
+    from vae_lagging_encoder_tpu_torch.ops import build
+    from vae_lagging_encoder_tpu_torch.train import loop
+
+    log(f"[cli] python -m vae_lagging_encoder_tpu_torch.{name} {' '.join(argv)}"
+        + (f" (stopped after {stop} steps)" if stop else ""))
+    run_training = loop.run_training
+    if stop is not None:
+        loop.run_training = functools.partial(run_training, _stop_after_steps=stop)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
     t0 = time.perf_counter()
-    rc = cli_text.main(argv + ["--exp_dir", str(exp_dir)])
+    try:
+        rc = main(argv + ["--exp_dir", str(exp_dir)])
+    finally:
+        loop.run_training = run_training
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
     if rc != 0:
-        raise AssertionError(f"cli.text.main returned {rc}")
+        raise AssertionError(f"{name} returned {rc}")
     records = [json.loads(l) for l in (exp_dir / "log.metrics.jsonl").read_text().splitlines()]
-    epochs = [r for r in records if "val_loss" in r]
-    results = next(r for r in records if r.get("split") == "test")
-    return launches, epochs, results, wall
+    return launches, records, wall
+
+
+def run_train_cli(argv, exp_dir: Path, stop=None):
+    """``run_cli`` of ``cli.text``: the launches, the per-epoch metrics, the
+    final results (None when stopped), the wall seconds and the peak device
+    memory."""
+    from vae_lagging_encoder_tpu_torch.cli import text as cli_text
+
+    launches, records, wall = run_cli(cli_text.main, argv, exp_dir, "cli.text", stop)
+    return dict(launches=launches, epochs=[r for r in records if "val_loss" in r],
+                results=next((r for r in records if r.get("split") == "test"), None),
+                wall=wall, max_memory_allocated=torch.cuda.max_memory_allocated())
 
 
 def expected_train_launches(epochs, n_train, val_pool, test_pool, cfg, nsamples: int = 1):
@@ -738,7 +762,8 @@ def run_training_slice(tmp: Path, test_path: Path, dev):
         argv = ["--dataset", "yahoo", *extra, "--warm_up", "1", "--kl_start", "0.1",
                 "--iw_nsamples", str(TRAIN_IW), "--save_path", str(ck), *files,
                 *(f"--{k}={v}" for k, v in dims.items())]
-        launches, epochs, res, wall = run_train_cli(argv, tmp / f"exp_{name}")
+        run = run_train_cli(argv, tmp / f"exp_{name}")
+        launches, epochs, res, wall = (run[k] for k in ("launches", "epochs", "results", "wall"))
         want = expected_train_launches(epochs, train_pool.num_batches, val_pool, test_pool, cfg)
         log(f"[train] {name}: epochs {json.dumps(epochs)}")
         log(f"[train] {name}: results {json.dumps(res)}; whole CLI {wall:.2f} s; launches "
@@ -871,24 +896,32 @@ def trace_steps(train_pool, cfg, dev):
 
 
 def profiled(fn, **head):
-    """``fn()`` under ``torch.profiler``, ending in a synchronize: the device
-    ops by total device time, and the device's idle share, the part of the
-    window's host wall time that no device op covers
-    (``utils/profiling.py::summarize_profile``)."""
+    """``fn()`` under ``torch.profiler``, ending in a synchronize; its Chrome
+    trace distilled by ``utils/profiling.py::distill_trace``, the summarizer
+    of ``--profile_dir``'s ``DOSSIER.md``: the top device ops by self time,
+    the device-busy time, and the device's idle share, the part of the
+    window's host wall time that no device op covers (1 - busy / wall)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from vae_lagging_encoder_tpu_torch.utils.profiling import summarize_profile
+    from vae_lagging_encoder_tpu_torch.utils.profiling import distill_trace
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    summary = summarize_profile(prof, wall_us)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as td:
+        prof.export_chrome_trace(str(Path(td) / "window.pt.trace.json.gz"))
+        summary = distill_trace(td, steps=head.get("steps", 1))
     if summary is None:
-        return {**head, "device_time": "none: key_averages() shows no device time",
-                "wall_ms": wall_us / 1e3}
-    return {**head, **summary}
+        return {**head, "device_time": "none: the trace has no device timeline",
+                "wall_ms": wall_ms}
+    busy = summary["device_busy_ms"]
+    return {**head, "wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": max(0.0, 1.0 - busy / wall_ms),
+            "top_device_ops": [{k: r[k] for k in ("op", "category", "calls", "ms_total",
+                                                  "pct_device")}
+                               for r in summary["table"][:10]]}
 
 
 def trace_iw(pool, ck, cfg, vocab_size, dev):
@@ -945,24 +978,12 @@ def write_omniglot_npz(path: Path):
 
 
 def run_image_cli(argv, exp_dir: Path):
-    """``cli.image.main(argv)`` with the counters set to 0 just before it;
-    returns the launches, per-epoch metrics, the test results and the
-    per-evaluator seconds, the wall seconds and the peak device memory."""
+    """``run_cli`` of ``cli.image``: the launches, the per-epoch metrics, the
+    test results and the per-evaluator seconds, the wall seconds and the
+    peak device memory."""
     from vae_lagging_encoder_tpu_torch.cli import image as cli_image
-    from vae_lagging_encoder_tpu_torch.ops import build
 
-    log(f"[image] python -m vae_lagging_encoder_tpu_torch.cli.image {' '.join(argv)}")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    build.reset_launches()
-    t0 = time.perf_counter()
-    rc = cli_image.main(argv + ["--exp_dir", str(exp_dir)])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(build.LAUNCHES)
-    if rc != 0:
-        raise AssertionError(f"cli.image.main returned {rc}")
-    records = [json.loads(l) for l in (exp_dir / "log.metrics.jsonl").read_text().splitlines()]
+    launches, records, wall = run_cli(cli_image.main, argv, exp_dir, "cli.image")
     return dict(launches=launches, epochs=[r for r in records if "val_loss" in r],
                 results=next(r for r in records if r.get("split") == "test"),
                 seconds=next(r for r in records if r.get("split") == "test_seconds"),
@@ -1134,26 +1155,6 @@ IMG_TIE = 1e-5                 # |u - sigmoid(logit)| below which a pixel may fl
 IMG_LOGIT_TOL = 1e-4
 TOY_TRAIN, TOY_EPOCHS, TOY_PLOT = 96, 2, 96  # training sentences, epochs, probe sentences
 TOY_TOL = 1e-4                 # epoch -1 pairs, card against the CPU
-
-
-def run_cli(main, argv, exp_dir: Path, name: str):
-    """``main(argv + --exp_dir)`` with the counters set to 0 just before it;
-    returns the launches, the ``split="generate"`` or toy metric records and
-    the wall seconds."""
-    from vae_lagging_encoder_tpu_torch.ops import build
-
-    log(f"[generate] {name} {' '.join(argv)}")
-    torch.cuda.synchronize()
-    build.reset_launches()
-    t0 = time.perf_counter()
-    rc = main(argv + ["--exp_dir", str(exp_dir)])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(build.LAUNCHES)
-    if rc != 0:
-        raise AssertionError(f"{name} returned {rc}")
-    records = [json.loads(l) for l in (exp_dir / "log.metrics.jsonl").read_text().splitlines()]
-    return launches, records, wall
 
 
 def run_text_generation(tmp: Path, train_path: Path, test_path: Path, ck: Path, cfg):
@@ -1467,42 +1468,6 @@ def text_pools(train_path: Path, others, cfg, dev):
             for f in others]
 
 
-def run_text_cli(argv, exp_dir: Path, stop=None):
-    """``cli.text.main(argv + --exp_dir)`` with the counters and the peak
-    memory reset just before it; with ``stop``, ``run_training`` stops after
-    that many steps (its ``_stop_after_steps`` hook). Returns the launches,
-    the per-epoch metrics, the final results (None when stopped), the wall
-    seconds and the peak device memory."""
-    import functools
-
-    from vae_lagging_encoder_tpu_torch.cli import text as cli_text
-    from vae_lagging_encoder_tpu_torch.ops import build
-    from vae_lagging_encoder_tpu_torch.train import loop
-
-    log(f"[lifecycle] python -m vae_lagging_encoder_tpu_torch.cli.text {' '.join(argv)}"
-        + (f" (stopped after {stop} steps)" if stop else ""))
-    run_training = loop.run_training
-    if stop is not None:
-        loop.run_training = functools.partial(run_training, _stop_after_steps=stop)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    build.reset_launches()
-    t0 = time.perf_counter()
-    try:
-        rc = cli_text.main(argv + ["--exp_dir", str(exp_dir)])
-    finally:
-        loop.run_training = run_training
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(build.LAUNCHES)
-    if rc != 0:
-        raise AssertionError(f"cli.text.main returned {rc}")
-    records = [json.loads(l) for l in (exp_dir / "log.metrics.jsonl").read_text().splitlines()]
-    return dict(launches=launches, epochs=[r for r in records if "val_loss" in r],
-                results=next((r for r in records if r.get("split") == "test"), None),
-                wall=wall, max_memory_allocated=torch.cuda.max_memory_allocated())
-
-
 def max_param_diff(a: Path, b: Path):
     """The largest difference of two checkpoints' parameters, each leaf's
     relative to its largest entry, and the leaf where it is."""
@@ -1533,23 +1498,23 @@ def autosave_resume(tmp: Path, files, init_ck: Path):
             str(AUTOSAVE_NITER), *files]
     full_ck, ck = tmp / "life_full.ckpt", tmp / "life_run.ckpt"
     auto = Path(str(ck) + ".auto")
-    runs = {"full": run_text_cli([*base, "--load_path", str(init_ck), "--save_path",
-                                  str(full_ck)], tmp / "exp_life_full")}
-    runs["stopped"] = run_text_cli([*base, "--load_path", str(init_ck), "--save_path", str(ck)],
-                                   tmp / "exp_life_stopped", stop=STOP_AFTER)
+    runs = {"full": run_train_cli([*base, "--load_path", str(init_ck), "--save_path",
+                                   str(full_ck)], tmp / "exp_life_full")}
+    runs["stopped"] = run_train_cli([*base, "--load_path", str(init_ck), "--save_path", str(ck)],
+                                    tmp / "exp_life_stopped", stop=STOP_AFTER)
     mid = load_checkpoint(str(auto))[1]["mid_epoch"]
     if not (mid["epoch"] == 1 and mid["global_step"] == STOP_AFTER // AUTOSAVE_NITER
             * AUTOSAVE_NITER and runs["stopped"]["results"] is None):
         raise AssertionError(f"7a: the stopped run's autosave {mid}")
     resume = [*base, "--save_path", str(ck), "--resume", "--load_path", str(auto)]
-    runs["resumed"] = run_text_cli(resume, tmp / "exp_life_resumed")
+    runs["resumed"] = run_train_cli(resume, tmp / "exp_life_resumed")
     mid2 = load_checkpoint(str(auto))[1]["mid_epoch"]
     if not (mid2["epoch"] == 1 and mid2["next_start"] == mid2["num_batches"]):
         raise AssertionError(f"7a: the resumed run's last autosave {mid2}")
     auto_diff = max_param_diff(Path(str(full_ck) + ".auto"), auto)
     prof = tmp / "profile_zero"
-    runs["resumed_at_end"] = run_text_cli([*resume, "--profile_dir", str(prof)],
-                                          tmp / "exp_life_end")
+    runs["resumed_at_end"] = run_train_cli([*resume, "--profile_dir", str(prof)],
+                                           tmp / "exp_life_end")
     full = runs["full"]
     hist_diff = 0.0
     for name in ("resumed", "resumed_at_end"):
@@ -1573,6 +1538,8 @@ def autosave_resume(tmp: Path, files, init_ck: Path):
                history_and_results_max_abs_diff=hist_diff, bound=RESUME_BOUND,
                stop_after=STOP_AFTER, autosave_niter=AUTOSAVE_NITER, resumed_from=mid,
                steps_per_sec_resumed=runs["resumed"]["epochs"][0]["steps_per_sec"],
+               autosaves_full={e["epoch"]: [e["autosaves"], e["autosave_seconds"]]
+                               for e in full["epochs"]},
                walls={k: r["wall"] for k, r in runs.items()},
                zero_step_trace=sorted(p.name for p in prof.iterdir()))
     log(f"[lifecycle] 7a autosave/resume: {json.dumps(out)}")
@@ -1589,7 +1556,7 @@ def train_nsamples(tmp: Path, files, train_pool, val_pool, test_pool, cfg, dev):
     argv = ["--dataset", "yahoo", "--epochs", "1", "--aggressive", "0", "--warm_up", "1",
             "--kl_start", "0.1", "--iw_nsamples", str(TRAIN_IW), "--nsamples", str(NSAMPLES),
             "--save_path", str(tmp / "nsamples.ckpt"), *files]
-    run = run_text_cli(argv, tmp / "exp_nsamples")
+    run = run_train_cli(argv, tmp / "exp_nsamples")
     want = expected_train_launches(run["epochs"], train_pool.num_batches, val_pool, test_pool,
                                    cfg, nsamples=NSAMPLES)
     vals = [run["results"][k] for k in ("elbo_loss", "rec", "kl", "iw_nll")] + \
@@ -1614,7 +1581,7 @@ def profile_epoch(tmp: Path, files, train_pool):
     argv = ["--dataset", "yahoo", "--epochs", "1", "--aggressive", "0", "--warm_up", "1",
             "--kl_start", "0.1", "--iw_nsamples", str(TRAIN_IW), "--profile_dir", str(prof),
             "--save_path", str(tmp / "profiled.ckpt"), *files]
-    run = run_text_cli(argv, tmp / "exp_profiled")
+    run = run_train_cli(argv, tmp / "exp_profiled")
     summary = json.loads((prof / "DOSSIER.json").read_text())
     top = [r["op"] for r in summary["table"][:15]]
     need = ("lstm_bwd", "lstm_fwd_residuals", "ce_fwd_train")
@@ -1653,8 +1620,8 @@ def reference_checkpoints(tmp: Path, paths, init_ck: Path, phase3_results, pool,
     runs, diffs = {}, {}
     want = expected_launches(pool, cfg)
     for name, path in (("reference_pt", ref), ("legacy_pickle", legacy)):
-        runs[name] = run_text_cli(["--dataset", "yahoo", "--eval", "--load_path", str(path),
-                                   *files], tmp / f"exp_{name}")
+        runs[name] = run_train_cli(["--dataset", "yahoo", "--eval", "--load_path", str(path),
+                                    *files], tmp / f"exp_{name}")
         res = runs[name]["results"]
         diffs[name] = {k: res[k] - phase3_results[k] for k in ("elbo_loss", "rec", "kl", "mi",
                                                                 "au", "iw_nll")}
@@ -1695,21 +1662,27 @@ def docs_english(tmp: Path):
     cfg = get_config("docs_english")
     lines = (root / "docs_english.train.txt").read_text().splitlines(keepends=True)
     cut = tmp / "docs_english.train_cut.txt"
-    n = len(lines)
-    while True:
+
+    def batches(n):  # writes the cut of the first n documents; its batch count
         cut.write_text("".join(lines[:n]))
-        nb = len(MonoTextData(str(cut), label=True).create_data_batch(cfg.batch_size,
-                                                                      cfg.length_buckets))
-        if nb <= ENGLISH_MAX_BATCHES:
-            break
-        n -= 8
+        return len(MonoTextData(str(cut), label=True).create_data_batch(cfg.batch_size,
+                                                                        cfg.length_buckets))
+
+    lo, hi = 1, len(lines)  # bisect: the batch count only grows with n
+    if batches(hi) > ENGLISH_MAX_BATCHES:
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            lo, hi = (mid, hi) if batches(mid) <= ENGLISH_MAX_BATCHES else (lo, mid)
+        hi = lo
+    n = hi
+    nb = batches(n)
     vocab = len(MonoTextData(str(cut), label=True).vocab)
     argv = ["--dataset", "docs_english", "--epochs", "1", "--aggressive", "0",
             "--iw_nsamples", str(TRAIN_IW), "--train_data", str(cut),
             "--val_data", str(root / "docs_english.valid.txt"),
             "--test_data", str(root / "docs_english.test.txt"),
             "--save_path", str(tmp / "docs_english.ckpt")]
-    run = run_text_cli(argv, tmp / "exp_docs_english")
+    run = run_train_cli(argv, tmp / "exp_docs_english")
     vals = [run["results"][k] for k in ("elbo_loss", "rec", "kl", "iw_nll")]
     if not all(map(math.isfinite, vals)):
         raise AssertionError(f"7e: non-finite results {run['results']}")

@@ -126,6 +126,8 @@ def test_killed_and_resumed_equals_uninterrupted(tmp_path, monkeypatch, case):
     mid = extra["mid_epoch"]
     assert mid["epoch"] == 1 and 0 < mid["next_start"] < mid["num_batches"]
     assert mid["global_step"] == stop // niter * niter and loop.NOISE_STATE_KEY in extra
+    assert sum(m["autosaves"] for m in full) == 3 * mid["num_batches"] // niter
+    assert all(m["autosave_seconds"] >= 0 for m in full)
     resumed, res = _run_cli(main, [*common, "--save_path", str(ck), "--resume", "--load_path",
                                    str(ck) + ".auto"], tmp_path / "resumed", monkeypatch)
     assert [m["epoch"] for m in resumed] == [1, 2]

@@ -14,7 +14,8 @@ image path passes its loss (``make_image_loss_fn``) and eval prep
 Also as there: the mid-epoch autosave (``--autosave_niter``: every N outer
 steps the parameters, optimizer state, counters and epoch position are
 written atomically to ``<save_path>.auto``, which ``--resume`` re-enters at
-the next step) and ``--profile_dir`` (a ``torch.profiler`` trace of one
+the next step; the epoch's metric record holds ``autosaves`` and their
+``autosave_seconds``, state gathering and write) and ``--profile_dir`` (a ``torch.profiler`` trace of one
 epoch, distilled into ``DOSSIER.md`` by utils/profiling.py). Not ported:
 data and tensor parallelism, and the XLA dispatch knobs
 ``--epoch_segment`` / ``--loop_unroll`` (an epoch here is a host loop of
@@ -276,6 +277,7 @@ def run_training(cfg: ExperimentConfig, vae: VAE, train_pool: Pool, val_pool: Po
         report = torch.tensor([float(x) for x in mid["report"]], device=dev)
     last_autosave = global_step
     steps_run = 0
+    autosave_s = []  # this epoch's autosaves: seconds each, state gathering and write
     t_start = time.time()
 
     def on_step(i, kl_w, aux, opt_now, sums, inner_iters):
@@ -294,6 +296,9 @@ def run_training(cfg: ExperimentConfig, vae: VAE, train_pool: Pool, val_pool: Po
             steps_since_log = 0
         if cfg.autosave_niter and global_step - last_autosave >= cfg.autosave_niter:
             last_autosave = global_step
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)  # time the autosave, not the queued steps
+            t_save = time.perf_counter()
             extra = {
                 "opt_state": state_to_tree(opt_now),
                 "epoch": epoch - 1, "kl_weight": float(kl_w), "lr": lr,
@@ -309,10 +314,14 @@ def run_training(cfg: ExperimentConfig, vae: VAE, train_pool: Pool, val_pool: Po
             if hasattr(noise, "get_state"):
                 extra[NOISE_STATE_KEY] = noise.get_state()
             save_checkpoint(autosave_path, to_jax_params(vae.state_dict()), extra)
+            autosave_s.append(time.perf_counter() - t_save)
+            log.info(f"[autosave] step {global_step} -> {autosave_path} "
+                     f"({autosave_s[-1]:.3f}s)")
         return _stop_after_steps is not None and steps_run >= _stop_after_steps
 
     for epoch in range(start_epoch, cfg.epochs):
         t0 = time.time()
+        autosave_s.clear()
         order = rng.permutation(nb)
         was_aggressive = aggressive
         noise = noise_for("train", epoch)
@@ -383,7 +392,8 @@ def run_training(cfg: ExperimentConfig, vae: VAE, train_pool: Pool, val_pool: Po
                    val_kl=val["kl"], kl_weight=float(kl_weight), lr=lr,
                    inner_iters=inner_iters, aggressive=aggressive,
                    epoch_aggressive=was_aggressive, epoch_seconds=dt,
-                   steps_per_sec=ran / max(dt, 1e-9))
+                   steps_per_sec=ran / max(dt, 1e-9), autosaves=len(autosave_s),
+                   autosave_seconds=sum(autosave_s))
         history.append({"epoch": epoch, **{f"val_{k}": v for k, v in val.items()}})
 
         if cfg.test_nepoch and (epoch + 1) % cfg.test_nepoch == 0:

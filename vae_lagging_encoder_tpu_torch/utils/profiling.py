@@ -11,15 +11,16 @@ device stream. Host-only traces (a CPU run) have none, and then
 
 ``distill_trace`` computes each op's SELF time: events on one stream are
 walked in time order and an event's duration is credited to its immediate
-parent, as the JAX package's walk does for nested XLA ops (kernels on one
-CUDA stream do not nest, so there self time equals duration). Ops are the
+parent, as the JAX package's walk does for nested XLA ops, so that both
+packages read the same nested trace alike (kernels on one CUDA stream do
+not nest, so on a torch trace self time equals duration). Ops are the
 port's kernels under their wrappers' names (``lstm_fwd_residuals``,
 ``lstm_fwd_infer``, ``lstm_bwd``, ``ce_fwd``, ``ce_fwd_train``, and the
 CE's ``ce_pack_wt`` / ``ce_merge``), other kernels under their symbol
 without the parameter list; the rollup is by kind (``KINDS``). Device-busy
-time is the union of the device intervals, the same as ``profiled``
-in ``chip_smoke.py``, which calls ``summarize_profile`` here for its top ops
-and idle share. ``render_dossier`` writes the same text as the JAX
+time is the union of the device intervals; ``chip_smoke.py``'s ``profiled``
+exports its window's trace and derives the idle share from it and the
+window's wall time. ``render_dossier`` writes the same text as the JAX
 package's for the same summary.
 """
 from __future__ import annotations
@@ -166,28 +167,6 @@ def distill_trace(trace_root: str, steps: int) -> Optional[dict]:
             "ops_total_ms": round(total_us / per_dev, 3),
             "ms_per_step_device": round(total_us / per_dev / steps, 4),
             "categories": categories, "table": table}
-
-
-def summarize_profile(prof, wall_us: float, top: int = 10) -> Optional[dict]:
-    """The device ops of a finished ``torch.profiler.profile`` by total
-    device time, the device-busy time (union of the device intervals) and
-    the device's idle share of ``wall_us``, the window's host wall time.
-    None when the profile holds no device time."""
-    from torch.autograd import DeviceType
-
-    spans = [{"ts": e.time_range.start, "dur": e.time_range.end - e.time_range.start}
-             for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy = busy_us(spans)
-    if not busy:
-        return None
-    ops = sorted(((getattr(e, "self_device_time_total", None)
-                   or getattr(e, "self_cuda_time_total", 0), e.count, e.key)
-                  for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                 reverse=True)
-    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
-            "idle_share": max(0.0, 1.0 - busy / wall_us),
-            "top_device_ops": [{"name": k[:80], "calls": n, "ms": t / 1e3,
-                                "share_of_busy": t / busy} for t, n, k in ops[:top]]}
 
 
 def render_dossier(summary: dict, title: str = "Profiler dossier",
