@@ -102,16 +102,36 @@ Phases (each raises on failure; the script then exits non-zero):
    for bit; (e) ``docs_english`` built from this machine's site-packages by
    the port's ``python -m vae_lagging_encoder_tpu_torch.data.english``, cut
    to 2200 documents, and one plain epoch on the longest prefix of its
-   training split that makes at most 8 batches.
+   training split that makes at most 8 batches;
+8. data and tensor parallelism on the one card: two ranks share it over
+   ``gloo`` (NCCL refuses two ranks on one card), started by the port's
+   launcher. First one start of the ranks checks (a) one outer DP step of
+   the Yahoo-width model (16 rows a rank, dropout on) against the port's
+   single-process emulated-DP oracle on the card (``DP_STEP_TOL``) and
+   times one flat all-reduce of its 216 MB gradient, (b)
+   ``tp_token_logp`` forward and backward at N 3040, V 20004 (two shards of
+   10002) against ``ce_logp_plain`` in f32, (c) one outer DP step of the
+   OmniGlot model (25 rows a rank) on its all-reduced gradient against the
+   oracle's (``IMG_DP_GRAD_TOL``). Then through the CLIs on phase 4's
+   corpus: (a) ``cli.text --dp_devices 2``, an aggressive stretch stopped
+   after a few outer steps (sized from the all-reduce time) and a plain
+   epoch with the final suite at 500/100, every rank's training launches
+   counted per forward+backward; (b) ``--dp_devices 1 --tp_devices 2``, a
+   plain epoch, and ``--eval`` of phase 4's checkpoint at 500/100 against
+   its dense evaluation (``TP_EVAL_RTOL``; no CE kernel runs on the TP
+   path, the LSTM kernels do); (c) ``cli.image --dp_devices 2``, one
+   aggressive epoch on phase 5's cut.
 
 Prints one JSON line per kernel, ``{"trace_iw": ...}``, ``{"trace": ...}``,
 ``{"image": ...}`` (steps/s, IW images/s, per-evaluator seconds, peak
 device memory), ``{"image_cross_check": ...}``, ``{"trace_image": ...}``,
 ``{"trace_image_iw": ...}``, ``{"generate": ...}`` (sentences/s,
 images/s, the cross-checks, the toy's seconds per probe and per epoch) and
-``{"lifecycle": ...}`` (phase 7) lines, a ``{"kernels": [...]}`` line (its
-``launches_by_path`` with the image, generation, toy and phase 7 paths'
-counts), the card's name and power
+``{"lifecycle": ...}`` (phase 7) and ``{"parallel": ...}`` (phase 8: each
+run's backend, world size, steps/s, peak memory and kernel launches per
+rank, the all-reduce time, the checks) lines, a ``{"kernels": [...]}`` line
+(its ``launches_by_path`` with the image, generation, toy, phase 7 paths'
+and the ``dp`` / ``tp`` ranks' counts), the card's name and power
 limit, and as the last line ``{"ok": true,
 "device": {...}}``. Exits non-zero, printing no result, when no CUDA
 device is available or the port's package is missing.
@@ -1694,6 +1714,366 @@ def docs_english(tmp: Path):
     return out, run
 
 
+# ---------------------------------------------------------------- phase 8
+PAR_RANKS = 2            # ranks sharing the one card over gloo
+PAR_SEED = 4242
+# The aggressive stretch of 8a: outer steps sized so that its forward+
+# backward steps, each paying one flat all-reduce of the whole gradient
+# through the host, fill about PAR_STRETCH_S seconds; an aggressive outer
+# step takes 30-100 forward+backward steps (PERF.md section 1).
+PAR_STRETCH_S = 20.0
+PAR_STEPS_PER_OUTER = 60
+PAR_MAX_OUTER = 3
+# One DP outer step against the single-process emulated-DP oracle on the
+# card, the same weights and each shard on its rank's draws: every rank
+# runs its shard through the same kernels and library calls on the same
+# inputs as the oracle's shard, so each shard's gradient is the oracle's
+# bit for bit; the two differ in the order of the two partial sums of a
+# leaf (a + b against b + a, exact in IEEE arithmetic), and the clip and
+# the SGD update follow on equal gradients. Measured bit for bit on an
+# NVIDIA H100 80GB HBM3 at 700 W; the bound leaves room for a library call
+# that sums in another order from run to run (the embedding gradient's
+# scatter): one f32 rounding of a parameter of O(0.1).
+DP_STEP_TOL = 1e-6
+# The image step (Adam) is held on its all-reduced gradient, relative to
+# each leaf's largest entry: Adam's first update is g / (|g| + eps), which
+# turns a last-bit difference of a near-zero entry into a visible one.
+# cuDNN's backward may pick another algorithm per process (2e-4 covers
+# the card against the CPU in phase 5; one order of sums against another
+# on the card is far below it).
+IMG_DP_GRAD_TOL = 2e-4
+TP_N = CE_SPLIT_N        # 3040 rows, the training shape
+TP_EVAL_RTOL = 5e-3      # the bf16-operand drift: the dense CE takes bf16 operands, TP f32
+
+
+def par_sizes():
+    """The widths of phase 8's checks (passed to the ranks, which import
+    this file afresh): the Yahoo config's, the vocabulary of phase 4's
+    corpus, the training CE's rows, and the OmniGlot config as it is."""
+    return dict(text=dict(ni=NI, enc_nh=NH, dec_nh=NH, nz=NZ), vocab=VOCAB, tp_n=TP_N)
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _phase8_rank(dev, corpus: str, npz: str, sizes):
+    """The checks of phase 8 in one start of PAR_RANKS ranks on the card:
+    (1) one outer DP step of the Yahoo-width text model on the first batch
+    of phase 4's corpus (16 rows a rank), and the time of one flat
+    all-reduce of its whole gradient; (2) one outer DP step of the OmniGlot
+    model (25 rows a rank); (3) ``tp_token_logp`` forward and backward at
+    N 3040, V 20004 over the two ranks. Rank 0 returns the text parameters
+    and the image gradients; every rank its logp results and times."""
+    import torch.distributed as dist
+
+    from vae_lagging_encoder_tpu_torch.parallel import make_mesh, make_tp_mesh, reduce_grads
+    from vae_lagging_encoder_tpu_torch.parallel import tp_token_logp
+
+    out = {"rank": dist.get_rank()}
+    mesh = make_mesh(PAR_RANKS, dev)
+    vae, pool, cfg, loss_fn = _dp_step_setup("text", corpus, dev, sizes)
+    pool.shard(mesh)
+    aux = _one_step(vae, pool, cfg, loss_fn, mesh)
+    params = dict(vae.named_parameters())
+    times = []
+    for _ in range(5):
+        _sync(dev)
+        t0 = time.perf_counter()
+        reduce_grads(params, aux, mesh)
+        _sync(dev)
+        times.append(time.perf_counter() - t0)
+    out["allreduce_ms"] = sorted(times)[2] * 1e3
+    out["allreduce_bytes"] = 4 * sum(p.numel() for p in params.values())
+    if mesh.rank == 0:
+        out["text_params"] = {k: v.detach().cpu() for k, v in vae.state_dict().items()}
+        out["text_aux"] = [float(a) for a in aux]
+    del vae, params, pool
+
+    vae, pool, cfg, loss_fn = _dp_step_setup("image", npz, dev, sizes)
+    pool.shard(mesh)
+    aux = _one_step(vae, pool, cfg, loss_fn, mesh)
+    if mesh.rank == 0:
+        out["image_grads"] = {k: p.grad.detach().cpu() for k, p in vae.named_parameters()}
+        out["image_aux"] = [float(a) for a in aux]
+    del vae, pool
+
+    tmesh = make_tp_mesh(1, PAR_RANKS, dev)
+    h, pred, tgt, w = _tp_inputs(dev, sizes)
+    vocab = sizes["vocab"]
+    per = vocab // PAR_RANKS
+    pl = pred[:, tmesh.tp_index * per:(tmesh.tp_index + 1) * per].clone().requires_grad_(True)
+    hh = h.clone().requires_grad_(True)
+
+    def fwd_bwd():
+        hh.grad = pl.grad = None
+        logp = tp_token_logp(hh, pl, tgt, vocab, tmesh.tp_group)
+        (logp * w).sum().backward()
+        return logp
+
+    logp = fwd_bwd()
+    out["tp_dpred"] = pl.grad.detach().cpu()
+    out["tp_tp_index"] = tmesh.tp_index
+    if mesh.rank == 0:
+        out["tp_logp"] = logp.detach().cpu()
+        out["tp_dh"] = hh.grad.detach().cpu()
+    fwd_bwd()
+    times = []
+    for _ in range(5):
+        _sync(dev)
+        t0 = time.perf_counter()
+        fwd_bwd()
+        _sync(dev)
+        times.append(time.perf_counter() - t0)
+    out["tp_logp_ms"] = sorted(times)[2] * 1e3
+    return out
+
+
+def _tp_inputs(dev, sizes):
+    g = torch.Generator(device=dev).manual_seed(PAR_SEED)
+    n, nh, vocab = sizes["tp_n"], sizes["text"]["dec_nh"], sizes["vocab"]
+    h = torch.randn((n, nh), generator=g, device=dev)
+    pred = torch.randn((nh, vocab), generator=g, device=dev) * 0.05
+    tgt = torch.randint(0, vocab, (n,), generator=g, device=dev)
+    w = torch.randn((n,), generator=g, device=dev)
+    return h, pred, tgt, w
+
+
+def _dp_step_setup(kind: str, data: str, dev, sizes):
+    """The seeded model, the training pool (unsharded) and the loss of one
+    DP step check: the Yahoo config on phase 4's corpus, or the OmniGlot
+    config on phase 5's images."""
+    from vae_lagging_encoder_tpu_torch.config import get_config
+    from vae_lagging_encoder_tpu_torch.data import (BucketedPool, ImagePool, MonoTextData,
+                                                    load_omniglot)
+    from vae_lagging_encoder_tpu_torch.models import build_image_vae, build_text_vae
+    from vae_lagging_encoder_tpu_torch.train.epoch import make_image_loss_fn
+
+    if kind == "text":
+        cfg = get_config("yahoo", seed=PAR_SEED, **sizes["text"])
+        pool = BucketedPool(MonoTextData(data, label=True).create_data_batch(
+            cfg.batch_size, cfg.length_buckets), dev)
+        return build_text_vae(cfg, sizes["vocab"], device=dev), pool, cfg, None
+    cfg = get_config("omniglot", train_data=data, seed=PAR_SEED, **sizes.get("image", {}))
+    vae = build_image_vae(cfg, device=dev)
+    pool = ImagePool(load_omniglot(data)[0], cfg.batch_size, dev)
+    return vae, pool, cfg, make_image_loss_fn(vae, nsamples=1, train=True)
+
+
+def _one_step(vae, pool, cfg, loss_fn, mesh, oracle_of: int = 0):
+    """One outer step (joint encoder and decoder update) on flat batch 0:
+    under ``mesh`` each rank on its rows with ``GeneratorNoise(PAR_SEED,
+    fold=dp index)``; with ``oracle_of`` ranks and no mesh, the emulated-DP
+    oracle on the whole batch. Returns the step's aux sums."""
+    from vae_lagging_encoder_tpu_torch.parallel import EmulatedNoise, emulated_dp_loss
+    from vae_lagging_encoder_tpu_torch.train.epoch import (GeneratorNoise, make_loss_fn,
+                                                           make_train_epoch)
+
+    dev = next(vae.parameters()).device
+    if oracle_of:
+        loss_fn = emulated_dp_loss(loss_fn or make_loss_fn(vae, nsamples=1, train=True),
+                                   oracle_of)
+        noise = EmulatedNoise([GeneratorNoise(PAR_SEED, dev, d) for d in range(oracle_of)])
+    else:
+        noise = GeneratorNoise(PAR_SEED, dev, mesh.dp_index)
+    epoch_fn, opt_init = make_train_epoch(vae, pool, cfg, loss_fn=loss_fn, mesh=mesh)
+    got = {}
+
+    def on_step(i, kl_w, aux, *rest):
+        got["aux"] = aux
+        return True
+
+    epoch_fn(opt_init(), noise, np.float32(cfg.kl_start), float(cfg.lr), np.arange(1), False,
+             on_step=on_step)
+    return tuple(got["aux"])
+
+
+def parallel_checks(tmp: Path, dev):
+    """8a/8b/8c's checks in one start of the ranks, then the oracles and the
+    plain CE in this process on the same card."""
+    from vae_lagging_encoder_tpu_torch.ops.ce_cuda import ce_logp_plain
+    from vae_lagging_encoder_tpu_torch.parallel import run_ranks
+
+    corpus, npz = str(tmp / "smoke.train.txt"), str(tmp / "omniglot.npz")
+    sizes = par_sizes()
+    t0 = time.perf_counter()
+    outs = run_ranks(_phase8_rank, PAR_RANKS, dev.type, args=(corpus, npz, sizes), timeout=600)
+    wall = time.perf_counter() - t0
+    r0 = outs[0].result
+    checks = {"ranks_wall": wall, "backend": outs[0].backend,
+              "allreduce_ms": [o.result["allreduce_ms"] for o in outs],
+              "allreduce_bytes": r0["allreduce_bytes"],
+              "tp_logp_ms": [o.result["tp_logp_ms"] for o in outs]}
+
+    # 8a: the text step against the oracle
+    vae, pool, cfg, loss_fn = _dp_step_setup("text", corpus, dev, sizes)
+    aux = _one_step(vae, pool, cfg, loss_fn, None, oracle_of=PAR_RANKS)
+    diff = {k: float((v.detach().cpu() - r0["text_params"][k]).abs().max())
+            for k, v in vae.state_dict().items()}
+    worst = max(diff, key=diff.get)
+    checks["dp_text_step"] = dict(max_abs_diff=diff[worst], worst_leaf=worst, tolerance=DP_STEP_TOL,
+                                  aux=r0["text_aux"], oracle_aux=[float(a) for a in aux])
+    if not diff[worst] <= DP_STEP_TOL:
+        raise AssertionError(f"8a: DP step against the oracle {checks['dp_text_step']}")
+    del vae, pool
+
+    # 8c: the image step's gradient against the oracle's
+    vae, pool, cfg, loss_fn = _dp_step_setup("image", npz, dev, sizes)
+    aux = _one_step(vae, pool, cfg, loss_fn, None, oracle_of=PAR_RANKS)
+    rel = {k: float((p.grad.detach().cpu() - r0["image_grads"][k]).abs().max())
+           / max(float(p.grad.abs().max()), 1e-30) for k, p in vae.named_parameters()}
+    worst = max(rel, key=rel.get)
+    checks["dp_image_step"] = dict(worst_rel=rel[worst], worst_leaf=worst, leaves=len(rel),
+                                   tolerance=IMG_DP_GRAD_TOL, aux=r0["image_aux"],
+                                   oracle_aux=[float(a) for a in aux])
+    if not rel[worst] <= IMG_DP_GRAD_TOL:
+        raise AssertionError(f"8c: DP image step against the oracle {checks['dp_image_step']}")
+    del vae, pool
+
+    # 8b: tp_token_logp against the plain CE in f32
+    h, pred, tgt, w = _tp_inputs(dev, sizes)
+    vocab = sizes["vocab"]
+    h.requires_grad_(True)
+    pred.requires_grad_(True)
+    with torch.enable_grad():
+        logp, _ = ce_logp_plain(h, pred, tgt, None)
+        (logp * w).sum().backward()
+    per = vocab // PAR_RANKS
+    errs = {"logp": float((r0["tp_logp"] - logp.detach().cpu()).abs().max()),
+            "dh": float((r0["tp_dh"] - h.grad.cpu()).abs().max()),
+            "dpred": max(float((o.result["tp_dpred"] - pred.grad[
+                :, o.result["tp_tp_index"] * per:(o.result["tp_tp_index"] + 1) * per].cpu())
+                .abs().max()) for o in outs)}
+    tol = TOL[("ce", "f32")]
+    checks["tp_logp"] = dict(errors=errs, tolerance=tol, N=sizes["tp_n"], V=vocab,
+                             shards=PAR_RANKS)
+    if not all(e <= tol for e in errs.values()):
+        raise AssertionError(f"8b: tp_token_logp against ce_logp_plain {checks['tp_logp']}")
+    log(f"[parallel] checks {json.dumps(checks)}")
+    return checks
+
+
+def run_parallel_cli(main_fn, argv, exp_dir: Path, name: str, stop=None):
+    """``run_cli`` of a run over ranks: the per-rank records (backend,
+    launches, peak memory, seconds), the epochs, the stopped stretch, the
+    results, the wall seconds."""
+    launches, records, wall = run_cli(main_fn, argv, exp_dir, name, stop)
+    if any(launches.values()):
+        raise AssertionError(f"{name}: the parent launched kernels {launches}")
+    ranks = next(r["ranks"] for r in records if r.get("split") == "ranks")
+    return dict(ranks=ranks, epochs=[r for r in records if "val_loss" in r],
+                stopped=next((r for r in records if r.get("split") == "stopped"), None),
+                results=next((r for r in records if r.get("split") == "test"), None),
+                seconds=next((r for r in records if r.get("split") == "test_seconds"), None),
+                wall=wall)
+
+
+def _summary(run):
+    ranks = run["ranks"]
+    steps = ([e["steps_per_sec"] for e in run["epochs"]] if run["epochs"] else
+             [(run["stopped"]["steps"] + run["stopped"]["inner_iters"])
+              / run["stopped"]["seconds"]] if run["stopped"] else [])
+    return dict(backend=ranks[0]["backend"], world=len(ranks), steps_per_sec=steps,
+                max_memory_allocated=[r["max_memory_allocated"] for r in ranks],
+                launches=[r["launches"] for r in ranks], wall=run["wall"],
+                results=run["results"], eval_seconds=run["seconds"])
+
+
+def check_parallel_launches(runs):
+    """Every DP rank launches the training kernels of each of its forward+
+    backward steps (``step_launches``) and, in the plain run with the
+    evaluation, the evaluators' kernels; a TP rank launches the LSTM
+    kernels and no CE kernel (its output stage is ``torch.matmul``); the
+    image ranks launch none."""
+    fb = runs["dp_aggressive"]["stopped"]
+    fb = fb["steps"] + fb["inner_iters"]
+    fb_plain = sum(e["inner_iters"] for e in runs["dp_plain"]["epochs"]) + N_TRAIN_SMOKE // B
+    for name, n in (("dp_aggressive", fb), ("dp_plain", fb_plain)):
+        for r in runs[name]["ranks"]:
+            want = {k: v * n for k, v in step_launches().items()}
+            got = {k: r["launches"][k] for k in want}
+            if got != want:
+                raise AssertionError(f"8a {name} rank {r['rank']}: training launches {got} != "
+                                     f"{want}")
+    for r in runs["dp_plain"]["ranks"]:
+        if not (r["launches"]["lstm_fwd_infer"] and r["launches"]["ce_fwd"]):
+            raise AssertionError(f"8a: rank {r['rank']} ran no evaluation kernel {r}")
+    for name in ("tp_plain", "tp_eval"):
+        for r in runs[name]["ranks"]:
+            lc = r["launches"]
+            if lc["ce_fwd"] or lc["ce_fwd_train"] or not lc["lstm_fwd_infer"]:
+                raise AssertionError(f"8b {name}: the TP path launches the LSTM kernels and "
+                                     f"no CE kernel: rank {r['rank']} {lc}")
+    for r in runs["dp_image"]["ranks"]:
+        if any(r["launches"].values()):
+            raise AssertionError(f"8c: the image path launched a text kernel {r}")
+
+
+def run_parallel_phase(tmp: Path, files, checks):
+    """8a-8c through the CLIs, ranks sharing the card over gloo."""
+    from vae_lagging_encoder_tpu_torch.cli import image as cli_image
+    from vae_lagging_encoder_tpu_torch.cli import text as cli_text
+
+    dims = [f"--{k}={v}" for k, v in dict(ni=NI, enc_nh=NH, dec_nh=NH, nz=NZ).items()]
+    common = ["--dataset", "yahoo", "--warm_up", "1", "--kl_start", "0.1", *files, *dims]
+    t_fb = min(checks["allreduce_ms"]) / 1e3 + 0.02  # a forward+backward, all-reduce included
+    stop = max(1, min(PAR_MAX_OUTER, int(PAR_STRETCH_S / (PAR_STEPS_PER_OUTER * t_fb))))
+    runs = {}
+    runs["dp_aggressive"] = run_parallel_cli(
+        cli_text.main, common + ["--epochs", "1", "--aggressive", "1", "--dp_devices", "2",
+                                 "--save_path", str(tmp / "dp_aggr.ckpt")],
+        tmp / "exp_dp_aggr", "cli.text", stop=stop)
+    runs["dp_plain"] = run_parallel_cli(
+        cli_text.main, common + ["--epochs", "1", "--aggressive", "0", "--dp_devices", "2",
+                                 "--iw_nsamples", "500", "--iw_batch", "100",
+                                 "--save_path", str(tmp / "dp_plain.ckpt")],
+        tmp / "exp_dp_plain", "cli.text")
+    runs["tp_plain"] = run_parallel_cli(
+        cli_text.main, common + ["--epochs", "1", "--aggressive", "0", "--dp_devices", "1",
+                                 "--tp_devices", "2", "--iw_nsamples", str(TRAIN_IW),
+                                 "--save_path", str(tmp / "tp_plain.ckpt")],
+        tmp / "exp_tp_plain", "cli.text")
+    ck4 = str(tmp / "aggressive.ckpt")
+    ev = common + ["--eval", "--load_path", ck4, "--iw_nsamples", "500", "--iw_batch", "100"]
+    _, dense_rec, dense_wall = run_cli(cli_text.main, ev, tmp / "exp_dense_eval", "cli.text")
+    dense = next(r for r in dense_rec if r.get("split") == "test")
+    runs["tp_eval"] = run_parallel_cli(cli_text.main, ev + ["--tp_devices", "2"],
+                                       tmp / "exp_tp_eval", "cli.text")
+    runs["dp_image"] = run_parallel_cli(
+        cli_image.main, ["--dataset", "omniglot", "--train_data", str(tmp / "omniglot.npz"),
+                         "--epochs", "1", "--aggressive", "1", "--warm_up", "1",
+                         "--kl_start", "0.1", "--iw_nsamples", str(IMG_TRAIN_IW),
+                         "--dp_devices", "2", "--save_path", str(tmp / "dp_image.ckpt")],
+        tmp / "exp_dp_image", "cli.image")
+
+    # what each run must show
+    for name, run in runs.items():
+        res = run["results"]
+        if name != "dp_aggressive" and not all(
+                math.isfinite(res[k]) for k in ("elbo_loss", "rec", "kl", "mi", "iw_nll")):
+            raise AssertionError(f"8 {name}: non-finite results {res}")
+        if [r["backend"] for r in run["ranks"]] != ["gloo"] * 2:
+            raise AssertionError(f"8 {name}: ranks sharing one card must take gloo: "
+                                 f"{run['ranks']}")
+    check_parallel_launches(runs)
+    tp_res = runs["tp_eval"]["results"]
+    drift = {k: abs(tp_res[k] - dense[k]) / max(abs(dense[k]), 1e-12)
+             for k in ("elbo_loss", "rec", "iw_nll")}
+    drift["kl_abs"] = abs(tp_res["kl"] - dense["kl"])
+    if not (all(drift[k] <= TP_EVAL_RTOL for k in ("elbo_loss", "rec", "iw_nll"))
+            and tp_res["au"] == dense["au"]):
+        raise AssertionError(f"8b: TP eval {tp_res} against the dense eval {dense}: drift "
+                             f"{drift} (bound {TP_EVAL_RTOL})")
+    summary = {name: _summary(run) for name, run in runs.items()}
+    summary["dense_eval"] = dict(results=dense, wall=dense_wall)
+    summary["tp_eval_drift"] = dict(drift, bound=TP_EVAL_RTOL)
+    summary["aggressive_outer_steps"] = stop
+    for name, s in summary.items():
+        log(f"[parallel] {name}: {json.dumps(s)}")
+    return summary, runs
+
+
 KERNELS = [
     ("lstm_fwd_residuals", "vae_lagging_encoder_tpu_torch/csrc/lstm_infer.cu",
      "vae_lagging_encoder_tpu/ops/lstm_pallas.py:67", ("lstm", True, B, NI)),
@@ -1878,6 +2258,12 @@ def main() -> int:
         life["docs_english"], run_e = docs_english(tmp)
         phase_done("7e, docs_english")
 
+        # phase 8 — data and tensor parallelism, two ranks sharing the card
+        par_checks = parallel_checks(tmp, dev)
+        phase_done("8, the checks")
+        par_runs, runs_p = run_parallel_phase(tmp, files4, par_checks)
+        phase_done("8, the CLI runs")
+
     train_launches = {k: sum(r["launches"][k] for r in train_runs.values()) for k in launches}
     kernels = []
     for name, source, replaces, spec in KERNELS:
@@ -1897,7 +2283,11 @@ def main() -> int:
                    "train_nsamples40": run_b["launches"][name],
                    "train_profiled": run_c["launches"][name],
                    "eval_reference_ckpt": sum(r["launches"][name] for r in runs_d.values()),
-                   "docs_english": run_e["launches"][name]}
+                   "docs_english": run_e["launches"][name],
+                   "dp": sum(r["launches"][name] for k in ("dp_aggressive", "dp_plain")
+                             for r in runs_p[k]["ranks"]),
+                   "tp": sum(r["launches"][name] for k in ("tp_plain", "tp_eval")
+                             for r in runs_p[k]["ranks"])}
         if not sum(by_path.values()):
             raise AssertionError(f"{name} was launched no time on the main paths: {by_path}")
         kernels.append({"name": name, "route": "cuda", "source": source,
@@ -1929,6 +2319,11 @@ def main() -> int:
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}}), flush=True)
     print(json.dumps({"lifecycle": {**life, "device": torch.cuda.get_device_name(0),
                                     "nvidia_smi": smi}}), flush=True)
+    print(json.dumps({"parallel": {
+        **par_runs, "checks": par_checks, "device": torch.cuda.get_device_name(0),
+        "nvidia_smi": smi,
+        "note": f"{PAR_RANKS} ranks sharing one card over gloo (collectives staged through "
+                "the host): not multi-card scaling"}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

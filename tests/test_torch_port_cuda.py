@@ -10,7 +10,8 @@ imports JAX, hence:
 Small odd shapes: partial row tiles, partial hidden-unit blocks, a ragged
 last vocab tile. Generation (plain PyTorch on the card) against the same
 calls on the CPU: the top-k tie order, greedy and beam decoding, the
-incremental PixelCNN sampler. Tolerances: f32 operands differ only in summation order;
+incremental PixelCNN sampler. ``tp_token_logp`` over two ranks sharing
+the card against the plain CE. Tolerances: f32 operands differ only in summation order;
 bf16 ``wh`` lets a last-bit difference in h (forward) or da (backward) flip
 a bf16 rounding of the next step's product input (see chip_smoke.py for the
 Yahoo-width checks).
@@ -285,6 +286,36 @@ def test_ce_kernel_at_yahoo_width_on_cuda(n, save):
         assert spill.shape == (n, 20004) and spill.dtype == torch.bfloat16
         d = (spill.float() - rspill.float()).abs()
         assert bool((d <= 2.0 ** -7 * rspill.float().abs() + 1e-5).all())
+
+
+@pytest.mark.cuda
+def test_tp_token_logp_two_ranks_on_one_card(tmp_path):
+    """The vocab-sharded log p and its backward over two ranks sharing the
+    card (``gloo``, as parallel/launch.py picks for ranks on one card)
+    against the plain CE in f32 on the whole vocabulary; f32 on both sides,
+    the sums in another order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (ranks on the card)")
+    import torch_port_ranks
+    from vae_lagging_encoder_tpu_torch.parallel import run_ranks
+
+    h, w, tgt = _ce_inputs(n=300, nh=64, vocab=2000, seed=5)
+    wt = np.random.RandomState(6).randn(300).astype(np.float32)
+    out = run_ranks(torch_port_ranks.run_cases, 2, "cuda",
+                    args=([("logp", dict(mesh_shape=(1, 2), h=h, pred=w, tgt=tgt, w=wt))],),
+                    workdir=str(tmp_path), timeout=300)
+    assert out[0].backend == ("gloo" if torch.cuda.device_count() < 2 else "nccl")
+    hh = torch.from_numpy(h).cuda().requires_grad_(True)
+    ww = torch.from_numpy(w).cuda().requires_grad_(True)
+    logp, _ = ce_cuda.ce_logp_plain(hh, ww, torch.from_numpy(tgt).long().cuda(), None)
+    (logp * torch.from_numpy(wt).cuda()).sum().backward()
+    for o in out:
+        r = o.result[0]
+        t = r["tp_index"]
+        np.testing.assert_allclose(r["logp"], logp.detach().cpu().numpy(), atol=1e-4)
+        np.testing.assert_allclose(r["dh"], hh.grad.cpu().numpy(), atol=1e-4)
+        np.testing.assert_allclose(r["dpred"], ww.grad[:, t * 1000:(t + 1) * 1000].cpu().numpy(),
+                                   atol=1e-4)
 
 
 def _need_cuda():

@@ -1,6 +1,8 @@
 """Guards of the PyTorch port.
 
-- The port (every module) and ``chip_smoke.py`` import neither JAX nor the
+- The port (every module; the parallel modules, the evaluator re-exports
+  and the native reader each alone too), what a rank started by
+  ``run_ranks`` imports, and ``chip_smoke.py`` import neither JAX nor the
   JAX package.
 - Entry points run on the GPU unless asked for the CPU: on a machine
   without CUDA, the default-device VAE and the CLI without ``--device cpu``
@@ -114,6 +116,36 @@ def test_new_modules_import_no_jax(module):
     assert outside <= allowed, outside - allowed
     if module == "utils.torch_import":
         assert outside - {"__future__", "typing", "argparse", "zipfile"} == {"numpy", "torch"}
+
+
+@pytest.mark.parametrize("module", ["parallel", "parallel.launch", "parallel.dp",
+                                    "parallel.tp", "evaluation", "data.native"])
+def test_parallel_and_native_modules_import_no_jax(module):
+    """The data- and tensor-parallel modules, the evaluator re-exports and the
+    native reader, each imported alone in a fresh interpreter."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module('vae_lagging_encoder_tpu_torch.{module}')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib',\n"
+        "             'vae_lagging_encoder_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_spawned_ranks_import_no_jax(tmp_path):
+    """What a rank imports when ``run_ranks`` starts it (the CLI's rank entry
+    and the training loop, here beside the tests' own rank helpers): no JAX,
+    nothing of the JAX package, no conftest."""
+    import torch_port_ranks
+    from vae_lagging_encoder_tpu_torch.parallel import run_ranks
+
+    out = run_ranks(torch_port_ranks.jax_modules_loaded, 2, "cpu", workdir=str(tmp_path),
+                    timeout=120)
+    assert [o.result for o in out] == [[], []]
 
 
 def test_chip_smoke_imports_no_jax():

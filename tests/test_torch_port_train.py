@@ -153,7 +153,10 @@ def test_pool_coords_match_jax_sample_coords(tmp_path):
     lines = [f"0\t" + " ".join(f"w{j}" for j in rng.randint(0, 9, rng.randint(2, 40)))
              for _ in range(70)]
     (tmp_path / "c.txt").write_text("\n".join(lines) + "\n")
-    jpool = JaxPool(JaxText(str(tmp_path / "c.txt"), label=True).create_data_batch(8, (16, 32, 48)))
+    # the JAX side reads the same sentences in Python: its native reader's
+    # ctypes binding can read a small vocabulary blob after freeing it
+    jtext = JaxText(sentences=[l.split("\t", 1)[1].split() for l in lines], labels=[0] * 70)
+    jpool = JaxPool(jtext.create_data_batch(8, (16, 32, 48)))
     pool = BucketedPool(MonoTextData(str(tmp_path / "c.txt"), label=True)
                         .create_data_batch(8, (16, 32, 48)), "cpu")
     for s in range(12):

@@ -1,9 +1,10 @@
 """Shared CLI plumbing: the reference's flag names merged over the
 per-dataset configs (flags win), as in ``vae_lagging_encoder_tpu/cli/
 common.py``. ``--device`` takes the place of ``--jax_platform``;
-``--autosave_niter`` and ``--profile_dir`` keep the JAX CLI's meanings.
-Not offered: DP/TP (``--dp_devices``, ``--tp_devices``), the compilation
-cache, and the XLA dispatch knobs ``--epoch_segment`` / ``--loop_unroll``
+``--autosave_niter``, ``--profile_dir``, ``--dp_devices`` and
+``--tp_devices`` keep the JAX CLI's meanings (D*T > 1 starts D*T rank
+processes: train/loop.py::run_parallel). Not offered: the compilation
+cache and the XLA dispatch knobs ``--epoch_segment`` / ``--loop_unroll``
 (an epoch here is a host loop of steps, with nothing to segment or
 unroll)."""
 from __future__ import annotations
@@ -62,6 +63,12 @@ def build_parser(default_dataset: str = "yahoo") -> argparse.ArgumentParser:
                    choices=["float32", "bfloat16"])
     p.add_argument("--use_pallas", type=int, default=None,
                    help="1 = the kernel route (CUDA kernels on a GPU)")
+    p.add_argument("--dp_devices", type=int, default=None,
+                   help="data-parallel ranks: each takes batch_size/dp rows of every batch")
+    p.add_argument("--tp_devices", type=int, default=None,
+                   help="vocab-shard the decoder's output projection + CE "
+                        "over this many tensor-parallel ranks (text models; "
+                        "composes with --dp_devices: dp*tp ranks)")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="capture a torch.profiler trace of one epoch here and "
                         "distill it into <profile_dir>/DOSSIER.md")

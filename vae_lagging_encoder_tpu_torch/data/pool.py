@@ -13,6 +13,7 @@ index to (bucket, index in bucket) by ``searchsorted`` over the cumulative
 counts, as the JAX package's ``sample_coords`` maps its uniform draw;
 ``batch`` reads one batch. Both run on the host (for text the bucket
 decides the sequence length, so the caller needs it there anyway).
+``shard`` keeps a data-parallel rank's rows of every batch.
 """
 from __future__ import annotations
 
@@ -52,6 +53,17 @@ class Pool:
         for arrs in self.arrays:
             for i in range(arrs[0].shape[0]):
                 yield tuple(a[i] for a in arrs)
+
+    def shard(self, mesh) -> "Pool":
+        """Keep only this dp rank's contiguous rows of every batch (the JAX
+        package's ``P(None, "dp")``; parallel/dp.py::shard_rows), in place.
+        The batch count and order are unchanged. Training pools only: the
+        evaluators split a whole pool by batch instead."""
+        from ..parallel.dp import shard_rows
+
+        self.arrays = [tuple(shard_rows(mesh, a, dim=1).contiguous() for a in arrs)
+                       for arrs in self.arrays]
+        return self
 
 
 class BucketedPool(Pool):

@@ -1,9 +1,11 @@
 """Monolingual text corpus -> padded, bucketed batches.
 
-The port's own copy of ``vae_lagging_encoder_tpu/data/text.py`` (the
-pure-Python reader). Sentences are wrapped in ``<s> ... </s>``, grouped
-into a few fixed bucket lengths and padded; masks make the padding
-invisible:
+The port's own copy of ``vae_lagging_encoder_tpu/data/text.py``. A corpus
+file is read by the native reader (data/native.py, ``csrc/textproc.cpp``)
+unless ``native=False`` selects the pure-Python reader, its plain version,
+which gives the same vocabulary, ids and labels. Sentences are wrapped in
+``<s> ... </s>``, grouped into a few fixed bucket lengths and padded; masks
+make the padding invisible:
 
 - ``mask[b, t] = 1`` for real tokens (including <s> and </s>), else 0;
 - partial batches are padded up to ``batch_size`` with all-pad rows whose
@@ -16,7 +18,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .vocab import PAD_ID, Vocab, _strtol, _ws_split
+from .vocab import _SPECIALS, BOS_ID, EOS_ID, PAD_ID, UNK_ID, Vocab, _strtol, _ws_split
 
 
 @dataclass(frozen=True)
@@ -51,10 +53,22 @@ def _bucket_for(length: int, buckets: Sequence[int]) -> int:
 class MonoTextData:
     """Corpus container: ``data`` holds each sentence's ids incl. <s>/</s>."""
 
-    def __init__(self, fname: str, vocab: Optional[Vocab] = None, label: bool = False):
+    def __init__(self, fname: str, vocab: Optional[Vocab] = None, label: bool = False,
+                 native: bool = True):
+        if native:
+            from . import native as nat
+
+            self.vocab = vocab if vocab is not None else Vocab.from_file(fname, label)
+            words = self.vocab.id2word_[len(_SPECIALS):]
+            ids, offs, labels = nat.encode_corpus(fname, label, words, unk_id=UNK_ID,
+                                                  first_id=len(_SPECIALS))
+            self.labels = [int(x) for x in labels] if label else None
+            self.data: List[List[int]] = [[BOS_ID] + ids[offs[i]:offs[i + 1]].tolist() + [EOS_ID]
+                                          for i in range(len(offs) - 1)]
+            return
         sentences, self.labels = self._read(fname, label)
         self.vocab = vocab if vocab is not None else Vocab.from_corpus(sentences)
-        self.data: List[List[int]] = [self.vocab.encode(s) for s in sentences]
+        self.data = [self.vocab.encode(s) for s in sentences]
 
     @staticmethod
     def _read(fname: str, label: bool) -> Tuple[List[List[str]], Optional[List[int]]]:

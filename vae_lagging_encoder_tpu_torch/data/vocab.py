@@ -3,7 +3,8 @@
 The port's own copy of ``vae_lagging_encoder_tpu/data/vocab.py``: word ids
 are built from the train file only and reused for val/test; specials
 ``<pad> <unk> <s> </s>`` take ids 0..3; unknown words map to ``<unk>``;
-``decode`` maps ids back to words, dropping the specials.
+``decode`` maps ids back to words, dropping the specials. ``from_file``
+counts a corpus file with the native reader (data/native.py).
 """
 from __future__ import annotations
 
@@ -53,6 +54,28 @@ class Vocab:
             if w not in word2id:
                 word2id[w] = len(word2id)
         return cls(word2id)
+
+    @classmethod
+    def from_counts(cls, ordered_words: Iterable[str], counts: Iterable[int]) -> "Vocab":
+        """From words already ordered by count descending, then lexicographically."""
+        word2id = {sp: i for i, sp in enumerate(_SPECIALS)}
+        for w in ordered_words:
+            if w not in word2id:
+                word2id[w] = len(word2id)
+        return cls(word2id)
+
+    @classmethod
+    def from_file(cls, path: str, label: bool = False, native: bool = True) -> "Vocab":
+        """The vocabulary of a corpus file, counted by the native reader
+        (data/native.py) or, with ``native=False``, in Python."""
+        if native:
+            from . import native as nat
+
+            return cls.from_counts(*nat.count_vocab(path, label))
+        with open(path) as fh:
+            if label:
+                return cls.from_corpus(_ws_split(line.split("\t", 1)[-1]) for line in fh)
+            return cls.from_corpus(_ws_split(line) for line in fh)
 
     def __len__(self) -> int:
         return len(self.word2id)

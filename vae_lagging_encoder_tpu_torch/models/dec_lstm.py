@@ -201,16 +201,27 @@ class LSTMDecoder(DecoderBase):
                     tok_lp = logits.gather(-1, tgt)[..., 0] - torch.logsumexp(logits, dim=-1)
             return -torch.sum(tok_lp * mask[:, None, 1:], dim=-1)
 
+        return self.over_chunks(rec_chunk, z, draw, T - 1)
+
+    def over_chunks(self, rec_chunk: Callable, z: torch.Tensor, draw: Optional[Draw],
+                    T: int) -> torch.Tensor:
+        """``rec_chunk(z_chunk, keep_in, keep_out) -> [B, k]`` over z [B, K,
+        nz] in chunks of ``iw_chunk`` samples -> [B, K] (module docstring:
+        zero-z padding above one chunk, each chunk's dropout drawn at its
+        sites before ``torch.utils.checkpoint`` when there is a gradient);
+        ``T`` is the decoder's input length. Also the tensor-parallel
+        likelihood's (parallel/tp.py)."""
+        B, K = z.shape[:2]
         c = self.iw_chunk
         if K <= c:
-            return rec_chunk(z, *self._keep_masks(draw, "", B, T - 1, K))
+            return rec_chunk(z, *self._keep_masks(draw, "", B, T, K))
         n_chunks = -(-K // c)
         if n_chunks * c != K:
             z = torch.cat([z, z.new_zeros((B, n_chunks * c - K, self.nz))], dim=1)
         grad = torch.is_grad_enabled()
         out = []
         for j in range(n_chunks):
-            args = (z[:, j * c:(j + 1) * c], *self._keep_masks(draw, str(j), B, T - 1, c))
+            args = (z[:, j * c:(j + 1) * c], *self._keep_masks(draw, str(j), B, T, c))
             out.append(checkpoint(rec_chunk, *args, use_reentrant=False,
                                   preserve_rng_state=False) if grad else rec_chunk(*args))
         return torch.cat(out, dim=1)[:, :K]

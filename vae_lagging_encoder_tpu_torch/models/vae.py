@@ -76,14 +76,18 @@ class VAE(nn.Module):
 
     def nll_iw(self, x, mask=None, nsamples: int = 500, ns: int = 100,
                noise: Optional[Callable[[int, Tuple[int, ...]], torch.Tensor]] = None,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+               generator: Optional[torch.Generator] = None,
+               log_px: Optional[Callable] = None) -> torch.Tensor:
         """Importance-weighted NLL per sentence: [B].
 
         ``nsamples`` z ~ q(z|x) in chunks of ``ns`` (each chunk re-encodes x,
         as the reference does): w = log p(x, z) - log q(z|x), NLL =
         -(logsumexp(w) - log nsamples). Chunk ``j`` draws its eps
         [B, ns, nz] from ``noise(j, shape)`` when given, else from
-        ``generator``."""
+        ``generator``. ``log_px(x, mask, z) -> [B, K]`` is the decoder's
+        likelihood (default ``dec.log_probability``; the vocab-sharded one
+        under tensor parallelism, parallel/tp.py)."""
+        log_px = log_px or self.dec.log_probability
         ns = min(ns, nsamples)
         if nsamples % ns:
             raise ValueError(f"nll_iw: nsamples {nsamples} must be divisible by ns {ns}")
@@ -92,7 +96,8 @@ class VAE(nn.Module):
         for j in range(nsamples // ns):
             eps = noise(j, (B, ns, self.nz)) if noise is not None else None
             z, (mu, logvar) = self.enc.sample(x, mask, ns, eps, generator)
-            log_w.append(self.eval_complete_ll(x, mask, z) - eval_inference_dist(z, mu, logvar))
+            log_w.append(self.eval_prior_dist(z) + log_px(x, mask, z)
+                         - eval_inference_dist(z, mu, logvar))
         return -(log_sum_exp(torch.cat(log_w, dim=1), dim=1) - math.log(nsamples))
 
     def KL(self, x, mask=None) -> torch.Tensor:

@@ -30,13 +30,24 @@ With more z-samples than the decoder's ``iw_chunk``, training draws its
 dropout per chunk ``c`` (sites ``"keep_in<c>"``, ``"keep_out<c>"``; see
 models/dec_lstm.py). ``GeneratorNoise`` draws from seeded ``torch.Generator``s
 (picks on the host, so that choosing a batch never waits for the device)
-whose states it can read and restore; a test can instead hand in the JAX
-package's exact draws. A binarization is ``uniform < probs``,
-which is what the JAX package's ``bernoulli(key, probs)`` computes.
+whose states it can read and restore; ``IndexedNoise``, the evaluators'
+default, draws each ``(i, site)`` from its own seeded generator, so that a
+batch's noise does not depend on which batches were drawn before it; a
+test can instead hand in the JAX package's exact draws. A binarization
+is ``uniform < probs``, which is what the JAX package's ``bernoulli(key,
+probs)`` computes.
+
+Under a ``mesh`` (parallel/dp.py) the training epoch takes this rank's
+rows of every batch and sums every gradient over dp (``make_grad_on``),
+with a tp group its loss is vocab-sharded (parallel/tp.py), and each
+evaluator takes whole batches (``_my_batches``) and sums over dp once at
+the end.
 """
 from __future__ import annotations
 
 import math
+import zlib
+from functools import partial
 from typing import Callable, Dict, Tuple
 
 import torch
@@ -51,24 +62,42 @@ from .optim import clip_scale, make_optimizer
 Noise = Callable[[object, str, Tuple[int, ...]], object]
 
 
-class GeneratorNoise:
-    """A ``noise(i, site, shape)`` provider drawing from two generators
-    seeded with ``seed``: normals for the eps sites and uniforms for
-    ``"keep*"`` and the ``"*bin"`` sites from one on ``device``, the int of
-    ``"pick"`` from one on the host. ``get_state`` / ``set_state`` read and
-    restore both generators, so that a mid-epoch autosave can carry them."""
+def stream_seed(seed: int, *stream) -> int:
+    """A generator seed for the stream ``stream`` (ints and strings) of
+    ``seed``, independent of the other streams' draws."""
+    ids = [zlib.crc32(x.encode()) if isinstance(x, str) else int(x) for x in stream]
+    state = np.random.SeedSequence([int(seed), *ids]).generate_state(1, dtype=np.uint64)[0]
+    return int(state >> np.uint64(1))
 
-    def __init__(self, seed: int, device):
+
+def _draw(g: torch.Generator, device, site: str, shape: Tuple[int, ...]):
+    """Uniforms for ``"keep*"`` and the ``"*bin"`` sites, normals otherwise."""
+    if site.startswith("keep") or site.endswith("bin"):
+        return torch.rand(shape, generator=g, device=device)
+    return torch.randn(shape, generator=g, device=device)
+
+
+class GeneratorNoise:
+    """A ``noise(i, site, shape)`` provider drawing in call order from two
+    generators: normals for the eps sites and uniforms for ``"keep*"`` and
+    the ``"*bin"`` sites from one on ``device``, the int of ``"pick"`` from
+    one on the host, both seeded with ``seed``. With ``fold`` (a dp rank's
+    index under data parallelism, parallel/dp.py) the device generator
+    draws the ``(seed, fold)`` stream instead; fold 0 keeps ``seed``'s, so
+    dp rank 0 draws what one process would, and the host's picks never
+    fold. ``get_state`` / ``set_state`` read and restore both generators,
+    so that a mid-epoch autosave can carry them."""
+
+    def __init__(self, seed: int, device, fold: int = 0):
         self.device = device
-        self.g = torch.Generator(device=device).manual_seed(seed)
+        self.g = torch.Generator(device=device).manual_seed(
+            stream_seed(seed, fold) if fold else seed)
         self.g_host = torch.Generator().manual_seed(seed)
 
     def __call__(self, i, site: str, shape: Tuple[int, ...]):
         if site == "pick":
             return int(torch.randint(shape[0], (), generator=self.g_host))
-        if site.startswith("keep") or site.endswith("bin"):
-            return torch.rand(shape, generator=self.g, device=self.device)
-        return torch.randn(shape, generator=self.g, device=self.device)
+        return _draw(self.g, self.device, site, shape)
 
     def get_state(self) -> Dict[str, np.ndarray]:
         """Both generators' states as uint8 numpy arrays."""
@@ -78,6 +107,22 @@ class GeneratorNoise:
     def set_state(self, state: Dict[str, np.ndarray]) -> None:
         self.g.set_state(torch.from_numpy(np.asarray(state["device"], dtype=np.uint8)))
         self.g_host.set_state(torch.from_numpy(np.asarray(state["host"], dtype=np.uint8)))
+
+
+class IndexedNoise:
+    """A ``noise(i, site, shape)`` provider whose every ``(i, site)`` draws
+    from a generator of its own, seeded from ``(seed, i, site)``: a draw
+    does not depend on the draws made before it (the JAX package's
+    ``fold_in(key, i)`` per batch). The evaluators' provider: split over dp
+    ranks by batch, each rank draws batch ``i``'s noise as one process
+    would."""
+
+    def __init__(self, seed: int, device):
+        self.seed, self.device = seed, device
+
+    def __call__(self, i, site: str, shape: Tuple[int, ...]):
+        g = torch.Generator(device=self.device).manual_seed(stream_seed(self.seed, i, site))
+        return _draw(g, self.device, site, shape)
 
 
 def _safe_exp(x: float) -> float:
@@ -141,8 +186,8 @@ def make_image_loss_fn(vae: VAE, nsamples: int = 1, train: bool = False) -> Call
     return image_loss_fn
 
 
-def make_train_epoch(vae: VAE, pool: Pool, cfg,
-                     loss_fn: Callable | None = None) -> Tuple[Callable, Callable]:
+def make_train_epoch(vae: VAE, pool: Pool, cfg, loss_fn: Callable | None = None,
+                     mesh=None) -> Tuple[Callable, Callable]:
     """``(epoch_fn, opt_init)``: the step loop of one training epoch and the
     initial ``{"enc": ..., "dec": ...}`` optimizer state (two separate
     optimizers, as the reference has).
@@ -162,15 +207,31 @@ def make_train_epoch(vae: VAE, pool: Pool, cfg,
     on the device. ``on_step(i, kl_weight, aux, opt_state, sums,
     inner_iters)`` is called after each outer step (the caller's log and
     autosave cadence); when it returns True the epoch stops there.
-    ``loss_fn`` (training mode) defaults to the text loss."""
+    ``loss_fn`` (training mode) defaults to the text loss.
+
+    With a ``mesh`` (parallel/dp.py; the pool batch-sharded by
+    ``pool.shard(mesh)``) every gradient, outer and inner, is summed over
+    dp (``make_grad_on``); with a tp group as well the loss is the
+    vocab-sharded ``parallel.tp.make_tp_loss_fn`` (a caller's loss cannot be
+    sharded, so it is refused) and the clip ``clip_scale_tp``."""
+    scale_fn = clip_scale
+    if mesh is not None and mesh.tp > 1:
+        if loss_fn is not None:
+            raise ValueError("tensor parallelism builds its own vocab-sharded loss "
+                             "(parallel.tp.make_tp_loss_fn); pass loss_fn=None")
+        from ..parallel.tp import clip_scale_tp, make_tp_loss_fn
+
+        loss_fn = make_tp_loss_fn(vae, mesh, nsamples=cfg.nsamples, train=True)
+        scale_fn = partial(clip_scale_tp, mesh=mesh)
     loss_fn = loss_fn or make_loss_fn(vae, nsamples=cfg.nsamples, train=True)
-    grad_on = make_grad_on(vae, loss_fn)
+    grad_on = make_grad_on(vae, loss_fn, mesh)
     opt_init_part, opt_update = make_optimizer(cfg.optim, momentum=cfg.momentum)
     params = dict(vae.named_parameters())
     enc = dict(vae.enc.named_parameters())
     dec = dict(vae.dec.named_parameters())
     inner = make_aggressive_inner(grad_on, pool, params, enc, cfg.clip_grad,
-                                  cfg.burn_max_iters, cfg.burn_window, opt_update)
+                                  cfg.burn_max_iters, cfg.burn_window, opt_update,
+                                  scale_fn=scale_fn, mesh=mesh)
     # warm_up <= 0 is valid only with kl_start 1.0 (run_training checks)
     anneal_rate = np.float32((1.0 - cfg.kl_start) / (cfg.warm_up * pool.num_batches)
                              if cfg.warm_up > 0 else 0.0)
@@ -194,7 +255,7 @@ def make_train_epoch(vae: VAE, pool: Pool, cfg,
                 inner_iters += n_sub
             aux = grad_on(pool.batch(int(flat)),
                           lambda site, shape, i=i: noise(i, site, shape), float(kl_weight))
-            scale, _, finite = clip_scale(grads_of(params), cfg.clip_grad)
+            scale, _, finite = scale_fn(grads_of(params), cfg.clip_grad)
             for part, ps in (("enc", enc), ("dec", dec)):
                 if part == "enc" and aggressive:
                     continue  # decoder-only outer step while aggressive
@@ -210,22 +271,52 @@ def make_train_epoch(vae: VAE, pool: Pool, cfg,
     return epoch_fn, opt_init
 
 
+def _my_batches(pool: Pool, mesh) -> range:
+    """The flat batch indices this rank evaluates: all of them in one
+    process; under a mesh dp rank ``d`` takes the whole batches
+    ``[d * ceil(n / dp), ...)`` (the JAX package's ``make_pool_reducer``
+    mesh branch), keeping each batch's index and so its noise; tp members
+    of a dp rank take the same batches."""
+    n = pool.num_batches
+    if mesh is None:
+        return range(n)
+    per = -(-n // mesh.dp)
+    return range(min(n, mesh.dp_index * per), min(n, (mesh.dp_index + 1) * per))
+
+
+def _sum_over_dp(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``t`` summed over the dp ranks (nothing in one process)."""
+    if mesh is None:
+        return t
+    from ..parallel.dp import all_reduce
+
+    return all_reduce(t, mesh.dp_group)
+
+
 def make_eval_fn(vae: VAE, pool: Pool, nsamples: int = 1,
-                 loss_fn: Callable | None = None) -> Callable:
+                 loss_fn: Callable | None = None, mesh=None) -> Callable:
     """ELBO evaluation: ``eval_fn(noise) -> dict(loss, rec, kl, nll per
     sentence; ppl; n_sents, n_words)``. ``loss_fn`` (evaluation mode)
     defaults to the text loss; its draws ``"eps"`` and ``"bin"`` are the
-    sites ``"elbo"`` and ``"elbo_bin"``."""
+    sites ``"elbo"`` and ``"elbo_bin"``. Under a ``mesh`` with a tp group
+    the loss is the vocab-sharded ``make_tp_loss_fn``."""
+    if mesh is not None and mesh.tp > 1:
+        if loss_fn is not None:
+            raise ValueError("tensor parallelism builds its own vocab-sharded eval loss; "
+                             "pass loss_fn=None")
+        from ..parallel.tp import make_tp_loss_fn
+
+        loss_fn = make_tp_loss_fn(vae, mesh, nsamples)
     loss_fn = loss_fn or make_loss_fn(vae, nsamples)
 
     @torch.no_grad()
     def eval_fn(noise: Noise) -> Dict[str, float]:
-        sums = None
-        for i, batch in enumerate(pool):
-            _, out = loss_fn(batch, lambda site, shape, i=i: noise(
+        sums = torch.zeros(5, device=pool.arrays[0][0].device)
+        for i in _my_batches(pool, mesh):
+            _, out = loss_fn(pool.batch(i), lambda site, shape, i=i: noise(
                 i, "elbo" if site == "eps" else f"elbo_{site}", shape))
-            sums = out if sums is None else tuple(a + b for a, b in zip(sums, out))
-        loss_s, rec_s, kl_s, n_sent, n_words = torch.stack(sums).tolist()
+            sums = sums + torch.stack(out)
+        loss_s, rec_s, kl_s, n_sent, n_words = _sum_over_dp(sums, mesh).tolist()
         return {"loss": loss_s / n_sent, "rec": rec_s / n_sent, "kl": kl_s / n_sent,
                 "nll": (rec_s + kl_s) / n_sent,
                 "ppl": _safe_exp((rec_s + kl_s) / n_words),
@@ -234,47 +325,52 @@ def make_eval_fn(vae: VAE, pool: Pool, nsamples: int = 1,
     return eval_fn
 
 
-def _prepped(pool: Pool, prep: Callable, noise: Noise, site: str):
-    """``(i, (x, mask, row_weight))`` per batch, binarized (images) from site ``site``."""
-    for i, batch in enumerate(pool):
-        yield i, prep(batch, lambda shape, i=i: noise(i, site, shape))
+def _prepped(pool: Pool, prep: Callable, noise: Noise, site: str, mesh=None):
+    """``(i, (x, mask, row_weight))`` for this rank's batches (``_my_batches``),
+    binarized (images) from site ``site``."""
+    for i in _my_batches(pool, mesh):
+        yield i, prep(pool.batch(i), lambda shape, i=i: noise(i, site, shape))
 
 
-def make_mi_fn(vae: VAE, pool: Pool, prep: Callable = unpack) -> Callable:
-    """Corpus MI: batch-size-weighted mean of per-batch MI estimates."""
+def make_mi_fn(vae: VAE, pool: Pool, prep: Callable = unpack, mesh=None) -> Callable:
+    """Corpus MI: batch-size-weighted mean of per-batch MI estimates (the
+    encoder's alone, so under tp it is computed alike on every member)."""
 
     @torch.no_grad()
     def mi_fn(noise: Noise) -> float:
-        mi_sum, n_sum = 0.0, 0.0
-        for i, (x, mask, row_weight) in _prepped(pool, prep, noise, "mi_bin"):
+        sums = torch.zeros(2, device=pool.arrays[0][0].device)
+        for i, (x, mask, row_weight) in _prepped(pool, prep, noise, "mi_bin", mesh):
             eps = noise(i, "mi", (x.shape[0], 1, vae.nz))
             n = row_weight.sum()
-            mi_sum = mi_sum + vae.calc_mi_q(x, mask, row_weight, eps) * n
-            n_sum = n_sum + n
-        mi_sum, n_sum = torch.stack([mi_sum, n_sum]).tolist()
+            sums = sums + torch.stack([vae.calc_mi_q(x, mask, row_weight, eps) * n, n])
+        mi_sum, n_sum = _sum_over_dp(sums, mesh).tolist()
         return mi_sum / max(n_sum, 1.0)
 
     return mi_fn
 
 
 def make_au_fn(vae: VAE, pool: Pool, delta: float = 0.01,
-               prep: Callable = unpack) -> Callable:
+               prep: Callable = unpack, mesh=None) -> Callable:
     """Active units: #dims with Var_x[mu(x)] > delta, in two passes over the
-    same prepped batches (for images: one binarization per batch)."""
+    same prepped batches (for images: one binarization per batch); under a
+    mesh the mean is summed over dp between the passes."""
 
     @torch.no_grad()
     def au_fn(noise: Noise) -> Tuple[int, torch.Tensor]:
-        batches = [b for _, b in _prepped(pool, prep, noise, "au_bin")]
-        mu_sum, n = 0.0, 0.0
+        batches = [b for _, b in _prepped(pool, prep, noise, "au_bin", mesh)]
+        acc = torch.zeros(vae.nz + 1, device=pool.arrays[0][0].device)
         for x, mask, row_weight in batches:
             mu = vae.calc_infer_mean(x, mask)
-            mu_sum = mu_sum + torch.sum(mu * row_weight[:, None], dim=0)
-            n = n + row_weight.sum()
+            acc = acc + torch.cat([torch.sum(mu * row_weight[:, None], dim=0),
+                                   row_weight.sum()[None]])
+        acc = _sum_over_dp(acc, mesh)
+        mu_sum, n = acc[:-1], acc[-1]
         mu_mean = mu_sum / torch.clamp(n, min=1.0)
-        var_sum = 0.0
+        var_sum = torch.zeros_like(mu_sum)
         for x, mask, row_weight in batches:
             mu = vae.calc_infer_mean(x, mask)
             var_sum = var_sum + torch.sum((mu - mu_mean) ** 2 * row_weight[:, None], dim=0)
+        var_sum = _sum_over_dp(var_sum, mesh)
         var = (var_sum / torch.clamp(n - 1.0, min=1.0)).cpu()
         return int((var > delta).sum()), var
 
@@ -282,18 +378,27 @@ def make_au_fn(vae: VAE, pool: Pool, delta: float = 0.01,
 
 
 def make_iwnll_fn(vae: VAE, pool: Pool, nsamples: int = 500, ns: int = 100,
-                  prep: Callable = unpack) -> Callable:
-    """Importance-weighted NLL + PPL over a pool (the reference's calc_iwnll)."""
+                  prep: Callable = unpack, mesh=None) -> Callable:
+    """Importance-weighted NLL + PPL over a pool (the reference's
+    calc_iwnll); under a mesh with a tp group the decoder's likelihood is
+    vocab-sharded (``parallel.tp.tp_nll_iw``)."""
+    if mesh is not None and mesh.tp > 1:
+        from ..parallel.tp import tp_nll_iw
+
+        def nll_fn(x, mask, noise):
+            return tp_nll_iw(vae, x, mask, nsamples, ns, noise=noise, group=mesh.tp_group)
+    else:
+        def nll_fn(x, mask, noise):
+            return vae.nll_iw(x, mask, nsamples, ns, noise=noise)
 
     @torch.no_grad()
     def iwnll_fn(noise: Noise) -> Dict[str, float]:
         sums = torch.zeros(3, device=pool.arrays[0][0].device)
-        for i, (x, mask, row_weight) in _prepped(pool, prep, noise, "iw_bin"):
-            nll = vae.nll_iw(x, mask, nsamples, ns,
-                             noise=lambda j, shape, i=i: noise(i, f"iw{j}", shape))
+        for i, (x, mask, row_weight) in _prepped(pool, prep, noise, "iw_bin", mesh):
+            nll = nll_fn(x, mask, lambda j, shape, i=i: noise(i, f"iw{j}", shape))
             sums = sums + torch.stack([(nll * row_weight).sum(), row_weight.sum(),
                                        unit_count(x, mask, row_weight)])
-        nll_sum, n_sent, n_words = sums.tolist()
+        nll_sum, n_sent, n_words = _sum_over_dp(sums, mesh).tolist()
         return {"nll": nll_sum / n_sent, "ppl": _safe_exp(nll_sum / n_words),
                 "n_sents": n_sent, "n_words": n_words}
 

@@ -15,27 +15,47 @@ Also as there: the mid-epoch autosave (``--autosave_niter``: every N outer
 steps the parameters, optimizer state, counters and epoch position are
 written atomically to ``<save_path>.auto``, which ``--resume`` re-enters at
 the next step; the epoch's metric record holds ``autosaves`` and their
-``autosave_seconds``, state gathering and write) and ``--profile_dir`` (a ``torch.profiler`` trace of one
-epoch, distilled into ``DOSSIER.md`` by utils/profiling.py). Not ported:
-data and tensor parallelism, and the XLA dispatch knobs
-``--epoch_segment`` / ``--loop_unroll`` (an epoch here is a host loop of
-steps, logged every ``log_niter`` steps as the reference does).
+``autosave_seconds``, state gathering and write) and ``--profile_dir`` (a
+``torch.profiler`` trace of one epoch, distilled into ``DOSSIER.md`` by
+utils/profiling.py). Not ported: the XLA dispatch knobs ``--epoch_segment``
+/ ``--loop_unroll`` (an epoch here is a host loop of steps, logged every
+``log_niter`` steps as the reference does).
+
+Data and tensor parallelism (``--dp_devices D``, ``--tp_devices T``, D*T > 1):
+``train_text`` / ``train_image`` start D*T ranks (parallel/launch.py) and
+return rank 0's results; each rank loads the data, builds the model and
+its ``Mesh`` and runs the same lifecycle with ``mesh=``: the training pool
+keeps the rank's rows of every batch, gradients are summed over dp,
+``dec.pred`` and its CE are vocab-sharded over tp (text only, the vocab
+divisible by T), the evaluators split their pools by batch over dp.
+Every host decision (the inner loop's stop, the MI switch-off, the best
+checkpoint and LR decay, the early stop, ``_stop_after_steps``) reads
+values that are the same on every rank. Rank 0 alone writes the log,
+the checkpoints and the autosaves, with ``dec.pred`` and its moments
+gathered dense (the files stay exchangeable with the JAX package's and
+with one process's); an autosave carries every dp rank's noise state.
+``--profile_dir`` profiles rank 0. A standalone ``--eval`` with T that
+cannot shard the model (the image model, a vocab not divisible by T)
+folds T into the batch-parallel axis, as the JAX package does.
 
 Noise: ``run_training`` takes ``noise_for(stage, epoch) -> noise`` (see
 train/epoch.py for the provider's sites) with stages ``"train"``,
 ``"val_mi"``, ``"val"``, ``"test"`` and ``"final"``. The default,
-``make_noise_for``, seeds one generator per (stage, epoch) from the
-config's seed, so a resumed run draws what the uninterrupted run would
-have drawn from that epoch on; an autosave also carries the training
-noise's generator states (``NOISE_STATE_KEY``), so a run resumed mid-epoch
-draws what the uninterrupted run would have from that step on. A test can
-replay the JAX package's keys. The autosave's ``mid_epoch`` record has the
-JAX package's fields and meanings, so the port also reads the position and
-counters of an autosave the JAX package wrote; lacking this package's
-generator states, it continues from there on its own draws (and logs so).
+``make_noise_for``, seeds one provider per (stage, epoch) from the config's
+seed (training: ``GeneratorNoise``, folded with the dp index under a mesh;
+evaluation: ``IndexedNoise``, per batch), so a resumed run draws what the
+uninterrupted run would have drawn from that epoch on; an autosave also
+carries the training noise's generator states (``NOISE_STATE_KEY``), so a
+run resumed mid-epoch draws what the uninterrupted run would have from that
+step on. A test can replay the JAX package's keys. The autosave's
+``mid_epoch`` record has the JAX package's fields and meanings, so the port
+also reads the position and counters of an autosave the JAX package wrote;
+lacking this package's generator states, it continues from there on its own
+draws (and logs so).
 """
 from __future__ import annotations
 
+import functools
 import math
 import os
 import time
@@ -43,6 +63,7 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import ExperimentConfig
 from ..data import (BucketedPool, ImagePool, MonoTextData, Pool, ensure_synthetic_dataset,
@@ -52,8 +73,9 @@ from ..ops.build import resolve_device
 from ..utils.exp_utils import Logger
 from ..utils.jax_params import from_jax_params, to_jax_params
 from .checkpoint import load_checkpoint, save_checkpoint
-from .epoch import (GeneratorNoise, Noise, binarize_prep, make_au_fn, make_eval_fn,
-                    make_image_loss_fn, make_iwnll_fn, make_mi_fn, make_train_epoch, unpack)
+from .epoch import (GeneratorNoise, IndexedNoise, Noise, binarize_prep, make_au_fn,
+                    make_eval_fn, make_image_loss_fn, make_iwnll_fn, make_mi_fn,
+                    make_train_epoch, unpack)
 from .optim import state_from_tree, state_to_tree
 
 NoiseFor = Callable[[str, int], Noise]
@@ -62,16 +84,44 @@ STAGES = ("train", "val_mi", "val", "test")
 NOISE_STATE_KEY = "torch_noise_state"
 
 
-def make_noise_for(seed: int, device) -> NoiseFor:
-    """One generator per (stage, epoch), seeded from ``seed``; the final
-    evaluation's is seeded with ``seed + 1`` as in a standalone ``--eval``."""
+def make_noise_for(seed: int, device, fold: int = 0) -> NoiseFor:
+    """One provider per (stage, epoch), seeded from ``seed``: training's a
+    ``GeneratorNoise`` (``fold``: the dp index under a mesh), the
+    evaluators' an ``IndexedNoise``; the final evaluation's is seeded with
+    ``seed + 1`` as in a standalone ``--eval``."""
 
     def noise_for(stage: str, epoch: int) -> Noise:
         if stage == "final":
-            return GeneratorNoise(seed + 1, device)
-        return GeneratorNoise((seed * 8 + STAGES.index(stage)) * 100_003 + epoch, device)
+            return IndexedNoise(seed + 1, device)
+        stage_seed = (seed * 8 + STAGES.index(stage)) * 100_003 + epoch
+        if stage == "train":
+            return GeneratorNoise(stage_seed, device, fold)
+        return IndexedNoise(stage_seed, device)
 
     return noise_for
+
+
+def check_layout(cfg: ExperimentConfig, image: bool, vocab: Optional[int] = None) -> None:
+    """The refusals of a ``--dp_devices`` / ``--tp_devices`` training run
+    (the JAX package's ``run_training``): the batch must divide over dp,
+    tp shards the text decoder's projection only, and the vocab must
+    divide over tp."""
+    if cfg.batch_size % cfg.dp_devices:
+        raise SystemExit(
+            f"--batch_size {cfg.batch_size} must be divisible by "
+            f"--dp_devices {cfg.dp_devices} (the batch dim is sharded "
+            f"over the mesh; e.g. omniglot's default 50 needs 48 or 56 "
+            f"on an 8-chip mesh)")
+    if cfg.tp_devices > 1:
+        if image:
+            raise SystemExit(
+                "--tp_devices shards the TEXT decoder's [nh, V] output "
+                "projection; it does not apply to the image model")
+        if vocab is not None and vocab % cfg.tp_devices:
+            raise SystemExit(
+                f"vocab size {vocab} must be divisible "
+                f"by --tp_devices {cfg.tp_devices} (the projection is "
+                f"column-sharded over the tp axis)")
 
 
 def dataset_is_labeled(cfg: ExperimentConfig) -> bool:
@@ -97,29 +147,32 @@ def load_text_datasets(cfg: ExperimentConfig):
 
 def run_final_eval(cfg: ExperimentConfig, vae: VAE, pool: Pool, log: Logger,
                    noise: Optional[Noise] = None, eval_loss_fn: Optional[Callable] = None,
-                   prep: Callable = unpack) -> Dict:
+                   prep: Callable = unpack, mesh=None) -> Dict:
     """ELBO decomposition, MI, AU, IW-NLL + PPL over ``pool``.
 
-    ``noise`` (see train/epoch.py) defaults to a generator seeded with
-    ``cfg.seed + 1``, shared by the evaluators in the order they run.
-    ``eval_loss_fn`` and ``prep`` default to the text versions."""
+    ``noise`` (see train/epoch.py) defaults to an ``IndexedNoise`` seeded
+    with ``cfg.seed + 1``, shared by the evaluators (their sites differ).
+    ``eval_loss_fn`` and ``prep`` default to the text versions. Under a
+    ``mesh`` every evaluator splits the pool by batch over dp, and with a
+    tp group ELBO and IW-NLL take the vocab-sharded likelihood."""
     if cfg.iw_nsamples > cfg.iw_batch and cfg.iw_nsamples % cfg.iw_batch:
         raise SystemExit(
             f"--iw_nsamples {cfg.iw_nsamples} must be divisible by "
             f"--iw_batch {cfg.iw_batch} (the IW estimator runs in "
             f"iw_batch-sample chunks)")
     if noise is None:
-        noise = GeneratorNoise(cfg.seed + 1, pool.arrays[0][0].device)
+        noise = IndexedNoise(cfg.seed + 1, pool.arrays[0][0].device)
     # each evaluator ends in one device->host read, so host-clock spans are
     # complete device spans
     t = [time.perf_counter()]
-    elbo = make_eval_fn(vae, pool, loss_fn=eval_loss_fn)(noise)
+    elbo = make_eval_fn(vae, pool, loss_fn=eval_loss_fn, mesh=mesh)(noise)
     t.append(time.perf_counter())
-    mi = make_mi_fn(vae, pool, prep=prep)(noise)
+    mi = make_mi_fn(vae, pool, prep=prep, mesh=mesh)(noise)
     t.append(time.perf_counter())
-    au, _ = make_au_fn(vae, pool, prep=prep)(noise)
+    au, _ = make_au_fn(vae, pool, prep=prep, mesh=mesh)(noise)
     t.append(time.perf_counter())
-    iw = make_iwnll_fn(vae, pool, nsamples=cfg.iw_nsamples, ns=cfg.iw_batch, prep=prep)(noise)
+    iw = make_iwnll_fn(vae, pool, nsamples=cfg.iw_nsamples, ns=cfg.iw_batch, prep=prep,
+                       mesh=mesh)(noise)
     t.append(time.perf_counter())
     seconds = dict(zip(("elbo", "mi", "au", "iw"), (b - a for a, b in zip(t, t[1:]))))
     unit = "sentences" if cfg.model_type == "text" else "images"
@@ -140,6 +193,56 @@ def run_final_eval(cfg: ExperimentConfig, vae: VAE, pool: Pool, log: Logger,
 
 def _snapshot(vae: VAE) -> Dict[str, torch.Tensor]:
     return {k: v.detach().clone() for k, v in vae.state_dict().items()}
+
+
+def _local(mesh, tree):
+    """A dense state (parameters or optimizer state) as this rank holds it:
+    the pred leaves cut to its vocab shard under tp."""
+    if mesh is None or mesh.tp == 1:
+        return tree
+    from ..parallel.tp import shard_tree
+
+    return shard_tree(mesh, tree)
+
+
+def _dense(mesh, tree, vocab: int):
+    """The inverse of ``_local``: a collective on every rank of a tp group."""
+    if mesh is None or mesh.tp == 1:
+        return tree
+    from ..parallel.tp import gather_tree
+
+    return gather_tree(mesh, tree, vocab)
+
+
+def _noise_state(mesh, noise) -> Optional[Dict]:
+    """The training noise's generator states for an autosave: one process's
+    ``get_state()``; under a mesh the device generators of every dp rank,
+    stacked ``[dp, L]`` (gathered with an all-reduce over dp), and the
+    host generator (the same on every rank)."""
+    if not hasattr(noise, "get_state"):
+        return None
+    st = noise.get_state()
+    if mesh is None:
+        return st
+    from ..parallel.dp import all_reduce
+
+    buf = torch.zeros((mesh.dp, len(st["device"])), dtype=torch.int32, device=mesh.device)
+    buf[mesh.dp_index] = torch.from_numpy(st["device"].astype(np.int32)).to(mesh.device)
+    all_reduce(buf, mesh.dp_group)
+    return {"device": buf.cpu().numpy().astype(np.uint8), "host": st["host"]}
+
+
+def _restore_noise(mesh, noise, state: Dict) -> None:
+    """``set_state`` from an autosave's ``_noise_state``: this dp rank's row."""
+    dev_state = np.asarray(state["device"], dtype=np.uint8)
+    dp = 1 if mesh is None else mesh.dp
+    rows = dev_state[None] if dev_state.ndim == 1 else dev_state
+    if rows.shape[0] != dp:
+        raise SystemExit(f"mid-epoch resume: the autosave holds the noise of {rows.shape[0]} "
+                         f"dp ranks but this run has {dp} (--dp_devices); resume with the "
+                         f"original --dp_devices.")
+    noise.set_state({"device": rows[0 if mesh is None else mesh.dp_index],
+                     "host": state["host"]})
 
 
 def _check_mid_epoch(mid: Dict, cfg: ExperimentConfig, num_batches: int, best_loss: float,
@@ -195,12 +298,16 @@ def run_training(cfg: ExperimentConfig, vae: VAE, train_pool: Pool, val_pool: Po
                  test_pool: Pool, log: Logger, loss_fn: Optional[Callable] = None,
                  eval_loss_fn: Optional[Callable] = None, prep: Callable = unpack,
                  resume_state: Optional[Dict] = None,
-                 noise_for: Optional[NoiseFor] = None,
+                 noise_for: Optional[NoiseFor] = None, mesh=None,
                  _stop_after_steps: Optional[int] = None) -> Dict:
     """The training lifecycle (module docstring); ``vae`` holds the initial
-    (or loaded) parameters and ends holding the best ones. ``loss_fn``
-    (training mode), ``eval_loss_fn`` and ``prep`` default to the text
-    versions. Returns the final evaluation's results plus ``history``,
+    (or loaded) parameters and ends holding the best ones (under tp, its
+    vocab shard of ``dec.pred``). ``loss_fn`` (training mode),
+    ``eval_loss_fn`` and ``prep`` default to the text versions. With a
+    ``mesh`` (parallel/dp.py; this process one of its ranks) the lifecycle
+    runs data- and tensor-parallel (module docstring): the training pool
+    is sharded and the model's ``dec.pred`` cut to this rank's shard here.
+    Returns the final evaluation's results plus ``history``,
     ``best_val_loss``, ``save_path``. ``_stop_after_steps`` (a test hook)
     returns ``{"interrupted": True, ...}`` right after that many outer steps
     of this call, as a crash there would leave the run."""
@@ -218,12 +325,27 @@ def run_training(cfg: ExperimentConfig, vae: VAE, train_pool: Pool, val_pool: Po
             "non-positive anneal window cannot reach kl_weight 1.0; use "
             "--kl_start 1.0 for no annealing or a positive --warm_up")
     dev = next(vae.parameters()).device
-    noise_for = noise_for or make_noise_for(cfg.seed, dev)
-    epoch_fn, opt_init = make_train_epoch(vae, train_pool, cfg, loss_fn=loss_fn)
+    vocab = getattr(vae.dec, "vocab_size", 0)
+    lead = mesh is None or mesh.rank == 0  # writes the checkpoints and autosaves
+    if mesh is not None or cfg.dp_devices * cfg.tp_devices > 1:
+        check_layout(cfg, image=loss_fn is not None or not vocab, vocab=vocab)
+    if mesh is not None:
+        if mesh.tp > 1:
+            from ..parallel.tp import shard_model
+
+            shard_model(mesh, vae)
+        train_pool.shard(mesh)
+        log.info(f"[parallel] {'DPxTP' if mesh.tp > 1 else 'DP'} over {mesh.world} ranks "
+                 f"(dp {mesh.dp} x tp {mesh.tp}), backend {dist.get_backend()}, rank 0 on "
+                 f"{dev}; pool batch-sharded"
+                 + (f"; dec.pred vocab-sharded /{mesh.tp}" if mesh.tp > 1 else ""))
+    same = mesh.same if mesh is not None else (lambda values: [float(v) for v in values])
+    noise_for = noise_for or make_noise_for(cfg.seed, dev, 0 if mesh is None else mesh.dp_index)
+    epoch_fn, opt_init = make_train_epoch(vae, train_pool, cfg, loss_fn=loss_fn, mesh=mesh)
     opt_state = opt_init()
-    val_eval = make_eval_fn(vae, val_pool, loss_fn=eval_loss_fn)
-    val_mi = make_mi_fn(vae, val_pool, prep=prep)
-    test_eval = make_eval_fn(vae, test_pool, loss_fn=eval_loss_fn)
+    val_eval = make_eval_fn(vae, val_pool, loss_fn=eval_loss_fn, mesh=mesh)
+    val_mi = make_mi_fn(vae, val_pool, prep=prep, mesh=mesh)
+    test_eval = make_eval_fn(vae, test_pool, loss_fn=eval_loss_fn, mesh=mesh)
     nb = train_pool.num_batches
 
     kl_weight = np.float32(cfg.kl_start)
@@ -253,12 +375,12 @@ def run_training(cfg: ExperimentConfig, vae: VAE, train_pool: Pool, val_pool: Po
             start_epoch = int(mid["epoch"])
             _check_mid_epoch(mid, cfg, nb, best_loss, save_path)
             if math.isfinite(best_loss):
-                best_params = {k: v.to(dev) for k, v in
-                               from_jax_params(load_checkpoint(save_path)[0]).items()}
+                best_params = _local(mesh, {k: v.to(dev) for k, v in
+                                            from_jax_params(load_checkpoint(save_path)[0]).items()})
         else:
             start_epoch = int(resume_state.get("epoch", -1)) + 1
         if "opt_state" in resume_state:
-            opt_state = state_from_tree(resume_state["opt_state"], dev)
+            opt_state = _local(mesh, state_from_tree(resume_state["opt_state"], dev))
         log.info(f"[resume] from epoch {start_epoch}"
                  + (f" step {int(mid['global_step'])}" if mid else "")
                  + f" (kl_weight {float(kl_weight):.4f}, lr {lr:.4f}, aggressive {aggressive})")
@@ -299,8 +421,11 @@ def run_training(cfg: ExperimentConfig, vae: VAE, train_pool: Pool, val_pool: Po
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)  # time the autosave, not the queued steps
             t_save = time.perf_counter()
+            params_now = _dense(mesh, vae.state_dict(), vocab)  # collectives: every rank
+            opt_dense = _dense(mesh, opt_now, vocab)
+            noise_state = _noise_state(mesh, noise)
             extra = {
-                "opt_state": state_to_tree(opt_now),
+                "opt_state": state_to_tree(opt_dense),
                 "epoch": epoch - 1, "kl_weight": float(kl_w), "lr": lr,
                 "aggressive": aggressive, "pre_mi": pre_mi, "best_loss": best_loss,
                 "decay_cnt": decay_cnt, "not_improved": not_improved, "dataset": cfg.dataset,
@@ -311,9 +436,10 @@ def run_training(cfg: ExperimentConfig, vae: VAE, train_pool: Pool, val_pool: Po
                     "steps_since_log": steps_since_log, "global_step": global_step,
                 },
             }
-            if hasattr(noise, "get_state"):
-                extra[NOISE_STATE_KEY] = noise.get_state()
-            save_checkpoint(autosave_path, to_jax_params(vae.state_dict()), extra)
+            if noise_state is not None:
+                extra[NOISE_STATE_KEY] = noise_state
+            if lead:
+                save_checkpoint(autosave_path, to_jax_params(params_now), extra)
             autosave_s.append(time.perf_counter() - t_save)
             log.info(f"[autosave] step {global_step} -> {autosave_path} "
                      f"({autosave_s[-1]:.3f}s)")
@@ -331,14 +457,14 @@ def run_training(cfg: ExperimentConfig, vae: VAE, train_pool: Pool, val_pool: Po
             start, inner0 = int(mid["next_start"]), int(mid["inner_iters"])
             sums = torch.tensor([float(x) for x in mid["sums"]], device=dev)
             if NOISE_STATE_KEY in resume_state and hasattr(noise, "set_state"):
-                noise.set_state(resume_state[NOISE_STATE_KEY])
+                _restore_noise(mesh, noise, resume_state[NOISE_STATE_KEY])
             elif hasattr(noise, "set_state"):
                 log.info(f"[resume] the autosave holds no generator state of this package "
                          f"(written by the JAX package?): epoch {epoch} continues from step "
                          f"{start} on this run's own draws")
         # the first epoch after epoch 0 (or the only epoch this run executes)
         profiler = None
-        if cfg.profile_dir and epoch == max(start_epoch, min(1, cfg.epochs - 1)):
+        if lead and cfg.profile_dir and epoch == max(start_epoch, min(1, cfg.epochs - 1)):
             from torch.profiler import ProfilerActivity, profile
 
             acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda"
@@ -351,7 +477,11 @@ def run_training(cfg: ExperimentConfig, vae: VAE, train_pool: Pool, val_pool: Po
         if _stop_after_steps is not None and steps_run >= _stop_after_steps:
             if profiler is not None:
                 profiler.stop()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
             log.info(f"[stop] after {steps_run} steps (test hook)")
+            log.metric(split="stopped", epoch=epoch, steps=steps_run,
+                       inner_iters=inner_iters - inner0, seconds=time.time() - t0)
             return {"interrupted": True, "autosave_path": autosave_path,
                     "autosave_taken": os.path.exists(autosave_path)}
         loss_s, rec_s, kl_s, n_sent, n_words = sums.tolist()
@@ -376,7 +506,7 @@ def run_training(cfg: ExperimentConfig, vae: VAE, train_pool: Pool, val_pool: Po
         # --- epoch-level MI plateau: permanent aggressive switch-off ----
         if aggressive:
             with torch.no_grad():
-                cur_mi = val_mi(noise_for("val_mi", epoch))
+                (cur_mi,) = same([val_mi(noise_for("val_mi", epoch))])
             log.info(f"epoch {epoch}: val MI {cur_mi:.4f} (prev {pre_mi:.4f})")
             if cur_mi < pre_mi:
                 aggressive = False
@@ -386,6 +516,7 @@ def run_training(cfg: ExperimentConfig, vae: VAE, train_pool: Pool, val_pool: Po
         # --- validation ELBO + best checkpoint + LR plateau decay -------
         with torch.no_grad():
             val = val_eval(noise_for("val", epoch))
+        (val["loss"],) = same([val["loss"]])
         log.info(f"epoch {epoch}: VAL loss {val['loss']:.4f} rec {val['rec']:.4f} "
                  f"kl {val['kl']:.4f} nll {val['nll']:.4f} ppl {val['ppl']:.2f}")
         log.metric(epoch=epoch, train_loss=loss_s / n_sent, val_loss=val["loss"],
@@ -407,15 +538,18 @@ def run_training(cfg: ExperimentConfig, vae: VAE, train_pool: Pool, val_pool: Po
             best_loss = val["loss"]
             best_params = _snapshot(vae)
             not_improved = 0
-            save_checkpoint(save_path, to_jax_params(best_params), {
-                "opt_state": state_to_tree(opt_state),
-                "epoch": epoch, "kl_weight": float(kl_weight), "lr": lr,
-                "aggressive": aggressive, "pre_mi": pre_mi,
-                "best_loss": best_loss, "decay_cnt": decay_cnt,
-                "not_improved": not_improved,
-                "val": {k: float(v) for k, v in val.items()},
-                "dataset": cfg.dataset,
-            })
+            best_dense = _dense(mesh, best_params, vocab)  # collectives: every rank
+            opt_dense = _dense(mesh, opt_state, vocab)
+            if lead:
+                save_checkpoint(save_path, to_jax_params(best_dense), {
+                    "opt_state": state_to_tree(opt_dense),
+                    "epoch": epoch, "kl_weight": float(kl_weight), "lr": lr,
+                    "aggressive": aggressive, "pre_mi": pre_mi,
+                    "best_loss": best_loss, "decay_cnt": decay_cnt,
+                    "not_improved": not_improved,
+                    "val": {k: float(v) for k, v in val.items()},
+                    "dataset": cfg.dataset,
+                })
         else:
             not_improved += 1
             if not_improved >= cfg.decay_epoch and epoch >= cfg.warm_up:
@@ -435,7 +569,7 @@ def run_training(cfg: ExperimentConfig, vae: VAE, train_pool: Pool, val_pool: Po
     vae.load_state_dict(best_params)
     with torch.no_grad():
         results = run_final_eval(cfg, vae, test_pool, log, noise=noise_for("final", 0),
-                                 eval_loss_fn=eval_loss_fn, prep=prep)
+                                 eval_loss_fn=eval_loss_fn, prep=prep, mesh=mesh)
     results["history"] = history
     results["best_val_loss"] = best_loss
     results["save_path"] = save_path
@@ -447,9 +581,17 @@ def train_text(cfg: ExperimentConfig, logger: Optional[Logger] = None,
     """``cfg.eval``: the final evaluation of ``cfg.load_path`` (or of the
     seeded initial model when no checkpoint is given); otherwise training
     (``run_training``) from the seeded initial model or, with ``--resume``,
-    from ``cfg.load_path`` and its saved state."""
-    dev = resolve_device(device)
+    from ``cfg.load_path`` and its saved state. With ``cfg.dp_devices *
+    cfg.tp_devices > 1`` in that many ranks (``run_parallel``)."""
     log = logger or Logger()
+    if cfg.dp_devices * cfg.tp_devices > 1:
+        return run_parallel(_train_text, cfg, log, device)
+    return _train_text(resolve_device(device), cfg, log)
+
+
+def _train_text(dev, cfg: ExperimentConfig, log: Logger, parallel: bool = False,
+                run: Optional[Callable] = None) -> Dict:
+    """``train_text`` in one process or, with ``parallel``, in one rank."""
     train_data, val_data, test_data = load_text_datasets(cfg)
     log.info(f"[data] train {len(train_data)} / val {len(val_data)} / "
              f"test {len(test_data)} sentences, vocab {len(train_data.vocab)}")
@@ -459,19 +601,21 @@ def train_text(cfg: ExperimentConfig, logger: Optional[Logger] = None,
 
     test_pool = pool(test_data)
     vae = build_text_vae(cfg, len(train_data.vocab), device=dev)
-    extra = {}
-    if cfg.load_path:
-        params, extra = load_checkpoint(cfg.load_path)
-        vae.load_state_dict(from_jax_params(params))
-        log.info(f"[ckpt] loaded {cfg.load_path} (extra keys: {list(extra)})")
+    extra = _load(cfg, vae, log)
+    mesh = _make_mesh(cfg, dev, log, len(train_data.vocab) % cfg.tp_devices == 0) \
+        if parallel else None
     if cfg.eval:
+        if mesh is not None and mesh.tp > 1:
+            from ..parallel.tp import shard_model
+
+            shard_model(mesh, vae)
         with torch.no_grad():
-            return run_final_eval(cfg, vae, test_pool, log)
+            return run_final_eval(cfg, vae, test_pool, log, mesh=mesh)
     train_pool, val_pool = pool(train_data), pool(val_data)
     log.info(f"[data] train batches {train_pool.num_batches} over buckets "
              f"{train_pool.lengths}")
-    return run_training(cfg, vae, train_pool, val_pool, test_pool, log,
-                        resume_state=extra if cfg.resume else None)
+    return (run or run_training)(cfg, vae, train_pool, val_pool, test_pool, log,
+                                 resume_state=extra if cfg.resume else None, mesh=mesh)
 
 
 def train_image(cfg: ExperimentConfig, logger: Optional[Logger] = None,
@@ -479,26 +623,99 @@ def train_image(cfg: ExperimentConfig, logger: Optional[Logger] = None,
     """``train_text`` for the OmniGlot model: the splits of
     ``load_omniglot(cfg.train_data)`` (the synthetic substitute, with a
     warning, when the file is missing), the image loss and the eval
-    binarization."""
-    dev = resolve_device(device)
+    binarization. ``--tp_devices`` trains no image model (its refusal is
+    the JAX package's); a standalone ``--eval`` folds it into dp."""
     log = logger or Logger()
+    if cfg.dp_devices * cfg.tp_devices > 1:
+        return run_parallel(_train_image, cfg, log, device)
+    return _train_image(resolve_device(device), cfg, log)
+
+
+def _train_image(dev, cfg: ExperimentConfig, log: Logger, parallel: bool = False,
+                 run: Optional[Callable] = None) -> Dict:
+    """``train_image`` in one process or, with ``parallel``, in one rank."""
     train_imgs, val_imgs, test_imgs = load_omniglot(cfg.train_data)
     log.info(f"[data] omniglot train {len(train_imgs)} / val {len(val_imgs)} / "
              f"test {len(test_imgs)} images")
     test_pool = ImagePool(test_imgs, cfg.batch_size, dev)
     vae = build_image_vae(cfg, device=dev)
     eval_loss_fn = make_image_loss_fn(vae, nsamples=1, train=False)
-    extra = {}
-    if cfg.load_path:
-        params, extra = load_checkpoint(cfg.load_path)
-        vae.load_state_dict(from_jax_params(params))
-        log.info(f"[ckpt] loaded {cfg.load_path} (extra keys: {list(extra)})")
+    extra = _load(cfg, vae, log)
+    mesh = _make_mesh(cfg, dev, log, shardable=False) if parallel else None
     if cfg.eval:
         with torch.no_grad():
             return run_final_eval(cfg, vae, test_pool, log, eval_loss_fn=eval_loss_fn,
-                                  prep=binarize_prep)
-    return run_training(cfg, vae, ImagePool(train_imgs, cfg.batch_size, dev),
-                        ImagePool(val_imgs, cfg.batch_size, dev), test_pool, log,
-                        loss_fn=make_image_loss_fn(vae, nsamples=cfg.nsamples, train=True),
-                        eval_loss_fn=eval_loss_fn, prep=binarize_prep,
-                        resume_state=extra if cfg.resume else None)
+                                  prep=binarize_prep, mesh=mesh)
+    return (run or run_training)(
+        cfg, vae, ImagePool(train_imgs, cfg.batch_size, dev),
+        ImagePool(val_imgs, cfg.batch_size, dev), test_pool, log,
+        loss_fn=make_image_loss_fn(vae, nsamples=cfg.nsamples, train=True),
+        eval_loss_fn=eval_loss_fn, prep=binarize_prep,
+        resume_state=extra if cfg.resume else None, mesh=mesh)
+
+
+def _load(cfg: ExperimentConfig, vae: VAE, log: Logger) -> Dict:
+    """Load ``cfg.load_path`` into ``vae`` (when given); its extra state."""
+    if not cfg.load_path:
+        return {}
+    params, extra = load_checkpoint(cfg.load_path)
+    vae.load_state_dict(from_jax_params(params))
+    log.info(f"[ckpt] loaded {cfg.load_path} (extra keys: {list(extra)})")
+    return extra
+
+
+def _make_mesh(cfg: ExperimentConfig, dev, log: Logger, shardable: bool):
+    """This rank's mesh: ``dp_devices x tp_devices``; for a standalone
+    ``--eval`` whose model the tp ranks cannot shard (the image model, a
+    vocab not divisible by T), ``dp_devices * tp_devices`` batch-parallel
+    ranks (the JAX package's ``run_final_eval`` folds them likewise)."""
+    from ..parallel.dp import make_tp_mesh
+
+    dp, tp = cfg.dp_devices, cfg.tp_devices
+    if cfg.eval and tp > 1 and not shardable:
+        log.info(f"[parallel] eval-only run: folding --tp_devices {tp} into the "
+                 f"batch-parallel axis (model not vocab-shardable)")
+        return make_tp_mesh(dp * tp, 1, dev)
+    if cfg.eval:
+        log.info(f"[parallel] eval-only run: {dp} x {tp} ranks"
+                 + (", dec.pred vocab-sharded" if tp > 1 else ""))
+    return make_tp_mesh(dp, tp, dev)
+
+
+def _rank_main(dev, body: Callable, cfg: ExperimentConfig, log_path: Optional[str],
+               quiet: bool, run_kwargs: Dict) -> Dict:
+    """A rank of ``run_parallel``: ``body(dev, cfg, log, parallel=True,
+    run=...)`` with ``run_training(..., **run_kwargs)``, rank 0 logging to
+    ``log_path``, the others silent."""
+    lead = dist.get_rank() == 0
+    with Logger(log_path if lead else None, quiet=quiet or not lead) as log:
+        return body(dev, cfg, log, parallel=True,
+                    run=functools.partial(run_training, **run_kwargs))
+
+
+def run_parallel(body: Callable, cfg: ExperimentConfig, log: Logger, device) -> Dict:
+    """``body`` (``_train_text`` or ``_train_image``) in ``cfg.dp_devices *
+    cfg.tp_devices`` ranks (parallel/launch.py): rank 0's result; each
+    rank's device, backend, kernel launches, peak device memory and seconds
+    go on a ``split="ranks"`` metric record. The refusals of
+    ``check_layout`` that need no data come first, in this process, and the
+    synthetic corpus is written here, before the ranks read it. Where this
+    module holds a ``functools.partial`` of ``run_training`` at the call (a
+    test's, with ``_stop_after_steps``), the ranks run ``run_training`` with
+    its keywords."""
+    from ..parallel.launch import run_ranks
+
+    if not cfg.eval:
+        check_layout(cfg, image=cfg.model_type == "image")
+    if cfg.dataset == "synthetic":
+        ensure_synthetic_dataset()
+    outcomes = run_ranks(_rank_main, cfg.dp_devices * cfg.tp_devices, device,
+                         args=(body, cfg, getattr(log, "log_path", None),
+                               getattr(log, "quiet", False),
+                               run_training.keywords
+                               if isinstance(run_training, functools.partial) else {}))
+    log.metric(split="ranks", ranks=[
+        {"rank": o.rank, "device": o.device, "backend": o.backend, "launches": o.launches,
+         "max_memory_allocated": o.max_memory_allocated, "seconds": o.seconds}
+        for o in outcomes])
+    return outcomes[0].result

@@ -39,13 +39,21 @@ def scale_from_sumsq(sumsq: torch.Tensor, max_norm: float
     return scale, norm, finite
 
 
-def clip_scale(grads: Tensors, max_norm: float
+def clip_scale(grads: Tensors, max_norm: float,
+               pred_sumsq: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The clip of ``clip_by_global_norm`` as one scale: multiplying every
     gradient by ``scale`` (zeroing when not ``finite``) is the clipped
     gradient. The squares are summed in the JAX package's leaf order
-    (sorted names)."""
-    sumsq = sum(torch.sum(torch.square(grads[k])) for k in sorted(grads))
+    (sorted names). Under tensor parallelism ``dec.pred`` is this rank's
+    vocab shard: ``pred_sumsq`` (the all-reduce over tp, parallel/tp.py)
+    turns its sum of squares into the whole tensor's, which is added last,
+    as the JAX package's ``clip_scale_tp`` adds it."""
+    if pred_sumsq is None:
+        sumsq = sum(torch.sum(torch.square(grads[k])) for k in sorted(grads))
+    else:
+        sumsq = sum(torch.sum(torch.square(grads[k])) for k in sorted(grads) if k != "dec.pred")
+        sumsq = sumsq + pred_sumsq(torch.sum(torch.square(grads["dec.pred"])))
     return scale_from_sumsq(sumsq, max_norm)
 
 
