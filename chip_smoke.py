@@ -120,24 +120,46 @@ Phases (each raises on failure; the script then exits non-zero):
    plain epoch, and ``--eval`` of phase 4's checkpoint at 500/100 against
    its dense evaluation (``TP_EVAL_RTOL``; no CE kernel runs on the TP
    path, the LSTM kernels do); (c) ``cli.image --dp_devices 2``, one
-   aggressive epoch on phase 5's cut.
+   aggressive epoch on phase 5's cut;
+9. the training epoch as CUDA-graph replays (train/graphs.py; phases 4, 5
+   and 7 already train this way, the card's default): through
+   ``make_train_epoch`` at full width, the Yahoo-config text model on phase
+   4's corpus and the OmniGlot model on phase 5's cut, plain and
+   aggressive, and the text model on a corpus over all ten Yahoo length
+   buckets (16-512: a graph per mode and bucket), each the same windows of
+   steps graphed and eager (``graphs=False``) from the same seeded weights,
+   orders and noise: steps/s, the idle share and the host's launch calls a
+   step (from a profiled window), kernel launches and graph replays a step,
+   graphs captured, eager warm-up steps, capture seconds and peak memory;
+   every parameter against the eager run's (``GRAPH_PARAM_TOL``; expected
+   0.0), the kernel launches against ``step_launches``, and in each
+   profiled window the port's kernels counted by name among the device
+   events against the ``LAUNCHES`` the window added. The image convs:
+   which cuDNN products (forward, input and weight gradient) differ from
+   run to run under cuDNN's default algorithms, at the shapes of one
+   training step, with their times with and without the deterministic
+   ones; and the graphed image plain windows once more with cuDNN's default
+   algorithms in the convs' backward too, for the device time a step that
+   the restriction (``ops/conv.py``) costs.
 
 Prints one JSON line per kernel, ``{"trace_iw": ...}``, ``{"trace": ...}``,
 ``{"image": ...}`` (steps/s, IW images/s, per-evaluator seconds, peak
 device memory), ``{"image_cross_check": ...}``, ``{"trace_image": ...}``,
 ``{"trace_image_iw": ...}``, ``{"generate": ...}`` (sentences/s,
 images/s, the cross-checks, the toy's seconds per probe and per epoch) and
-``{"lifecycle": ...}`` (phase 7) and ``{"parallel": ...}`` (phase 8: each
+``{"lifecycle": ...}`` (phase 7), ``{"parallel": ...}`` (phase 8: each
 run's backend, world size, steps/s, peak memory and kernel launches per
-rank, the all-reduce time, the checks) lines, a ``{"kernels": [...]}`` line
-(its ``launches_by_path`` with the image, generation, toy, phase 7 paths'
-and the ``dp`` / ``tp`` ranks' counts), the card's name and power
+rank, the all-reduce time, the checks) and ``{"graphs": ...}`` (phase 9)
+lines, a ``{"kernels": [...]}`` line (its ``launches_by_path`` with the
+image, generation, toy, phase 7 paths', the ``dp`` / ``tp`` ranks' and
+phase 9's ``graphs`` counts), the card's name and power
 limit, and as the last line ``{"ok": true,
 "device": {...}}``. Exits non-zero, printing no result, when no CUDA
 device is available or the port's package is missing.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -915,30 +937,106 @@ def trace_steps(train_pool, cfg, dev):
     return profiled(lambda: [step(i + 1) for i in range(TRACE_STEPS)], steps=TRACE_STEPS)
 
 
-def profiled(fn, **head):
+# the CUDA API calls (runtime `cuda*`, low-level `cu*`) that put work on a stream, as the
+# profiler names them (a graph replay is one cudaGraphLaunch)
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchCooperativeKernel",
+               "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+               "cudaMemsetAsync")
+
+
+# ``profiled``'s primer and postamble: small kernels, a synchronize and a
+# pause before the window, and the same after it. The device events of the
+# first ~25 launches (the first ~1-4 ms) after a profiler session's first
+# device activity were missing from the trace, and once the window's last
+# one; the primer and the postamble take those losses, and are cut away.
+PRIMER_LAUNCHES = 64
+PRIMER_PAUSE_S = 0.2
+
+
+def _primer() -> None:
+    x = torch.zeros(1, device="cuda")
+    for _ in range(PRIMER_LAUNCHES):
+        x.add_(1.0)
+    torch.cuda.synchronize()
+
+
+def window_trace(path: Path) -> tuple:
+    """Rewrite the Chrome trace at ``path`` to ``profiled``'s window alone:
+    its complete events stamped between the middles of the two pauses, the
+    first and the last gap of at least half a pause between two host
+    runtime calls. Returns the window's launch calls by name
+    (``LAUNCH_APIS``) and those of them that have no device event of their
+    correlation id."""
+    import gzip
+
+    with gzip.open(path, "rt") as fh:
+        trace = json.load(fh)
+    events = trace["traceEvents"]
+    host = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                  if e.get("ph") == "X" and e.get("cat") == "cuda_runtime")
+    pauses = [(b[0] + a[1]) / 2 for a, b in zip(host, host[1:])
+              if b[0] - a[1] >= PRIMER_PAUSE_S / 2 * 1e6]
+    if len(pauses) < 2:
+        raise AssertionError(f"the profiled trace shows {len(pauses)} of the primer's and the "
+                             "postamble's pauses, not 2")
+    events = [e for e in events
+              if e.get("ph") != "X" or pauses[0] <= e["ts"] <= pauses[-1]]
+    trace["traceEvents"] = events
+    with gzip.open(path, "wt") as fh:
+        json.dump(trace, fh)
+    xs = [e for e in events if e.get("ph") == "X"]
+    traced = {e.get("args", {}).get("correlation") for e in xs
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")}
+    launches = [e for e in xs if e.get("cat") == "cuda_runtime" and e["name"] in LAUNCH_APIS]
+    calls = {}
+    for e in launches:
+        calls[e["name"]] = calls.get(e["name"], 0) + 1
+    return calls, [e["name"] for e in launches if e["args"].get("correlation") not in traced]
+
+
+def profiled(fn, cpu: bool = True, **head):
     """``fn()`` under ``torch.profiler``, ending in a synchronize; its Chrome
     trace distilled by ``utils/profiling.py::distill_trace``, the summarizer
     of ``--profile_dir``'s ``DOSSIER.md``: the top device ops by self time,
-    the device-busy time, and the device's idle share, the part of the
-    window's host wall time that no device op covers (1 - busy / wall)."""
+    the device-busy time, the device's idle share, the part of the window's
+    host wall time that no device op covers (1 - busy / wall), the host's
+    calls that launched work (``LAUNCH_APIS``, by name; CUPTI records them
+    with the device activity) and the port's kernels counted by name among
+    the device events (``port_kernel_calls``). ``cpu=False`` leaves out the
+    host's operator events, which make an eager window's trace slow to
+    export and read. The primer and the postamble (``PRIMER_*``) run around
+    the window and are cut from the trace (``window_trace``); every launch
+    call of the window must have its device events there."""
     from torch.profiler import ProfilerActivity, profile
 
     from vae_lagging_encoder_tpu_torch.utils.profiling import distill_trace
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        _primer()
+        time.sleep(PRIMER_PAUSE_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(PRIMER_PAUSE_S)
+        _primer()  # the postamble
     with tempfile.TemporaryDirectory() as td:
-        prof.export_chrome_trace(str(Path(td) / "window.pt.trace.json.gz"))
+        path = Path(td) / "window.pt.trace.json.gz"
+        prof.export_chrome_trace(str(path))
+        calls, untraced = window_trace(path)
         summary = distill_trace(td, steps=head.get("steps", 1))
+    if untraced:
+        raise AssertionError(f"{len(untraced)} launch calls of the profiled window have no "
+                             f"device events in its trace: {untraced[:8]}")
     if summary is None:
         return {**head, "device_time": "none: the trace has no device timeline",
-                "wall_ms": wall_ms}
+                "wall_ms": wall_ms, "launch_calls": calls}
     busy = summary["device_busy_ms"]
-    return {**head, "wall_ms": wall_ms, "device_busy_ms": busy,
+    return {**head, "wall_ms": wall_ms, "device_busy_ms": busy, "launch_calls": calls,
             "idle_share": max(0.0, 1.0 - busy / wall_ms),
+            "port_kernel_calls": {r["op"]: r["calls"] for r in summary["table"]
+                                  if r["category"] == "port kernel"},
             "top_device_ops": [{k: r[k] for k in ("op", "category", "calls", "ms_total",
                                                   "pct_device")}
                                for r in summary["table"][:10]]}
@@ -1877,16 +1975,12 @@ def _one_step(vae, pool, cfg, loss_fn, mesh, oracle_of: int = 0):
         noise = EmulatedNoise([GeneratorNoise(PAR_SEED, dev, d) for d in range(oracle_of)])
     else:
         noise = GeneratorNoise(PAR_SEED, dev, mesh.dp_index)
-    epoch_fn, opt_init = make_train_epoch(vae, pool, cfg, loss_fn=loss_fn, mesh=mesh)
-    got = {}
-
-    def on_step(i, kl_w, aux, *rest):
-        got["aux"] = aux
-        return True
-
-    epoch_fn(opt_init(), noise, np.float32(cfg.kl_start), float(cfg.lr), np.arange(1), False,
-             on_step=on_step)
-    return tuple(got["aux"])
+    # eager: the caller reads the step's .grad, which a graph's step keeps to itself
+    epoch_fn, opt_init = make_train_epoch(vae, pool, cfg, loss_fn=loss_fn, mesh=mesh,
+                                          graphs=False)
+    _, _, sums, _ = epoch_fn(opt_init(), noise, np.float32(cfg.kl_start), float(cfg.lr),
+                             np.arange(1), False)
+    return tuple(sums.to(device=dev, dtype=torch.float32))  # f64 of f32 sums: exact
 
 
 def parallel_checks(tmp: Path, dev):
@@ -2074,6 +2168,303 @@ def run_parallel_phase(tmp: Path, files, checks):
     return summary, runs
 
 
+# ---------------------------------------------------------------- phase 9
+GRAPH_SEED = 909
+# outer steps of each window after the first pass over the pool's batches
+# (the warm-ups and captures): the timed window (plain: 4 passes of an
+# 8-batch pool; an aggressive outer step already holds tens of
+# sub-iterations), then the profiled window (its trace is exported and read
+# back: kept short)
+GRAPH_TIMED = {"plain": 32, "aggressive": 4}
+GRAPH_PROFILED = {"plain": 8, "aggressive": 1}
+# the bucketed corpus: sentences per Yahoo length bucket (a batch of 32 and
+# a padded one of 8: 20 batches, 10 shapes); its aggressive runs'
+# burn_max_iters, which sets the inner loop's length only (the shapes and
+# the graphs are the config's; at 100, 20 outer steps up to T 512 would take
+# minutes)
+BUCKET_SENTS = 40
+BUCKET_BURN = 4
+# A graph replays the kernels that the eager step launches, on the same
+# inputs and in the same order: expected 0.0. A nonzero difference is
+# accepted only below this share of a leaf's scale (its cause then stated).
+GRAPH_PARAM_TOL = 1e-6
+# runs of each image conv product per flag setting in the determinism
+# probe: reproducible when all agree bit for bit
+CONV_REPEATS = 8
+
+
+def write_bucket_corpus(path: Path):
+    """BUCKET_SENTS sentences in each Yahoo length bucket (16 ... 512, the
+    length counting <s> and </s>), whose tokens hold every one of the
+    N_WORDS words, so the vocabulary is exactly 20004."""
+    from vae_lagging_encoder_tpu_torch.config import get_config
+
+    rng = np.random.RandomState(3)
+    bounds = (0,) + tuple(get_config("yahoo").length_buckets)
+    lens = np.concatenate([rng.randint(max(lo - 1, 1), hi - 1, BUCKET_SENTS)
+                           for lo, hi in zip(bounds, bounds[1:])])
+    ids = np.concatenate([rng.permutation(N_WORDS),
+                          rng.zipf(1.3, size=int(lens.sum()) - N_WORDS) % N_WORDS])
+    rng.shuffle(ids)
+    pos, sents = 0, []
+    for ln in lens:
+        sents.append(" ".join(f"w{i}" for i in ids[pos:pos + ln]))
+        pos += int(ln)
+    path.write_text("".join(f"{i % 10}\t{s}\n" for i, s in enumerate(sents)))
+
+
+def graph_model(kind: str, tmp: Path, dev):
+    """(cfg, pool, make_vae, loss_fn_of) of phase 9, seeded weights: the
+    Yahoo-config text model on phase 4's corpus (``text``: 8 batches, T 96)
+    or on the bucketed corpus (``text_buckets``: 20 batches over the ten
+    buckets), both V 20004, or the OmniGlot model on phase 5's cut
+    (``image``: 8 batches of 50)."""
+    from vae_lagging_encoder_tpu_torch.config import get_config
+    from vae_lagging_encoder_tpu_torch.data import BucketedPool, ImagePool, MonoTextData
+    from vae_lagging_encoder_tpu_torch.data.omniglot import load_omniglot
+    from vae_lagging_encoder_tpu_torch.models import build_image_vae, build_text_vae
+    from vae_lagging_encoder_tpu_torch.train.epoch import make_image_loss_fn
+
+    gen = lambda: torch.Generator().manual_seed(GRAPH_SEED)
+    if kind.startswith("text"):
+        buckets = kind == "text_buckets"
+        cfg = get_config("yahoo", ni=NI, enc_nh=NH, dec_nh=NH, nz=NZ, warm_up=1, kl_start=0.1,
+                         **({"burn_max_iters": BUCKET_BURN} if buckets else {}))
+        path = tmp / "buckets.train.txt" if buckets else tmp / "smoke.train.txt"
+        if buckets:
+            write_bucket_corpus(path)
+        data = MonoTextData(str(path), label=True)
+        if len(data.vocab) != VOCAB:
+            raise AssertionError(f"phase 9 {kind}: vocabulary {len(data.vocab)} != {VOCAB}")
+        pool = BucketedPool(data.create_data_batch(cfg.batch_size, cfg.length_buckets), dev)
+        return (cfg, pool, lambda: build_text_vae(cfg, len(data.vocab), device=dev,
+                                                   generator=gen()), lambda vae: None)
+    cfg = get_config("omniglot", warm_up=1, kl_start=0.1)
+    pool = ImagePool(load_omniglot(str(tmp / "omniglot.npz"))[0], cfg.batch_size, dev)
+    return (cfg, pool, lambda: build_image_vae(cfg, device=dev, generator=gen()),
+            lambda vae: make_image_loss_fn(vae, nsamples=1, train=True))
+
+
+def graph_run(model, mode: str, graphs: bool, dev, cudnn_default: bool = False):
+    """One run of phase 9 through ``make_train_epoch``: the first pass, the
+    timed window and the profiled window (``GRAPH_*``), graphed or eager,
+    from the seeded weights, with the same orders and noise either way;
+    ``cudnn_default`` lets the image convs' backward take cuDNN's default
+    algorithms for the run (``ops/conv.py`` takes the deterministic ones).
+    In the profiled window the port's kernels counted among the device
+    events must equal the ``LAUNCHES`` the window added. Returns the run's
+    measures and the final parameters."""
+    from vae_lagging_encoder_tpu_torch.ops import build, conv
+    from vae_lagging_encoder_tpu_torch.train.epoch import GeneratorNoise, make_train_epoch
+
+    cfg, pool, make_vae, loss_of = model
+    gc.collect()  # the earlier runs' graphs and pools, so that the peak is this run's
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    vae = make_vae()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    epoch_fn, opt_init = make_train_epoch(vae, pool, cfg, loss_fn=loss_of(vae), graphs=graphs)
+    noise, rng = GeneratorNoise(GRAPH_SEED, dev), np.random.RandomState(GRAPH_SEED)
+    state = {"opt": opt_init(), "kl": np.float32(cfg.kl_start)}
+    nb, aggressive = pool.num_batches, mode == "aggressive"
+
+    def window(order):
+        state["opt"], state["kl"], _, inner = epoch_fn(state["opt"], noise, state["kl"], cfg.lr,
+                                                       order, aggressive)
+        torch.cuda.synchronize()
+        return len(order) + inner
+
+    flags = conv._cudnn_flags
+    if cudnn_default:
+        conv._cudnn_flags = lambda deterministic=False: flags()
+    try:
+        t0 = time.perf_counter()
+        first = window(rng.permutation(nb))
+        first_s = time.perf_counter() - t0
+        timed_order = np.concatenate([rng.permutation(nb)
+                                      for _ in range(-(-GRAPH_TIMED[mode] // nb))])
+        t0 = time.perf_counter()
+        timed = window(timed_order[:GRAPH_TIMED[mode]])
+        timed_s = time.perf_counter() - t0
+        got, before = {}, dict(build.LAUNCHES)
+        t0 = time.perf_counter()
+        prof = profiled(
+            lambda: got.update(steps=window(rng.permutation(nb)[:GRAPH_PROFILED[mode]])),
+            cpu=False, outer_steps=GRAPH_PROFILED[mode])
+        profile_s = time.perf_counter() - t0
+    finally:
+        conv._cudnn_flags = flags
+    if "port_kernel_calls" not in prof:
+        raise AssertionError(f"phase 9 {mode}: the profiled window has no device timeline")
+    window_launches = {k: build.LAUNCHES[k] - before[k] for k in build.LAUNCHES}
+    traced = {k: prof["port_kernel_calls"].get(k, 0) for k in window_launches}
+    steps = first + timed + got["steps"]
+    stats = dict(epoch_fn.steps.stats)
+    launches, counts = dict(build.LAUNCHES), dict(build.GRAPHS)
+    calls = sum(prof["launch_calls"].values())
+    run = {"graphs": epoch_fn.steps.off or "on", "steps": steps,
+           "first_pass_steps": first, "first_pass_s": first_s, "timed_steps": timed,
+           "steps_per_sec": timed / timed_s, "idle_share": prof["idle_share"],
+           "profiled_steps": got["steps"], "profiled_wall_ms": prof["wall_ms"],
+           "device_busy_ms_per_step": prof["device_busy_ms"] / got["steps"],
+           "profile_s": profile_s,
+           "host_launch_calls_per_step": calls / got["steps"],
+           "launch_calls": prof["launch_calls"],
+           "profiled_launches": window_launches, "traced_kernel_calls": traced,
+           "kernel_launches_per_step": sum(launches.values()) / steps,
+           "graph_replays_per_step": counts["replays"] / steps,
+           "graphs_captured": counts["captured"], "graph_replays": counts["replays"],
+           "eager_steps": stats["eager_steps"], "graph_steps": stats["graph_steps"],
+           "capture_seconds": stats["capture_seconds"],
+           "conv_backward_algorithms": "cudnn default" if cudnn_default else "deterministic",
+           "max_memory_allocated": torch.cuda.max_memory_allocated(), "launches": launches}
+    if stats["eager_steps"] + stats["graph_steps"] != steps:
+        raise AssertionError(f"phase 9 {mode}: steps {steps} != eager + replayed {stats}")
+    if graphs and not 0 < counts["replays"] == stats["graph_steps"]:
+        raise AssertionError(f"phase 9 {mode}: replays {counts} for {stats}")
+    if not graphs and any(counts.values()):
+        raise AssertionError(f"phase 9 {mode}: the eager run replayed graphs {counts}")
+    params = {k: p.detach().clone() for k, p in vae.named_parameters()}
+    if not all(torch.isfinite(v).all() for v in params.values()):
+        raise AssertionError(f"phase 9 {mode}: non-finite parameters")
+    return run, params
+
+
+def param_diff(a, b):
+    """The largest absolute difference of two parameter sets, and the
+    largest relative to its leaf's scale (the leaf's largest entry)."""
+    absd = {k: float((a[k] - b[k]).abs().max()) for k in a}
+    rel = {k: absd[k] / max(float(b[k].abs().max()), 1e-30) for k in a}
+    worst = max(rel, key=rel.get)
+    return {"max_abs": max(absd.values()), "max_rel": rel[worst], "worst_leaf": worst}
+
+
+def conv_determinism(model, dev):
+    """Which image conv products differ from run to run under cuDNN's
+    default algorithms: the convs of one training step of ``model`` (their
+    operands' shapes and strides recorded at ``ops/conv.py::_Conv2dFn``),
+    each product (forward, input gradient, weight gradient) run
+    CONV_REPEATS times on seeded operands with the deterministic algorithms
+    off and on, TF32 off: whether the runs agree bit for bit, and the
+    median ms of one run summed over the step's convs."""
+    import collections
+
+    import torch.nn.functional as F
+
+    from vae_lagging_encoder_tpu_torch.ops import conv
+    from vae_lagging_encoder_tpu_torch.train.epoch import GeneratorNoise
+
+    cfg, pool, make_vae, loss_of = model
+    vae = make_vae()
+    convs = collections.Counter()
+    forward = conv._Conv2dFn.forward
+
+    def recording(ctx, x, w, stride, padding):
+        convs[(tuple(x.shape), x.stride(), tuple(w.shape), w.stride(), stride,
+               tuple(padding), x.requires_grad)] += 1
+        return forward(ctx, x, w, stride, padding)
+
+    conv._Conv2dFn.forward = staticmethod(recording)
+    try:
+        noise = GeneratorNoise(GRAPH_SEED, dev)
+        loss_of(vae)(pool.batch(0), lambda site, shape: noise(0, site, shape), 1.0)
+    finally:
+        conv._Conv2dFn.forward = staticmethod(forward)
+    if not convs:
+        raise AssertionError("phase 9: no image conv was recorded")
+    g = torch.Generator(device=dev).manual_seed(GRAPH_SEED)
+
+    def operand(shape, stride):
+        return torch.empty_strided(shape, stride, device=dev).copy_(
+            torch.randn(shape, device=dev, generator=g))
+
+    bwd = torch.ops.aten.convolution_backward
+    rows, per_step = [], {}
+    for (xs, xst, ws, wst, stride, pad, x_grad), n in convs.items():
+        x, w = operand(xs, xst), operand(ws, wst) * 0.1
+        gy = torch.randn_like(F.conv2d(x, w, stride=stride, padding=pad))
+        args = (x, w, None, [stride, stride], list(pad), [1, 1], False, [0, 0], 1)
+        products = {"forward": lambda: F.conv2d(x, w, stride=stride, padding=pad),
+                    "weight": lambda: bwd(gy, *args, [False, True, False])[1]}
+        if x_grad:
+            products["input"] = lambda: bwd(gy, *args, [True, False, False])[0]
+        row = {"x": list(xs), "w": list(ws), "stride": stride, "calls_per_step": n}
+        for det in (False, True):
+            with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=det,
+                                            allow_tf32=False):
+                for name, fn in products.items():
+                    outs, ms = [], []
+                    for _ in range(CONV_REPEATS):
+                        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                        e0.record()
+                        outs.append(fn())
+                        e1.record()
+                        e1.synchronize()
+                        ms.append(e0.elapsed_time(e1))
+                    key = f"{name}_{'deterministic' if det else 'default'}"
+                    med = float(np.median(ms))
+                    row[key] = {"reproducible": all(torch.equal(o, outs[0]) for o in outs[1:]),
+                                "ms": med}
+                    cell = per_step.setdefault(key, {"reproducible": True, "ms": 0.0})
+                    cell["reproducible"] &= row[key]["reproducible"]
+                    cell["ms"] += med * n
+        rows.append(row)
+    return {"per_step": per_step, "convs": rows, "repeats": CONV_REPEATS}
+
+
+def run_graph_phase(tmp: Path, dev):
+    """Phase 9: per model (text, text_buckets, image) and mode (plain,
+    aggressive) the same windows graphed and eager (``graphs=False``);
+    every parameter against the eager run's, the kernel launches against
+    ``step_launches``, and every profiled window's traced kernels against
+    its ``LAUNCHES`` (checked once all runs are done); the image convs'
+    determinism probe, and the image plain windows graphed once more with
+    cuDNN's default algorithms in the convs' backward (the restriction's
+    cost; its parameters are reported, not held)."""
+    out, text_launches, untraced = {}, {}, []
+    for kind in ("text", "text_buckets", "image"):
+        model = graph_model(kind, tmp, dev)
+        if kind == "image":
+            out["image"] = {"conv_determinism": conv_determinism(model, dev)}
+            log(f"[graphs] image conv determinism: "
+                f"{json.dumps(out['image']['conv_determinism'])}")
+        for mode in ("plain", "aggressive"):
+            variants = [("graphed", True, False), ("eager", False, False)]
+            if kind == "image" and mode == "plain":
+                variants.append(("graphed_cudnn_default", True, True))
+            runs, params = {}, {}
+            for name, on, default in variants:
+                runs[name], params[name] = graph_run(model, mode, on, dev, cudnn_default=default)
+                log(f"[graphs] {kind} {mode} {name}: {json.dumps(runs[name])}")
+                if runs[name]["traced_kernel_calls"] != runs[name]["profiled_launches"]:
+                    untraced.append(f"{kind} {mode} {name}")
+            for name, on, default in variants:
+                if name == "eager":
+                    continue
+                d = param_diff(params[name], params["eager"])
+                runs[name]["param_diff_vs_eager"] = d
+                if not default and not d["max_rel"] <= GRAPH_PARAM_TOL:
+                    raise AssertionError(f"phase 9 {kind} {mode} {name}: parameters against "
+                                         f"the eager run {d} (tolerance {GRAPH_PARAM_TOL})")
+                want = ({k: v * runs[name]["steps"] for k, v in step_launches().items()}
+                        if kind.startswith("text") else {k: 0 for k in step_launches()})
+                got = {k: runs[name]["launches"][k] for k in want}
+                if got != want or runs[name]["launches"] != runs["eager"]["launches"]:
+                    raise AssertionError(f"phase 9 {kind} {mode} {name}: launches {got} != "
+                                         f"{want}, or != the eager run's")
+            if kind.startswith("text"):
+                for run in runs.values():
+                    for k, v in run["launches"].items():
+                        text_launches[k] = text_launches.get(k, 0) + v
+            out.setdefault(kind, {})[mode] = runs
+            del params
+    if untraced:
+        raise AssertionError(f"phase 9: the port's kernels in the trace differ from the "
+                             f"LAUNCHES of the profiled window in {untraced}")
+    return out, text_launches
+
+
 KERNELS = [
     ("lstm_fwd_residuals", "vae_lagging_encoder_tpu_torch/csrc/lstm_infer.cu",
      "vae_lagging_encoder_tpu/ops/lstm_pallas.py:67", ("lstm", True, B, NI)),
@@ -2086,6 +2477,11 @@ KERNELS = [
     ("ce_fwd_train", "vae_lagging_encoder_tpu_torch/csrc/ce_fwd.cu",
      "vae_lagging_encoder_tpu/ops/ce_pallas.py:65", ("ce_train",)),
 ]
+
+
+def graphs_line(graph_runs, smi):
+    return json.dumps({"graphs": {**graph_runs, "device": torch.cuda.get_device_name(0),
+                                  "nvidia_smi": smi}})
 
 
 def main() -> int:
@@ -2264,6 +2660,10 @@ def main() -> int:
         par_runs, runs_p = run_parallel_phase(tmp, files4, par_checks)
         phase_done("8, the CLI runs")
 
+        # phase 9 — the training epoch as CUDA-graph replays against eager steps
+        graph_runs, graph_launches = run_graph_phase(tmp, dev)
+        phase_done("9")
+
     train_launches = {k: sum(r["launches"][k] for r in train_runs.values()) for k in launches}
     kernels = []
     for name, source, replaces, spec in KERNELS:
@@ -2287,7 +2687,8 @@ def main() -> int:
                    "dp": sum(r["launches"][name] for k in ("dp_aggressive", "dp_plain")
                              for r in runs_p[k]["ranks"]),
                    "tp": sum(r["launches"][name] for k in ("tp_plain", "tp_eval")
-                             for r in runs_p[k]["ranks"])}
+                             for r in runs_p[k]["ranks"]),
+                   "graphs": graph_launches.get(name, 0)}
         if not sum(by_path.values()):
             raise AssertionError(f"{name} was launched no time on the main paths: {by_path}")
         kernels.append({"name": name, "route": "cuda", "source": source,
@@ -2324,6 +2725,7 @@ def main() -> int:
         "nvidia_smi": smi,
         "note": f"{PAR_RANKS} ranks sharing one card over gloo (collectives staged through "
                 "the host): not multi-card scaling"}}), flush=True)
+    print(graphs_line(graph_runs, smi), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -478,7 +478,9 @@ def test_mid_epoch_resume_on_cuda(tmp_path):
                             _stop_after_steps=stop)
 
     full = run("full")
-    r = run("run", stop=9)
+    # 7 batches, segments of 3 (the autosave cadence): autosaves at steps 3, 6,
+    # then 10 (epoch 1, after its first segment), where the run stops
+    r = run("run", stop=10)
     assert r["interrupted"] and load_checkpoint(r["autosave_path"])[1]["mid_epoch"]["epoch"] == 1
     resumed = run("run", resume=r["autosave_path"])
     assert [h["epoch"] for h in resumed["history"]] == [1]
@@ -495,3 +497,145 @@ def test_mid_epoch_resume_on_cuda(tmp_path):
 # the card's run of a step is deterministic on this path (see chip_smoke.py
 # phase 7a, which measures the same difference at the Yahoo width)
 RESUME_RTOL = 0.0
+
+
+def _graph_corpus(tmp_path):
+    """96 short sentences and 8 of 137 words over 1096 words: two bucket
+    shapes, a vocabulary of 1100, so the fused CE takes its kernel."""
+    rng = np.random.RandomState(0)
+    words = [f"w{i}" for i in range(1096)]
+    lines = [" ".join(words[j] for j in rng.randint(0, 1096, rng.randint(5, 14)))
+             for _ in range(96)] + [" ".join(words[i:i + 137]) for i in range(0, 1096, 137)]
+    (tmp_path / "train.txt").write_text("".join(f"1\t{l}\n" for l in lines))
+    return str(tmp_path / "train.txt")
+
+
+def _graph_epoch(kind, tmp_path, graphs, aggressive, unroll=1):
+    """One epoch of ``make_train_epoch`` on the card at a small width
+    (kernel route, H 128; or the image model at narrow widths), graphed or
+    eager, from the same seeded weights, order and noise: the model, the
+    epoch's outputs, ``epoch_fn.steps`` and the kernel launches."""
+    from vae_lagging_encoder_tpu_torch.config import get_config
+    from vae_lagging_encoder_tpu_torch.data import BucketedPool, ImagePool, MonoTextData
+    from vae_lagging_encoder_tpu_torch.models import build_image_vae, build_text_vae
+    from vae_lagging_encoder_tpu_torch.train.epoch import (GeneratorNoise, make_image_loss_fn,
+                                                           make_train_epoch)
+
+    over = dict(burn_max_iters=6, burn_window=2, warm_up=1, kl_start=0.1, loop_unroll=unroll)
+    gen = torch.Generator().manual_seed(1)
+    if kind == "text":
+        cfg = get_config("yahoo", ni=32, enc_nh=128, dec_nh=128, nz=4, batch_size=16,
+                         dec_dropout_in=0.3, dec_dropout_out=0.3, **over)
+        data = MonoTextData(_graph_corpus(tmp_path), label=True)
+        pool = BucketedPool(data.create_data_batch(cfg.batch_size, (16, 160)), "cuda")
+        vae, loss_fn = build_text_vae(cfg, len(data.vocab), "cuda", generator=gen), None
+        assert vae.dec.fused_ce
+    else:
+        cfg = get_config("omniglot", nz=4, enc_layers=(8, 8), dec_layers=2, dec_filters=8,
+                         batch_size=10, **over)
+        imgs = (np.random.RandomState(2).rand(70, 28, 28, 1) ** 3).astype(np.float32)
+        pool = ImagePool(imgs, cfg.batch_size, "cuda")
+        vae = build_image_vae(cfg, "cuda", generator=gen)
+        loss_fn = make_image_loss_fn(vae, nsamples=1, train=True)
+    build.reset_launches()
+    epoch_fn, opt_init = make_train_epoch(vae, pool, cfg, loss_fn=loss_fn, graphs=graphs)
+    order = np.random.RandomState(3).permutation(pool.num_batches)
+    out = epoch_fn(opt_init(), GeneratorNoise(4, "cuda"), np.float32(0.1), cfg.lr, order,
+                   aggressive, seg=3)
+    torch.cuda.synchronize()
+    return vae, out, epoch_fn.steps, dict(build.LAUNCHES), dict(build.GRAPHS), len(order)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aggressive", [False, True])
+@pytest.mark.parametrize("kind", ["text", "image"])
+def test_graphed_epoch_equals_eager_on_cuda(kind, aggressive, tmp_path):
+    """Plain steps, aggressive outer steps and sub-iterations replayed from
+    captured CUDA graphs against the same steps run eagerly: parameters,
+    optimizer state and sums bit for bit; the replays launch the kernels the
+    eager steps launch (``LAUNCHES`` counted per replay)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from vae_lagging_encoder_tpu_torch.train.graphs import _leaves
+
+    g_vae, g_out, g_steps, g_launch, g_graphs, n = _graph_epoch(kind, tmp_path, True, aggressive)
+    e_vae, e_out, e_steps, e_launch, e_graphs, _ = _graph_epoch(kind, tmp_path, False,
+                                                               aggressive)
+    assert g_steps.off is None and e_steps.off
+    for (k, p), (_, q) in zip(g_vae.named_parameters(), e_vae.named_parameters()):
+        assert torch.equal(p, q), k
+    for (path, a), (_, b) in zip(_leaves(g_out[0]), _leaves(e_out[0])):
+        assert torch.equal(a, b), path
+    assert g_out[2].tolist() == e_out[2].tolist() and g_out[1] == e_out[1]
+    assert g_out[3] == e_out[3]
+    steps = n + g_out[3]
+    stats = g_steps.stats
+    assert stats["eager_steps"] + stats["graph_steps"] == steps
+    assert g_graphs["replays"] == stats["graph_steps"] > 0 and g_graphs["captured"] > 0
+    assert e_graphs == {"captured": 0, "replays": 0}
+    assert g_launch == e_launch
+    if kind == "text":  # per forward+backward: 2 residual forwards, 2 backwards, 1 CE
+        per_step = {"lstm_fwd_residuals": 2, "lstm_bwd": 2, "ce_fwd_train": 1}
+        assert {k: g_launch[k] for k in per_step} == {k: v * steps for k, v in per_step.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["text", "image"])
+def test_eager_epoch_is_deterministic_on_cuda(kind, tmp_path):
+    """Two eager runs of one epoch from the same state are equal bit for bit
+    (the image convs' backward takes cuDNN's deterministic algorithms,
+    ops/conv.py), so a graphed run can be held against an eager one
+    exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    a, b = (_graph_epoch(kind, tmp_path, False, False)[0] for _ in range(2))
+    for (k, p), (_, q) in zip(a.named_parameters(), b.named_parameters()):
+        assert torch.equal(p, q), k
+
+
+@pytest.mark.cuda
+def test_replays_count_launches_on_cuda(tmp_path):
+    """N replays of the plain step's graph add N times the eager step's
+    kernel launches; ``--loop_unroll 3`` is accepted and changes nothing:
+    one replay a step, the same launches and parameters."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    runs = {u: _graph_epoch("text", tmp_path, True, False, unroll=u) for u in (1, 3)}
+    (v1, o1, s1, l1, g1, n), (v3, o3, s3, l3, g3, _) = runs[1], runs[3]
+    assert g1["replays"] == s1.stats["graph_steps"] == n - s1.stats["eager_steps"]
+    assert l1["lstm_bwd"] == 2 * n and l1["ce_fwd_train"] == n
+    assert l3 == l1 and g3 == g1
+    for (k, p), (_, q) in zip(v1.named_parameters(), v3.named_parameters()):
+        assert torch.equal(p, q), k
+
+
+@pytest.mark.cuda
+def test_capture_failure_raises_on_cuda(tmp_path):
+    """A step that reads the device from the host cannot be captured: the
+    epoch raises at the capture (after the eager warm-up) instead of
+    running eagerly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from vae_lagging_encoder_tpu_torch.config import get_config
+    from vae_lagging_encoder_tpu_torch.data import ImagePool
+    from vae_lagging_encoder_tpu_torch.models import build_image_vae
+    from vae_lagging_encoder_tpu_torch.train.epoch import (GeneratorNoise, make_image_loss_fn,
+                                                           make_train_epoch)
+
+    cfg = get_config("omniglot", nz=4, enc_layers=(8, 8), dec_layers=2, dec_filters=8,
+                     batch_size=10)
+    pool = ImagePool((np.random.RandomState(2).rand(30, 28, 28, 1)).astype(np.float32),
+                     cfg.batch_size, "cuda")
+    vae = build_image_vae(cfg, "cuda", generator=torch.Generator().manual_seed(1))
+    loss_fn = make_image_loss_fn(vae, nsamples=1, train=True)
+
+    def syncing_loss(batch, draw, kl_weight):
+        mean_loss, aux = loss_fn(batch, draw, kl_weight)
+        float(mean_loss)  # a host read inside the step
+        return mean_loss, aux
+
+    epoch_fn, opt_init = make_train_epoch(vae, pool, cfg, loss_fn=syncing_loss)
+    with pytest.raises(RuntimeError):
+        epoch_fn(opt_init(), GeneratorNoise(4, "cuda"), np.float32(0.1), cfg.lr, np.arange(3),
+                 False)
+    assert epoch_fn.steps.stats["eager_steps"] == 1 and epoch_fn.steps.stats["graph_steps"] == 0

@@ -90,6 +90,20 @@ def _run_cli(main, argv, exp_dir, monkeypatch, stop=None):
             next((r for r in recs if r.get("split") == "test"), None))
 
 
+def autosave_steps(nb, seg, niter, epochs):
+    """The global steps the autosaves fall on: at the end of a segment of
+    ``seg`` steps (``pick_segment``; an epoch of ``nb`` steps ends one) once
+    ``niter`` steps have passed since the last."""
+    saves, step, last = [], 0, 0
+    for _ in range(epochs):
+        for lo in range(0, nb, seg):
+            step += min(seg, nb - lo)
+            if step - last >= niter:
+                saves.append(step)
+                last = step
+    return saves
+
+
 CASES = {
     # (CLI, flags, autosave_niter, steps before the stop); text: 4 batches of
     # 8, image: 3 batches of 8; each stop lands in epoch 1 after an autosave
@@ -125,8 +139,12 @@ def test_killed_and_resumed_equals_uninterrupted(tmp_path, monkeypatch, case):
     _, extra = load_checkpoint(str(ck) + ".auto")
     mid = extra["mid_epoch"]
     assert mid["epoch"] == 1 and 0 < mid["next_start"] < mid["num_batches"]
-    assert mid["global_step"] == stop // niter * niter and loop.NOISE_STATE_KEY in extra
-    assert sum(m["autosaves"] for m in full) == 3 * mid["num_batches"] // niter
+    seg = min(niter, mid["num_batches"])  # pick_segment: the auto default capped by niter
+    saves = autosave_steps(mid["num_batches"], seg, niter, 3)
+    assert mid["seg"] == seg and mid["next_start"] % seg == 0
+    assert mid["global_step"] == max(s for s in saves if s <= stop)
+    assert loop.NOISE_STATE_KEY in extra
+    assert sum(m["autosaves"] for m in full) == len(saves)
     assert all(m["autosave_seconds"] >= 0 for m in full)
     resumed, res = _run_cli(main, [*common, "--save_path", str(ck), "--resume", "--load_path",
                                    str(ck) + ".auto"], tmp_path / "resumed", monkeypatch)
@@ -273,9 +291,10 @@ def test_port_reads_jax_autosave(tmp_path, monkeypatch, jax_killed_and_resumed):
         epoch_fn, opt_init = make(*a, **k)
 
         def wrapped(*ea, **ek):
-            seen.append((ek["start"], None if ek["sums"] is None else ek["sums"].tolist(),
+            seen.append((ek["start"], None if ek["sums"] is None else list(ek["sums"]),
                          ek["inner_iters"]))
             return epoch_fn(*ea, **ek)
+        wrapped.steps = epoch_fn.steps
         return wrapped, opt_init
 
     monkeypatch.setattr(loop, "make_train_epoch", spy)
@@ -284,7 +303,7 @@ def test_port_reads_jax_autosave(tmp_path, monkeypatch, jax_killed_and_resumed):
     vae.load_state_dict(from_jax_params(auto))
     log = _Capture()
     res = run_training(cfg, vae, tr, va, te, log, resume_state=jextra)
-    assert seen[0] == (jmid["next_start"], [float(np.float32(x)) for x in jmid["sums"]],
+    assert seen[0] == (jmid["next_start"], [float(x) for x in jmid["sums"]],
                        jmid["inner_iters"])
     assert all(s[0] == 0 for s in seen[1:])  # later epochs from their start
     assert any(f"from epoch {jmid['epoch']} step {jmid['global_step']}" in l for l in log.lines)

@@ -99,6 +99,22 @@ def test_no_device_timeline_returns_none(tmp_path):
     assert not out.exists()
 
 
+def test_graph_replays_are_counted_and_named_in_the_dossier(tmp_path):
+    """A window of CUDA-graph replays: its kernels are device events like any
+    other; the dossier's header says how many replays the host launched."""
+    graph = [_ev("cudaGraphLaunch", t, 3, pid=1234, tid=1234, cat="cuda_runtime")
+             for t in (0, 100)]
+    ev = _host() + graph + [_ev(LSTM_BWD, 10, 30), _ev(LSTM_BWD, 110, 30)]
+    s = distill_trace(_write_trace(tmp_path / "t", ev), steps=2)
+    assert s["graph_launches"] == 2
+    assert {r["op"]: r["calls"] for r in s["table"]} == {"lstm_bwd": 2}
+    assert write_dossier(str(tmp_path / "t"), 2, str(tmp_path / "D.md")) is not None
+    md = (tmp_path / "D.md").read_text()
+    assert "2 CUDA-graph replays (cudaGraphLaunch)" in md.splitlines()[2]
+    plain = distill_trace(_write_trace(tmp_path / "p", _host() + [_ev(LSTM_BWD, 10, 30)]), 1)
+    assert plain["graph_launches"] == 0
+
+
 def test_empty_trace_root_returns_none(tmp_path):
     assert distill_trace(str(tmp_path), steps=1) is None
 

@@ -1,12 +1,12 @@
 """Shared CLI plumbing: the reference's flag names merged over the
 per-dataset configs (flags win), as in ``vae_lagging_encoder_tpu/cli/
 common.py``. ``--device`` takes the place of ``--jax_platform``;
-``--autosave_niter``, ``--profile_dir``, ``--dp_devices`` and
-``--tp_devices`` keep the JAX CLI's meanings (D*T > 1 starts D*T rank
-processes: train/loop.py::run_parallel). Not offered: the compilation
-cache and the XLA dispatch knobs ``--epoch_segment`` / ``--loop_unroll``
-(an epoch here is a host loop of steps, with nothing to segment or
-unroll)."""
+``--autosave_niter``, ``--profile_dir``, ``--dp_devices``, ``--tp_devices``,
+``--epoch_segment`` and ``--loop_unroll`` keep the JAX CLI's meanings (D*T
+> 1 starts D*T rank processes: train/loop.py::run_parallel; a segment is
+the steps between two reads of the device, each step a CUDA-graph replay
+on the card: train/loop.py, train/graphs.py). Not offered: the
+compilation cache."""
 from __future__ import annotations
 
 import argparse
@@ -72,6 +72,16 @@ def build_parser(default_dataset: str = "yahoo") -> argparse.ArgumentParser:
     p.add_argument("--profile_dir", type=str, default=None,
                    help="capture a torch.profiler trace of one epoch here and "
                         "distill it into <profile_dir>/DOSSIER.md")
+    p.add_argument("--epoch_segment", type=int, default=None,
+                   help="max outer steps between two reads of the device (logs and "
+                        "autosaves fall on segment ends); default auto (32 "
+                        "aggressive / 256 plain); explicit N is capped by "
+                        "--log_niter for exact log cadence; 0 = whole epoch")
+    p.add_argument("--loop_unroll", type=int, default=None,
+                   help="plain-epoch steps unrolled per device loop iteration "
+                        "(bit-exact scheduling knob; aggressive epochs ignore "
+                        "it); accepted for the JAX CLI's command lines, each "
+                        "step here is one CUDA-graph replay at any value")
     p.add_argument("--autosave_niter", type=int, default=None,
                    help="mid-epoch autosave every N outer steps to "
                         "<save_path>.auto; --resume --load_path <save_path>.auto "

@@ -21,7 +21,10 @@ could run, here a CUDA tensor always goes to its kernel, and a build
 failure raises instead of falling back.
 
 Every kernel wrapper adds one to its entry of ``LAUNCHES`` where it
-launches the kernel, and nowhere else.
+launches the kernel, and nowhere else. A kernel captured into a CUDA graph
+is counted at each replay of the graph instead (train/graphs.py), so
+``LAUNCHES`` counts the kernels that ran either way; ``GRAPHS`` counts the
+captures and the replays of the training step's graphs.
 """
 from __future__ import annotations
 
@@ -48,12 +51,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: Dict[str, int] = {"lstm_fwd_residuals": 0, "lstm_fwd_infer": 0,
                             "lstm_bwd": 0, "ce_fwd": 0, "ce_fwd_train": 0}
 
+# CUDA graphs of the training step: captured, and replays (train/graphs.py)
+GRAPHS: Dict[str, int] = {"captured": 0, "replays": 0}
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    """Zero ``LAUNCHES`` and ``GRAPHS``."""
+    for counts in (LAUNCHES, GRAPHS):
+        for k in counts:
+            counts[k] = 0
 
 
 def resolve_device(device) -> torch.device:

@@ -17,6 +17,15 @@ cuDNN convolutions through ``torch.ops.aten``.
 - Precision: in float32 the convolutions, forward and backward, run
   without TF32 (``torch.backends.cudnn.allow_tf32`` is True by default),
   as the port's other f32 products do; bfloat16 operands run as bfloat16.
+- Determinism: the backward (input and weight gradients) takes cuDNN's
+  deterministic algorithms (``torch.backends.cudnn.deterministic``); the
+  forward keeps cuDNN's default choice. With the default choice in the
+  backward, two runs of one training step from the same state differ in
+  the last bits (cuDNN documents some of its backward algorithms as not
+  deterministic), which an exact resume, and a CUDA-graph replay held
+  against the eager step, cannot allow. ``chip_smoke.py`` (phase 9) finds
+  which products differ from run to run under the default choice, and
+  what the restriction costs a training step.
 """
 from __future__ import annotations
 
@@ -34,32 +43,37 @@ def same_pads(n: int, k: int, stride: int) -> Tuple[int, int]:
 
 
 @contextmanager
-def _no_tf32():
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
+def _cudnn_flags(deterministic: bool = False):
+    """TF32 off; with ``deterministic``, cuDNN's deterministic algorithms
+    (a caller's global ``deterministic`` is kept either way)."""
+    cudnn = torch.backends.cudnn
+    prev = cudnn.allow_tf32, cudnn.deterministic
+    cudnn.allow_tf32 = False
+    cudnn.deterministic = prev[1] or deterministic
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = prev
+        cudnn.allow_tf32, cudnn.deterministic = prev
 
 
 class _Conv2dFn(torch.autograd.Function):
     """``F.conv2d`` (NCHW x, OIHW w, symmetric padding) whose forward and
-    backward both run with TF32 off: the backward runs after the forward
-    has returned, so a flag set around the forward alone would not cover it."""
+    backward both run under ``_cudnn_flags`` (the backward with
+    deterministic algorithms): the backward runs after the forward has
+    returned, so flags set around the forward alone would not cover it."""
 
     @staticmethod
     def forward(ctx, x, w, stride: int, padding: Tuple[int, int]):
         ctx.save_for_backward(x, w)
         ctx.conf = (stride, padding)
-        with _no_tf32():
+        with _cudnn_flags():
             return F.conv2d(x, w, stride=stride, padding=padding)
 
     @staticmethod
     def backward(ctx, gy):
         x, w = ctx.saved_tensors
         stride, padding = ctx.conf
-        with _no_tf32():
+        with _cudnn_flags(deterministic=True):
             gx, gw, _ = torch.ops.aten.convolution_backward(
                 gy, x, w, None, [stride, stride], list(padding), [1, 1], False, [0, 0], 1,
                 [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])

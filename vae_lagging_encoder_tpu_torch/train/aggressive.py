@@ -17,8 +17,12 @@ are the reference's:
 Where the JAX package compiles the loop into one ``lax.while_loop``, here it
 is a host loop whose sums stay on the device: the stop can only turn true at
 a check, so the host reads one scalar every ``burn_window`` sub-iterations
-and none in between. The batch draw is a flat index from the caller's
-``draw("pick", (num_batches,))``, mapped to (bucket, index) by the pool.
+and none in between (the JAX package makes that test on the device; this
+port does not). Each sub-iteration is one static step (train/graphs.py: a
+graph replay on the card) that also adds its loss sum and predicted words
+to two 0-dim device buffers. The batch draw is a flat index from the
+caller's ``draw("pick", (num_batches,))``, mapped to (bucket, index) by the
+pool.
 """
 from __future__ import annotations
 
@@ -28,7 +32,6 @@ from typing import Callable, Dict
 import torch
 
 from ..data.pool import Pool
-from .optim import clip_scale
 
 
 def grads_of(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -69,40 +72,31 @@ def make_grad_on(model: torch.nn.Module, loss_fn: Callable, mesh=None) -> Callab
     return grad_on
 
 
-def make_aggressive_inner(grad_on: Callable, pool: Pool,
-                          params: Dict[str, torch.Tensor], enc_params: Dict[str, torch.Tensor],
-                          clip_grad: float, burn_max_iters: int, burn_window: int,
-                          opt_update: Callable, scale_fn: Callable = clip_scale,
+def make_aggressive_inner(run_sub: Callable, pool: Pool, burn_max_iters: int,
+                          burn_window: int, cur: torch.Tensor, words: torch.Tensor,
                           mesh=None) -> Callable:
-    """``inner(opt_state, draw_for, kl_weight, lr) -> (opt_state, sub_iters)``.
+    """``inner(draw_for, kl_weight) -> sub_iters``.
 
-    ``params`` are all of the model's (named as the clip sums them),
-    ``enc_params`` the encoder's (named as ``opt_state["enc"]`` holds
-    them); ``draw_for(sub)`` is sub-iteration ``sub``'s draw provider.
-    ``scale_fn`` is the clip (``clip_scale``, or parallel/tp.py's
-    ``clip_scale_tp`` bound to its mesh). With a ``mesh``, ``grad_on``
-    returns sums over dp, so the plateau test reads the same sums on every
-    rank; the value it tests is rank 0's (``Mesh.same``), and the batch
-    picks come from an unfolded stream, so every rank stops at the same
-    sub-iteration and picks the same batches."""
+    ``run_sub(batch, draw, kl_weight)`` runs one sub-iteration's static
+    step: a full forward + backward, the clip over the full gradient, the
+    encoder-only update, and ``cur += loss_sum``, ``words += n_words`` on
+    the 0-dim device buffers ``cur`` and ``words``. ``draw_for(sub)`` is
+    sub-iteration ``sub``'s draw provider. With a ``mesh`` the step's sums
+    are over dp, so the plateau test reads the same sums on every rank; the
+    value it tests is rank 0's (``Mesh.same``), and the batch picks come
+    from an unfolded stream, so every rank stops at the same sub-iteration
+    and picks the same batches."""
 
-    def inner(opt_state, draw_for: Callable[[int], Callable], kl_weight: float, lr: float):
-        dev = next(iter(params.values())).device
+    def inner(draw_for: Callable[[int], Callable], kl_weight) -> int:
         pre = math.inf
-        cur = torch.zeros((), device=dev)
-        words = torch.zeros((), device=dev)
+        cur.zero_()
+        words.zero_()
         sub = 0
         while sub < burn_max_iters:
             draw = draw_for(sub)
             flat = int(draw("pick", (pool.num_batches,)))
-            loss_sum, _, _, _, n_words = grad_on(pool.batch(flat), draw, kl_weight)
-            scale, _, finite = scale_fn(grads_of(params), clip_grad)
-            opt_state = dict(opt_state, enc=opt_update(
-                enc_params, grads_of(enc_params), opt_state["enc"], lr,
-                scale=scale, finite=finite))
+            run_sub(pool.batch(flat), draw, kl_weight)
             sub += 1
-            cur = cur + loss_sum.detach()
-            words = words + n_words
             if sub % burn_window == 0:
                 avg = float(cur / torch.clamp(words, min=1.0))
                 if mesh is not None:
@@ -110,8 +104,8 @@ def make_aggressive_inner(grad_on: Callable, pool: Pool,
                 if pre < avg:
                     break
                 pre = avg
-                cur = torch.zeros((), device=dev)
-                words = torch.zeros((), device=dev)
-        return opt_state, sub
+                cur.zero_()
+                words.zero_()
+        return sub
 
     return inner

@@ -7,8 +7,13 @@ Bernoulli binarization, then the same loss), each in training and
 evaluation mode, the eval binarization ``binarize_prep``, the step body of
 ``make_train_epoch``, and the evaluators ``make_eval_fn``, ``make_mi_fn``,
 ``make_au_fn``, ``make_iwnll_fn``. Where the JAX package compiles one fused
-program per epoch or per evaluator, here each is a host loop over batches
-that accumulates on the device and reads the sums back once at the end.
+program per epoch segment, a training epoch here runs its segments as
+replays of CUDA graphs of the step (train/graphs.py), one read of the
+device at each segment's end. Where it compiles one per evaluator, each
+evaluator here is a host loop over batches that accumulates on the device
+and reads the sums back once at the end, so nothing waits on the host
+between batches and there is no dispatch to bound (the JAX package's
+``EVAL_SEGMENT`` has no counterpart); they run eagerly.
 A batch is ``(tokens, mask, row_weight)`` for text and ``(probs,
 row_weight)`` for images; the MI, AU and IW evaluators take a ``prep``
 that turns it into ``(x, mask, row_weight)`` (``unpack`` for text,
@@ -56,8 +61,13 @@ import numpy as np
 
 from ..data.pool import Pool
 from ..models.vae import VAE
+from . import graphs as graphs_mod
 from .aggressive import grads_of, make_aggressive_inner, make_grad_on
 from .optim import clip_scale, make_optimizer
+
+# the static step's modes: a plain step (encoder and decoder update), an
+# aggressive outer step (decoder only) and an inner sub-iteration (encoder only)
+PLAIN, OUTER, SUB = "plain", "outer", "sub"
 
 Noise = Callable[[object, str, Tuple[int, ...]], object]
 
@@ -187,27 +197,46 @@ def make_image_loss_fn(vae: VAE, nsamples: int = 1, train: bool = False) -> Call
 
 
 def make_train_epoch(vae: VAE, pool: Pool, cfg, loss_fn: Callable | None = None,
-                     mesh=None) -> Tuple[Callable, Callable]:
+                     mesh=None, graphs: bool = True) -> Tuple[Callable, Callable]:
     """``(epoch_fn, opt_init)``: the step loop of one training epoch and the
     initial ``{"enc": ..., "dec": ...}`` optimizer state (two separate
     optimizers, as the reference has).
 
     ``epoch_fn(opt_state, noise, kl_weight, lr, order, aggressive,
-    on_step=None, start=0, sums=None, inner_iters=0) -> (opt_state,
-    kl_weight, sums, inner_iters)`` runs one outer step per flat batch
-    index of ``order[start:]`` (step ``i`` draws with index ``i``, so a run
-    re-entered at ``start`` draws what the whole epoch would have, given the
-    noise's state). Each step anneals the KL weight first (``min(1,
-    kl_weight + anneal_rate)`` in f32, as at the top of the reference's
-    batch loop), then, while ``aggressive``, runs the inner loop
-    (encoder-only updates to a plateau), then takes the outer update:
-    decoder-only while aggressive, encoder and decoder otherwise, always
-    with the clip over the full gradient. ``sums`` [5] (loss, rec, KL,
-    sentences, words; carried in from ``sums`` when re-entering) accumulate
-    on the device. ``on_step(i, kl_weight, aux, opt_state, sums,
-    inner_iters)`` is called after each outer step (the caller's log and
-    autosave cadence); when it returns True the epoch stops there.
-    ``loss_fn`` (training mode) defaults to the text loss.
+    seg=None, on_segment=None, start=0, sums=None, inner_iters=0,
+    max_steps=None) -> (opt_state, kl_weight, sums, inner_iters)`` runs one
+    outer step per flat batch index of ``order[start:]`` (step ``i`` draws
+    with index ``i``, so a run re-entered at ``start`` draws what the whole
+    epoch would have, given the noise's state). Each step anneals the KL
+    weight first (``min(1, kl_weight + anneal_rate)`` in f32, as at the top
+    of the reference's batch loop), then, while ``aggressive``, runs the
+    inner loop (encoder-only updates to a plateau), then takes the outer
+    update: decoder-only while aggressive, encoder and decoder otherwise,
+    always with the clip over the full gradient.
+
+    The steps run in segments of ``seg`` (the JAX package's
+    ``--epoch_segment`` grid ``[0, seg), [seg, 2 seg), ...``; None or 0:
+    one segment; ``start`` lies on the grid). Inside a segment the host
+    reads nothing from the device: the steps' sums [5] (loss, rec, KL,
+    sentences, words) accumulate there, and are read once at the segment's
+    end, added to ``sums`` (f64 on the host, carried in from ``sums`` when
+    re-entering), and handed to ``on_segment(end, n, kl_weight, seg_sums,
+    opt_state, sums, inner_iters)`` (``n`` steps ending before ``end``; the
+    caller's log and autosave cadence). ``max_steps`` stops the epoch after
+    that many outer steps, inside a segment if it falls there, as a crash
+    there would (the caller's test hook). ``sums`` is returned as a [5]
+    float64 tensor; ``opt_state`` is the live state (train/graphs.py), into
+    which a state made elsewhere is copied. ``loss_fn`` (training mode)
+    defaults to the text loss.
+
+    Each step is a static step (train/graphs.py): on the card without a
+    ``mesh`` a replay of a captured CUDA graph, after one eager warm-up per
+    (mode, batch shape). ``cfg.loop_unroll`` (the JAX package's unrolled
+    plain loop, a scheduling knob that leaves the result bit for bit) is
+    accepted and changes nothing here: a step is one replay at any k,
+    since k steps in one graph measured no faster (PERF.md).
+    ``graphs=False`` runs every step eagerly (a comparison's reference);
+    ``epoch_fn.steps.off`` says why a run is eager.
 
     With a ``mesh`` (parallel/dp.py; the pool batch-sharded by
     ``pool.shard(mesh)``) every gradient, outer and inner, is summed over
@@ -229,9 +258,30 @@ def make_train_epoch(vae: VAE, pool: Pool, cfg, loss_fn: Callable | None = None,
     params = dict(vae.named_parameters())
     enc = dict(vae.enc.named_parameters())
     dec = dict(vae.dec.named_parameters())
-    inner = make_aggressive_inner(grad_on, pool, params, enc, cfg.clip_grad,
-                                  cfg.burn_max_iters, cfg.burn_window, opt_update,
-                                  scale_fn=scale_fn, mesh=mesh)
+    dev = next(iter(params.values())).device
+    # what each mode of the static step updates
+    parts = {PLAIN: (("enc", enc), ("dec", dec)), OUTER: (("dec", dec),),
+             SUB: (("enc", enc),)}
+    seg_sums = torch.zeros(5, device=dev)
+    cur, words = torch.zeros((), device=dev), torch.zeros((), device=dev)
+
+    def body(mode, batch, draw, kl_weight):
+        """The static step: no host read, fixed addresses."""
+        aux = grad_on(batch, draw, kl_weight)
+        scale, _, finite = scale_fn(grads_of(params), cfg.clip_grad)
+        for part, ps in parts[mode]:
+            opt_update(ps, grads_of(ps), steps.state[part], steps.lr, scale=scale,
+                       finite=finite)
+        if mode == SUB:
+            cur.add_(aux[0].detach())
+            words.add_(aux[4])
+        else:
+            seg_sums.add_(torch.stack([a.detach() for a in aux]))
+
+    steps = graphs_mod.StaticSteps(body, dev, graphs_mod.off_reason(dev, mesh, graphs))
+    inner = make_aggressive_inner(lambda batch, draw, kl: steps.run(SUB, batch, kl, draw),
+                                  pool, cfg.burn_max_iters, cfg.burn_window, cur, words,
+                                  mesh=mesh)
     # warm_up <= 0 is valid only with kl_start 1.0 (run_training checks)
     anneal_rate = np.float32((1.0 - cfg.kl_start) / (cfg.warm_up * pool.num_batches)
                              if cfg.warm_up > 0 else 0.0)
@@ -239,35 +289,41 @@ def make_train_epoch(vae: VAE, pool: Pool, cfg, loss_fn: Callable | None = None,
     def opt_init():
         return {"enc": opt_init_part(enc), "dec": opt_init_part(dec)}
 
-    def epoch_fn(opt_state, noise: Noise, kl_weight, lr: float, order, aggressive: bool,
-                 on_step: Callable | None = None, start: int = 0, sums=None,
-                 inner_iters: int = 0):
-        if sums is None:
-            sums = torch.zeros(5, device=next(iter(params.values())).device)
-        for i in range(start, len(order)):
-            flat = order[i]
-            kl_weight = np.minimum(np.float32(1.0), np.float32(kl_weight) + anneal_rate)
-            if aggressive:
-                opt_state, n_sub = inner(
-                    opt_state,
-                    lambda sub, i=i: (lambda site, shape: noise((i, sub), site, shape)),
-                    float(kl_weight), lr)
-                inner_iters += n_sub
-            aux = grad_on(pool.batch(int(flat)),
-                          lambda site, shape, i=i: noise(i, site, shape), float(kl_weight))
-            scale, _, finite = scale_fn(grads_of(params), cfg.clip_grad)
-            for part, ps in (("enc", enc), ("dec", dec)):
-                if part == "enc" and aggressive:
-                    continue  # decoder-only outer step while aggressive
-                opt_state = dict(opt_state, **{part: opt_update(
-                    ps, grads_of(ps), opt_state[part], lr, scale=scale, finite=finite)})
-            aux = torch.stack([a.detach() for a in aux])
-            sums = sums + aux
-            if on_step is not None and on_step(i, kl_weight, aux, opt_state, sums,
-                                               inner_iters):
-                break
-        return opt_state, kl_weight, sums, inner_iters
+    def anneal(kl_weight):
+        return np.minimum(np.float32(1.0), np.float32(kl_weight) + anneal_rate)
 
+    def epoch_fn(opt_state, noise: Noise, kl_weight, lr, order, aggressive: bool,
+                 seg: int | None = None, on_segment: Callable | None = None, start: int = 0,
+                 sums=None, inner_iters: int = 0, max_steps: int | None = None):
+        opt_state = steps.bind(opt_state)
+        steps.lr.fill_(float(lr))
+        n = len(order)
+        seg = seg or n
+        total = [0.0] * 5 if sums is None else [float(x) for x in (
+            sums.tolist() if torch.is_tensor(sums) else sums)]
+        stop = n if max_steps is None else min(n, start + max_steps)
+        lo = start
+        while lo < stop:
+            hi = min((lo // seg + 1) * seg, n)  # this segment's end on the grid
+            seg_sums.zero_()
+            for i in range(lo, min(hi, stop)):
+                kl_weight = anneal(kl_weight)
+                if aggressive:
+                    inner_iters += inner(
+                        lambda sub, i=i: (lambda site, shape: noise((i, sub), site, shape)),
+                        kl_weight)
+                steps.run(OUTER if aggressive else PLAIN, pool.batch(int(order[i])), kl_weight,
+                          lambda site, shape, i=i: noise(i, site, shape))
+            if stop < hi:
+                break  # stopped inside the segment
+            part = seg_sums.tolist()  # the segment's one read of the device
+            total = [a + b for a, b in zip(total, part)]
+            if on_segment is not None:
+                on_segment(hi, hi - lo, kl_weight, part, opt_state, total, inner_iters)
+            lo = hi
+        return opt_state, kl_weight, torch.tensor(total, dtype=torch.float64), inner_iters
+
+    epoch_fn.steps = steps
     return epoch_fn, opt_init
 
 
@@ -276,7 +332,9 @@ def _my_batches(pool: Pool, mesh) -> range:
     process; under a mesh dp rank ``d`` takes the whole batches
     ``[d * ceil(n / dp), ...)`` (the JAX package's ``make_pool_reducer``
     mesh branch), keeping each batch's index and so its noise; tp members
-    of a dp rank take the same batches."""
+    of a dp rank take the same batches. The evaluators loop over them on
+    the host, eagerly (module docstring: their sums stay on the device
+    until one read at the end, so there is no segment to bound)."""
     n = pool.num_batches
     if mesh is None:
         return range(n)

@@ -17,9 +17,18 @@ written atomically to ``<save_path>.auto``, which ``--resume`` re-enters at
 the next step; the epoch's metric record holds ``autosaves`` and their
 ``autosave_seconds``, state gathering and write) and ``--profile_dir`` (a
 ``torch.profiler`` trace of one epoch, distilled into ``DOSSIER.md`` by
-utils/profiling.py). Not ported: the XLA dispatch knobs ``--epoch_segment``
-/ ``--loop_unroll`` (an epoch here is a host loop of steps, logged every
-``log_niter`` steps as the reference does).
+utils/profiling.py). An epoch runs in segments (``--epoch_segment``,
+``pick_segment``): inside a segment the steps are replays of CUDA graphs
+of the training step on the card (train/graphs.py), queued without a read
+of the device; at its end the host reads the segment's sums, logs when
+``log_niter`` steps have passed and autosaves when ``autosave_niter`` have,
+so logs and autosaves fall on segment boundaries, and a mid-epoch resume
+must re-enter on one. ``--loop_unroll`` is accepted with the JAX meaning
+(a scheduling knob, bit for bit at any k) and each step stays one replay
+(train/epoch.py). The epoch's metric record holds the graphs captured and
+replayed in it. The JAX package's ``EVAL_SEGMENT`` has no counterpart: the
+evaluators' sums stay on the device until one read at the end
+(train/epoch.py), so there is no dispatch to bound.
 
 Data and tensor parallelism (``--dp_devices D``, ``--tp_devices T``, D*T > 1):
 ``train_text`` / ``train_image`` start D*T ranks (parallel/launch.py) and
@@ -69,7 +78,7 @@ from ..config import ExperimentConfig
 from ..data import (BucketedPool, ImagePool, MonoTextData, Pool, ensure_synthetic_dataset,
                     load_omniglot)
 from ..models import VAE, build_image_vae, build_text_vae
-from ..ops.build import resolve_device
+from ..ops.build import GRAPHS, resolve_device
 from ..utils.exp_utils import Logger
 from ..utils.jax_params import from_jax_params, to_jax_params
 from .checkpoint import load_checkpoint, save_checkpoint
@@ -82,6 +91,32 @@ NoiseFor = Callable[[str, int], Noise]
 STAGES = ("train", "val_mi", "val", "test")
 # the autosave's entry for the training noise's generator states
 NOISE_STATE_KEY = "torch_noise_state"
+
+
+# Auto --epoch_segment (the JAX package's defaults, kept so that a command
+# line segments alike in both): outer steps per segment while aggressive
+# (each embeds up to burn_max_iters sub-iterations) and plain.
+AGGRESSIVE_SEGMENT = 32
+PLAIN_SEGMENT = 256
+
+
+def pick_segment(cfg: ExperimentConfig, aggressive: bool, num_batches: int) -> int:
+    """Outer steps per segment of one training epoch (the JAX package's
+    rule). An explicit ``--epoch_segment`` N is capped by ``log_niter``, so
+    that a log boundary comes at least every log_niter steps; 0 is the
+    whole epoch (no cap). The default picks per mode: AGGRESSIVE_SEGMENT or
+    PLAIN_SEGMENT (logs then come every segment). Every path is capped by
+    ``--autosave_niter``: autosaves happen only at segment boundaries, so
+    the crash-loss window always wins."""
+    if cfg.epoch_segment is None:
+        seg = AGGRESSIVE_SEGMENT if aggressive else PLAIN_SEGMENT
+    else:
+        seg = cfg.epoch_segment or num_batches
+        if cfg.epoch_segment and cfg.log_niter:
+            seg = min(seg, cfg.log_niter)
+    if cfg.autosave_niter:
+        seg = min(seg, cfg.autosave_niter)
+    return max(1, min(seg, num_batches))
 
 
 def make_noise_for(seed: int, device, fold: int = 0) -> NoiseFor:
@@ -343,6 +378,9 @@ def run_training(cfg: ExperimentConfig, vae: VAE, train_pool: Pool, val_pool: Po
     noise_for = noise_for or make_noise_for(cfg.seed, dev, 0 if mesh is None else mesh.dp_index)
     epoch_fn, opt_init = make_train_epoch(vae, train_pool, cfg, loss_fn=loss_fn, mesh=mesh)
     opt_state = opt_init()
+    off = epoch_fn.steps.off
+    log.info("[graphs] " + (f"off: {off}" if off else
+                            "on: each training step replays a captured CUDA graph"))
     val_eval = make_eval_fn(vae, val_pool, loss_fn=eval_loss_fn, mesh=mesh)
     val_mi = make_mi_fn(vae, val_pool, prep=prep, mesh=mesh)
     test_eval = make_eval_fn(vae, test_pool, loss_fn=eval_loss_fn, mesh=mesh)
@@ -392,29 +430,28 @@ def run_training(cfg: ExperimentConfig, vae: VAE, train_pool: Pool, val_pool: Po
 
     global_step = start_epoch * nb
     steps_since_log = 0
-    report = torch.zeros(5, device=dev)
+    report = [0.0] * 5
     if mid:
         global_step = int(mid["global_step"])
         steps_since_log = int(mid.get("steps_since_log", 0))
-        report = torch.tensor([float(x) for x in mid["report"]], device=dev)
+        report = [float(x) for x in mid["report"]]
     last_autosave = global_step
     steps_run = 0
     autosave_s = []  # this epoch's autosaves: seconds each, state gathering and write
     t_start = time.time()
 
-    def on_step(i, kl_w, aux, opt_now, sums, inner_iters):
-        nonlocal report, global_step, steps_since_log, last_autosave, steps_run
-        report = report + aux
-        global_step += 1
-        steps_since_log += 1
-        steps_run += 1
+    def on_segment(end, n, kl_w, seg_sums, opt_now, sums, inner_iters):
+        nonlocal report, global_step, steps_since_log, last_autosave
+        report = [a + b for a, b in zip(report, seg_sums)]
+        global_step += n
+        steps_since_log += n
         if cfg.log_niter and steps_since_log >= cfg.log_niter:
-            rl, rr, rk, rn, _ = report.tolist()
+            rl, rr, rk, rn, _ = report
             rn = max(rn, 1.0)
             log.info(f"epoch {epoch}, iter {global_step}: avg_loss {rl / rn:.4f}, "
                      f"kl {rk / rn:.4f}, recon {rr / rn:.4f}, kl_weight "
                      f"{float(kl_w):.4f}, time {time.time() - t_start:.1f}s")
-            report = torch.zeros(5, device=dev)
+            report = [0.0] * 5
             steps_since_log = 0
         if cfg.autosave_niter and global_step - last_autosave >= cfg.autosave_niter:
             last_autosave = global_step
@@ -430,9 +467,9 @@ def run_training(cfg: ExperimentConfig, vae: VAE, train_pool: Pool, val_pool: Po
                 "aggressive": aggressive, "pre_mi": pre_mi, "best_loss": best_loss,
                 "decay_cnt": decay_cnt, "not_improved": not_improved, "dataset": cfg.dataset,
                 "mid_epoch": {
-                    "epoch": epoch, "seg": 1, "seed": int(cfg.seed), "num_batches": nb,
-                    "next_start": i + 1, "sums": sums.tolist(),
-                    "inner_iters": int(inner_iters), "report": report.tolist(),
+                    "epoch": epoch, "seg": seg, "seed": int(cfg.seed), "num_batches": nb,
+                    "next_start": end, "sums": list(sums),
+                    "inner_iters": int(inner_iters), "report": list(report),
                     "steps_since_log": steps_since_log, "global_step": global_step,
                 },
             }
@@ -443,11 +480,13 @@ def run_training(cfg: ExperimentConfig, vae: VAE, train_pool: Pool, val_pool: Po
             autosave_s.append(time.perf_counter() - t_save)
             log.info(f"[autosave] step {global_step} -> {autosave_path} "
                      f"({autosave_s[-1]:.3f}s)")
-        return _stop_after_steps is not None and steps_run >= _stop_after_steps
 
     for epoch in range(start_epoch, cfg.epochs):
         t0 = time.time()
         autosave_s.clear()
+        # recomputed per epoch: the auto default depends on the aggressive
+        # flag, which the MI plateau turns off for good
+        seg = pick_segment(cfg, aggressive, nb)
         order = rng.permutation(nb)
         was_aggressive = aggressive
         noise = noise_for("train", epoch)
@@ -455,7 +494,15 @@ def run_training(cfg: ExperimentConfig, vae: VAE, train_pool: Pool, val_pool: Po
         resumed = bool(mid) and epoch == start_epoch
         if resumed:
             start, inner0 = int(mid["next_start"]), int(mid["inner_iters"])
-            sums = torch.tensor([float(x) for x in mid["sums"]], device=dev)
+            sums = [float(x) for x in mid["sums"]]
+            # the skip is by batch offset: the segment grid must line up with
+            # the autosave's, else batches would be skipped or run twice
+            if start % seg != 0 and start != nb:
+                raise SystemExit(
+                    f"mid-epoch resume: autosave position {start} is not a boundary of "
+                    f"the current segmentation (seg={seg}; autosave was written with "
+                    f"seg={mid.get('seg', '?')}) — resume with the same "
+                    f"--epoch_segment/--log_niter as the saved run.")
             if NOISE_STATE_KEY in resume_state and hasattr(noise, "set_state"):
                 _restore_noise(mesh, noise, resume_state[NOISE_STATE_KEY])
             elif hasattr(noise, "set_state"):
@@ -471,9 +518,13 @@ def run_training(cfg: ExperimentConfig, vae: VAE, train_pool: Pool, val_pool: Po
                                              else [])
             profiler = profile(activities=acts)
             profiler.start()
+        budget = None if _stop_after_steps is None else _stop_after_steps - steps_run
+        graphs0 = dict(GRAPHS)
         opt_state, kl_weight, sums, inner_iters = epoch_fn(
-            opt_state, noise, kl_weight, lr, order, aggressive, on_step=on_step,
-            start=start, sums=sums, inner_iters=inner0)
+            opt_state, noise, kl_weight, lr, order, aggressive, seg=seg,
+            on_segment=on_segment, start=start, sums=sums, inner_iters=inner0,
+            max_steps=budget)
+        steps_run += nb - start if budget is None else min(nb - start, budget)
         if _stop_after_steps is not None and steps_run >= _stop_after_steps:
             if profiler is not None:
                 profiler.stop()
@@ -524,7 +575,9 @@ def run_training(cfg: ExperimentConfig, vae: VAE, train_pool: Pool, val_pool: Po
                    inner_iters=inner_iters, aggressive=aggressive,
                    epoch_aggressive=was_aggressive, epoch_seconds=dt,
                    steps_per_sec=ran / max(dt, 1e-9), autosaves=len(autosave_s),
-                   autosave_seconds=sum(autosave_s))
+                   autosave_seconds=sum(autosave_s), segment=seg,
+                   graphs_captured=GRAPHS["captured"] - graphs0["captured"],
+                   graph_replays=GRAPHS["replays"] - graphs0["replays"])
         history.append({"epoch": epoch, **{f"val_{k}": v for k, v in val.items()}})
 
         if cfg.test_nepoch and (epoch + 1) % cfg.test_nepoch == 0:

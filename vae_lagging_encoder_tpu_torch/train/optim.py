@@ -10,7 +10,12 @@ finite), so no step reads a value back to the host. A non-finite norm
 zeroes the step (``finite`` False) instead of poisoning the parameters.
 
 Parameters and gradients travel as dicts ``name -> tensor`` (the names of
-``named_parameters``); parameters are updated in place. Optimizer state
+``named_parameters``); parameters and optimizer state are updated in place
+(a captured CUDA graph of the training step reads and writes fixed
+addresses, train/epoch.py), each with the operations, in the order, of the
+out-of-place formulas (``m.mul_(b1).add_((1 - b1) * g)`` is ``b1 * m +
+(1 - b1) * g``), so the results are the same bits. ``lr`` is a float or a
+0-dim f32 tensor: the products round alike. Optimizer state
 has the JAX package's tree layout, ``{}`` (plain SGD), ``{"v": grads-like}``
 (momentum) or ``{"m", "v", "t"}`` (Adam), so ``state_to_tree`` /
 ``state_from_tree`` move it through the checkpoint format both packages
@@ -76,7 +81,8 @@ def make_optimizer(name: str = "sgd", momentum: float = 0.0, b1: float = 0.9,
                    b2: float = 0.999, eps: float = 1e-8) -> Tuple[InitFn, UpdateFn]:
     """``(init_fn(params) -> state, update_fn(params, grads, state, lr,
     scale=None, finite=None) -> state)``; ``update_fn`` writes the new
-    parameters in place. ``scale``/``finite`` come from ``clip_scale``."""
+    parameters and ``state`` in place and returns ``state``.
+    ``scale``/``finite`` come from ``clip_scale``."""
     if name == "sgd":
         if momentum:
             def init_fn(params):
@@ -84,11 +90,12 @@ def make_optimizer(name: str = "sgd", momentum: float = 0.0, b1: float = 0.9,
 
             @torch.no_grad()
             def update_fn(params, grads, state, lr, scale=None, finite=None):
-                v = {k: momentum * state["v"][k] + _eff_grad(grads[k], scale, finite)
-                     for k in params}
+                v = state["v"]
+                for k in params:
+                    v[k].mul_(momentum).add_(_eff_grad(grads[k], scale, finite))
                 for k, p in params.items():
                     p.copy_(p - lr * v[k])
-                return {"v": v}
+                return state
         else:
             def init_fn(params):
                 return {}
@@ -109,16 +116,18 @@ def make_optimizer(name: str = "sgd", momentum: float = 0.0, b1: float = 0.9,
 
         @torch.no_grad()
         def update_fn(params, grads, state, lr, scale=None, finite=None):
-            t = state["t"] + 1
+            t, m, v = state["t"].add_(1), state["m"], state["v"]
             eff = {k: _eff_grad(grads[k], scale, finite) for k in params}
-            m = {k: b1 * state["m"][k] + (1 - b1) * eff[k] for k in params}
-            v = {k: b2 * state["v"][k] + (1 - b2) * eff[k] * eff[k] for k in params}
+            for k in params:
+                m[k].mul_(b1).add_((1 - b1) * eff[k])
+            for k in params:
+                v[k].mul_(b2).add_((1 - b2) * eff[k] * eff[k])
             tf = t.to(torch.float32)
             mhat_scale = 1.0 / (1.0 - b1 ** tf)
             vhat_scale = 1.0 / (1.0 - b2 ** tf)
             for k, p in params.items():
                 p.copy_(p - lr * (m[k] * mhat_scale) / (torch.sqrt(v[k] * vhat_scale) + eps))
-            return {"m": m, "v": v, "t": t}
+            return state
 
         return init_fn, update_fn
 

@@ -105,9 +105,13 @@ def distill_trace(trace_root: str, steps: int) -> Optional[dict]:
     path = find_trace(trace_root)
     if path is None:
         return None
-    dev = device_events(_load(path))
+    events = _load(path)
+    dev = device_events(events)
     if not dev:
         return None
+    # host calls that replayed a CUDA graph (train/graphs.py): the kernels
+    # inside a replay are device events of their own in the trace
+    graph_launches = sum(1 for e in events if e.get("name") == "cudaGraphLaunch")
     by_tid = collections.defaultdict(list)
     for e in dev:
         by_tid[(e.get("pid"), e.get("tid"))].append(e)
@@ -162,7 +166,7 @@ def distill_trace(trace_root: str, steps: int) -> Optional[dict]:
         "pct_device": round(100.0 * us / max(total_us, 1e-9), 2),
     } for c, us in cats.most_common()]
     busy = sum(busy_us(evs) for evs in by_pid.values())
-    return {"trace": path, "steps": steps, "devices": n_dev,
+    return {"trace": path, "steps": steps, "devices": n_dev, "graph_launches": graph_launches,
             "device_busy_ms": round(busy / per_dev, 3),
             "ops_total_ms": round(total_us / per_dev, 3),
             "ms_per_step_device": round(total_us / per_dev / steps, 4),
@@ -207,8 +211,13 @@ def write_dossier(trace_root: str, steps: int, out_path: str,
     summary = distill_trace(trace_root, steps)
     if summary is None:
         return None
+    header = ()
+    if summary["graph_launches"]:
+        header = (f"- {summary['graph_launches']} CUDA-graph replays (cudaGraphLaunch) in the "
+                  "window: the kernels inside them are counted below as their own device "
+                  "events", "")
     with open(out_path, "w") as fh:
-        fh.write(render_dossier(summary, title=title))
+        fh.write(render_dossier(summary, title=title, header_lines=header))
     with open(os.path.splitext(out_path)[0] + ".json", "w") as fh:
         json.dump(summary, fh, indent=1)
     return summary
