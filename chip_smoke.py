@@ -10,7 +10,9 @@ Phases (each raises on failure; the script then exits non-zero):
    source, in parallel) and prints each tensor-core kernel's registers,
    spills and its count of tensor-core (HMMA: mma.sync, HGMMA: wgmma) and
    asynchronous-copy (LDGSTS: cp.async; UTMALDG, UBLKCP: TMA) instructions
-   from the build logs; a tensor-core source without both fails the run;
+   from the build logs; a tensor-core source without both fails the run,
+   and so do ``lstm_infer`` and ``lstm_bwd`` without a wide-row kernel
+   that has both HGMMA and UTMALDG;
 2. kernel checks at the Yahoo shapes of the evaluation and the training
    paths: each kernel against its plain PyTorch version on the card, in
    bf16 and f32 operand mode, with timings (CUDA events), the plain
@@ -22,7 +24,12 @@ Phases (each raises on failure; the script then exits non-zero):
    ``*_n3040``); the shapes of ``--nsamples 40`` training, a decoder chunk
    of 20 samples x 32 sentences: the residual-saving forward and the
    backward at 640 rows (``*_rows640``), the grad-mode CE at N 60800
-   (``*_n60800``, a 2.4 GB bf16 spill). Library yardsticks compute what the kernel computes and
+   (``*_n60800``, a 2.4 GB bf16 spill); the three LSTM kernels also at a
+   ragged 600 rows (``err_*_rows600``, untimed). Each LSTM kernel's
+   launch plans print with their bf16 operand bytes a step into each SM
+   and from L2 (``plan*``, ``sm_bytes_per_step*``, ``l2_bytes_per_step*``;
+   ``*_mma_rows640``: the mma.sync plan at 640 rows, for comparison).
+   Library yardsticks compute what the kernel computes and
    are timed in turns with it (library, port, port, library;
    ``*_turns``): cuDNN's training forward for the residual-saving forward,
    the library's forward alone for the grad-mode CE (its forward and
@@ -263,13 +270,29 @@ def check_lstm(save_residuals: bool, rows: int, ni: int, launches_key: str, dev)
                                                   "library_ms", "bound_ms")})
         if tag == "rows640":
             r.update(library_ms_turns_rows640=more["library_ms_turns"],
-                     ms_turns_rows640=more["ms_turns"],
-                     plan_rows640=repr(lstm_cuda.infer_plan(n, NH, nsm, save_residuals)))
-    r["plan"] = repr(lstm_cuda.infer_plan(rows, NH, nsm, save_residuals))
+                     ms_turns_rows640=more["ms_turns"])
+    more = _check_lstm(save_residuals, RAGGED_ROWS, NI + NZ, launches_key, dev, timed=False)
+    r.update(err_f32_rows600=more["err_f32"], err_bf16_rows600=more["err_bf16"])
+    for n in sorted({rows, B, NSAMPLES_ROWS}):
+        r.update(plan_bytes(lstm_cuda.infer_plan(n, NH, nsm, save_residuals),
+                            f"_rows{n}" if n != rows else ""))
+    r.update(plan_bytes(lstm_cuda.mma_infer_plan(NSAMPLES_ROWS, NH, nsm, save_residuals),
+                        "_mma_rows640"))
     return r
 
 
-def _check_lstm(save_residuals: bool, rows: int, ni: int, launches_key: str, dev):
+RAGGED_ROWS = 600  # a ragged wide-row shape: row groups of 320 and 280
+
+
+def plan_bytes(plan, tag: str = ""):
+    """A launch plan and its bf16 operand bytes a step: into each SM, and
+    from L2 over the grid (``MMAPlan`` / ``WidePlan``)."""
+    return {f"plan{tag}": repr(plan), f"sm_bytes_per_step{tag}": plan.sm_bytes_per_step,
+            f"l2_bytes_per_step{tag}": plan.l2_bytes_per_step}
+
+
+def _check_lstm(save_residuals: bool, rows: int, ni: int, launches_key: str, dev,
+                timed: bool = True):
     from vae_lagging_encoder_tpu_torch.ops import lstm_cuda
 
     g = torch.Generator(device="cpu").manual_seed((1 if save_residuals else 2) + rows)
@@ -294,6 +317,8 @@ def _check_lstm(save_residuals: bool, rows: int, ni: int, launches_key: str, dev
         if not err <= TOL[("lstm", mode)]:
             raise AssertionError(f"{launches_key} rows {rows} {mode}: max abs err {err} > "
                                  f"{TOL[('lstm', mode)]}")
+    if not timed:
+        return dict(err_f32=errs["f32"], err_bf16=errs["bf16"])
     whb = wh32.bfloat16()
     port = lambda: lstm_cuda.lstm_seq(xw, mask, whb, h0, c0, save_residuals)
     ms = time_ms(port)
@@ -417,12 +442,19 @@ def check_lstm_bwd(dev):
         more = _check_lstm_bwd(n, seed, dev)
         r.update({f"{k}_{tag}": more[k] for k in ("err_f32", "err_bf16", "ms", "plain_ms",
                                                   "library_ms", "port_bwd_ms", "bound_ms")})
+        if tag == "rows640":
+            r.update(library_ms_turns_rows640=more["library_ms_turns"],
+                     port_bwd_ms_turns_rows640=more["port_bwd_ms_turns"])
+    more = _check_lstm_bwd(RAGGED_ROWS, 11, dev, timed=False)
+    r.update(err_f32_rows600=more["err_f32"], err_bf16_rows600=more["err_bf16"])
     nsm = torch.cuda.get_device_properties(dev).multi_processor_count
-    r["plan_rows640"] = repr(lstm_cuda.bwd_plan(NSAMPLES_ROWS, NH, nsm))
+    r.update(plan_bytes(lstm_cuda.bwd_plan(B, NH, nsm)))
+    r.update(plan_bytes(lstm_cuda.bwd_plan(NSAMPLES_ROWS, NH, nsm), "_rows640"))
+    r.update(plan_bytes(lstm_cuda.mma_bwd_plan(NSAMPLES_ROWS, NH, nsm), "_mma_rows640"))
     return r
 
 
-def _check_lstm_bwd(rows: int, seed: int, dev):
+def _check_lstm_bwd(rows: int, seed: int, dev, timed: bool = True):
     from vae_lagging_encoder_tpu_torch.ops import lstm_cuda
 
     g = torch.Generator(device="cpu").manual_seed(seed)
@@ -452,6 +484,8 @@ def _check_lstm_bwd(rows: int, seed: int, dev):
         if not errs[mode] <= TOL[("lstm_bwd", mode)]:
             raise AssertionError(f"lstm_bwd B {rows} {mode}: max abs err {errs[mode]} > "
                                  f"{TOL[('lstm_bwd', mode)]}")
+    if not timed:
+        return dict(err_f32=errs["f32"], err_bf16=errs["bf16"])
     ms = time_ms(lambda: lstm_cuda.lstm_bwd(*args["bf16"]))
     plain_ms = time_ms(lambda: lstm_cuda.lstm_bwd_plain(*args["bf16"]), reps=5)
     # This kernel computes da, dh0 and dc0 only. cuDNN's nn.LSTM (bf16)
@@ -2515,7 +2549,8 @@ def main() -> int:
     build_s = build.build()
     log(f"[build] {len(build.SOURCES)} CUDA sources built in {build_s:.1f} s")
     # the tensor-core kernels: lstm_infer (both LSTM forwards) and lstm_bwd
-    # on mma.sync (HMMA) with cp.async (LDGSTS); ce_fwd on wgmma (HGMMA)
+    # on mma.sync (HMMA) with cp.async (LDGSTS) below WIDE_MIN_ROWS rows and
+    # on wgmma (HGMMA) with TMA (UTMALDG) from there; ce_fwd on wgmma (HGMMA)
     for name in ("lstm_infer", "lstm_bwd", "ce_fwd"):
         rep = build.kernel_report(name)
         log(json.dumps({"build": name, "kernels": rep}))
@@ -2529,6 +2564,9 @@ def main() -> int:
             raise AssertionError(f"{name}: no kernel with both tensor-core "
                                  f"({build.TENSOR_CORE_SASS}) and asynchronous-copy "
                                  f"({build.ASYNC_COPY_SASS}) instructions: {rep}")
+        if name != "ce_fwd" and not any(k["hgmma"] and k["utmaldg"] for k in census):
+            raise AssertionError(f"{name}: no wide-row kernel with both HGMMA (wgmma) and "
+                                 f"UTMALDG (TMA tile loads): {rep}")
     phase_done("1")
 
     # phase 2 — kernels against their plain versions at the slice's shapes

@@ -70,12 +70,14 @@ def test_ce_kernel_matches_plain_on_cuda(bf16):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", [160, 163])
+@pytest.mark.parametrize("rows", [160, 163, 600, 640])
 def test_lstm_infer_tensor_core_plans_match_plain_on_cuda(rows):
     """The bf16 forward without residuals (csrc/lstm_infer.cu) at several
-    m-tiles per block (163: a partial last tile), H 256, under the plan
-    ``lstm_seq`` picks (8 units a block) and the plan for a card with 16
-    SMs (16 units a block, as H > 8 x the SM count needs)."""
+    m-tiles per block (163: a partial last tile; 600: a short second row
+    group), H 256, under the plan ``lstm_seq`` picks (the wide plan from
+    ``WIDE_MIN_ROWS`` rows), the mma.sync plan (8 units a block), and the
+    plans for a card with 16 SMs (mma.sync: 16 units a block, as H > 8 x
+    the SM count needs; wide: one row group)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     g = torch.Generator().manual_seed(7)
@@ -85,10 +87,15 @@ def test_lstm_infer_tensor_core_plans_match_plain_on_cuda(rows):
     wh = (0.1 * torch.randn(H, 4 * H, generator=g)).bfloat16().cuda()
     h0, c0 = (0.1 * torch.randn(rows, H, generator=g)).cuda(), torch.zeros(rows, H).cuda()
     ref = lstm_cuda.lstm_seq_plain(xw, mask, wh, h0, c0)
-    plan16 = lstm_cuda.infer_plan(rows, H, 16)
+    nsm = torch.cuda.get_device_properties(0).multi_processor_count
+    plan16 = lstm_cuda.mma_infer_plan(rows, H, 16)
     assert plan16.n_sub == 2
-    runs = [lambda: lstm_cuda.lstm_seq(xw, mask, wh, h0, c0),
-            lambda: lstm_cuda.lstm_infer(xw, mask, wh, h0, c0, plan16)]
+    plans = [lstm_cuda.mma_infer_plan(rows, H, nsm), plan16,
+             lstm_cuda.wide_plan("infer", rows, H, nsm),
+             lstm_cuda.wide_plan("infer", rows, H, 16)]
+    assert isinstance(plans[2], lstm_cuda.WidePlan) and isinstance(plans[3], lstm_cuda.WidePlan)
+    runs = [lambda: lstm_cuda.lstm_seq(xw, mask, wh, h0, c0)] + [
+        lambda p=p: lstm_cuda.lstm_infer(xw, mask, wh, h0, c0, p) for p in plans]
     for run in runs:
         n = build.LAUNCHES["lstm_fwd_infer"]
         got = run()
@@ -116,7 +123,7 @@ def test_lstm_residual_forward_matches_plain_on_cuda(B):
     h0 = (0.1 * torch.randn(B, H, generator=g)).cuda()
     c0 = (0.1 * torch.randn(B, H, generator=g)).cuda()
     ref = lstm_cuda.lstm_seq_plain(xw, mask, wh, h0, c0, True)
-    plan16 = lstm_cuda.infer_plan(B, H, 16, save_residuals=True)
+    plan16 = lstm_cuda.mma_infer_plan(B, H, 16, save_residuals=True)
     assert plan16.n_sub == 2
     runs = [lambda: lstm_cuda.lstm_seq(xw, mask, wh, h0, c0, True),
             lambda: lstm_cuda.lstm_infer(xw, mask, wh, h0, c0, plan16, True)]
@@ -373,27 +380,40 @@ def test_incremental_sampler_on_cuda():
 # ---------------------------------------------- shapes of chunked training
 # --nsamples 40 at the Yahoo config decodes chunks of 20 samples x 32
 # sentences: the LSTM kernels at 640 rows, the grad-mode CE at N = 640 x 95.
+def _length_mask(T, rows, seed):
+    """1 up to each row's length, then 0: masks ending at different steps."""
+    lens = np.random.RandomState(seed).randint(1, T + 1, rows)
+    return torch.from_numpy((np.arange(T)[:, None] < lens[None, :]).astype(np.float32))
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows", [640, 600])
+@pytest.mark.parametrize("save_residuals", [False, True])
 @pytest.mark.parametrize("wh_dtype", [torch.float32, torch.bfloat16])
-def test_lstm_kernels_at_640_rows_on_cuda(wh_dtype):
-    """The residual-saving forward and the backward sweep at 640 rows, H
-    1024 (T 12 here; the tolerances of the tests above at H 200-256)."""
+def test_lstm_kernels_at_640_rows_on_cuda(wh_dtype, save_residuals, rows):
+    """Both forwards and the backward sweep at 640 rows (and a ragged 600:
+    a short second row group), H 1024, with masks ending at different steps
+    (T 12 here; the tolerances of the tests above at H 200-256). With bf16
+    wh these are the wide-row kernels."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    g = torch.Generator().manual_seed(21)
-    T, B, H = 12, 640, 1024
+    g = torch.Generator().manual_seed(21 + rows)
+    T, B, H = 12, rows, 1024
     xw = torch.randn(T, B, 4 * H, generator=g).cuda()
-    mask = (torch.rand(T, B, generator=g) > 0.2).float().cuda()
+    mask = _length_mask(T, B, rows).cuda()
     wh = (torch.rand(H, 4 * H, generator=g) * 2 - 1).div(H ** 0.5).to(wh_dtype).cuda()
     h0, c0 = ((0.1 * torch.randn(B, H, generator=g)).cuda() for _ in range(2))
+    key = "lstm_fwd_residuals" if save_residuals else "lstm_fwd_infer"
     n = dict(build.LAUNCHES)
-    got = lstm_cuda.lstm_seq(xw, mask, wh, h0, c0, True)
-    ref = lstm_cuda.lstm_seq_plain(xw, mask, wh, h0, c0, True)
+    got = lstm_cuda.lstm_seq(xw, mask, wh, h0, c0, save_residuals)
+    ref = lstm_cuda.lstm_seq_plain(xw, mask, wh, h0, c0, save_residuals)
     torch.cuda.synchronize()
-    assert build.LAUNCHES["lstm_fwd_residuals"] == n["lstm_fwd_residuals"] + 1
+    assert build.LAUNCHES[key] == n[key] + 1
     tol = 1e-5 if wh_dtype == torch.float32 else 2e-3
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b, atol=tol, rtol=0)
+    if not save_residuals:
+        return
     _, cs, gates, _, _ = ref
     c_prev = torch.cat([c0[None], cs[:-1]])
     dhs = (0.1 * torch.randn(T, B, H, generator=g)).cuda()
@@ -406,6 +426,43 @@ def test_lstm_kernels_at_640_rows_on_cuda(wh_dtype):
     tol = 1e-5 if wh_dtype == torch.float32 else 1e-3
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b, atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_lstm_seq_fn_gradient_at_640_rows_on_cuda():
+    """``LSTMSeqFn``'s gradient at 640 rows, H 1024, bf16 wh (the wide-row
+    forward and backward kernels, then dWh = h_prev^T da) against the same
+    function computed by the plain versions on the card. dxw, dh0, dc0: the
+    backward's bf16 tolerance; dWh (bf16) sums 12 x 640 products of da: one
+    bf16 step of its largest entry, plus what flipped da roundings add."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    g = torch.Generator().manual_seed(31)
+    T, B, H = 12, 640, 1024
+    xw = torch.randn(T, B, 4 * H, generator=g).cuda()
+    mask = _length_mask(T, B, 31).cuda()
+    wh = (torch.rand(H, 4 * H, generator=g) * 2 - 1).div(H ** 0.5).bfloat16().cuda()
+    h0, c0 = ((0.1 * torch.randn(B, H, generator=g)).cuda() for _ in range(2))
+    dhs = (0.1 * torch.randn(T, B, H, generator=g)).cuda()
+    leaves = [a.clone().requires_grad_() for a in (xw, wh, h0, c0)]
+    n = dict(build.LAUNCHES)
+    with torch.enable_grad():
+        hs, _, _ = lstm_cuda.LSTMSeqFn.apply(leaves[0], mask, leaves[1], leaves[2], leaves[3])
+        got = torch.autograd.grad(hs, leaves, dhs)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["lstm_fwd_residuals"] == n["lstm_fwd_residuals"] + 1
+    assert build.LAUNCHES["lstm_bwd"] == n["lstm_bwd"] + 1
+    hs_r, cs, gates, _, _ = lstm_cuda.lstm_seq_plain(xw, mask, wh, h0, c0, True)
+    c_prev = torch.cat([c0[None], cs[:-1]])
+    da, dh0, dc0 = lstm_cuda.lstm_bwd_plain(gates, mask, wh, c_prev, dhs, torch.zeros_like(h0),
+                                            torch.zeros_like(c0))
+    h_prev = torch.cat([h0[None], hs_r[:-1]])
+    dwh = (h_prev.reshape(-1, H).T @ da.reshape(-1, 4 * H)).bfloat16()
+    for a, b in zip((got[0], got[2], got[3]), (da, dh0, dc0)):
+        torch.testing.assert_close(a, b, atol=1e-3, rtol=0)
+    assert got[1].dtype == torch.bfloat16
+    d = (got[1].float() - dwh.float()).abs().max()
+    assert d <= 2.0 ** -7 * dwh.float().abs().max() + 1e-2, float(d)
 
 
 @pytest.mark.cuda

@@ -82,6 +82,20 @@ def test_self_time_subtracts_nested_children(tmp_path):
     assert op_name("void at::native::vectorized_elementwise_kernel<4>(int)")[1] == "elementwise"
 
 
+@pytest.mark.parametrize("symbol,wrapper", [
+    ("void (anonymous namespace)::wide::lstm_infer_wide_kernel<true>(CUtensorMap_st, float const*)",
+     "lstm_fwd_residuals"),
+    ("void (anonymous namespace)::wide::lstm_infer_wide_kernel<false>(CUtensorMap_st, float const*)",
+     "lstm_fwd_infer"),
+    ("void (anonymous namespace)::wide::lstm_bwd_wide_kernel(CUtensorMap_st, float const*)",
+     "lstm_bwd"),
+    ("void (anonymous namespace)::lstm_bwd_mma_kernel<1, 2>(float const*)", "lstm_bwd")])
+def test_op_name_wide_row_kernels(symbol, wrapper):
+    """The wide-row LSTM kernels (``namespace wide``) count under their
+    wrappers' names like the 32-row ones, not as an unnamed op."""
+    assert op_name(symbol) == (wrapper, "port kernel")
+
+
 def test_sibling_events_not_treated_as_nested(tmp_path):
     ev = [_ev("a_kernel", 0, 10), _ev("b_kernel", 10, 15)]
     s = distill_trace(_write_trace(tmp_path, ev), steps=1)

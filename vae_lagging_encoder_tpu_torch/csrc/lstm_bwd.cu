@@ -17,17 +17,66 @@
 // h_prev^T @ da is one matrix product outside the kernel, as in the JAX
 // package's _fused_bwd.
 //
-// What bounds it on the H100, at the training shape (T 96, B 32, H 1024):
-// the sweep is serial in t, and each step's product [B, 4H] x [4H, H] needs
-// every unit's da_t: one grid-wide barrier per step (~1-2 us). The product
-// is 2*32*4096*1024 = 0.27 GFLOP a step, 512 mma.m16n8k16 per block over
-// 128 blocks (< 1 us); but every block needs all of da_t, 256 KB in bf16,
-// 32 MB per step from L2 over the grid (~5 us at L2 rates). Over the call,
-// the inputs (gates, c_prev, dhs) and da are ~100 MB of device memory, read
-// and written by the cell backward a step at a time: with the barrier,
-// about half of a step.
+// The bf16 path has two plans, by row count (ops/lstm_cuda.py::bwd_plan;
+// WIDE_MIN_ROWS): the wide-row kernel (namespace wide below: wgmma, TMA,
+// clusters) and the 32-row kernel (lstm_bwd_mma_kernel: mma.sync).
 //
-// Design of the bf16 kernel (wh in bf16: H > 512, the Yahoo path):
+// The wide-row kernel at --nsamples training's shape (T 96, 640 rows, H
+// 1024; plan 2 row groups of 320 rows x 32 unit groups of 32 units x the 2
+// K halves of a cluster, 128 blocks):
+// - what bounds it (lstm_ablation.py, NVIDIA H100 80GB HBM3 at 700 W):
+//   the products. Without them a call takes 4.36 of 5.91 ms, without the
+//   TMA loads 4.65, without the cell backward 4.27, without the cluster
+//   exchange 5.77. The phase profile puts 72% of a consumer warpgroup's
+//   step in its k-loop: ~790 SM clocks for each 64-k slab of 4 wgmma
+//   m64n32k16 (the dense bf16 rate would take 64 a slab: at N 32 each
+//   instruction's fixed cost dominates), 96 slabs for the warpgroup with
+//   three m-tiles; then 19% waiting at the grid barrier, for the last
+//   m-tile's cell backward and the slowest block. Against that, the step's
+//   5.4 GFLOP over the grid is 5.5 us at the dense rate, and the cell
+//   backward's HBM traffic (gates, c_prev, dhs, da and the carries) ~42 MB
+//   a step, 12.5 us.
+// - bytes of da_t a step: 1,310,720 into each SM (its 320 rows x its 2048-k
+//   half in bf16) and 167,772,160 from L2 over the grid, 4x below the
+//   32-row kernel's plan at 640 rows (every block read all of da_t:
+//   5,242,880 into each SM, 671,088,640 from L2, at the L2's rate).
+// - the barrier: one grid.sync() a step (cooperative launch with clusters).
+//
+// Design of the wide-row kernel:
+// - Block 2 (rg UG + ug) + kc owns the product of rows [rg MP, rg MP + MP)
+//   x units [32 ug, 32 ug + 32) over k in K half kc: it keeps those units'
+//   rows of wh (their K half) resident in shared memory as the K-major B
+//   operand of wgmma (N = 32, 128-byte swizzle; 128 KB at H 1024).
+// - Two consumer warpgroups take the 64-row m-tiles alternately; each has a
+//   4-deep ring of 64 x 64 bf16 tiles of da_t (A), filled by TMA from the
+//   row-major bf16 ring by its own producer warp, a slot refilled once the
+//   consumer has released it (mbarriers). A consumer waits for its tile,
+//   issues the four wgmma, keeps one group in flight, releases the slot.
+// - The two K halves of a (row group, unit group) are the two blocks of a
+//   cluster. Each consumer thread sends its partial of the other block's 16
+//   units to the thread with the same index there (distributed shared
+//   memory, an mbarrier with cluster-scope release and acquire), which
+//   owns those pairs and sums (its half) + (the other half): one fixed
+//   order, no atomics, the same bits every run.
+// - The sums go back into the same shared-memory slot for the epilogue
+//   warpgroup, which runs the cell backward of step t-1 for every m-tile in
+//   order (fused, as before) while the consumers go on to the next m-tile's
+//   products: it loads each m-tile's inputs before waiting for its sums, and
+//   before the step's barrier brings the next step's inputs into L2. It
+//   writes da (f32, the output) and bf16(da) into the row-major ring slot
+//   (t - 1) % 2 that the next step's TMA reads, and the carries.
+//
+// The 32-row kernel at the training shape (T 96, B 32, H 1024): the sweep
+// is serial in t, and each step's product [B, 4H] x [4H, H] needs every
+// unit's da_t: one grid-wide barrier per step (~1-2 us). The product is
+// 2*32*4096*1024 = 0.27 GFLOP a step, 512 mma.m16n8k16 per block over 128
+// blocks (< 1 us); but every block needs all of da_t, 262,144 bytes into
+// each SM and 33,554,432 from L2 a step over the grid (~5 us at L2 rates).
+// Over the call, the inputs (gates, c_prev, dhs) and da are ~100 MB of
+// device memory, read and written by the cell backward a step at a time:
+// with the barrier, about half of a step.
+//
+// Design of the 32-row kernel (wh in bf16: H > 512, the Yahoo path):
 // - Persistent cooperative grid (launch plan from
 //   ops/lstm_cuda.py::bwd_plan): block b owns hidden units [b*J, b*J + J),
 //   J = 8 * NT, keeps those units' ROWS of wh (wh[j, :], all 4H columns) in
@@ -67,6 +116,7 @@
 #include <cooperative_groups.h>
 
 #include "lstm_mma.cuh"
+#include "lstm_wgmma.cuh"
 
 namespace cg = cooperative_groups;
 using namespace lstm_mma;
@@ -311,6 +361,324 @@ cudaError_t launch_mma(const float* gates, const float* mask, const __nv_bfloat1
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------ bf16: wide rows
+// The wide-row path (ops/lstm_cuda.py::WidePlan): wgmma, TMA, clusters.
+namespace wide {
+namespace wg = lstm_wgmma;
+
+constexpr int kWarpgroups = 2;                // consumer warpgroups, 64-row m-tiles each
+constexpr int kConsumers = 128 * kWarpgroups;
+constexpr int kProducers = 32 * kWarpgroups;  // a producer warp for each
+constexpr int kThreads = kConsumers + kProducers + 128;  // + the epilogue warpgroup
+constexpr int kStages = 4;                    // deepest TMA ring of a warpgroup (plan: 2..4)
+constexpr int kUnits = 32;                    // units a block: the product's N
+constexpr int kCluster = 2;                   // the two K halves of one (row group, unit group)
+constexpr int kBSlabBytes = kUnits * 128;     // one 64-k slab of the block's wh rows
+constexpr int kRecvBytes = 128 * 8 * 4;       // an m-tile's partial half: 128 threads x 8 f32
+
+size_t smem_bytes(int Kp, int MP, int S) {
+  const int MT = MP / wg::kTileRows;
+  return (size_t)wg::kAlign + (size_t)(Kp / kCluster / wg::kSlab) * kBSlabBytes
+         + (size_t)kWarpgroups * S * wg::kTileBytes + (size_t)MT * kRecvBytes
+         + 8 * ((size_t)2 * kWarpgroups * S + 2 * MT);
+}
+
+__device__ __forceinline__ float pick(float2 v, int e) { return e ? v.y : v.x; }
+
+// The cell backward's inputs of a thread's 8 pairs p = 4 ii + 2 h + e of
+// one m-tile (row r(h), unit u(ii) + e), loaded while the product runs.
+struct CellIn {
+  float2 g[2][2][4], cp[2][2], dhs[2][2], dh[2][2], dc[2][2];
+  float m[2];
+};
+
+// Block b = 2 (rg * UG + ug) + kc: rows [rg MP, rg MP + MP) x units
+// [32 ug, 32 ug + 32), k in [kc Kp / 2, kc Kp / 2 + Kp / 2); the cluster is
+// the two K halves, and block kc owns units [32 ug + 16 kc, + 16).
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_bwd_wide_kernel(const __grid_constant__ CUtensorMap tm_da,
+                     const float* __restrict__ gates, const float* __restrict__ mask,
+                     const __nv_bfloat16* __restrict__ wh, const float* __restrict__ cprev,
+                     const float* __restrict__ dhs, const float* __restrict__ dhT,
+                     const float* __restrict__ dcT, float* __restrict__ da,
+                     __nv_bfloat16* __restrict__ ring, float* __restrict__ dh0,
+                     float* __restrict__ dc0, int T_, int B, int H, int Kp, int Rp, int MP,
+                     int UG, int S) {
+  cg::grid_group grid = cg::this_grid();
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = wg::smem_u32(smem_raw);
+  const uint32_t sB = (raw + wg::kAlign - 1) & ~(uint32_t)(wg::kAlign - 1);
+  unsigned char* smem = smem_raw + (sB - raw);
+  const int Kh = Kp / kCluster, KS = Kh / wg::kSlab, MT = MP / wg::kTileRows;
+  const uint32_t sA = sB + KS * kBSlabBytes;                   // [kWarpgroups][S] tiles
+  const uint32_t sR = sA + kWarpgroups * S * wg::kTileBytes;   // [MT] partial halves received
+  const uint32_t sBar = sR + MT * kRecvBytes;
+  auto full_bar = [&](int w, int s) { return sBar + 8u * (w * S + s); };
+  auto empty_bar = [&](int w, int s) { return sBar + 8u * ((kWarpgroups + w) * S + s); };
+  auto recv_bar = [&](int mt) { return sBar + 8u * (2 * kWarpgroups * S + mt); };
+  auto epi_bar = [&](int mt) { return sBar + 8u * (2 * kWarpgroups * S + MT + mt); };
+
+  const int kc = (int)cluster.block_rank(), pk = 1 - kc;
+  const int pair = blockIdx.x / kCluster, rg = pair / UG, ug = pair % UG;
+  const int u0 = ug * kUnits, row0 = rg * MP, kbase = kc * Kh;
+  const int MTb = cdiv(max(0, min(MP, B - row0)), wg::kTileRows);
+  // consumer warpgroup w = tid / 128, the producer warp of warpgroup w, or
+  // the epilogue warpgroup (its thread lt runs the cell backward of the pairs
+  // that consumer thread lt's registers hold, in every m-tile)
+  const int tid = threadIdx.x;
+  const bool producer = tid >= kConsumers && tid < kConsumers + kProducers;
+  const bool epilogue = tid >= kConsumers + kProducers;
+  const int w = producer ? (tid - kConsumers) >> 5 : epilogue ? 0 : tid >> 7;
+  const int lt = epilogue ? tid - kConsumers - kProducers : tid & 127, wq = lt >> 5;
+  const int lane = tid & 31, g8 = lane >> 2, tq = lane & 3;
+  const size_t H4 = 4 * (size_t)H;
+  const int n_mt = MTb > w ? cdiv(MTb - w, kWarpgroups) : 0;  // warpgroup w's m-tiles
+  const int n_loads = n_mt * KS;                                // its A tiles a step
+
+  // wh's rows of this block's units, this block's K half, as the K-major B
+  // operand, zero-padded: B[n][k] = wh[u0 + n, kbase + k]; consecutive
+  // threads read consecutive k of one wh row.
+  {
+    const int total = kUnits * Kh;
+    for (int base = tid; base < total; base += kFillBatch * kThreads) {
+      __nv_bfloat16 v[kFillBatch];
+#pragma unroll
+      for (int u = 0; u < kFillBatch; ++u) {
+        const int idx = base + u * kThreads, n = idx / Kh, k = idx % Kh;
+        v[u] = (idx < total && u0 + n < H && kbase + k < 4 * H)
+                   ? wh[(size_t)(u0 + n) * H4 + kbase + k] : __float2bfloat16(0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < kFillBatch; ++u) {
+        const int idx = base + u * kThreads, n = idx / Kh, k = idx % Kh;
+        if (idx < total)
+          *reinterpret_cast<__nv_bfloat16*>(smem + (k / wg::kSlab) * kBSlabBytes
+                                            + wg::swz_elem(n, k % wg::kSlab)) = v[u];
+      }
+    }
+  }
+  if (tid == 0) {
+    for (int w = 0; w < kWarpgroups; ++w)
+      for (int s = 0; s < S; ++s) {
+        wg::mbar_init(full_bar(w, s), 1);
+        wg::mbar_init(empty_bar(w, s), 1);
+      }
+    for (int mt = 0; mt < MT; ++mt) {
+      wg::mbar_init(recv_bar(mt), 128);
+      wg::mbar_init(epi_bar(mt), 128);
+    }
+    wg::fence_mbar_init();
+  }
+  wg::fence_proxy_async_smem();  // the B fill, before wgmma reads it
+  __syncthreads();
+  cluster.sync();
+
+  // this thread's pairs in m-tile mt: row r(h) = row0 + 64 mt + 16 wq + g8 +
+  // 8 h, unit u(ii) = u0 + 16 kc + 8 ii + 2 tq (+ e); the accumulator
+  // registers 8 kc + 4 ii + 2 h + e hold them (wgmma's column 8 i + 2 tq + e)
+  auto pair_at = [&](int mt, int h, int ii, int& row, int& unit) {
+    row = row0 + mt * wg::kTileRows + wq * 16 + g8 + 8 * h;
+    unit = u0 + 16 * kc + 8 * ii + 2 * tq;
+    return row < B && unit < H;
+  };
+  auto f2 = [](const float* p) { return *reinterpret_cast<const float2*>(p); };
+  // the inputs of the cell backward of step tc (tc = -1: the carry dh only)
+  auto load_in = [&](int tc, int mt, bool init, CellIn& in) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) {
+        int row, unit;
+        const bool ok = pair_at(mt, h, ii, row, unit);
+        const float2 z = make_float2(0.f, 0.f);
+        const size_t so = (size_t)row * H + unit;
+        in.dh[h][ii] = ok ? f2((init ? dhT : dh0) + so) : z;
+        if (tc < 0) continue;
+        const size_t to = (size_t)tc * B * H + so, go = ((size_t)tc * B + row) * H4 + unit;
+        if (ii == 0) in.m[h] = row < B ? mask[(size_t)tc * B + row] : 0.f;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) in.g[h][ii][q] = ok ? f2(gates + go + (size_t)q * H) : z;
+        in.cp[h][ii] = ok ? f2(cprev + to) : z;
+        in.dhs[h][ii] = ok ? f2(dhs + to) : z;
+        in.dc[h][ii] = ok ? f2((init ? dcT : dc0) + so) : z;
+      }
+    }
+  };
+  // the cell backward of step tc from dh = dsum + carry: da[tc], its bf16
+  // copy in ring slot tc % 2, and the carries (as cell_bwd above)
+  auto cell = [&](int tc, int mt, const CellIn& in, const float (&dsum)[8]) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) {
+        int row, unit;
+        if (!pair_at(mt, h, ii, row, unit)) continue;
+        float a[4][2], dhc[2], dcc[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float ig = pick(in.g[h][ii][0], e), fg = pick(in.g[h][ii][1], e),
+                      gg = pick(in.g[h][ii][2], e), og = pick(in.g[h][ii][3], e);
+          const float cp = pick(in.cp[h][ii], e);
+          const float tanh_c = tanhf(fg * cp + ig * gg);
+          const float dhk = (dsum[4 * ii + 2 * h + e] + pick(in.dh[h][ii], e))
+                            + pick(in.dhs[h][ii], e);
+          const float dck = pick(in.dc[h][ii], e);
+          const float m = in.m[h];
+          const float dh_raw = m * dhk, dc_raw = m * dck;
+          const float do_ = dh_raw * tanh_c;
+          const float dc_tot = dc_raw + dh_raw * og * (1.f - tanh_c * tanh_c);
+          a[0][e] = dc_tot * gg * ig * (1.f - ig);
+          a[1][e] = dc_tot * cp * fg * (1.f - fg);
+          a[2][e] = dc_tot * ig * (1.f - gg * gg);
+          a[3][e] = do_ * og * (1.f - og);
+          dhc[e] = (1.f - m) * dhk;
+          dcc[e] = dc_tot * fg + (1.f - m) * dck;
+        }
+        const size_t so = (size_t)row * H + unit, go = ((size_t)tc * B + row) * H4 + unit;
+        __nv_bfloat16* rr = ring + ((size_t)(tc & 1) * Rp + row) * Kp + unit;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          *reinterpret_cast<float2*>(da + go + (size_t)q * H) = make_float2(a[q][0], a[q][1]);
+          *reinterpret_cast<__nv_bfloat162*>(rr + (size_t)q * H) =
+              __floats2bfloat162_rn(a[q][0], a[q][1]);
+        }
+        *reinterpret_cast<float2*>(dh0 + so) = make_float2(dhc[0], dhc[1]);
+        *reinterpret_cast<float2*>(dc0 + so) = make_float2(dcc[0], dcc[1]);
+      }
+    }
+  };
+  // bring the inputs of the cell backward of step tc for this thread's pairs into L2
+  auto prefetch_cell = [&](int tc) {
+    for (int mt = 0; mt < MTb; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii) {
+          int row, unit;
+          if (!pair_at(mt, h, ii, row, unit)) continue;
+          const size_t to = ((size_t)tc * B + row) * H + unit, go = ((size_t)tc * B + row) * H4 + unit;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) prefetch_l2(gates + go + (size_t)q * H);
+          prefetch_l2(cprev + to);
+          prefetch_l2(dhs + to);
+        }
+  };
+
+  // step T-1: the cell backward from the final carries dhT, dcT
+  if (epilogue) {
+    const float zero[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int mt = 0; mt < MTb; ++mt) {
+      CellIn in;
+      load_in(T_ - 1, mt, true, in);
+      cell(T_ - 1, mt, in, zero);
+    }
+    wg::fence_proxy_async();  // the ring stores, before the TMA reads of other blocks
+  }
+
+  uint32_t seq = 0;  // warpgroup w's A tiles so far
+  float acc[kUnits / 2];
+#pragma unroll
+  for (int i = 0; i < kUnits / 2; ++i) acc[i] = 0.f;
+  for (int t = T_ - 1; t >= 0; --t) {
+    if (epilogue && t > 0) prefetch_cell(t - 1);
+    grid.sync();  // da_t (ring slot t % 2) is complete in every block
+    const uint32_t phase = (T_ - 1 - t) & 1;  // of the step's receive and epilogue barriers
+    if (producer) {
+      // warpgroup w's A tiles of this step in order: m-tile w + (i / KS)
+      // kWarpgroups, k slab i % KS of this block's K half, each once its
+      // slot has been released
+      if (lane == 0 && n_loads > 0) {
+        wg::fence_proxy_async();  // the other blocks' ring stores, before this TMA reads them
+        const int src_row = (t & 1) * Rp + row0;
+        for (int i = 0; i < n_loads; ++i) {
+          const uint32_t g = seq + i, use = g / S;
+          const int s = g % S, mt = w + (i / KS) * kWarpgroups, ks = i % KS;
+          if (use > 0) wg::mbar_wait(empty_bar(w, s), (use - 1) & 1);
+          wg::mbar_arrive_tx(full_bar(w, s), wg::kTileBytes);
+          wg::tma_load_2d(sA + (w * S + s) * wg::kTileBytes, &tm_da, kbase + ks * wg::kSlab,
+                          src_row + mt * wg::kTileRows, full_bar(w, s));
+        }
+      }
+      __syncwarp();
+    } else if (epilogue) {
+      // the cell backward of step t - 1 (at t = 0, dh0) for every m-tile,
+      // in order, as the consumers hand over each m-tile's sums
+      for (int mt = 0; mt < MTb; ++mt) {
+        CellIn in;
+        load_in(t - 1, mt, false, in);
+        wg::mbar_wait(epi_bar(mt), phase);
+        const float4* got = reinterpret_cast<const float4*>(smem + (sR - sB) + mt * kRecvBytes
+                                                            + lt * 32);
+        const float4 r0 = got[0], r1 = got[1];
+        const float dsum[8] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w};
+        if (t > 0) {
+          cell(t - 1, mt, in, dsum);
+        } else {
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int ii = 0; ii < 2; ++ii) {
+              int row, unit;
+              if (!pair_at(mt, h, ii, row, unit)) continue;
+              const int p = 4 * ii + 2 * h;
+              *reinterpret_cast<float2*>(dh0 + (size_t)row * H + unit) =
+                  make_float2(dsum[p] + in.dh[h][ii].x, dsum[p + 1] + in.dh[h][ii].y);
+            }
+        }
+      }
+      wg::fence_proxy_async();  // this step's ring stores, before the next step's TMA reads
+    } else {
+      int i = 0;
+      for (int mi = 0; mi < n_mt; ++mi) {
+        const int mt = w + mi * kWarpgroups;
+        for (int ks = 0; ks < KS; ++ks, ++i) {
+          const uint32_t g = seq + i;
+          const int s = g % S;
+          wg::mbar_wait(full_bar(w, s), (g / S) & 1);
+          wg::wgmma_fence();
+          wg::wgmma_slab<kUnits>(acc, sA + (w * S + s) * wg::kTileBytes, sB + ks * kBSlabBytes,
+                                 ks == 0);
+          wg::wgmma_commit();
+          wg::wgmma_wait<1>();  // tile i - 1 has been read: its slot may be refilled
+          if (lt == 0 && ks > 0) wg::mbar_arrive(empty_bar(w, (seq + i - 1) % S));
+          __syncwarp();
+        }
+        wg::wgmma_wait<0>();
+        wg::fence_acc(acc);
+        if (lt == 0) wg::mbar_arrive(empty_bar(w, (seq + i - 1) % S));
+        __syncwarp();
+
+        // the K halves: this thread's partial of the other block's pairs goes
+        // to the thread with the same index there, which owns them; it sums
+        // (its half) + (this half), one fixed order, no atomics, and leaves
+        // the sums in the same slot for the epilogue warpgroup
+        float mine[8], theirs[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          mine[j] = kc ? acc[8 + j] : acc[j];
+          theirs[j] = kc ? acc[j] : acc[8 + j];
+        }
+        const uint32_t slot = sR + mt * kRecvBytes + lt * 32;
+        const uint32_t remote = wg::map_rank(slot, pk);
+        wg::st_cluster(remote, make_float4(theirs[0], theirs[1], theirs[2], theirs[3]));
+        wg::st_cluster(remote + 16, make_float4(theirs[4], theirs[5], theirs[6], theirs[7]));
+        wg::mbar_arrive_rank(recv_bar(mt), pk);
+        wg::mbar_wait_cluster(recv_bar(mt), phase);
+        float4* got = reinterpret_cast<float4*>(smem + (slot - sB));
+        const float4 r0 = got[0], r1 = got[1];
+        got[0] = make_float4(mine[0] + r0.x, mine[1] + r0.y, mine[2] + r0.z, mine[3] + r0.w);
+        got[1] = make_float4(mine[4] + r1.x, mine[5] + r1.y, mine[6] + r1.z, mine[7] + r1.w);
+        wg::mbar_arrive(epi_bar(mt));
+      }
+    }
+    seq += n_loads;
+  }
+  cluster.sync();  // no block leaves while the other may still write to it
+}
+
+}  // namespace wide
+
 // ------------------------------------------------------------ f32: CUDA cores
 
 constexpr int KC = 32;           // k-chunk of each gate quarter of da_t staged in shared memory
@@ -499,6 +867,40 @@ int lstm_bwd_bf16(const float* gates, const float* mask, const void* wh, const f
   LSTM_BWD_CASE(2, 4)
 #undef LSTM_BWD_CASE
   return cudaErrorInvalidValue;
+}
+
+// The wide-row path: the same contract with the plan of
+// ops/lstm_cuda.py::WidePlan (row_groups x rows_per_group rows, units per
+// block, k_slices, cluster, warpgroups, stages, smem_bytes), refused with
+// cudaErrorInvalidValue when it is not the one this kernel was built for.
+// ring is the bf16 da ring [2, row_groups * rows_per_group, Kp], Kp = 4H
+// rounded up to 128, row-major, zeros on entry; H must be even.
+int lstm_bwd_wide(const float* gates, const float* mask, const void* wh, const float* cprev,
+                  const float* dhs, const float* dhT, const float* dcT, float* da, void* ring,
+                  float* dh0, float* dc0, int T, int B, int H, int row_groups,
+                  int rows_per_group, int units, int k_slices, int cluster, int warpgroups,
+                  int stages, int smem_bytes, void* stream) {
+  const int MP = rows_per_group, S = stages;
+  const int Kp = cdiv(4 * H, 2 * lstm_wgmma::kSlab) * 2 * lstm_wgmma::kSlab;
+  const int UG = cdiv(H, wide::kUnits);
+  if (T < 1 || B < 1 || H < 2 || H % 2 || MP < 1 || MP % lstm_wgmma::kTileRows
+      || row_groups != cdiv(B, MP) || units != wide::kUnits || k_slices != wide::kCluster
+      || cluster != wide::kCluster || warpgroups != wide::kWarpgroups || S < 2
+      || S > wide::kStages || smem_bytes < 0
+      || (size_t)smem_bytes != wide::smem_bytes(Kp, MP, S))
+    return cudaErrorInvalidValue;
+  const int Rp = row_groups * MP;
+  CUtensorMap tm_da;
+  cudaError_t err = lstm_wgmma::encode_2d(
+      &tm_da, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ring, Kp, 2 * (uint64_t)Rp, 2 * (uint64_t)Kp,
+      lstm_wgmma::kSlab, lstm_wgmma::kTileRows, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  const auto* w = static_cast<const __nv_bfloat16*>(wh);
+  auto* r = static_cast<__nv_bfloat16*>(ring);
+  return lstm_wgmma::launch_cluster_cooperative(
+      wide::lstm_bwd_wide_kernel, row_groups * UG * wide::kCluster, wide::kThreads,
+      (size_t)smem_bytes, wide::kCluster, static_cast<cudaStream_t>(stream), tm_da, gates, mask,
+      w, cprev, dhs, dhT, dcT, da, r, dh0, dc0, T, B, H, Kp, Rp, MP, UG, S);
 }
 
 // The same with wh [H, 4H] f32 (CUDA cores); da_r is an f32 scratch ring

@@ -12,32 +12,77 @@
 // Outputs hs [T, rows, H] (the KEPT h), hT, cT (and the residuals). xw
 // [T, rows, 4H] f32, wh [H, 4H] bf16. The f32-wh forward is lstm_fwd.cu.
 //
-// What bounds it on the H100, at the IW decoder's shape (T 96, rows 640,
-// H 1024; 128 blocks of 8 units):
+// Two paths, by row count (ops/lstm_cuda.py::infer_plan; WIDE_MIN_ROWS):
+// the wide-row path (namespace wide below: wgmma, TMA, clusters) and the
+// 32-row path (lstm_infer_kernel: mma.sync, cp.async).
+//
+// The wide-row path, at the IW decoder's shape (T 96, 640 rows, H 1024; plan
+// 2 row groups of 320 rows x 64 unit groups of 16 units, 128 blocks in
+// clusters of 2):
+// - what bounds it (lstm_ablation.py, NVIDIA H100 80GB HBM3 at 700 W):
+//   the products and the cell epilogue, in turns within each warpgroup.
+//   Without the epilogue's work a call takes 1.72 of 3.04 ms; without the
+//   products 2.53. The phase profile puts 70% of a consumer warpgroup's
+//   step in its k-loop, ~790 SM clocks for each 64-k slab of 4 wgmma
+//   m64n64k16 (the dense bf16 rate would take 128 a slab), 48 slabs for the
+//   warpgroup with three m-tiles. Against that, 5.4 GFLOP a step over the
+//   grid is 5.5 us at the dense rate, and the epilogue's HBM traffic (xw
+//   10.5 MB, hs, cT, and with residuals cs and gates, 13 MB more, a step)
+//   4-7 us. A warpgroup of its own for the epilogue (as the backward has)
+//   measured slower here: one warpgroup's cell of five m-tiles a step
+//   outlasts the products.
+// - bytes of h_{t-1} a step: 655,360 into each SM (its 320 rows x 1024 k in
+//   bf16) and 41,943,040 from L2 over the grid (each tile read once for the
+//   two blocks of a cluster); the 32-row path's plan at 640 rows moved
+//   1,310,720 into each SM and 167,772,160 from L2 (every block read all of
+//   h_{t-1}), 2x and 4x more.
+// - the barrier: one grid.sync() a step (cooperative launch with clusters),
+//   ~1-3 us with the wait for the slowest block.
+//
+// Design of the wide-row path:
+// - Block rg * UG + ug owns rows [rg MP, rg MP + MP) (MP a multiple of 64)
+//   x units [16 ug, 16 ug + 16); it keeps those units' four gate columns of
+//   wh resident in shared memory as the K-major B operand of wgmma (N = 64
+//   columns, n = 8 (2q + j / 8) + j % 8 for gate q, unit j, 128-byte
+//   swizzle; 128 KB at H 1024), filled once.
+// - Two consumer warpgroups take the 64-row m-tiles alternately; each has a
+//   4-deep ring of 64 x 64 bf16 A tiles of h_{t-1}, filled by TMA from the
+//   row-major bf16 ring by its own producer warp. The two blocks of a
+//   cluster (ug even and odd) share every tile: each loads half its rows
+//   into both (.multicast::cluster), and a slot is refilled once both
+//   blocks' warpgroups have released it (an mbarrier with an arrival from
+//   each; the remote arrival is CTA-scoped: the slot orders no data). The
+//   consumer only waits for its tile, issues the four wgmma, keeps one
+//   group in flight and releases the previous slot.
+// - The accumulator layout gives a thread rows 16 w + l/4 (+ 8) and columns
+//   8 i + 2 (l % 4) (+ 1): with the column order above, all four gates of
+//   its units, so the cell runs in registers. xw of the m-tile comes by TMA
+//   into shared memory (the next m-tile's, or the next step's first, is
+//   requested as soon as the warpgroup has read this one, before the grid
+//   barrier), c and h_{t-1} and the mask are loaded before the products.
+// - The epilogue writes hs, cT (hT at the last step), with residuals cs and
+//   the gate activations, as float2 (four lanes a 32-byte sector), and
+//   bf16(h_t) into ring slot t % 2 as bf16x2; rows and units past the
+//   problem are never written (the ring's padding stays zero).
+//
+// The 32-row path: what bounds it on the H100, at the encoder's and the
+// training forward's 32 rows (H 1024; 128 blocks of 8 units):
 // - the recurrence is serial in t, and each step's product [rows, H] x
 //   [H, 4H] needs all of h_{t-1}: one grid-wide barrier per step (~2 us);
-// - the product is 2*640*1024*4096 = 5.4 GFLOP a step, 10,240
-//   mma.m16n8k16 per block, ~12 us a step at mma.sync's issue rate;
-// - every block reads the h_{t-1} rows it multiplies, 1.3 MB in bf16, and
-//   writes and reads it once more through shared memory (cp.async, then the
-//   fragment loads), beside the B-fragment reads: ~64 KB of shared-memory
-//   traffic per SM per k-step, about as long as that k-step's mma issue;
-// - the cell epilogue streams xw (1.0 GB over the call, 10.5 MB a step)
-//   and reads and writes the f32 state.
-// At 32 rows (the encoder, and every training forward) the barrier and the
-// epilogue dominate. The residuals add 5 floats of stores per (row, unit)
-// and step to the epilogue (20 KB a step at 32 rows); the product, the ring
-// and the barrier are the same.
+// - every block reads the h_{t-1} rows it multiplies (65,536 bytes into each
+//   SM, 8,388,608 from L2 over the grid a step at 32 rows);
+// - the cell epilogue reads and writes the f32 state.
+// At 32 rows the barrier and the epilogue dominate. The residuals add 5
+// floats of stores per (row, unit) and step to the epilogue (20 KB a step
+// at 32 rows); the product, the ring and the barrier are the same.
 //
-// Design:
+// Design of the 32-row path:
 // - Persistent cooperative grid (launch plan from
-//   ops/lstm_cuda.py::infer_plan). Block u owns hidden units [u*J, u*J + J),
+//   ops/lstm_cuda.py::infer_plan, an MMAPlan). Block u owns hidden units [u*J, u*J + J),
 //   J = 8 * NT, for every row, keeps their four gate columns of wh resident
 //   in shared memory in B-fragment order (KS x 4NT x 256 B; 64 KB at J 8),
 //   and waits at one grid.sync() per step. NT = 2 serves H > 8 x the SM
-//   count. Splitting the rows over two groups of blocks (J 16, 128 KB of wh)
-//   would halve the L2 bytes per step, but measured no faster at 640 rows
-//   (PERF.md): L2 bandwidth is not what bounds a step.
+//   count.
 // - The product runs on the tensor cores: n-tile q*NT + j is gate q of
 //   units [j*8, j*8 + 8), so the lane holding a (row, unit) accumulator holds
 //   all four of its gates and applies the cell in registers.
@@ -62,7 +107,7 @@
 //   f32 product (TF32 keeps 10 bits of mantissa), and the f32 route is
 //   defined by f32 products.
 //
-// Ring slot t % 2 holds bf16(h_t); slot 1 holds bf16(h0) for step 0. Step t
+// Both paths: ring slot t % 2 holds bf16(h_t); slot 1 holds bf16(h0) for step 0. Step t
 // reads slot (t + 1) % 2 while slot t % 2 is written; the barrier between
 // steps orders them. The state c lives in cT, each element read and written
 // by its one owning lane; hs[t - 1] is read back by the lane that wrote it.
@@ -70,6 +115,7 @@
 #include <cooperative_groups.h>
 
 #include "lstm_mma.cuh"
+#include "lstm_wgmma.cuh"
 
 namespace cg = cooperative_groups;
 using namespace lstm_mma;
@@ -342,6 +388,276 @@ cudaError_t launch(const float* xw, const float* mask, const __nv_bfloat16* wh, 
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------------ wide rows
+// The wide-row path (ops/lstm_cuda.py::WidePlan): wgmma, TMA, clusters.
+namespace wide {
+namespace wg = lstm_wgmma;
+
+constexpr int kWarpgroups = 2;                 // consumer warpgroups, 64-row m-tiles each
+constexpr int kConsumers = 128 * kWarpgroups;
+constexpr int kThreads = kConsumers + 32 * kWarpgroups;  // + a producer warp for each
+constexpr int kStages = 4;                     // deepest TMA ring of a warpgroup (plan: 2..4)
+constexpr int kUnits = 16;                     // units a block: N = 4 x 16 gate columns
+constexpr int kN = 4 * kUnits;                 // column n = 8 (2q + j / 8) + j % 8: gate q, unit j
+constexpr int kCluster = 2;                    // unit groups of one row group sharing h tiles
+constexpr int kHalfRows = wg::kTileRows / kCluster;
+constexpr int kBSlabBytes = kN * 128;          // one 64-k slab of the block's wh columns
+constexpr int kXwBytes = 4 * wg::kTileRows * kUnits * 4;  // [4 gates][64 rows][16 units] f32
+
+size_t smem_bytes(int Hp, int S) {
+  return (size_t)wg::kAlign + (size_t)(Hp / wg::kSlab) * kBSlabBytes
+         + (size_t)kWarpgroups * S * wg::kTileBytes + (size_t)kWarpgroups * kXwBytes
+         + 8 * (size_t)kWarpgroups * (2 * S + 1);
+}
+
+// Block b = rg * UG + ug: rows [rg MP, rg MP + MP) x units [16 ug, 16 ug + 16);
+// the two blocks of a cluster are ug = 2c, 2c + 1 of one row group.
+template <bool kSaveResiduals>
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_infer_wide_kernel(const __grid_constant__ CUtensorMap tm_h,
+                       const __grid_constant__ CUtensorMap tm_xw,
+                       const float* __restrict__ mask, const __nv_bfloat16* __restrict__ wh,
+                       const float* __restrict__ h0, const float* __restrict__ c0,
+                       float* __restrict__ hs, float* __restrict__ cs,
+                       float* __restrict__ gates, float* __restrict__ hT,
+                       float* __restrict__ cT, __nv_bfloat16* __restrict__ ring, int T_,
+                       int rows, int H, int Hp, int Rp, int MP, int UG, int S) {
+  cg::grid_group grid = cg::this_grid();
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = wg::smem_u32(smem_raw);
+  const uint32_t sB = (raw + wg::kAlign - 1) & ~(uint32_t)(wg::kAlign - 1);
+  unsigned char* smem = smem_raw + (sB - raw);
+  const int KS = Hp / wg::kSlab;
+  const uint32_t sA = sB + KS * kBSlabBytes;                      // [kWarpgroups][S] tiles
+  const uint32_t sX = sA + kWarpgroups * S * wg::kTileBytes;      // [kWarpgroups] xw tiles
+  const uint32_t sBar = sX + kWarpgroups * kXwBytes;
+  auto full_bar = [&](int w, int s) { return sBar + 8u * (w * S + s); };
+  auto empty_bar = [&](int w, int s) { return sBar + 8u * ((kWarpgroups + w) * S + s); };
+  auto x_bar = [&](int w) { return sBar + 8u * (2 * kWarpgroups * S + w); };
+
+  const int rg = blockIdx.x / UG, ug = blockIdx.x % UG;
+  const int u0 = ug * kUnits, row0 = rg * MP;
+  const uint32_t crank = cluster.block_rank();
+  const int MTb = cdiv(max(0, min(MP, rows - row0)), wg::kTileRows);
+  // consumer warpgroup w = tid / 128, or the producer warp of warpgroup w
+  const int tid = threadIdx.x;
+  const bool producer = tid >= kConsumers;
+  const int w = producer ? (tid - kConsumers) >> 5 : tid >> 7, lt = tid & 127, wq = lt >> 5;
+  const int lane = tid & 31, g8 = lane >> 2, tq = lane & 3;
+  const size_t H4 = 4 * (size_t)H;
+  const int n_mt = MTb > w ? cdiv(MTb - w, kWarpgroups) : 0;  // warpgroup w's m-tiles
+  const int n_loads = n_mt * KS;                                // its A tiles a step
+
+  // wh's gate columns of this block's units as the K-major B operand,
+  // zero-padded: B[n][k] = wh[k, q H + u0 + j]; consecutive threads read
+  // consecutive units of one wh row.
+  {
+    const int total = Hp * kN;
+    for (int base = tid; base < total; base += kFillBatch * kThreads) {
+      __nv_bfloat16 v[kFillBatch];
+#pragma unroll
+      for (int u = 0; u < kFillBatch; ++u) {
+        const int idx = base + u * kThreads, k = idx / kN, q = (idx % kN) >> 4, j = idx & 15;
+        v[u] = (idx < total && k < H && u0 + j < H) ? wh[(size_t)k * H4 + (size_t)q * H + u0 + j]
+                                                    : __float2bfloat16(0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < kFillBatch; ++u) {
+        const int idx = base + u * kThreads, k = idx / kN, q = (idx % kN) >> 4, j = idx & 15;
+        if (idx < total)
+          *reinterpret_cast<__nv_bfloat16*>(smem + (k / wg::kSlab) * kBSlabBytes
+                                            + wg::swz_elem(8 * (2 * q + (j >> 3)) + (j & 7),
+                                                           k % wg::kSlab)) = v[u];
+      }
+    }
+  }
+  // bf16(h0) into ring slot 1 (any partition: the grid barrier follows)
+  for (size_t idx = blockIdx.x * (size_t)kThreads + tid; idx < (size_t)rows * H;
+       idx += (size_t)gridDim.x * kThreads) {
+    const size_t row = idx / H, unit = idx % H;
+    ring[((size_t)Rp + row) * Hp + unit] = __float2bfloat16(h0[idx]);
+  }
+  if (tid == 0) {
+    for (int w = 0; w < kWarpgroups; ++w) {
+      for (int s = 0; s < S; ++s) {
+        wg::mbar_init(full_bar(w, s), 1);
+        wg::mbar_init(empty_bar(w, s), kCluster);
+      }
+      wg::mbar_init(x_bar(w), 1);
+    }
+    wg::fence_mbar_init();
+  }
+  wg::fence_proxy_async_smem();  // the B fill, before wgmma reads it
+  wg::fence_proxy_async();       // the ring's h0, before TMA reads it
+  __syncthreads();
+  cluster.sync();
+  grid.sync();
+
+  // xw of (step t, m-tile mt) into this warpgroup's xw tile: 4 boxes of
+  // 64 rows x 16 units, one per gate (thread lt == 0)
+  auto issue_xw = [&](int t, int mt) {
+    wg::fence_proxy_async_smem();
+    wg::mbar_arrive_tx(x_bar(w), kXwBytes);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      wg::tma_load_2d(sX + w * kXwBytes + q * (kXwBytes / 4), &tm_xw, q * H + u0,
+                      t * rows + row0 + mt * wg::kTileRows, x_bar(w));
+  };
+  if (!producer && lt == 0 && n_mt > 0) issue_xw(0, w);
+  __syncwarp();
+
+  const float* xs = reinterpret_cast<const float*>(smem + (sX - sB) + w * kXwBytes);
+  uint32_t seq = 0, xseq = 0;  // warpgroup w's A tiles and xw tiles so far
+  float acc[kN / 2];
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) acc[i] = 0.f;
+
+  for (int t = 0; t < T_; ++t) {
+    if (producer) {
+      // warpgroup w's A tiles of this step in order, m-tile w + (i / KS)
+      // kWarpgroups, k slab i % KS: this block loads its half of the rows
+      // into both blocks of the cluster once both have released the slot
+      if (lane == 0 && n_loads > 0) {
+        wg::fence_proxy_async();  // the other blocks' ring stores, before this TMA reads them
+        const int src_row = ((t + 1) & 1) * Rp + row0;  // ring slot of h_{t-1}
+        for (int i = 0; i < n_loads; ++i) {
+          const uint32_t g = seq + i, use = g / S;
+          const int s = g % S, mt = w + (i / KS) * kWarpgroups, ks = i % KS;
+          if (use > 0) wg::mbar_wait(empty_bar(w, s), (use - 1) & 1);
+          wg::mbar_arrive_tx(full_bar(w, s), wg::kTileBytes);
+          wg::tma_load_2d_mc(
+              sA + (w * S + s) * wg::kTileBytes + crank * (wg::kTileBytes / kCluster), &tm_h,
+              ks * wg::kSlab, src_row + mt * wg::kTileRows + crank * kHalfRows, full_bar(w, s),
+              (uint16_t)((1 << kCluster) - 1));
+        }
+      }
+      __syncwarp();
+    } else {
+      // every block of the cluster may refill the slot of tile i (thread lt == 0)
+      auto release = [&](int i) {
+        const int s = (seq + i) % S;
+        wg::mbar_arrive(empty_bar(w, s));
+#pragma unroll
+        for (int r = 1; r < kCluster; ++r)
+          wg::mbar_arrive_rank_relaxed(empty_bar(w, s), (crank + r) % kCluster);
+      };
+      int i = 0;
+      for (int mi = 0; mi < n_mt; ++mi) {
+        const int mt = w + mi * kWarpgroups;
+        // this thread's pairs: rows r(h) = row0 + 64 mt + 16 wq + g8 + 8 h, units
+        // u0 + 8 jh + 2 tq + e; their state and mask are loaded during the product
+        int row[2];
+        bool ok[2][2];
+        float mk[2];
+        float2 cp[2][2], hp[2][2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          row[h] = row0 + mt * wg::kTileRows + wq * 16 + g8 + 8 * h;
+          mk[h] = row[h] < rows ? mask[(size_t)t * rows + row[h]] : 0.f;
+#pragma unroll
+          for (int jh = 0; jh < 2; ++jh) {
+            const int unit = u0 + 8 * jh + 2 * tq;
+            ok[h][jh] = row[h] < rows && unit < H;
+            const size_t so = (size_t)row[h] * H + unit;
+            cp[h][jh] = ok[h][jh] ? *reinterpret_cast<const float2*>(t == 0 ? c0 + so : cT + so)
+                                  : make_float2(0.f, 0.f);
+            hp[h][jh] = ok[h][jh]
+                ? *reinterpret_cast<const float2*>(t == 0 ? h0 + so
+                                                          : hs + (size_t)(t - 1) * rows * H + so)
+                : make_float2(0.f, 0.f);
+          }
+        }
+        for (int ks = 0; ks < KS; ++ks, ++i) {
+          const uint32_t g = seq + i;
+          const int s = g % S;
+          wg::mbar_wait(full_bar(w, s), (g / S) & 1);
+          wg::wgmma_fence();
+          wg::wgmma_slab<kN>(acc, sA + (w * S + s) * wg::kTileBytes, sB + ks * kBSlabBytes,
+                             ks == 0);
+          wg::wgmma_commit();
+          wg::wgmma_wait<1>();  // tile i - 1 has been read
+          if (lt == 0 && ks > 0) release(i - 1);
+          __syncwarp();
+        }
+        wg::wgmma_wait<0>();
+        wg::fence_acc(acc);
+        if (lt == 0) release(i - 1);
+        __syncwarp();
+        wg::mbar_wait(x_bar(w), xseq & 1);
+        ++xseq;
+
+        // the cell, in registers: this thread holds all four gates of its 8 pairs
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int jh = 0; jh < 2; ++jh) {
+            const int rl = wq * 16 + g8 + 8 * h, j = 8 * jh + 2 * tq, unit = u0 + j;
+            float2 x[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              x[q] = *reinterpret_cast<const float2*>(xs + q * (wg::kTileRows * kUnits)
+                                                      + rl * kUnits + j);
+            float act[4][2], hk[2], ck[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int r = 2 * h + e;
+              act[0][e] = sigmoid(pick(x[0], e) + acc[4 * (0 + jh) + r]);
+              act[1][e] = sigmoid(pick(x[1], e) + acc[4 * (2 + jh) + r]);
+              act[2][e] = tanhf(pick(x[2], e) + acc[4 * (4 + jh) + r]);
+              act[3][e] = sigmoid(pick(x[3], e) + acc[4 * (6 + jh) + r]);
+              const float c_prev = pick(cp[h][jh], e), h_prev = pick(hp[h][jh], e);
+              const float c_raw = act[1][e] * c_prev + act[0][e] * act[2][e];
+              const float h_raw = act[3][e] * tanhf(c_raw);
+              hk[e] = mk[h] * h_raw + (1.f - mk[h]) * h_prev;
+              ck[e] = mk[h] * c_raw + (1.f - mk[h]) * c_prev;
+            }
+            if (!ok[h][jh]) continue;
+            const size_t so = (size_t)row[h] * H + unit;
+            *reinterpret_cast<float2*>(hs + (size_t)t * rows * H + so) = make_float2(hk[0], hk[1]);
+            *reinterpret_cast<float2*>(cT + so) = make_float2(ck[0], ck[1]);
+            if (t == T_ - 1) *reinterpret_cast<float2*>(hT + so) = make_float2(hk[0], hk[1]);
+            if (kSaveResiduals) {
+              *reinterpret_cast<float2*>(cs + (size_t)t * rows * H + so) =
+                  make_float2(ck[0], ck[1]);
+              float* gt = gates + ((size_t)t * rows + row[h]) * H4 + unit;
+#pragma unroll
+              for (int q = 0; q < 4; ++q)
+                *reinterpret_cast<float2*>(gt + (size_t)q * H) = make_float2(act[q][0], act[q][1]);
+            }
+            *reinterpret_cast<__nv_bfloat162*>(ring + ((size_t)(t & 1) * Rp + row[h]) * Hp
+                                               + unit) = __floats2bfloat162_rn(hk[0], hk[1]);
+          }
+        }
+        wg::bar_sync(1 + w, 128);  // the warpgroup has read its xw tile
+        if (lt == 0) {             // the next one: this step's next m-tile, or the next step's first
+          const bool last = mi + 1 == n_mt;
+          if (!last || t + 1 < T_)
+            issue_xw(last ? t + 1 : t, w + (last ? 0 : mi + 1) * kWarpgroups);
+        }
+        __syncwarp();
+      }
+      wg::fence_proxy_async();  // this step's ring stores, before the next step's TMA reads
+    }
+    seq += n_loads;
+    if (t + 1 < T_) grid.sync();
+  }
+  cluster.sync();  // no block leaves while the other may still arrive on its barriers
+}
+
+template <bool kSaveResiduals>
+cudaError_t launch(const CUtensorMap& tm_h, const CUtensorMap& tm_xw, const float* mask,
+                   const __nv_bfloat16* wh, const float* h0, const float* c0, float* hs,
+                   float* cs, float* gates, float* hT, float* cT, __nv_bfloat16* ring, int T_,
+                   int rows, int H, int Hp, int Rp, int MP, int UG, int S, int grid, size_t smem,
+                   cudaStream_t stream) {
+  return wg::launch_cluster_cooperative(lstm_infer_wide_kernel<kSaveResiduals>, grid, kThreads,
+                                        smem, kCluster, stream, tm_h, tm_xw, mask, wh, h0, c0, hs,
+                                        cs, gates, hT, cT, ring, T_, rows, H, Hp, Rp, MP, UG, S);
+}
+
+}  // namespace wide
+
 }  // namespace
 
 extern "C" {
@@ -388,6 +704,47 @@ int lstm_infer(const float* xw, const float* mask, const void* wh, const float* 
 #undef LSTM_INFER_CASE
 #undef LSTM_CASE
   return cudaErrorInvalidValue;
+}
+
+// The wide-row path: the same contract with the plan of
+// ops/lstm_cuda.py::WidePlan (row_groups x rows_per_group rows, units per
+// block, k_slices, cluster, warpgroups, stages, smem_bytes), refused with
+// cudaErrorInvalidValue when it is not the one this kernel was built for.
+// ring is the bf16 h ring [2, row_groups * rows_per_group, Hp], Hp = H
+// rounded up to 64, zeros on entry; H must be even.
+int lstm_infer_wide(const float* xw, const float* mask, const void* wh, const float* h0,
+                    const float* c0, float* hs, float* cs, float* gates, float* hT, float* cT,
+                    void* ring, int T, int rows, int H, int save_residuals, int row_groups,
+                    int rows_per_group, int units, int k_slices, int cluster, int warpgroups,
+                    int stages, int smem_bytes, void* stream) {
+  const int MP = rows_per_group, S = stages;
+  const int Hp = cdiv(H, lstm_wgmma::kSlab) * lstm_wgmma::kSlab;
+  const int UG = cdiv(cdiv(H, wide::kUnits), wide::kCluster) * wide::kCluster;
+  if (T < 1 || rows < 1 || H < 2 || H % 2 || MP < 1 || MP % lstm_wgmma::kTileRows
+      || row_groups != cdiv(rows, MP) || units != wide::kUnits || k_slices != 1
+      || cluster != wide::kCluster || warpgroups != wide::kWarpgroups || S < 2
+      || S > wide::kStages || smem_bytes < 0
+      || (size_t)smem_bytes != wide::smem_bytes(Hp, S) || (save_residuals && (!cs || !gates)))
+    return cudaErrorInvalidValue;
+  const int Rp = row_groups * MP;
+  CUtensorMap tm_h, tm_xw;
+  cudaError_t err = lstm_wgmma::encode_2d(
+      &tm_h, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ring, Hp, 2 * (uint64_t)Rp, 2 * (uint64_t)Hp,
+      lstm_wgmma::kSlab, wide::kHalfRows, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  err = lstm_wgmma::encode_2d(&tm_xw, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, xw, 4 * (uint64_t)H,
+                              (uint64_t)T * rows, 16 * (uint64_t)H, wide::kUnits,
+                              lstm_wgmma::kTileRows, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* w = static_cast<const __nv_bfloat16*>(wh);
+  auto* r = static_cast<__nv_bfloat16*>(ring);
+  const int grid = row_groups * UG;
+  if (save_residuals)
+    return wide::launch<true>(tm_h, tm_xw, mask, w, h0, c0, hs, cs, gates, hT, cT, r, T, rows, H,
+                              Hp, Rp, MP, UG, S, grid, smem_bytes, s);
+  return wide::launch<false>(tm_h, tm_xw, mask, w, h0, c0, hs, cs, gates, hT, cT, r, T, rows, H,
+                             Hp, Rp, MP, UG, S, grid, smem_bytes, s);
 }
 
 const char* kernel_error_string(int err) {

@@ -1,6 +1,7 @@
 // Tensor-core and asynchronous-copy building blocks shared by the bf16 LSTM
-// kernels (lstm_infer.cu, the bf16 path of lstm_bwd.cu), and the two
-// operand layouts they use.
+// kernels' 32-row path (lstm_infer.cu, the bf16 path of lstm_bwd.cu, below
+// ops/lstm_cuda.py::WIDE_MIN_ROWS rows; the wide-row path is built from
+// lstm_wgmma.cuh), and the two operand layouts they use.
 //
 // Product tiles are mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32
 // (one warp: a 16x16 bf16 A tile times a 16x8 bf16 B tile into 16x8 f32).

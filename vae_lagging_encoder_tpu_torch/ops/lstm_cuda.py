@@ -11,9 +11,14 @@ plain versions + the autograd Function.
   sweep); it launches ``csrc/lstm_bwd.cu`` (tensor cores with bf16 ``wh``,
   CUDA cores with f32).
 - ``infer_plan`` / ``bwd_plan`` compute the launch plans of the two
-  tensor-core kernels (blocks, units per block, warps, m-tiles per pass,
-  pipeline stages, shared memory), which the kernels check;
-  ``plan_owners`` lists which (block, warp) owns each (row, unit) pair.
+  tensor-core kernels, which the kernels check: below ``WIDE_MIN_ROWS`` an
+  ``MMAPlan`` (``mma_infer_plan`` / ``mma_bwd_plan``: ``mma.sync``; blocks,
+  units per block, warps, m-tiles per pass, pipeline stages, shared
+  memory), from there a ``WidePlan`` (``wide_plan``)
+  (``wgmma`` with TMA in clusters of two blocks; row groups, units per
+  block, K slices, cluster, warpgroups, stages, shared memory, and the
+  operand bytes a step per SM and from L2); ``plan_owners`` lists which
+  (block, warp) owns each (row, unit) pair.
 - ``LSTMSeqFn`` is the counterpart of ``lstm_seq_fused`` with its
   ``_fused_fwd``/``_fused_bwd``: the residual-saving forward, then the
   backward sweep and dWh = h_prev^T da as one matrix product.
@@ -61,11 +66,32 @@ BWD_VARIANTS = tuple((nt, mg) for nt in (1, 2) for mg in (1, 2, 3, 4))
 # name them
 INFER_PLAN_ARGS = ("n_sub", "warps", "k_split", "m_group", "k_chunk", "stages", "smem_bytes")
 BWD_PLAN_ARGS = ("n_sub", "warps", "m_group", "k_chunk", "stages", "smem_bytes")
+# The wide-row kernels (csrc/lstm_wgmma.cuh; lstm_infer.cu's and
+# lstm_bwd.cu's namespace wide): kStages, warpgroups, units per block, and
+# the cluster of two blocks: the forward's share h tiles by TMA multicast,
+# the backward's split K and sum their partial dh tiles through distributed
+# shared memory.
+WIDE_STAGES = 4
+WIDE_WARPGROUPS = 2
+WIDE_UNITS = {"infer": 16, "bwd": 32}
+WIDE_CLUSTER = 2
+WIDE_TILE_ROWS = 64     # rows of a wgmma m-tile
+# From this many rows the wide plan (measured faster on the H100 from there,
+# lstm_ablation.py's sweep; PERF.md) and below it the mma.sync plan: the
+# forward without residuals, the residual-saving forward, the backward.
+WIDE_MIN_ROWS = {"infer": 128, "resid": 128, "bwd": 96}
+WIDE_PLAN_ARGS = ("row_groups", "rows_per_group", "units", "k_slices", "cluster",
+                  "warpgroups", "stages", "smem_bytes")
 # lstm_infer: pointers, (T, rows, H, save_residuals), the plan, the stream;
-# lstm_bwd_bf16: pointers, (T, rows, H), the plan, the stream
+# lstm_bwd_bf16: pointers, (T, rows, H), the plan, the stream; the same for
+# lstm_infer_wide and lstm_bwd_wide
 INFER_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * (4 + len(INFER_PLAN_ARGS))
                   + [ctypes.c_void_p])
 BWD_BF16_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * (3 + len(BWD_PLAN_ARGS))
+                     + [ctypes.c_void_p])
+INFER_WIDE_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * (4 + len(WIDE_PLAN_ARGS))
+                       + [ctypes.c_void_p])
+BWD_WIDE_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * (3 + len(WIDE_PLAN_ARGS))
                      + [ctypes.c_void_p])
 
 
@@ -134,9 +160,139 @@ class MMAPlan:
         """bf16 elements of the two-slot operand ring in mma fragment order."""
         return 2 * self.m_tiles * self.k_steps * 256
 
+    @property
+    def sm_bytes_per_step(self) -> int:
+        """Bytes of the product's bf16 operand (h_{t-1} or da_t) one block
+        takes into its SM a step: every block reads all rows and all of K."""
+        return self.m_tiles * 16 * self.k_steps * 16 * 2
+
+    @property
+    def l2_bytes_per_step(self) -> int:
+        """Bytes of that operand read from L2 a step over the grid."""
+        return self.blocks * self.sm_bytes_per_step
+
     def args(self) -> Tuple[int, ...]:
         names = INFER_PLAN_ARGS if self.kind == "infer" else BWD_PLAN_ARGS
         return tuple(getattr(self, n) for n in names)
+
+
+@dataclass(frozen=True)
+class WidePlan:
+    """Launch plan of a wide-row kernel (``lstm_infer_wide``,
+    ``lstm_bwd_wide``): the rows split into ``row_groups`` groups of
+    ``rows_per_group`` (a multiple of 64), the units into groups of
+    ``units``, K into ``k_slices``; clusters of ``cluster`` blocks;
+    ``warpgroups`` warpgroups a block, each taking every other 64-row m-tile
+    of its group through a TMA ring ``stages`` deep.
+
+    Forward ("infer"): block rg * UG + ug takes rows of group rg x units
+    [16 ug, 16 ug + 16) (N = 64 gate columns) over all of K = H; the two
+    blocks of a cluster (ug even and odd) share each h tile, each loading
+    half its rows for both (TMA multicast). Backward ("bwd"): block
+    2 (rg UG + ug) + kc takes rows of group rg x units [32 ug, 32 ug + 32)
+    (N = 32) over K half kc of 4H; the two K halves of a cluster swap their
+    partial dh tiles through distributed shared memory, and block kc owns
+    units [32 ug + 16 kc, + 16)."""
+    kind: str
+    rows: int
+    H: int
+    row_groups: int
+    rows_per_group: int
+    units: int
+    k_slices: int
+    cluster: int = WIDE_CLUSTER
+    warpgroups: int = WIDE_WARPGROUPS
+    stages: int = WIDE_STAGES
+
+    @property
+    def k_pad(self) -> int:
+        """K padded: the forward's H to 64, the backward's 4H to 128 (two
+        halves of 64-wide slabs)."""
+        return _cdiv(self.H, 64) * 64 if self.kind == "infer" else _cdiv(4 * self.H, 128) * 128
+
+    @property
+    def unit_groups(self) -> int:
+        ug = _cdiv(self.H, self.units)
+        return _cdiv(ug, self.cluster) * self.cluster if self.kind == "infer" else ug
+
+    @property
+    def blocks(self) -> int:
+        return self.row_groups * self.unit_groups * self.k_slices
+
+    @property
+    def warps(self) -> int:
+        """Consumer warpgroups, a producer warp for each, and (the
+        backward) an epilogue warpgroup."""
+        return 5 * self.warpgroups + (4 if self.kind == "bwd" else 0)
+
+    @property
+    def m_tiles(self) -> int:
+        """64-row m-tiles of a (full) row group."""
+        return self.rows_per_group // WIDE_TILE_ROWS
+
+    @property
+    def multicast(self) -> int:
+        """Blocks each A tile lands in (the forward's cluster; 1 in the backward)."""
+        return self.cluster // self.k_slices
+
+    @property
+    def smem_bytes(self) -> int:
+        """The kernels' layout: 1024 bytes of alignment slack, wh's B slabs,
+        the warpgroups' A rings, then the forward's xw tiles or the
+        backward's partial halves received (and the sums handed to its
+        epilogue warpgroup), then the mbarriers."""
+        ring = self.warpgroups * self.stages * WIDE_TILE_ROWS * 128
+        if self.kind == "infer":
+            return (1024 + self.k_pad // 64 * 4 * self.units * 128 + ring
+                    + self.warpgroups * 4 * WIDE_TILE_ROWS * self.units * 4
+                    + 8 * self.warpgroups * (2 * self.stages + 1))
+        return (1024 + self.k_pad // self.k_slices // 64 * self.units * 128 + ring
+                + self.m_tiles * 128 * 8 * 4
+                + 8 * (2 * self.warpgroups * self.stages + 2 * self.m_tiles))
+
+    @property
+    def ring_rows(self) -> int:
+        return self.row_groups * self.rows_per_group
+
+    @property
+    def ring_elems(self) -> int:
+        """bf16 elements of the two-slot row-major operand ring [2, ring_rows, k_pad]."""
+        return 2 * self.ring_rows * self.k_pad
+
+    @property
+    def sm_bytes_per_step(self) -> int:
+        """Bytes of the product's bf16 operand one block takes into its SM a
+        step: its rows x its K slice."""
+        return self.rows_per_group * (self.k_pad // self.k_slices) * 2
+
+    @property
+    def l2_bytes_per_step(self) -> int:
+        """Bytes of that operand read from L2 a step over the grid (a
+        multicast tile is read once for its cluster)."""
+        return self.blocks * self.sm_bytes_per_step // self.multicast
+
+    def args(self) -> Tuple[int, ...]:
+        return tuple(getattr(self, n) for n in WIDE_PLAN_ARGS)
+
+
+def wide_plan(kind: str, rows: int, H: int, nsm: int) -> Optional[WidePlan]:
+    """The wide-row plan of ``kind`` ("infer" or "bwd"): as many row groups
+    as the SMs hold beside the unit groups (and K slices), each a multiple of
+    64 rows, then the deepest ring that fits shared memory; None where none
+    fits (odd H, or wh's slice beyond shared memory)."""
+    if H % 2:
+        return None
+    units, k_slices = WIDE_UNITS[kind], (1 if kind == "infer" else WIDE_CLUSTER)
+    probe = WidePlan(kind, rows, H, 1, WIDE_TILE_ROWS, units, k_slices)
+    rg = min(nsm // (probe.unit_groups * k_slices), _cdiv(rows, WIDE_TILE_ROWS))
+    if rg < 1:
+        return None
+    mp = _cdiv(_cdiv(rows, rg), WIDE_TILE_ROWS) * WIDE_TILE_ROWS
+    for stages in range(WIDE_STAGES, 1, -1):
+        plan = WidePlan(kind, rows, H, _cdiv(rows, mp), mp, units, k_slices, stages=stages)
+        if plan.smem_bytes <= SMEM_MAX:
+            return plan
+    return None
 
 
 def _n_sub(H: int, nsm: int) -> int:
@@ -147,8 +303,18 @@ def _n_sub(H: int, nsm: int) -> int:
     return nt
 
 
-def infer_plan(rows: int, H: int, nsm: int, save_residuals: bool = False) -> MMAPlan:
-    """The forward's plan: every block takes all rows. Up to 16 m-tile
+def infer_plan(rows: int, H: int, nsm: int, save_residuals: bool = False):
+    """The forward's plan: from ``WIDE_MIN_ROWS`` rows the ``WidePlan``
+    where one fits, else ``mma_infer_plan``'s."""
+    if rows >= WIDE_MIN_ROWS["resid" if save_residuals else "infer"]:
+        plan = wide_plan("infer", rows, H, nsm)
+        if plan is not None:
+            return plan
+    return mma_infer_plan(rows, H, nsm, save_residuals)
+
+
+def mma_infer_plan(rows: int, H: int, nsm: int, save_residuals: bool = False) -> MMAPlan:
+    """The forward's mma.sync plan: every block takes all rows. Up to 16 m-tile
     columns, each warp owning every WM-th m-tile; when there are fewer than
     16 m-tiles, the spare warps split K instead. The most m-tiles a pass
     that the kernel was built for (``INFER_VARIANTS``, or
@@ -168,9 +334,20 @@ def infer_plan(rows: int, H: int, nsm: int, save_residuals: bool = False) -> MMA
                      "(H too large for one block's shared memory)")
 
 
-def bwd_plan(B: int, H: int, nsm: int) -> MMAPlan:
-    """The backward's plan: all rows in every block, warps split the 4H reduction (up to 16), the largest m-tile pass (<= 4) and
-    then the deepest pipeline stage (k_chunk <= 4 / m_group) that fit."""
+def bwd_plan(B: int, H: int, nsm: int):
+    """The backward's plan: from ``WIDE_MIN_ROWS`` rows the ``WidePlan``
+    where one fits, else ``mma_bwd_plan``'s."""
+    if B >= WIDE_MIN_ROWS["bwd"]:
+        plan = wide_plan("bwd", B, H, nsm)
+        if plan is not None:
+            return plan
+    return mma_bwd_plan(B, H, nsm)
+
+
+def mma_bwd_plan(B: int, H: int, nsm: int) -> MMAPlan:
+    """The backward's mma.sync plan: all rows in every block, warps split
+    the 4H reduction (up to 16), the largest m-tile pass (<= 4) and then the
+    deepest pipeline stage (k_chunk <= 4 / m_group) that fit."""
     nt = _n_sub(H, nsm)
     W = min(MAX_WARPS, _cdiv(4 * H, 16))
     for mg in range(min(4, _cdiv(B, 16)), 0, -1):
@@ -182,12 +359,12 @@ def bwd_plan(B: int, H: int, nsm: int) -> MMAPlan:
                      "(H too large for one block's shared memory)")
 
 
-def plan_owners(plan: MMAPlan) -> np.ndarray:
+def plan_owners(plan) -> np.ndarray:
     """[rows * H, 3] int array: for each (row, unit) pair of the plan's
     problem (row-major), the (block, warp, count) that the kernel assigns
     it, where count is how many (block, warp) own it (1 when the plan is a
     partition). Mirrors the kernels' index arithmetic."""
-    rows, H, J = plan.rows, plan.H, plan.units_per_block
+    rows, H = plan.rows, plan.H
     owner = np.full((rows, H, 2), -1, np.int64)
     count = np.zeros((rows, H), np.int64)
 
@@ -197,6 +374,26 @@ def plan_owners(plan: MMAPlan) -> np.ndarray:
         np.add.at(count, (r, u), 1)
         owner[r, u, 0], owner[r, u, 1] = b, (w[ok] if np.ndim(w) else w)
 
+    if isinstance(plan, WidePlan):
+        # block (rg, ug[, kc]); the forward's pair: warp (row % 64) / 16 of the
+        # consumer warpgroup mt % 2 of its m-tile mt; the backward's: that warp
+        # of the epilogue warpgroup (after the consumer and producer warps)
+        owned = plan.units // plan.k_slices
+        for rg in range(plan.row_groups):
+            r = np.arange(rg * plan.rows_per_group, (rg + 1) * plan.rows_per_group)
+            mt = (r % plan.rows_per_group) // WIDE_TILE_ROWS
+            first = (mt % plan.warpgroups) * 4 if plan.kind == "infer" else 5 * plan.warpgroups
+            warp = first + (r % WIDE_TILE_ROWS) // 16
+            for ug in range(plan.unit_groups):
+                for kc in range(plan.k_slices):
+                    b = (rg * plan.unit_groups + ug) * plan.k_slices + kc
+                    first_unit = ug * plan.units + kc * owned
+                    units = np.arange(first_unit, first_unit + owned)
+                    rr, uu = np.meshgrid(r, units, indexing="ij")
+                    ww = np.broadcast_to(warp[:, None], rr.shape)
+                    own(rr.ravel(), uu.ravel(), b, ww.ravel())
+        return np.concatenate([owner.reshape(-1, 2), count.reshape(-1, 1)], axis=1)
+    J = plan.units_per_block
     if plan.kind == "infer":
         for b in range(plan.blocks):
             units = np.arange(b * J, b * J + J)
@@ -360,10 +557,10 @@ def lstm_seq(xw: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
 
 
 def lstm_infer(xw: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor, h0: torch.Tensor,
-               c0: torch.Tensor, plan: MMAPlan,
-               save_residuals: bool = False) -> Tuple[torch.Tensor, ...]:
+               c0: torch.Tensor, plan, save_residuals: bool = False) -> Tuple[torch.Tensor, ...]:
     """The bf16 forward on ``csrc/lstm_infer.cu`` with ``plan``
-    (``infer_plan``): ``(hs, hT, cT)``, or with ``save_residuals``
+    (``infer_plan``: an ``MMAPlan`` launches ``lstm_infer``, a ``WidePlan``
+    ``lstm_infer_wide``): ``(hs, hT, cT)``, or with ``save_residuals``
     ``(hs, cs, gates, hT, cT)``. Takes contiguous CUDA tensors that passed
     ``lstm_seq``'s checks; ``lstm_seq`` calls it."""
     T, B, H4 = xw.shape
@@ -376,15 +573,17 @@ def lstm_infer(xw: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor, h0: torch
     cs = torch.empty((T, B, H), device=xw.device) if save_residuals else None
     gates = torch.empty((T, B, H4), device=xw.device) if save_residuals else None
     ring = torch.zeros(plan.ring_elems, device=xw.device, dtype=torch.bfloat16)
-    lib = _lib("lstm_infer", INFER_ARGTYPES)
+    fn = "lstm_infer_wide" if isinstance(plan, WidePlan) else "lstm_infer"
+    lib = _lib(fn, INFER_WIDE_ARGTYPES if isinstance(plan, WidePlan) else INFER_ARGTYPES,
+               source="lstm_infer")
     with torch.cuda.device(xw.device):
-        err = lib.lstm_infer(
+        err = getattr(lib, fn)(
             xw.data_ptr(), mask.data_ptr(), wh.data_ptr(), h0.data_ptr(), c0.data_ptr(),
             hs.data_ptr(), cs.data_ptr() if save_residuals else None,
             gates.data_ptr() if save_residuals else None, hT.data_ptr(), cT.data_ptr(),
             ring.data_ptr(), T, B, H, int(save_residuals), *plan.args(),
             torch.cuda.current_stream(xw.device).cuda_stream)
-    build.check(lib, err, "lstm_infer")
+    build.check(lib, err, fn)
     build.LAUNCHES["lstm_fwd_residuals" if save_residuals else "lstm_fwd_infer"] += 1
     if save_residuals:
         return hs, cs, gates, hT, cT
@@ -393,9 +592,11 @@ def lstm_infer(xw: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor, h0: torch
 
 def lstm_bwd(gates: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
              c_prev: torch.Tensor, dhs: torch.Tensor, dhT: torch.Tensor,
-             dcT: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+             dcT: torch.Tensor, plan=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Same contract as ``lstm_bwd_plain``; launches the CUDA kernel for
-    CUDA tensors."""
+    CUDA tensors, with bf16 ``wh`` under ``plan`` (default ``bwd_plan``'s:
+    an ``MMAPlan`` launches ``lstm_bwd_bf16``, a ``WidePlan``
+    ``lstm_bwd_wide``)."""
     if gates.device.type == "cpu":
         return lstm_bwd_plain(gates, mask, wh, c_prev, dhs, dhT, dcT)
     if gates.device.type != "cuda":
@@ -417,12 +618,16 @@ def lstm_bwd(gates: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
             dhs.data_ptr(), dhT.data_ptr(), dcT.data_ptr(), da.data_ptr())
     stream = torch.cuda.current_stream(gates.device).cuda_stream
     if wh.dtype == torch.bfloat16:
-        plan = bwd_plan(B, H, _num_sms(gates.device))
+        plan = plan or bwd_plan(B, H, _num_sms(gates.device))
+        if (plan.kind, plan.rows, plan.H) != ("bwd", B, H):
+            raise ValueError(f"lstm_bwd: plan {plan} does not fit B {B}, H {H}")
         ring = torch.zeros(plan.ring_elems, device=gates.device, dtype=torch.bfloat16)
-        lib = _lib("lstm_bwd_bf16", BWD_BF16_ARGTYPES, source="lstm_bwd")
+        wide = isinstance(plan, WidePlan)
+        fn = "lstm_bwd_wide" if wide else "lstm_bwd_bf16"
+        lib = _lib(fn, BWD_WIDE_ARGTYPES if wide else BWD_BF16_ARGTYPES, source="lstm_bwd")
         with torch.cuda.device(gates.device):
-            err = lib.lstm_bwd_bf16(*ptrs, ring.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-                                    T, B, H, *plan.args(), stream)
+            err = getattr(lib, fn)(*ptrs, ring.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
+                                   T, B, H, *plan.args(), stream)
     else:
         da_r = torch.empty((2, B, H4), device=gates.device)
         lib = _lib("lstm_bwd_f32", _BWD_F32_ARGTYPES, source="lstm_bwd")

@@ -39,6 +39,9 @@ DEVICE_CATS = {"kernel": "kernel", "gpu_memcpy": "memcpy", "gpu_memset": "memset
                "memcpy": "memcpy", "memset": "memset"}
 # the port's kernels: symbol pattern -> the wrapper's name (ops/build.py::LAUNCHES)
 PORT_KERNELS = (
+    (re.compile(r"lstm_infer_wide_kernel<true>"), "lstm_fwd_residuals"),
+    (re.compile(r"lstm_infer_wide_kernel<false>"), "lstm_fwd_infer"),
+    (re.compile(r"lstm_bwd_wide_kernel"), "lstm_bwd"),
     (re.compile(r"lstm_infer_kernel<.*true>"), "lstm_fwd_residuals"),
     (re.compile(r"lstm_infer_kernel<.*false>"), "lstm_fwd_infer"),
     (re.compile(r"lstm_fwd_kernel"), "lstm_fwd_f32"),
