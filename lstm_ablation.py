@@ -6,8 +6,8 @@ sweep that sets ``ops/lstm_cuda.py::WIDE_MIN_ROWS``, timed on the card.
 
 Builds copies of ``csrc/lstm_infer.cu`` and ``csrc/lstm_bwd.cu`` with one
 part of the per-step work removed and times each beside the intact kernel
-through the port's own wrappers (``ops/lstm_cuda.py::lstm_infer`` and
-``lstm_bwd``), with the variant's library in place of the built one. The
+through the port's own launchers under a given plan
+(``ops/lstm_cuda.py::lstm_infer`` and ``lstm_bwd_bf16``), with the variant's library in place of the built one. The
 wide-row kernels (``namespace wide``, from ``WIDE_MIN_ROWS`` rows): the
 wgmma products, the TMA loads of the operand ring, the cell epilogue, and
 the backward's exchange of partial tiles between the two blocks of a
@@ -70,7 +70,7 @@ ABLATIONS = {
         "no_tma": _NO_TMA,
         "no_exchange": [("wg::st_cluster(remote, ", "if (0) wg::st_cluster(remote, "),
                         ("wg::st_cluster(remote + 16, ", "if (0) wg::st_cluster(remote + 16, "),
-                        ("wg::mbar_wait_cluster(recv_bar(mt), phase);", "")],
+                        ("wg::mbar_wait_cluster(recv_bar(j), use & 1);", "")],
         "no_epilogue": [("cell(t - 1, mt, in, dsum);", "if (t < 0) cell(t - 1, mt, in, dsum);")],
     },
     "lstm_infer": {
@@ -148,9 +148,9 @@ PHASES = {
          ("    }\n    seq += n_loads;\n  }\n",
           "    }\n    PROF(6, clock64() - _s0);\n    seq += n_loads;\n  }\n"),
          ("grid.sync();  // da_t (ring slot t % 2) is complete in every block\n"
-          "    const uint32_t phase",
+          "    if (producer) {",
           "{ long long _a = clock64(); grid.sync(); PROF(5, clock64() - _a); }\n"
-          "    const uint32_t phase"),
+          "    if (producer) {"),
          _timed("wg::mbar_wait(full_bar(w, s), (g / S) & 1);", 0),
          _timed("wg::wgmma_wait<1>();", 1),
          _timed("if (lt == 0 && ks > 0) wg::mbar_arrive(empty_bar(w, (seq + i - 1) % S));", 2),
@@ -158,8 +158,8 @@ PHASES = {
           "        long long _k0 = clock64();\n        for (int ks = 0; ks < KS; ++ks, ++i) {"),
          ("        wg::wgmma_wait<0>();\n",
           "        PROF(3, clock64() - _k0);\n        wg::wgmma_wait<0>();\n"),
-         _timed("wg::mbar_wait_cluster(recv_bar(mt), phase);", 4),
-         _timed("wg::mbar_wait(epi_bar(mt), phase);", 7)]),
+         _timed("wg::mbar_wait_cluster(recv_bar(j), use & 1);", 4),
+         _timed("wg::mbar_wait(epi_bar(j), slot_use(t, mt) & 1);", 7)]),
 }
 
 
@@ -301,7 +301,7 @@ def sweep(nsm: int, dev):
                 if kind == "bwd":
                     plan = (lstm_cuda.wide_plan("bwd", rows, H, nsm) if wide
                             else lstm_cuda.mma_bwd_plan(rows, H, nsm))
-                    fns[wide] = lambda plan=plan: lstm_cuda.lstm_bwd(*args, plan=plan)
+                    fns[wide] = lambda plan=plan: lstm_cuda.lstm_bwd_bf16(*args, plan)
                 else:
                     res = kind == "resid"
                     plan = (lstm_cuda.wide_plan("infer", rows, H, nsm) if wide
@@ -329,7 +329,7 @@ def phases(nsm: int, dev, rows: int = 640):
         else:
             args = bwd_args(rows, 8, dev)
             plan = lstm_cuda.wide_plan("bwd", rows, H, nsm)
-            fn = lambda: lstm_cuda.lstm_bwd(*args, plan=plan)
+            fn = lambda: lstm_cuda.lstm_bwd_bf16(*args, plan)
         ms = time_with(name, libs[name], fn)  # the last launch's timers stay
         h = (ctypes.c_longlong * (132 * 4 * 8))()
         libs[name].prof_read(h)
@@ -370,8 +370,8 @@ def main() -> int:
             for ck in (1, 2, 4):
                 alt = dataclasses.replace(plan, k_chunk=ck)
                 if ck != plan.k_chunk and alt.smem_bytes <= lstm_cuda.SMEM_MAX:
-                    alts[f"k_chunk_{ck}"] = lambda alt=alt: lstm_cuda.lstm_bwd(*args, plan=alt)
-        ms = run("lstm_bwd", libs[group], lambda: lstm_cuda.lstm_bwd(*args, plan=plan), alts)
+                    alts[f"k_chunk_{ck}"] = lambda alt=alt: lstm_cuda.lstm_bwd_bf16(*args, alt)
+        ms = run("lstm_bwd", libs[group], lambda: lstm_cuda.lstm_bwd_bf16(*args, plan), alts)
         print(json.dumps({"kernel": "lstm_bwd", "rows": rows, "plan": repr(plan), "ms": ms}),
               flush=True)
     sweep(nsm, dev)

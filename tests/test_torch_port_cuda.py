@@ -386,21 +386,33 @@ def _length_mask(T, rows, seed):
     return torch.from_numpy((np.arange(T)[:, None] < lens[None, :]).astype(np.float32))
 
 
+def _mask(kind, T, rows, g, seed):
+    """``holes``: each step masked with probability 0.2, so a masked step
+    may come before an unmasked one (the carries kept across it, the
+    backward's (1 - m) dh term then read by a product); ``lengths``:
+    ``_length_mask``."""
+    if kind == "holes":
+        return (torch.rand(T, rows, generator=g) > 0.2).float()
+    return _length_mask(T, rows, seed)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("mask_kind", ["holes", "lengths"])
 @pytest.mark.parametrize("rows", [640, 600])
 @pytest.mark.parametrize("save_residuals", [False, True])
 @pytest.mark.parametrize("wh_dtype", [torch.float32, torch.bfloat16])
-def test_lstm_kernels_at_640_rows_on_cuda(wh_dtype, save_residuals, rows):
+def test_lstm_kernels_at_640_rows_on_cuda(wh_dtype, save_residuals, rows, mask_kind):
     """Both forwards and the backward sweep at 640 rows (and a ragged 600:
-    a short second row group), H 1024, with masks ending at different steps
-    (T 12 here; the tolerances of the tests above at H 200-256). With bf16
-    wh these are the wide-row kernels."""
+    a short second row group), H 1024, with random holes in the masks and
+    with masks ending at different steps (T 12 here; the tolerances of the
+    tests above at H 200-256). With bf16 wh these are the wide-row
+    kernels."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     g = torch.Generator().manual_seed(21 + rows)
     T, B, H = 12, rows, 1024
     xw = torch.randn(T, B, 4 * H, generator=g).cuda()
-    mask = _length_mask(T, B, rows).cuda()
+    mask = _mask(mask_kind, T, B, g, rows).cuda()
     wh = (torch.rand(H, 4 * H, generator=g) * 2 - 1).div(H ** 0.5).to(wh_dtype).cuda()
     h0, c0 = ((0.1 * torch.randn(B, H, generator=g)).cuda() for _ in range(2))
     key = "lstm_fwd_residuals" if save_residuals else "lstm_fwd_infer"
@@ -426,6 +438,36 @@ def test_lstm_kernels_at_640_rows_on_cuda(wh_dtype, save_residuals, rows):
     tol = 1e-5 if wh_dtype == torch.float32 else 1e-3
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b, atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask_kind", ["holes", "lengths"])
+def test_lstm_bwd_at_2112_rows_on_cuda(mask_kind):
+    """The wide backward at 2112 rows, H 1024: more m-tiles a row group (17
+    on 132 SMs, 33 on 114) than receive slots (8), so a slot is written
+    again within a step once the other block's epilogue has read it;
+    against the plain version with the backward's bf16 tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    T, B, H = 6, 2112, 1024
+    plan = lstm_cuda.bwd_plan(B, H, torch.cuda.get_device_properties(0).multi_processor_count)
+    assert isinstance(plan, lstm_cuda.WidePlan) and plan.recv_slots < plan.m_tiles
+    g = torch.Generator().manual_seed(41)
+    xw = torch.randn(T, B, 4 * H, generator=g).cuda()
+    mask = _mask(mask_kind, T, B, g, 41).cuda()
+    wh = (torch.rand(H, 4 * H, generator=g) * 2 - 1).div(H ** 0.5).bfloat16().cuda()
+    h0, c0 = ((0.1 * torch.randn(B, H, generator=g)).cuda() for _ in range(2))
+    _, cs, gates, _, _ = lstm_cuda.lstm_seq_plain(xw, mask, wh, h0, c0, True)
+    dhs = (0.1 * torch.randn(T, B, H, generator=g)).cuda()
+    dhT, dcT = ((0.1 * torch.randn(B, H, generator=g)).cuda() for _ in range(2))
+    args = (gates, mask, wh, torch.cat([c0[None], cs[:-1]]), dhs, dhT, dcT)
+    n = build.LAUNCHES["lstm_bwd"]
+    got = lstm_cuda.lstm_bwd(*args)
+    ref = lstm_cuda.lstm_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["lstm_bwd"] == n + 1
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, atol=1e-3, rtol=0)
 
 
 @pytest.mark.cuda

@@ -21,6 +21,7 @@ The wide-row kernels' index arithmetic is also run by a numpy model (the
 swizzled operands, the wgmma accumulator layout, the multicast halves, the
 K halves' exchange) and held against the plain versions.
 """
+import dataclasses
 import re
 
 import numpy as np
@@ -150,8 +151,9 @@ def _wide_source(name):
 
 def test_lstm_wide_constants_match_the_kernels():
     """The constants the plans assume, read back from the wide kernels: the
-    deepest ring, the warpgroups, the units a block, the cluster; the plan
-    arguments in the order the C entry points name them."""
+    deepest ring, the warpgroups, the units a block, the cluster, the
+    backward's receive slot; the plan arguments in the order the C entry
+    points name them."""
     for name, kind in (("lstm_infer.cu", "infer"), ("lstm_bwd.cu", "bwd")):
         src = _wide_source(name)
         assert _int_const(src, "kStages") == lstm_cuda.WIDE_STAGES
@@ -160,8 +162,11 @@ def test_lstm_wide_constants_match_the_kernels():
         assert _int_const(src, "kCluster") == lstm_cuda.WIDE_CLUSTER
         fn = "lstm_infer_wide" if kind == "infer" else "lstm_bwd_wide"
         params = _entry_params(_source(name), fn)
-        names = lstm_cuda.WIDE_PLAN_ARGS
+        names = lstm_cuda.WIDE_PLAN_ARGS if kind == "infer" else lstm_cuda.WIDE_BWD_PLAN_ARGS
         assert params[-len(names) - 1:-1] == list(names) and params[-1] == "stream"
+    recv = re.search(r"constexpr int kRecvBytes = (\d+) \* (\d+) \* (\d+);",
+                     _wide_source("lstm_bwd.cu")).groups()
+    assert np.prod([int(v) for v in recv]) == lstm_cuda.WIDE_RECV_BYTES
     assert _int_const(_source("lstm_wgmma.cuh"), "kTileRows") == lstm_cuda.WIDE_TILE_ROWS
 
 
@@ -186,7 +191,10 @@ def test_lstm_wide_plan(kind, nsm, rows):
     assert plan.smem_bytes <= lstm_cuda.SMEM_MAX and 2 <= plan.stages <= lstm_cuda.WIDE_STAGES
     assert plan.rows_per_group % 64 == 0 and plan.row_groups == -(-rows // plan.rows_per_group)
     assert plan.ring_elems == 2 * plan.row_groups * plan.rows_per_group * plan.k_pad
-    assert len(plan.args()) == len(lstm_cuda.WIDE_PLAN_ARGS)
+    names = lstm_cuda.WIDE_BWD_PLAN_ARGS if kind == "bwd" else lstm_cuda.WIDE_PLAN_ARGS
+    assert len(plan.args()) == len(names)
+    # the backward receives every m-tile of a step in a slot of its own here
+    assert plan.recv_slots == (plan.m_tiles if kind == "bwd" else 0)
     if nsm == NSM:  # two row groups of whole m-tiles
         assert plan.row_groups == 2 and plan.blocks == 128
 
@@ -213,6 +221,132 @@ def test_lstm_plan_bytes_per_step():
     assert isinstance(b32, lstm_cuda.MMAPlan) and isinstance(f32_, lstm_cuda.MMAPlan)
     assert (b32.sm_bytes_per_step, b32.l2_bytes_per_step) == (262144, 33554432)
     assert (f32_.sm_bytes_per_step, f32_.l2_bytes_per_step) == (65536, 8388608)
+
+
+# (rows, SMs, stages, receive slots, m-tiles a row group) of the backward at
+# H 1024 where a slot for every m-tile stops fitting: 132 SMs hold two row
+# groups, 114 one; from 17 m-tiles (from 1088 rows on 114 SMs) the plan
+# keeps the four-deep ring and refills 8 slots
+RECV_SHAPES = [(2048, NSM, 2, 16, 16), (2049, NSM, 4, 8, 17), (2112, NSM, 4, 8, 17),
+               (1024, NSM_PCIE, 2, 16, 16), (1088, NSM_PCIE, 4, 8, 17),
+               (2112, NSM_PCIE, 4, 8, 33)]
+
+
+@pytest.mark.parametrize("rows,nsm,stages,slots,m_tiles", RECV_SHAPES)
+def test_lstm_wide_bwd_plan_receive_slots(rows, nsm, stages, slots, m_tiles):
+    """Above ``WIDE_MIN_ROWS`` every row count has a wide backward plan: a
+    receive slot for each m-tile while that fits shared memory, else fewer
+    slots, refilled within a step, beside the deepest ring."""
+    plan = lstm_cuda.bwd_plan(rows, 1024, nsm)
+    assert isinstance(plan, lstm_cuda.WidePlan)
+    assert (plan.stages, plan.recv_slots, plan.m_tiles) == (stages, slots, m_tiles)
+    assert plan.smem_bytes <= lstm_cuda.SMEM_MAX and plan.blocks <= nsm
+    assert plan.recv_slots >= lstm_cuda.WIDE_WARPGROUPS
+    more = dataclasses.replace(plan, recv_slots=plan.recv_slots + 1)
+    assert plan.recv_slots == plan.m_tiles or more.smem_bytes > lstm_cuda.SMEM_MAX
+    assert np.all(lstm_cuda.plan_owners(plan)[:, 2] == 1)
+
+
+@pytest.mark.parametrize("kind", ["infer", "resid", "bwd"])
+@pytest.mark.parametrize("H,nsm", [(1023, NSM), (2048, NSM), (1024, 32)])
+def test_lstm_wide_plan_raises_where_none_fits(kind, H, nsm):
+    """From ``WIDE_MIN_ROWS`` rows a shape no wide plan fits raises, with no
+    fall back to the mma.sync plan: odd H, wh's slice beyond shared memory,
+    fewer SMs than one row group's blocks (the backward's 64 at H 1024; the
+    forward's 64 fit 32 SMs no better)."""
+    if kind == "bwd":
+        with pytest.raises(ValueError, match="no wide-row plan"):
+            lstm_cuda.bwd_plan(640, H, nsm)
+    else:
+        with pytest.raises(ValueError, match="no wide-row plan"):
+            lstm_cuda.infer_plan(640, H, nsm, save_residuals=kind == "resid")
+
+
+def _slot_use(T, t, mt, mtb, R):
+    """lstm_bwd.cu slot_use: the use of receive slot mt % R by m-tile mt of
+    step t, which is the phase of the slot's barriers that it waits for."""
+    return (T - 1 - t) * (-(-(mtb - mt % R) // R)) + mt // R
+
+
+def _simulate_receive_slots(T, mtb, R, seed):
+    """The wide backward's receive-slot protocol over one cluster, one actor
+    per consumer warpgroup and epilogue warpgroup of each block (a
+    warpgroup's 128 arrivals as one), run in a seeded random order: the
+    mbarriers' phases and parity waits as the PTX ISA defines them
+    (try_wait.parity p passes once the phase of parity p has completed:
+    completed-phase count % 2 != p), and each step's grid barrier. Returns
+    the (step, m-tile) sums each epilogue read, in order; raises on a
+    deadlock or on a slot written before its last use was read."""
+    rng = np.random.RandomState(seed)
+    recycle = R < mtb
+    done = {}  # (barrier, block, slot) -> completed phases (one arrival each)
+    slot = {(b, j): None for b in range(2) for j in range(R)}
+    got = {0: [], 1: []}
+
+    def arrive(bar, b, j):
+        done[bar, b, j] = done.get((bar, b, j), 0) + 1
+
+    def wait(bar, b, j, parity):
+        while done.get((bar, b, j), 0) % 2 == parity:
+            yield
+
+    def consumer(b, w, t):
+        pk = 1 - b
+        for mt in range(w, mtb, 2):
+            j, use = mt % R, _slot_use(T, t, mt, mtb, R)
+            if mt >= R:
+                yield from wait("free", b, j, (use - 1) & 1)
+            assert slot[pk, j] is None, f"slot {j} of block {pk} overwritten before it was read"
+            slot[pk, j] = ("partial", t, mt)
+            arrive("recv", pk, j)
+            yield
+            yield from wait("recv", b, j, use & 1)
+            assert slot[b, j] == ("partial", t, mt), (slot[b, j], t, mt)
+            slot[b, j] = ("sum", t, mt)
+            arrive("epi", b, j)
+            yield
+
+    def epilogue(b, t):
+        for mt in range(mtb):
+            j = mt % R
+            yield from wait("epi", b, j, _slot_use(T, t, mt, mtb, R) & 1)
+            assert slot[b, j] == ("sum", t, mt), (slot[b, j], t, mt)
+            got[b].append((t, mt))
+            slot[b, j] = None
+            if recycle:
+                arrive("free", 1 - b, j)
+            yield
+
+    for t in range(T - 1, -1, -1):  # the grid barrier: every actor ends the step
+        actors = [consumer(b, w, t) for b in range(2) for w in range(2)]
+        actors += [epilogue(b, t) for b in range(2)]
+        stalls = 0
+        while actors:
+            a = actors[rng.randint(len(actors))]
+            before = dict(done), dict(slot)
+            try:
+                next(a)
+            except StopIteration:
+                actors.remove(a)
+                stalls = 0
+                continue
+            stalls = 0 if (dict(done), dict(slot)) != before else stalls + 1
+            if stalls > 200 * len(actors):
+                raise AssertionError(f"deadlock in step {t}")
+    return got
+
+
+@pytest.mark.parametrize("mtb,R", [(5, 5), (16, 16), (17, 8), (33, 8), (3, 2), (9, 4), (7, 2)])
+def test_lstm_wide_bwd_receive_slot_protocol(mtb, R):
+    """Every epilogue reads each (step, m-tile) sum once, in order, and no
+    slot is written again before it was read, in many orders of the actors:
+    with a slot for every m-tile (the barriers' parity is the step's) and
+    with fewer (a slot refilled within a step)."""
+    T = 4
+    want = [(t, mt) for t in range(T - 1, -1, -1) for mt in range(mtb)]
+    for seed in range(12):
+        got = _simulate_receive_slots(T, mtb, R, seed)
+        assert got[0] == want and got[1] == want
 
 
 @pytest.mark.parametrize("kind", ["infer", "bwd"])

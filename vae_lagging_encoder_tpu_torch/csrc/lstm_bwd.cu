@@ -57,7 +57,11 @@
 //   units to the thread with the same index there (distributed shared
 //   memory, an mbarrier with cluster-scope release and acquire), which
 //   owns those pairs and sums (its half) + (the other half): one fixed
-//   order, no atomics, the same bits every run.
+//   order, no atomics, the same bits every run. The halves land in receive
+//   slot mt % R; a slot for every m-tile (R = the m-tiles of a row group)
+//   fits shared memory up to 16 m-tiles, past that R slots are refilled
+//   within a step, each once the other block's epilogue has read it (a
+//   freed mbarrier in the writer's block, arrived from the reader's).
 // - The sums go back into the same shared-memory slot for the epilogue
 //   warpgroup, which runs the cell backward of step t-1 for every m-tile in
 //   order (fused, as before) while the consumers go on to the next m-tile's
@@ -374,13 +378,13 @@ constexpr int kStages = 4;                    // deepest TMA ring of a warpgroup
 constexpr int kUnits = 32;                    // units a block: the product's N
 constexpr int kCluster = 2;                   // the two K halves of one (row group, unit group)
 constexpr int kBSlabBytes = kUnits * 128;     // one 64-k slab of the block's wh rows
-constexpr int kRecvBytes = 128 * 8 * 4;       // an m-tile's partial half: 128 threads x 8 f32
+constexpr int kRecvBytes = 128 * 8 * 4;       // a receive slot: 128 threads x 8 f32
 
-size_t smem_bytes(int Kp, int MP, int S) {
-  const int MT = MP / wg::kTileRows;
+// R receive slots, each with three mbarriers (received, summed, freed)
+size_t smem_bytes(int Kp, int S, int R) {
   return (size_t)wg::kAlign + (size_t)(Kp / kCluster / wg::kSlab) * kBSlabBytes
-         + (size_t)kWarpgroups * S * wg::kTileBytes + (size_t)MT * kRecvBytes
-         + 8 * ((size_t)2 * kWarpgroups * S + 2 * MT);
+         + (size_t)kWarpgroups * S * wg::kTileBytes + (size_t)R * kRecvBytes
+         + 8 * ((size_t)2 * kWarpgroups * S + 3 * R);
 }
 
 __device__ __forceinline__ float pick(float2 v, int e) { return e ? v.y : v.x; }
@@ -394,7 +398,8 @@ struct CellIn {
 
 // Block b = 2 (rg * UG + ug) + kc: rows [rg MP, rg MP + MP) x units
 // [32 ug, 32 ug + 32), k in [kc Kp / 2, kc Kp / 2 + Kp / 2); the cluster is
-// the two K halves, and block kc owns units [32 ug + 16 kc, + 16).
+// the two K halves, and block kc owns units [32 ug + 16 kc, + 16). The
+// other half's partial tile of m-tile mt lands in receive slot mt % R.
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_bwd_wide_kernel(const __grid_constant__ CUtensorMap tm_da,
                      const float* __restrict__ gates, const float* __restrict__ mask,
@@ -403,21 +408,25 @@ lstm_bwd_wide_kernel(const __grid_constant__ CUtensorMap tm_da,
                      const float* __restrict__ dcT, float* __restrict__ da,
                      __nv_bfloat16* __restrict__ ring, float* __restrict__ dh0,
                      float* __restrict__ dc0, int T_, int B, int H, int Kp, int Rp, int MP,
-                     int UG, int S) {
+                     int UG, int S, int R) {
   cg::grid_group grid = cg::this_grid();
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = wg::smem_u32(smem_raw);
   const uint32_t sB = (raw + wg::kAlign - 1) & ~(uint32_t)(wg::kAlign - 1);
   unsigned char* smem = smem_raw + (sB - raw);
-  const int Kh = Kp / kCluster, KS = Kh / wg::kSlab, MT = MP / wg::kTileRows;
+  const int Kh = Kp / kCluster, KS = Kh / wg::kSlab;
   const uint32_t sA = sB + KS * kBSlabBytes;                   // [kWarpgroups][S] tiles
-  const uint32_t sR = sA + kWarpgroups * S * wg::kTileBytes;   // [MT] partial halves received
-  const uint32_t sBar = sR + MT * kRecvBytes;
+  const uint32_t sR = sA + kWarpgroups * S * wg::kTileBytes;   // [R] receive slots
+  const uint32_t sBar = sR + R * kRecvBytes;
   auto full_bar = [&](int w, int s) { return sBar + 8u * (w * S + s); };
   auto empty_bar = [&](int w, int s) { return sBar + 8u * ((kWarpgroups + w) * S + s); };
-  auto recv_bar = [&](int mt) { return sBar + 8u * (2 * kWarpgroups * S + mt); };
-  auto epi_bar = [&](int mt) { return sBar + 8u * (2 * kWarpgroups * S + MT + mt); };
+  // receive slot j: the other half has arrived, the sums are there for the
+  // epilogue, and (arrived from the other block) the other block's slot j
+  // has been read by its epilogue
+  auto recv_bar = [&](int j) { return sBar + 8u * (2 * kWarpgroups * S + j); };
+  auto epi_bar = [&](int j) { return sBar + 8u * (2 * kWarpgroups * S + R + j); };
+  auto free_bar = [&](int j) { return sBar + 8u * (2 * kWarpgroups * S + 2 * R + j); };
 
   const int kc = (int)cluster.block_rank(), pk = 1 - kc;
   const int pair = blockIdx.x / kCluster, rg = pair / UG, ug = pair % UG;
@@ -435,6 +444,15 @@ lstm_bwd_wide_kernel(const __grid_constant__ CUtensorMap tm_da,
   const size_t H4 = 4 * (size_t)H;
   const int n_mt = MTb > w ? cdiv(MTb - w, kWarpgroups) : 0;  // warpgroup w's m-tiles
   const int n_loads = n_mt * KS;                                // its A tiles a step
+  // fewer receive slots than m-tiles: a slot is written again within a step,
+  // once the other block's epilogue has read it (its freed barrier here)
+  const bool recycle = R < MTb;
+  // m-tile mt of step t is the (n U_j + mt / R)-th use of slot j = mt % R,
+  // n = T-1-t, U_j = the slot's uses a step: each of its barriers completes
+  // once a use, so this is the phase the use waits for
+  auto slot_use = [&](int t, int mt) {
+    return (uint32_t)((T_ - 1 - t) * cdiv(MTb - mt % R, R) + mt / R);
+  };
 
   // wh's rows of this block's units, this block's K half, as the K-major B
   // operand, zero-padded: B[n][k] = wh[u0 + n, kbase + k]; consecutive
@@ -464,9 +482,10 @@ lstm_bwd_wide_kernel(const __grid_constant__ CUtensorMap tm_da,
         wg::mbar_init(full_bar(w, s), 1);
         wg::mbar_init(empty_bar(w, s), 1);
       }
-    for (int mt = 0; mt < MT; ++mt) {
-      wg::mbar_init(recv_bar(mt), 128);
-      wg::mbar_init(epi_bar(mt), 128);
+    for (int j = 0; j < R; ++j) {
+      wg::mbar_init(recv_bar(j), 128);
+      wg::mbar_init(epi_bar(j), 128);
+      wg::mbar_init(free_bar(j), 128);
     }
     wg::fence_mbar_init();
   }
@@ -583,7 +602,6 @@ lstm_bwd_wide_kernel(const __grid_constant__ CUtensorMap tm_da,
   for (int t = T_ - 1; t >= 0; --t) {
     if (epilogue && t > 0) prefetch_cell(t - 1);
     grid.sync();  // da_t (ring slot t % 2) is complete in every block
-    const uint32_t phase = (T_ - 1 - t) & 1;  // of the step's receive and epilogue barriers
     if (producer) {
       // warpgroup w's A tiles of this step in order: m-tile w + (i / KS)
       // kWarpgroups, k slab i % KS of this block's K half, each once its
@@ -607,10 +625,12 @@ lstm_bwd_wide_kernel(const __grid_constant__ CUtensorMap tm_da,
       for (int mt = 0; mt < MTb; ++mt) {
         CellIn in;
         load_in(t - 1, mt, false, in);
-        wg::mbar_wait(epi_bar(mt), phase);
-        const float4* got = reinterpret_cast<const float4*>(smem + (sR - sB) + mt * kRecvBytes
+        const int j = mt % R;
+        wg::mbar_wait(epi_bar(j), slot_use(t, mt) & 1);
+        const float4* got = reinterpret_cast<const float4*>(smem + (sR - sB) + j * kRecvBytes
                                                             + lt * 32);
         const float4 r0 = got[0], r1 = got[1];
+        if (recycle) wg::mbar_arrive_rank(free_bar(j), pk);  // the slot may be written again
         const float dsum[8] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w};
         if (t > 0) {
           cell(t - 1, mt, in, dsum);
@@ -659,17 +679,20 @@ lstm_bwd_wide_kernel(const __grid_constant__ CUtensorMap tm_da,
           mine[j] = kc ? acc[8 + j] : acc[j];
           theirs[j] = kc ? acc[j] : acc[8 + j];
         }
-        const uint32_t slot = sR + mt * kRecvBytes + lt * 32;
+        const int j = mt % R;
+        const uint32_t use = slot_use(t, mt);
+        const uint32_t slot = sR + j * kRecvBytes + lt * 32;
         const uint32_t remote = wg::map_rank(slot, pk);
+        if (mt >= R) wg::mbar_wait_cluster(free_bar(j), (use - 1) & 1);  // its last use read
         wg::st_cluster(remote, make_float4(theirs[0], theirs[1], theirs[2], theirs[3]));
         wg::st_cluster(remote + 16, make_float4(theirs[4], theirs[5], theirs[6], theirs[7]));
-        wg::mbar_arrive_rank(recv_bar(mt), pk);
-        wg::mbar_wait_cluster(recv_bar(mt), phase);
+        wg::mbar_arrive_rank(recv_bar(j), pk);
+        wg::mbar_wait_cluster(recv_bar(j), use & 1);
         float4* got = reinterpret_cast<float4*>(smem + (slot - sB));
         const float4 r0 = got[0], r1 = got[1];
         got[0] = make_float4(mine[0] + r0.x, mine[1] + r0.y, mine[2] + r0.z, mine[3] + r0.w);
         got[1] = make_float4(mine[4] + r1.x, mine[5] + r1.y, mine[6] + r1.z, mine[7] + r1.w);
-        wg::mbar_arrive(epi_bar(mt));
+        wg::mbar_arrive(epi_bar(j));
       }
     }
     seq += n_loads;
@@ -872,22 +895,23 @@ int lstm_bwd_bf16(const float* gates, const float* mask, const void* wh, const f
 // The wide-row path: the same contract with the plan of
 // ops/lstm_cuda.py::WidePlan (row_groups x rows_per_group rows, units per
 // block, k_slices, cluster, warpgroups, stages, smem_bytes), refused with
-// cudaErrorInvalidValue when it is not the one this kernel was built for.
-// ring is the bf16 da ring [2, row_groups * rows_per_group, Kp], Kp = 4H
-// rounded up to 128, row-major, zeros on entry; H must be even.
+// cudaErrorInvalidValue when it is not the one this kernel was built for,
+// and recv_slots (1 .. rows_per_group / 64). ring is the bf16 da ring [2,
+// row_groups * rows_per_group, Kp], Kp = 4H rounded up to 128, row-major,
+// zeros on entry; H must be even.
 int lstm_bwd_wide(const float* gates, const float* mask, const void* wh, const float* cprev,
                   const float* dhs, const float* dhT, const float* dcT, float* da, void* ring,
                   float* dh0, float* dc0, int T, int B, int H, int row_groups,
                   int rows_per_group, int units, int k_slices, int cluster, int warpgroups,
-                  int stages, int smem_bytes, void* stream) {
-  const int MP = rows_per_group, S = stages;
+                  int stages, int smem_bytes, int recv_slots, void* stream) {
+  const int MP = rows_per_group, S = stages, R = recv_slots;
   const int Kp = cdiv(4 * H, 2 * lstm_wgmma::kSlab) * 2 * lstm_wgmma::kSlab;
   const int UG = cdiv(H, wide::kUnits);
   if (T < 1 || B < 1 || H < 2 || H % 2 || MP < 1 || MP % lstm_wgmma::kTileRows
       || row_groups != cdiv(B, MP) || units != wide::kUnits || k_slices != wide::kCluster
       || cluster != wide::kCluster || warpgroups != wide::kWarpgroups || S < 2
-      || S > wide::kStages || smem_bytes < 0
-      || (size_t)smem_bytes != wide::smem_bytes(Kp, MP, S))
+      || S > wide::kStages || R < 1 || R > MP / lstm_wgmma::kTileRows || smem_bytes < 0
+      || (size_t)smem_bytes != wide::smem_bytes(Kp, S, R))
     return cudaErrorInvalidValue;
   const int Rp = row_groups * MP;
   CUtensorMap tm_da;
@@ -900,7 +924,7 @@ int lstm_bwd_wide(const float* gates, const float* mask, const void* wh, const f
   return lstm_wgmma::launch_cluster_cooperative(
       wide::lstm_bwd_wide_kernel, row_groups * UG * wide::kCluster, wide::kThreads,
       (size_t)smem_bytes, wide::kCluster, static_cast<cudaStream_t>(stream), tm_da, gates, mask,
-      w, cprev, dhs, dhT, dcT, da, r, dh0, dc0, T, B, H, Kp, Rp, MP, UG, S);
+      w, cprev, dhs, dhT, dcT, da, r, dh0, dc0, T, B, H, Kp, Rp, MP, UG, S, R);
 }
 
 // The same with wh [H, 4H] f32 (CUDA cores); da_r is an f32 scratch ring

@@ -16,9 +16,12 @@ plain versions + the autograd Function.
   units per block, warps, m-tiles per pass, pipeline stages, shared
   memory), from there a ``WidePlan`` (``wide_plan``)
   (``wgmma`` with TMA in clusters of two blocks; row groups, units per
-  block, K slices, cluster, warpgroups, stages, shared memory, and the
-  operand bytes a step per SM and from L2); ``plan_owners`` lists which
+  block, K slices, cluster, warpgroups, stages, the backward's receive
+  slots, shared memory, and the operand bytes a step per SM and from L2),
+  or ValueError where no wide plan fits; ``plan_owners`` lists which
   (block, warp) owns each (row, unit) pair.
+- ``lstm_infer`` / ``lstm_bwd_bf16`` launch the bf16 kernels under a given
+  plan (``lstm_seq`` / ``lstm_bwd`` call them with the plan above).
 - ``LSTMSeqFn`` is the counterpart of ``lstm_seq_fused`` with its
   ``_fused_fwd``/``_fused_bwd``: the residual-saving forward, then the
   backward sweep and dWh = h_prev^T da as one matrix product.
@@ -35,6 +38,7 @@ the KEPT state at masked steps.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -76,12 +80,14 @@ WIDE_WARPGROUPS = 2
 WIDE_UNITS = {"infer": 16, "bwd": 32}
 WIDE_CLUSTER = 2
 WIDE_TILE_ROWS = 64     # rows of a wgmma m-tile
+WIDE_RECV_BYTES = 128 * 8 * 4  # kRecvBytes: a backward receive slot (128 threads x 8 f32)
 # From this many rows the wide plan (measured faster on the H100 from there,
 # lstm_ablation.py's sweep; PERF.md) and below it the mma.sync plan: the
-# forward without residuals, the residual-saving forward, the backward.
-WIDE_MIN_ROWS = {"infer": 128, "resid": 128, "bwd": 96}
+# two forwards (with and without residuals), the backward.
+WIDE_MIN_ROWS = {"infer": 128, "bwd": 96}
 WIDE_PLAN_ARGS = ("row_groups", "rows_per_group", "units", "k_slices", "cluster",
                   "warpgroups", "stages", "smem_bytes")
+WIDE_BWD_PLAN_ARGS = WIDE_PLAN_ARGS + ("recv_slots",)
 # lstm_infer: pointers, (T, rows, H, save_residuals), the plan, the stream;
 # lstm_bwd_bf16: pointers, (T, rows, H), the plan, the stream; the same for
 # lstm_infer_wide and lstm_bwd_wide
@@ -91,7 +97,7 @@ BWD_BF16_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * (3 + len(BWD_PLAN
                      + [ctypes.c_void_p])
 INFER_WIDE_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * (4 + len(WIDE_PLAN_ARGS))
                        + [ctypes.c_void_p])
-BWD_WIDE_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * (3 + len(WIDE_PLAN_ARGS))
+BWD_WIDE_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * (3 + len(WIDE_BWD_PLAN_ARGS))
                      + [ctypes.c_void_p])
 
 
@@ -192,7 +198,9 @@ class WidePlan:
     2 (rg UG + ug) + kc takes rows of group rg x units [32 ug, 32 ug + 32)
     (N = 32) over K half kc of 4H; the two K halves of a cluster swap their
     partial dh tiles through distributed shared memory, and block kc owns
-    units [32 ug + 16 kc, + 16)."""
+    units [32 ug + 16 kc, + 16). The backward receives the other half's
+    tile of m-tile mt in slot mt % ``recv_slots``; with fewer slots than
+    m-tiles a slot is refilled once its epilogue has read it."""
     kind: str
     rows: int
     H: int
@@ -203,6 +211,7 @@ class WidePlan:
     cluster: int = WIDE_CLUSTER
     warpgroups: int = WIDE_WARPGROUPS
     stages: int = WIDE_STAGES
+    recv_slots: int = 0
 
     @property
     def k_pad(self) -> int:
@@ -239,16 +248,18 @@ class WidePlan:
     def smem_bytes(self) -> int:
         """The kernels' layout: 1024 bytes of alignment slack, wh's B slabs,
         the warpgroups' A rings, then the forward's xw tiles or the
-        backward's partial halves received (and the sums handed to its
-        epilogue warpgroup), then the mbarriers."""
+        backward's receive slots (the partial halves received, then the
+        sums handed to its epilogue warpgroup), then the mbarriers (the
+        backward's: full and empty a ring slot; received, summed and freed a
+        receive slot)."""
         ring = self.warpgroups * self.stages * WIDE_TILE_ROWS * 128
         if self.kind == "infer":
             return (1024 + self.k_pad // 64 * 4 * self.units * 128 + ring
                     + self.warpgroups * 4 * WIDE_TILE_ROWS * self.units * 4
                     + 8 * self.warpgroups * (2 * self.stages + 1))
         return (1024 + self.k_pad // self.k_slices // 64 * self.units * 128 + ring
-                + self.m_tiles * 128 * 8 * 4
-                + 8 * (2 * self.warpgroups * self.stages + 2 * self.m_tiles))
+                + self.recv_slots * WIDE_RECV_BYTES
+                + 8 * (2 * self.warpgroups * self.stages + 3 * self.recv_slots))
 
     @property
     def ring_rows(self) -> int:
@@ -272,14 +283,18 @@ class WidePlan:
         return self.blocks * self.sm_bytes_per_step // self.multicast
 
     def args(self) -> Tuple[int, ...]:
-        return tuple(getattr(self, n) for n in WIDE_PLAN_ARGS)
+        names = WIDE_PLAN_ARGS if self.kind == "infer" else WIDE_BWD_PLAN_ARGS
+        return tuple(getattr(self, n) for n in names)
 
 
 def wide_plan(kind: str, rows: int, H: int, nsm: int) -> Optional[WidePlan]:
     """The wide-row plan of ``kind`` ("infer" or "bwd"): as many row groups
     as the SMs hold beside the unit groups (and K slices), each a multiple of
-    64 rows, then the deepest ring that fits shared memory; None where none
-    fits (odd H, or wh's slice beyond shared memory)."""
+    64 rows, then the deepest ring that fits shared memory; the backward's
+    with a receive slot for every m-tile where that fits, else with as many
+    as fit beside the deepest ring (at least two). None where none fits (odd
+    H, fewer SMs than one row group's blocks, or wh's slice beyond shared
+    memory)."""
     if H % 2:
         return None
     units, k_slices = WIDE_UNITS[kind], (1 if kind == "infer" else WIDE_CLUSTER)
@@ -288,11 +303,15 @@ def wide_plan(kind: str, rows: int, H: int, nsm: int) -> Optional[WidePlan]:
     if rg < 1:
         return None
     mp = _cdiv(_cdiv(rows, rg), WIDE_TILE_ROWS) * WIDE_TILE_ROWS
-    for stages in range(WIDE_STAGES, 1, -1):
-        plan = WidePlan(kind, rows, H, _cdiv(rows, mp), mp, units, k_slices, stages=stages)
-        if plan.smem_bytes <= SMEM_MAX:
-            return plan
-    return None
+    plans = [WidePlan(kind, rows, H, _cdiv(rows, mp), mp, units, k_slices, stages=stages)
+             for stages in range(WIDE_STAGES, 1, -1)]
+    if kind == "bwd":
+        mt = mp // WIDE_TILE_ROWS
+        slots = lambda p: min(mt, (SMEM_MAX - p.smem_bytes) // (WIDE_RECV_BYTES + 24))
+        plans = ([dataclasses.replace(p, recv_slots=mt) for p in plans]
+                 + [dataclasses.replace(p, recv_slots=slots(p)) for p in plans
+                    if slots(p) >= WIDE_WARPGROUPS])
+    return next((p for p in plans if p.smem_bytes <= SMEM_MAX), None)
 
 
 def _n_sub(H: int, nsm: int) -> int:
@@ -303,13 +322,20 @@ def _n_sub(H: int, nsm: int) -> int:
     return nt
 
 
+def _wide_or_raise(kind: str, rows: int, H: int, nsm: int) -> WidePlan:
+    plan = wide_plan(kind, rows, H, nsm)
+    if plan is None:
+        raise ValueError(f"lstm_{'seq' if kind == 'infer' else 'bwd'}: no wide-row plan for "
+                         f"rows {rows}, H {H} on {nsm} SMs (H odd, too few SMs for a row "
+                         "group, or wh's slice too large for one block's shared memory)")
+    return plan
+
+
 def infer_plan(rows: int, H: int, nsm: int, save_residuals: bool = False):
     """The forward's plan: from ``WIDE_MIN_ROWS`` rows the ``WidePlan``
-    where one fits, else ``mma_infer_plan``'s."""
-    if rows >= WIDE_MIN_ROWS["resid" if save_residuals else "infer"]:
-        plan = wide_plan("infer", rows, H, nsm)
-        if plan is not None:
-            return plan
+    (raises where none fits), below it ``mma_infer_plan``'s."""
+    if rows >= WIDE_MIN_ROWS["infer"]:
+        return _wide_or_raise("infer", rows, H, nsm)
     return mma_infer_plan(rows, H, nsm, save_residuals)
 
 
@@ -336,11 +362,9 @@ def mma_infer_plan(rows: int, H: int, nsm: int, save_residuals: bool = False) ->
 
 def bwd_plan(B: int, H: int, nsm: int):
     """The backward's plan: from ``WIDE_MIN_ROWS`` rows the ``WidePlan``
-    where one fits, else ``mma_bwd_plan``'s."""
+    (raises where none fits), below it ``mma_bwd_plan``'s."""
     if B >= WIDE_MIN_ROWS["bwd"]:
-        plan = wide_plan("bwd", B, H, nsm)
-        if plan is not None:
-            return plan
+        return _wide_or_raise("bwd", B, H, nsm)
     return mma_bwd_plan(B, H, nsm)
 
 
@@ -592,11 +616,10 @@ def lstm_infer(xw: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor, h0: torch
 
 def lstm_bwd(gates: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
              c_prev: torch.Tensor, dhs: torch.Tensor, dhT: torch.Tensor,
-             dcT: torch.Tensor, plan=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+             dcT: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Same contract as ``lstm_bwd_plain``; launches the CUDA kernel for
-    CUDA tensors, with bf16 ``wh`` under ``plan`` (default ``bwd_plan``'s:
-    an ``MMAPlan`` launches ``lstm_bwd_bf16``, a ``WidePlan``
-    ``lstm_bwd_wide``)."""
+    CUDA tensors: with bf16 ``wh`` ``lstm_bwd_bf16`` under ``bwd_plan``'s
+    plan, with f32 ``wh`` the CUDA-core kernel."""
     if gates.device.type == "cpu":
         return lstm_bwd_plain(gates, mask, wh, c_prev, dhs, dhT, dcT)
     if gates.device.type != "cuda":
@@ -609,31 +632,47 @@ def lstm_bwd(gates: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
                          f"{tuple(dhs.shape)}")
     if T == 0:
         return lstm_bwd_plain(gates, mask, wh, c_prev, dhs, dhT, dcT)
-    gates, mask, wh, c_prev, dhs, dhT, dcT = (
-        a.contiguous() for a in (gates, mask, wh, c_prev, dhs, dhT, dcT))
-    da = torch.empty((T, B, H4), device=gates.device)
-    dh0 = torch.empty((B, H), device=gates.device)
-    dc0 = torch.empty((B, H), device=gates.device)
-    ptrs = (gates.data_ptr(), mask.data_ptr(), wh.data_ptr(), c_prev.data_ptr(),
-            dhs.data_ptr(), dhT.data_ptr(), dcT.data_ptr(), da.data_ptr())
-    stream = torch.cuda.current_stream(gates.device).cuda_stream
+    args = tuple(a.contiguous() for a in (gates, mask, wh, c_prev, dhs, dhT, dcT))
     if wh.dtype == torch.bfloat16:
-        plan = plan or bwd_plan(B, H, _num_sms(gates.device))
-        if (plan.kind, plan.rows, plan.H) != ("bwd", B, H):
-            raise ValueError(f"lstm_bwd: plan {plan} does not fit B {B}, H {H}")
-        ring = torch.zeros(plan.ring_elems, device=gates.device, dtype=torch.bfloat16)
-        wide = isinstance(plan, WidePlan)
-        fn = "lstm_bwd_wide" if wide else "lstm_bwd_bf16"
-        lib = _lib(fn, BWD_WIDE_ARGTYPES if wide else BWD_BF16_ARGTYPES, source="lstm_bwd")
-        with torch.cuda.device(gates.device):
-            err = getattr(lib, fn)(*ptrs, ring.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-                                   T, B, H, *plan.args(), stream)
-    else:
-        da_r = torch.empty((2, B, H4), device=gates.device)
-        lib = _lib("lstm_bwd_f32", _BWD_F32_ARGTYPES, source="lstm_bwd")
-        with torch.cuda.device(gates.device):
-            err = lib.lstm_bwd_f32(*ptrs, da_r.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-                                   T, B, H, stream)
+        return lstm_bwd_bf16(*args, bwd_plan(B, H, _num_sms(gates.device)))
+    da, dh0, dc0 = _bwd_outputs(T, B, H, gates.device)
+    da_r = torch.empty((2, B, H4), device=gates.device)
+    lib = _lib("lstm_bwd_f32", _BWD_F32_ARGTYPES, source="lstm_bwd")
+    with torch.cuda.device(gates.device):
+        err = lib.lstm_bwd_f32(*(a.data_ptr() for a in args), da.data_ptr(), da_r.data_ptr(),
+                               dh0.data_ptr(), dc0.data_ptr(), T, B, H,
+                               torch.cuda.current_stream(gates.device).cuda_stream)
+    build.check(lib, err, "lstm_bwd")
+    build.LAUNCHES["lstm_bwd"] += 1
+    return da, dh0, dc0
+
+
+def _bwd_outputs(T: int, B: int, H: int, device) -> Tuple[torch.Tensor, ...]:
+    return (torch.empty((T, B, 4 * H), device=device), torch.empty((B, H), device=device),
+            torch.empty((B, H), device=device))
+
+
+def lstm_bwd_bf16(gates: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
+                  c_prev: torch.Tensor, dhs: torch.Tensor, dhT: torch.Tensor,
+                  dcT: torch.Tensor, plan) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The bf16 backward on ``csrc/lstm_bwd.cu`` with ``plan``
+    (``bwd_plan``: an ``MMAPlan`` launches ``lstm_bwd_bf16``, a ``WidePlan``
+    ``lstm_bwd_wide``): ``(da, dh0, dc0)``. Takes contiguous CUDA tensors
+    that passed ``lstm_bwd``'s checks; ``lstm_bwd`` calls it."""
+    T, B, H4 = gates.shape
+    H = H4 // 4
+    if (plan.kind, plan.rows, plan.H) != ("bwd", B, H) or wh.dtype != torch.bfloat16:
+        raise ValueError(f"lstm_bwd: plan {plan} does not fit B {B}, H {H}, wh {wh.dtype}")
+    da, dh0, dc0 = _bwd_outputs(T, B, H, gates.device)
+    ring = torch.zeros(plan.ring_elems, device=gates.device, dtype=torch.bfloat16)
+    wide = isinstance(plan, WidePlan)
+    fn = "lstm_bwd_wide" if wide else "lstm_bwd_bf16"
+    lib = _lib(fn, BWD_WIDE_ARGTYPES if wide else BWD_BF16_ARGTYPES, source="lstm_bwd")
+    with torch.cuda.device(gates.device):
+        err = getattr(lib, fn)(
+            *(a.data_ptr() for a in (gates, mask, wh, c_prev, dhs, dhT, dcT, da)),
+            ring.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), T, B, H, *plan.args(),
+            torch.cuda.current_stream(gates.device).cuda_stream)
     build.check(lib, err, "lstm_bwd")
     build.LAUNCHES["lstm_bwd"] += 1
     return da, dh0, dc0
