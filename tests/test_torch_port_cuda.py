@@ -8,7 +8,9 @@ imports JAX, hence:
     python -m pytest tests/test_torch_port_cuda.py --noconftest -q
 
 Small odd shapes: partial row tiles, partial hidden-unit blocks, a ragged
-last vocab tile. Generation (plain PyTorch on the card) against the same
+last vocab tile. The CE backward (``csrc/ce_bwd.cu``) at a small shape and
+the training shape, bit-equal across calls, through ``FusedCEFn`` against
+the CPU, and its extra peak memory. Generation (plain PyTorch on the card) against the same
 calls on the CPU: the top-k tie order, greedy and beam decoding, the
 incremental PixelCNN sampler. ``tp_token_logp`` over two ranks sharing
 the card against the plain CE. Tolerances: f32 operands differ only in summation order;
@@ -528,6 +530,119 @@ def test_ce_train_kernel_at_n60800_on_cuda():
     torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=0)
     d = (spill.float() - rspill.float()).abs()
     assert bool((d <= 2.0 ** -7 * rspill.float().abs() + 1e-5).all())
+
+
+def _ce_bwd_case(n, nh, vocab, seed):
+    """The grad-mode forward's residuals and operands on the card, targets at
+    0 and V - 1, zeros in g (masked tokens)."""
+    h, w, tgt = (torch.from_numpy(a).cuda() for a in _ce_inputs(n, nh, vocab, seed))
+    tgt[0], tgt[-1] = 0, vocab - 1
+    g = torch.randn(n, generator=torch.Generator().manual_seed(seed)).cuda()
+    g[::5] = 0.0
+    (_, lse, spill), operands = ce_cuda._ce_forward(h, w, tgt, torch.bfloat16, True)
+    return (h, w, tgt, lse, spill, g), operands
+
+
+def _acc_bound(ref, k):
+    """The tensor cores' f32 accumulation against the plain f32 sums: at
+    most one unit in the last place of the largest value a k16 step
+    (chip_smoke.py's ce_bwd tolerance), plus the plain side's own rounding."""
+    return (k / 16) * 2.0 ** -23 * float(ref.abs().max()) + 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,nh,vocab", [(70, 40, 1100), (70, 41, 1101), (3040, 1024, 20004)])
+def test_ce_bwd_kernel_matches_plain_on_cuda(n, nh, vocab):
+    """``csrc/ce_bwd.cu`` against ``ce_backward_plain`` on the same
+    residuals: V not a multiple of the 256-wide tiles, nh 40 below one box;
+    odd nh and V (h padded to 48 columns, the stores of single floats); the
+    training shape (dh's K split over 4 blocks). Two calls give the same
+    bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    args, operands = _ce_bwd_case(n, nh, vocab, seed=n)
+    launches = build.LAUNCHES["ce_bwd"]
+    got = ce_cuda.ce_backward(*args, torch.bfloat16, operands=operands)
+    again = ce_cuda.ce_backward(*args, torch.bfloat16, operands=operands)
+    ref = ce_cuda.ce_backward_plain(*args, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["ce_bwd"] == launches + 2
+    plan = ce_cuda.ce_bwd_plan(n, nh, vocab, torch.cuda.get_device_properties(0)
+                               .multi_processor_count)
+    for a, r, k in zip(got, ref, (plan.Vp, n)):
+        assert a.shape == r.shape and a.dtype == torch.float32
+        torch.testing.assert_close(a, r, atol=_acc_bound(r, k), rtol=0)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_fused_ce_fn_backward_on_cuda_matches_cpu():
+    """``FusedCEFn``'s dh and dW on the card (the grad-mode forward and the
+    backward kernel, one launch each) against the CPU's plain versions.
+    The two forwards' spills may round a logit to neighbouring bf16 values,
+    which moves a softmax entry by a part in 2^8 of itself."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    h, w, tgt = _ce_inputs(n=300, nh=64, vocab=1300, seed=8)
+    g = torch.randn(300, generator=torch.Generator().manual_seed(8))
+    grads = []
+    for dev in ("cuda", "cpu"):
+        th, tw = (torch.from_numpy(a).to(dev).requires_grad_() for a in (h, w))
+        n = dict(build.LAUNCHES)
+        logp = ce_cuda.FusedCEFn.apply(th, tw, torch.from_numpy(tgt).to(dev), torch.bfloat16)
+        logp.backward(g.to(dev))
+        launched = {k: build.LAUNCHES[k] - n[k] for k in n}
+        want = 1 if dev == "cuda" else 0
+        assert launched["ce_fwd_train"] == launched["ce_bwd"] == want, launched
+        grads.append((th.grad.cpu(), tw.grad.cpu()))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_ce_bwd_extra_memory_on_cuda():
+    """At N 3040 the backward allocates, beyond the dh and dW it returns, one
+    bf16 [N, Vp] d and the split-K partials (the caching allocator may hand
+    out up to 1 MiB more than asked for a block); no f32 [N, V] tensor."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    n, nh, vocab = 3040, 1024, 20004
+    args, operands = _ce_bwd_case(n, nh, vocab, seed=4)
+    plan = ce_cuda.ce_bwd_plan(n, nh, vocab, torch.cuda.get_device_properties(0)
+                               .multi_processor_count)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    dh, dw = ce_cuda.ce_backward(*args, torch.bfloat16, operands=operands)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - before - 4 * (dh.numel() + dw.numel())
+    assert extra <= plan.d_bytes + plan.part_bytes + 4 * 2 ** 20, extra
+    assert extra < 4 * n * vocab  # less than one f32 [N, V] tensor
+
+
+@pytest.mark.cuda
+def test_ce_bwd_refuses_what_the_kernel_does_not_take_on_cuda():
+    """An f32 spill with bf16 operands, a spill whose rows are not 16-byte
+    aligned (a contiguous [N, 1100] copy), an operand of another layout,
+    and no operands at all, raise; f32 operands take the plain f32
+    products (no launch)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    (h, w, tgt, lse, spill, g), (hb, wt) = _ce_bwd_case(70, 40, 1100, seed=3)
+    with pytest.raises(ValueError):
+        ce_cuda.ce_backward(h, w, tgt, lse, spill.float(), g, torch.bfloat16, operands=(hb, wt))
+    with pytest.raises(ValueError):
+        ce_cuda.ce_backward(h, w, tgt, lse, spill.contiguous(), g, torch.bfloat16,
+                            operands=(hb, wt))
+    with pytest.raises(ValueError):
+        ce_cuda.ce_backward(h, w, tgt, lse, spill, g, torch.bfloat16, operands=(hb, wt[:, :40]))
+    with pytest.raises(ValueError, match="operands"):
+        ce_cuda.ce_backward(h, w, tgt, lse, spill, g, torch.bfloat16)
+    n = build.LAUNCHES["ce_bwd"]
+    got = ce_cuda.ce_backward(h, w, tgt, lse, spill.float(), g, None)
+    ref = ce_cuda.ce_backward_plain(h, w, tgt, lse, spill.float(), g, None)
+    assert build.LAUNCHES["ce_bwd"] == n
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
 
 
 @pytest.mark.cuda

@@ -119,10 +119,11 @@ def test_new_modules_import_no_jax(module):
 
 
 @pytest.mark.parametrize("module", ["parallel", "parallel.launch", "parallel.dp",
-                                    "parallel.tp", "evaluation", "data.native"])
+                                    "parallel.tp", "evaluation", "data.native", "ops.ce_cuda"])
 def test_parallel_and_native_modules_import_no_jax(module):
-    """The data- and tensor-parallel modules, the evaluator re-exports and the
-    native reader, each imported alone in a fresh interpreter."""
+    """The data- and tensor-parallel modules, the evaluator re-exports, the
+    native reader and the CE kernels' wrappers (csrc/ce_fwd.cu and
+    csrc/ce_bwd.cu), each imported alone in a fresh interpreter."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module('vae_lagging_encoder_tpu_torch.{module}')\n"

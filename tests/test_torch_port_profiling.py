@@ -22,8 +22,9 @@ import numpy as np
 import pytest
 
 from vae_lagging_encoder_tpu.utils.profiling import render_dossier as jax_render_dossier
-from vae_lagging_encoder_tpu_torch.utils.profiling import (distill_trace, find_trace, op_name,
-                                                           render_dossier, write_dossier)
+from vae_lagging_encoder_tpu_torch.utils.profiling import (PRIMER_PAUSE_S, distill_trace,
+                                                           find_trace, op_name, render_dossier,
+                                                           window_trace, write_dossier)
 
 LSTM_BWD = "void lstm_bwd_mma_kernel<16>(float const*, float const*, __nv_bfloat16 const*)"
 CE_TRAIN = "void ce_bf16_kernel<true>(__nv_bfloat16 const*, __nv_bfloat16 const*, int const*)"
@@ -89,11 +90,49 @@ def test_self_time_subtracts_nested_children(tmp_path):
      "lstm_fwd_infer"),
     ("void (anonymous namespace)::wide::lstm_bwd_wide_kernel(CUtensorMap_st, float const*)",
      "lstm_bwd"),
-    ("void (anonymous namespace)::lstm_bwd_mma_kernel<1, 2>(float const*)", "lstm_bwd")])
+    ("void (anonymous namespace)::lstm_bwd_mma_kernel<1, 2>(float const*)", "lstm_bwd"),
+    ("void (anonymous namespace)::ce_bwd_d_kernel(__nv_bfloat16 const*, int, float const*)",
+     "ce_bwd_d"),
+    ("void (anonymous namespace)::ce_bwd_gemm_kernel<false>(CUtensorMap_st, CUtensorMap_st)",
+     "ce_bwd_dh"),
+    ("void (anonymous namespace)::ce_bwd_gemm_kernel<true>(CUtensorMap_st, CUtensorMap_st)",
+     "ce_bwd_dw"),
+    ("void (anonymous namespace)::ce_bwd_merge_kernel(float const*, int, unsigned long, float*)",
+     "ce_bwd_merge")])
 def test_op_name_wide_row_kernels(symbol, wrapper):
     """The wide-row LSTM kernels (``namespace wide``) count under their
-    wrappers' names like the 32-row ones, not as an unnamed op."""
+    wrappers' names like the 32-row ones, not as an unnamed op; the CE
+    backward's kernels (the d pass, the products, the merge) under names of
+    their own, which ``LAUNCH_PARTS`` sums under the wrapper's."""
     assert op_name(symbol) == (wrapper, "port kernel")
+
+
+CE_BWD_PARTS = ("void (anonymous namespace)::ce_bwd_d_kernel(__nv_bfloat16 const*, int)",
+                 "void (anonymous namespace)::ce_bwd_gemm_kernel<false>(CUtensorMap_st)",
+                 "void (anonymous namespace)::ce_bwd_merge_kernel(float const*, int)",
+                 "void (anonymous namespace)::ce_bwd_gemm_kernel<true>(CUtensorMap_st)")
+
+
+def test_multi_kernel_launch_sums_under_its_wrapper(tmp_path):
+    """Two ``ce_bwd`` launches of four kernels each (10, 30, 5, 40 us): each
+    kernel is an op of its own, the summary's ``launches`` counts two
+    ``ce_bwd`` launches of 0.17 ms in all, and the dossier's header says so;
+    a trace without the backward has no such entry."""
+    ev = _host() + [_ev(sym, t0 + dt, dur) for t0 in (0, 200)
+                    for sym, dt, dur in zip(CE_BWD_PARTS, (0, 20, 60, 80), (10, 30, 5, 40))]
+    s = distill_trace(_write_trace(tmp_path / "t", ev), steps=2)
+    assert {r["op"]: r["calls"] for r in s["table"]} == {
+        "ce_bwd_d": 2, "ce_bwd_dh": 2, "ce_bwd_merge": 2, "ce_bwd_dw": 2}
+    assert s["launches"] == {"ce_bwd": {"calls": 2, "ms_total": pytest.approx(0.17),
+                                        "ms_per_step": pytest.approx(0.085),
+                                        "ops": ["ce_bwd_d", "ce_bwd_dh", "ce_bwd_dw",
+                                                "ce_bwd_merge"]}}
+    write_dossier(str(tmp_path / "t"), 2, str(tmp_path / "D.md"))
+    head = (tmp_path / "D.md").read_text().splitlines()[2]
+    assert head == ("- `ce_bwd`: 2 launches, 0.085 ms/step over its kernels ce_bwd_d, "
+                    "ce_bwd_dh, ce_bwd_dw, ce_bwd_merge (each listed below)")
+    plain = distill_trace(_write_trace(tmp_path / "p", _host() + [_ev(LSTM_BWD, 10, 30)]), 1)
+    assert plain["launches"] == {}
 
 
 def test_sibling_events_not_treated_as_nested(tmp_path):
@@ -208,3 +247,53 @@ def test_render_dossier_matches_jax_text(tmp_path):
     for kw in ({}, {"title": "Epoch-1 profiler dossier (yahoo)", "top": 1,
                     "header_lines": ("- card: test",)}):
         assert render_dossier(s, **kw) == jax_render_dossier(s, **kw)
+
+
+def _window_events(pause_us, pause2_us=None):
+    """A primer (host launches and their kernels), a pause, the window (two
+    launches, one without its device event), a pause, the postamble."""
+    rt = lambda name, ts, corr: _ev(name, ts, 5, pid=1234, tid=1234, cat="cuda_runtime",
+                                    correlation=corr)
+    primer = [rt("cudaLaunchKernel", 10 * i, i) for i in range(3)]
+    primer += [_ev("void add_kernel()", 10 * i + 20, 3, correlation=i) for i in range(3)]
+    primer.append(rt("cudaDeviceSynchronize", 40, 99))
+    t0 = 45 + pause_us
+    window = [rt("cudaLaunchKernel", t0, 10), _ev(LSTM_BWD, t0 + 10, 50, correlation=10),
+              rt("cudaGraphLaunch", t0 + 20, 11), rt("cudaDeviceSynchronize", t0 + 80, 98)]
+    t1 = t0 + 85 + (pause_us if pause2_us is None else pause2_us)
+    post = [rt("cudaLaunchKernel", t1, 12), _ev("void add_kernel()", t1 + 5, 3, correlation=12)]
+    meta = {"ph": "M", "name": "process_name", "pid": 1234, "args": {"name": "python"}}
+    return [meta] + primer + window + post
+
+
+@pytest.mark.parametrize("gz", [True, False])
+def test_window_trace_keeps_the_window_between_the_pauses(tmp_path, gz):
+    """The complete events between the middles of the two pauses stay (the
+    window's launches and kernel), the primer's and the postamble's go;
+    metadata events stay; the launch calls are counted by name, and the one
+    without a device event of its correlation id is returned."""
+    root = _write_trace(tmp_path, _window_events(int(PRIMER_PAUSE_S * 1e6)), gz=gz)
+    path = find_trace(root)
+    calls, untraced = window_trace(path)
+    assert calls == {"cudaLaunchKernel": 1, "cudaGraphLaunch": 1}
+    assert untraced == ["cudaGraphLaunch"]
+    s = distill_trace(root, steps=1)
+    assert [(r["op"], r["calls"]) for r in s["table"]] == [("lstm_bwd", 1)]
+    import gzip as _gzip
+    with (_gzip.open(path, "rt") if gz else open(path)) as fh:
+        kept = json.load(fh)["traceEvents"]
+    assert kept[0]["ph"] == "M" and len(kept) == 5
+
+
+@pytest.mark.parametrize("first,second", [(0.25, 0.25), (1.0, 0.25), (0.25, 1.0)])
+def test_window_trace_needs_two_pauses(tmp_path, first, second):
+    """A trace with fewer than two host gaps of half a pause (a primer's or
+    a postamble's pause missing) raises, and is left as it was."""
+    us = PRIMER_PAUSE_S * 1e6
+    root = _write_trace(tmp_path, _window_events(int(first * us), int(second * us)))
+    path = find_trace(root)
+    before = open(path).read()
+    with pytest.raises(AssertionError, match="pauses"):
+        window_trace(path)
+    assert open(path).read() == before
+

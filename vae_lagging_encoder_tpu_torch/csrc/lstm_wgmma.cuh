@@ -1,5 +1,6 @@
 // Hopper building blocks of the wide-row LSTM kernels (lstm_infer.cu's and
-// lstm_bwd.cu's *_wide_kernel): wgmma on 128-byte-swizzled K-major operands,
+// lstm_bwd.cu's *_wide_kernel), also used by the CE kernels (ce_fwd.cu,
+// ce_bwd.cu, with ce_wgmma.cuh): wgmma on 128-byte-swizzled K-major operands,
 // mbarriers, TMA tile loads (also multicast to the blocks of a cluster),
 // distributed shared memory, and the host side: tensor maps encoded through
 // cuTensorMapEncodeTiled as cudaGetDriverEntryPoint returns it (no -lcuda)
@@ -40,7 +41,7 @@ __host__ __device__ __forceinline__ uint32_t swz_elem(int r, int k) {
 // >> 4 (bits 0-13), leading byte offset 1 (unused by swizzled K-major
 // layouts), stride byte offset 1024 >> 4 between 8-row groups (bits 32-45),
 // base offset 0 (slabs are 1024-byte aligned), layout SWIZZLE_128B (bits
-// 62-63). The same as ce_fwd.cu's.
+// 62-63). ce_fwd.cu's and ce_bwd.cu's K-major operands too.
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16)
          | ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);

@@ -1,7 +1,10 @@
 """Build and load the hand-written CUDA kernels; device checks; launch counts.
 
-Each ``csrc/<name>.cu`` is compiled on first use by ``nvcc`` into its own
-shared library with a plain C interface, which is loaded with ``ctypes``:
+Each ``csrc/<name>.cu`` (``SOURCES``: ``lstm_fwd``, ``lstm_infer`` and
+``lstm_bwd``, the LSTM kernels of ``ops/lstm_cuda.py``; ``ce_fwd`` and
+``ce_bwd``, the fused CE's forward and backward of ``ops/ce_cuda.py``; the
+``*.cuh`` headers they share) is compiled on first use by ``nvcc`` into its
+own shared library with a plain C interface, which is loaded with ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o build/torch_kernels/<name>-<hash>.so
@@ -43,13 +46,13 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
-SOURCES = ("lstm_fwd", "lstm_infer", "lstm_bwd", "ce_fwd")
+SOURCES = ("lstm_fwd", "lstm_infer", "lstm_bwd", "ce_fwd", "ce_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # launches per kernel, counted by the wrappers in lstm_cuda.py / ce_cuda.py
 LAUNCHES: Dict[str, int] = {"lstm_fwd_residuals": 0, "lstm_fwd_infer": 0,
-                            "lstm_bwd": 0, "ce_fwd": 0, "ce_fwd_train": 0}
+                            "lstm_bwd": 0, "ce_fwd": 0, "ce_fwd_train": 0, "ce_bwd": 0}
 
 # CUDA graphs of the training step: captured, and replays (train/graphs.py)
 GRAPHS: Dict[str, int] = {"captured": 0, "replays": 0}

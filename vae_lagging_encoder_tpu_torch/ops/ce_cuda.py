@@ -17,10 +17,23 @@ row is not 16-byte aligned), packs W (f32 or bf16) into a zero-padded
 K-major bf16 copy W^T [Vp, Kp] itself, and spills into [N, Vp], returned
 as the [:, :V] view.
 
+``ce_backward`` is the counterpart of ``_fused_ce_bwd`` (which the JAX
+package leaves to XLA as two dots): from the grad-mode residuals,
+d = bf16((onehot - exp(spill - lse)) * g), dh = d W^T and dW = h^T d with
+bf16 operands, f32 accumulation and f32 output. On a CUDA tensor with bf16
+operands it launches ``csrc/ce_bwd.cu`` (counted as ``ce_bwd``; raises on
+what the kernel does not take) under the launch plan ``ce_bwd_plan``: one
+elementwise pass writes d [N, Vp] in bf16, then both products run on the
+tensor cores (wgmma, TMA), dh's K split over blocks at small N and merged
+in a fixed order; no f32 [N, V] tensor is made. It reads the forward's own
+bf16 operands (h [N, ldh] and the packed W^T [Vp, Kp]), which
+``_ce_forward`` returns beside its outputs and ``FusedCEFn`` keeps. On a
+CPU tensor, and for f32 operands on either device, it runs
+``ce_backward_plain``.
+
 ``FusedCEFn`` is the counterpart of ``_fused_ce`` with its
-``_fused_ce_fwd``/``_fused_ce_bwd``: the grad-mode forward, then the
-backward in plain PyTorch (``ce_backward``), as the JAX package leaves it
-to XLA.
+``_fused_ce_fwd``/``_fused_ce_bwd``: ``ce_forward`` in grad mode, then
+``ce_backward`` on what it saved.
 
 ``operand_dtype`` rounds h and W before the product, with f32 accumulation:
 ``torch.bfloat16`` is the JAX package's default ``mxu_dtype``
@@ -30,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
+from fractions import Fraction
 from typing import Optional, Tuple
 
 import torch
@@ -51,6 +65,19 @@ CE_PLAN_ARGS = ("block_m", "block_n", "block_k", "stages", "splits", "blocks", "
 _BF16_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * (8 + len(CE_PLAN_ARGS))
                   + [ctypes.c_void_p])
 _F32_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+# Constants the backward kernel is built for (csrc/ce_bwd.cu: kWarpgroups,
+# kBN, kBK, kStages; the ring aligned like the forward's, CE_ALIGN);
+# tests/test_torch_port_ce_bwd.py reads them back.
+CE_BWD_WARPGROUPS = 2     # consumer warpgroups of 64 rows (and one producer warp)
+CE_BWD_BLOCK_N = 256      # output columns a tile (wgmma n)
+CE_BWD_BLOCK_K = 64       # K slab: 128 bytes of bf16, one TMA box row
+CE_BWD_STAGES = 4         # TMA ring depth
+CE_BWD_SPLIT_MAX = 8      # most blocks one dh tile's K is split over
+CE_BWD_PLAN_ARGS = ("block_m", "block_n", "block_k", "stages", "splits", "dh_blocks",
+                    "dw_blocks", "smem_bytes")
+_BWD_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 9
+                 + [ctypes.c_int] * (6 + len(CE_BWD_PLAN_ARGS)) + [ctypes.c_void_p])
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -132,6 +159,104 @@ def ce_plan(N: int, nh: int, V: int, nsm: int) -> CEPlan:
     return CEPlan(N, nh, V, max(1, min(one.vocab_tiles, nsm // one.row_tiles)))
 
 
+@dataclass(frozen=True)
+class CEBwdPlan:
+    """Launch plan of the backward kernel for h [N, nh], W [nh, V].
+
+    Both products take ``block_m`` x ``block_n`` f32 tiles over K slabs of
+    ``block_k``. dh = d W^T [N, nh] has ``dh_tiles`` tiles over K = Vp
+    (``dh_slabs`` slabs), each tile's K split over ``splits`` blocks
+    (``k_range``) whose f32 partials [splits, N, nh] (``part_bytes``) a
+    merge sums in split order; dW = h^T d [nh, V] has ``dw_tiles`` tiles
+    over K = N (``dw_slabs`` slabs), no split. The operands are the
+    forward's (``CEPlan``'s Vp, Kp, ldh) and d [N, Vp] bf16 (``d_bytes``)."""
+    N: int
+    nh: int
+    V: int
+    splits: int
+    block_m: int = 64 * CE_BWD_WARPGROUPS
+    block_n: int = CE_BWD_BLOCK_N
+    block_k: int = CE_BWD_BLOCK_K
+    stages: int = CE_BWD_STAGES
+
+    @property
+    def Vp(self) -> int:
+        return _cdiv(self.V, self.block_n) * self.block_n
+
+    @property
+    def Kp(self) -> int:
+        return _round_up(self.nh, self.block_k)
+
+    @property
+    def ldh(self) -> int:
+        return _round_up(self.nh, 8)
+
+    @property
+    def dh_tiles(self) -> int:
+        return _cdiv(self.N, self.block_m) * _cdiv(self.nh, self.block_n)
+
+    @property
+    def dh_slabs(self) -> int:
+        return self.Vp // self.block_k
+
+    @property
+    def dh_blocks(self) -> int:
+        return self.dh_tiles * self.splits
+
+    @property
+    def dw_tiles(self) -> int:
+        return _cdiv(self.nh, self.block_m) * (self.Vp // self.block_n)
+
+    @property
+    def dw_slabs(self) -> int:
+        return _cdiv(self.N, self.block_k)
+
+    @property
+    def dw_blocks(self) -> int:
+        return self.dw_tiles
+
+    @property
+    def stage_bytes(self) -> int:
+        return (self.block_m + self.block_n) * self.block_k * 2
+
+    @property
+    def smem_bytes(self) -> int:
+        """The ring, slack to align it to the swizzle's 1024 bytes, and a
+        full and an empty mbarrier (8 bytes) per stage."""
+        return CE_ALIGN + self.stages * self.stage_bytes + 2 * self.stages * 8
+
+    @property
+    def part_bytes(self) -> int:
+        return 4 * self.splits * self.N * self.nh if self.splits > 1 else 0
+
+    @property
+    def d_bytes(self) -> int:
+        return 2 * self.N * self.Vp
+
+    def k_range(self, split: int) -> Tuple[int, int]:
+        """dh's K slabs [k0, k1) of ``split``, as the kernel computes them."""
+        return (split * self.dh_slabs // self.splits,
+                (split + 1) * self.dh_slabs // self.splits)
+
+    def args(self) -> Tuple[int, ...]:
+        return tuple(getattr(self, n) for n in CE_BWD_PLAN_ARGS)
+
+
+def ce_bwd_plan(N: int, nh: int, V: int, nsm: int) -> CEBwdPlan:
+    """The backward kernel's plan. One block fits an SM (its ring takes
+    193 KB), so with fewer dh tiles than SMs dh's K is split over the
+    ``splits`` in 1..``CE_BWD_SPLIT_MAX`` (at most one slab each) that give
+    the fewest waves of blocks per split, the smallest on a tie: at N 3040
+    on 132 SMs, 96 tiles x 4 = 384 blocks in 3 waves, each a quarter of K.
+    With as many tiles as SMs or more, and for dW, no split."""
+    one = CEBwdPlan(N, nh, V, 1)
+    if one.dh_tiles >= nsm:
+        return one
+    splits = min(range(1, min(CE_BWD_SPLIT_MAX, one.dh_slabs) + 1),
+                 key=lambda s: (Fraction(_cdiv(one.dh_tiles * s, nsm), s), s))
+    return CEBwdPlan(N, nh, V, splits)
+
+
 def _num_sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
@@ -163,9 +288,9 @@ def ce_logp_plain(h: torch.Tensor, w: torch.Tensor, tgt: torch.Tensor,
     return (torch.cat(logp), torch.cat(lse)) + ((spill,) if save_logits else ())
 
 
-def _lib(name: str, argtypes) -> ctypes.CDLL:
-    """``csrc/ce_fwd.cu``'s library with the C function ``name`` typed."""
-    lib = build.library("ce_fwd")
+def _lib(name: str, argtypes, source: str = "ce_fwd") -> ctypes.CDLL:
+    """``csrc/<source>.cu``'s library with the C function ``name`` typed."""
+    lib = build.library(source)
     fn = getattr(lib, name)
     if fn.argtypes is None:
         fn.argtypes = argtypes
@@ -173,13 +298,30 @@ def _lib(name: str, argtypes) -> ctypes.CDLL:
     return lib
 
 
+def _bf16_h(h: torch.Tensor, ldh: int) -> torch.Tensor:
+    """h in bf16 as the kernels read it: [N, ldh] rows, 16-byte aligned."""
+    h = h.to(torch.bfloat16).contiguous()
+    if ldh != h.shape[1]:
+        return torch.nn.functional.pad(h, (0, ldh - h.shape[1]))
+    return h.clone() if h.data_ptr() % 16 else h
+
+
 def ce_forward(h: torch.Tensor, w: torch.Tensor, tgt: torch.Tensor,
                operand_dtype: Optional[torch.dtype] = torch.bfloat16,
                save_logits: bool = False) -> Tuple[torch.Tensor, ...]:
     """Same contract as ``ce_logp_plain``; launches the CUDA kernel for
     CUDA tensors. Takes no gradient itself (``FusedCEFn`` does)."""
+    return _ce_forward(h, w, tgt, operand_dtype, save_logits)[0]
+
+
+def _ce_forward(h: torch.Tensor, w: torch.Tensor, tgt: torch.Tensor,
+                operand_dtype: Optional[torch.dtype], save_logits: bool
+                ) -> Tuple[Tuple[torch.Tensor, ...], Optional[Tuple[torch.Tensor, torch.Tensor]]]:
+    """``ce_forward``'s outputs, and where the bf16 kernel ran the bf16
+    operands it read, h [N, ldh] and W^T [Vp, Kp] (``ce_backward``'s
+    ``operands``), else None."""
     if h.device.type == "cpu":
-        return ce_logp_plain(h, w, tgt, operand_dtype, save_logits)
+        return ce_logp_plain(h, w, tgt, operand_dtype, save_logits), None
     if h.device.type != "cuda":
         raise ValueError(f"ce_forward: unsupported device {h.device}")
     N, nh = h.shape
@@ -198,16 +340,13 @@ def ce_forward(h: torch.Tensor, w: torch.Tensor, tgt: torch.Tensor,
     lse = torch.empty((N,), device=dev)
     if N == 0:
         spill = torch.empty((0, V), device=dev, dtype=dt) if save_logits else None
-        return (logp, lse) + ((spill,) if save_logits else ())
+        return (logp, lse) + ((spill,) if save_logits else ()), None
     name = "ce_fwd_train" if save_logits else "ce_fwd"
     stream = torch.cuda.current_stream(dev).cuda_stream
+    operands = None
     if dt == torch.bfloat16:
         plan = ce_plan(N, nh, V, _num_sms(dev))
-        h = h.to(dt).contiguous()
-        if plan.ldh != nh:
-            h = torch.nn.functional.pad(h, (0, plan.ldh - nh))
-        elif h.data_ptr() % 16:
-            h = h.clone()
+        h = _bf16_h(h, plan.ldh)
         if w.dtype not in (torch.float32, torch.bfloat16):
             w = w.float()
         w = w.contiguous()
@@ -223,6 +362,7 @@ def ce_forward(h: torch.Tensor, w: torch.Tensor, tgt: torch.Tensor,
                 plan.Kp, int(w.dtype == torch.float32), int(save_logits), *plan.args(), stream)
         build.check(lib, err, name)
         spill = spill[:, :V] if save_logits else None
+        operands = h, wt
     else:
         h = h.float().contiguous()
         w = w.float().contiguous()
@@ -234,13 +374,13 @@ def ce_forward(h: torch.Tensor, w: torch.Tensor, tgt: torch.Tensor,
                                  N, nh, V, int(save_logits), stream)
         build.check(lib, err, name)
     build.LAUNCHES[name] += 1
-    return (logp, lse) + ((spill,) if save_logits else ())
+    return (logp, lse) + ((spill,) if save_logits else ()), operands
 
 
-def ce_backward(h: torch.Tensor, w: torch.Tensor, tgt: torch.Tensor, lse: torch.Tensor,
-                logits: torch.Tensor, g: torch.Tensor,
-                operand_dtype: Optional[torch.dtype] = torch.bfloat16
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+def ce_backward_plain(h: torch.Tensor, w: torch.Tensor, tgt: torch.Tensor,
+                      lse: torch.Tensor, logits: torch.Tensor, g: torch.Tensor,
+                      operand_dtype: Optional[torch.dtype] = torch.bfloat16
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``_fused_ce_bwd``: the log_softmax-gather VJP at the saved logits.
 
     p = exp(logits - lse) (``lse`` of the saved logits, so rows sum to 1),
@@ -260,22 +400,95 @@ def ce_backward(h: torch.Tensor, w: torch.Tensor, tgt: torch.Tensor, lse: torch.
     return dh.to(h.dtype), dw.to(w.dtype)
 
 
+def ce_backward(h: torch.Tensor, w: torch.Tensor, tgt: torch.Tensor, lse: torch.Tensor,
+                logits: torch.Tensor, g: torch.Tensor,
+                operand_dtype: Optional[torch.dtype] = torch.bfloat16,
+                operands: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Same contract as ``ce_backward_plain``; launches ``csrc/ce_bwd.cu``
+    for CUDA tensors with bf16 operands. ``logits`` is the grad-mode spill
+    [N, V] (bf16, unit column stride, 16-byte-aligned rows; the kernel
+    reads it with its row stride: the forward's [:, :V] view of [N, Vp] as
+    it is); ``operands`` are the forward's bf16 h [N, ldh] and W^T
+    [Vp, Kp] (returned by ``_ce_forward``), which the kernel needs: without
+    them a CUDA tensor raises. With f32
+    operands (no main-path caller: the decoder passes bf16) a CUDA tensor
+    keeps the plain f32 products, as the JAX package's f32 mode is two XLA
+    dots as well."""
+    if h.device.type == "cpu" or (h.device.type == "cuda" and operand_dtype is None):
+        return ce_backward_plain(h, w, tgt, lse, logits, g, operand_dtype)
+    if h.device.type != "cuda":
+        raise ValueError(f"ce_backward: unsupported device {h.device}")
+    if operand_dtype != torch.bfloat16:
+        raise TypeError(f"ce_backward: operand_dtype {operand_dtype} not supported")
+    N, nh = h.shape
+    V = w.shape[1] if w.dim() == 2 else -1
+    if (w.dim() != 2 or w.shape[0] != nh or tuple(tgt.shape) != (N,)
+            or tuple(lse.shape) != (N,) or tuple(g.shape) != (N,)
+            or tuple(logits.shape) != (N, V)):
+        raise ValueError(f"ce_backward: bad shapes h {tuple(h.shape)} w {tuple(w.shape)} tgt "
+                         f"{tuple(tgt.shape)} lse {tuple(lse.shape)} logits "
+                         f"{tuple(logits.shape)} g {tuple(g.shape)}")
+    dev = h.device
+    if any(a.device != dev for a in (w, tgt, lse, logits, g)):
+        raise ValueError("ce_backward: all inputs must be on one device")
+    if logits.dtype != torch.bfloat16 or (N > 0 and (
+            logits.stride(1) != 1 or logits.stride(0) < V or logits.stride(0) % 8
+            or logits.data_ptr() % 16)):
+        raise ValueError(f"ce_backward: the spill must be bf16 rows of unit stride, 16-byte "
+                         f"aligned (the forward's [N, Vp] buffer), got {logits.dtype} strides "
+                         f"{logits.stride()}")
+    if N == 0:
+        return torch.zeros_like(h), torch.zeros_like(w)
+    if operands is None:
+        raise ValueError("ce_backward: the kernel reads the grad-mode forward's bf16 operands "
+                         "(h [N, ldh], W^T [Vp, Kp]); pass them as operands")
+    plan = ce_bwd_plan(N, nh, V, _num_sms(dev))
+    hb, wt = operands
+    for a, shape in ((hb, (N, plan.ldh)), (wt, (plan.Vp, plan.Kp))):
+        if (tuple(a.shape) != shape or a.dtype != torch.bfloat16 or not a.is_contiguous()
+                or a.device != dev):
+            raise ValueError(f"ce_backward: operand {tuple(a.shape)} {a.dtype} on {a.device}, "
+                             f"expected a contiguous bf16 {shape} on {dev}")
+    tgt = tgt.to(torch.int32).contiguous()
+    lse, g = lse.float().contiguous(), g.float().contiguous()
+    d = torch.empty((N, plan.Vp), device=dev, dtype=torch.bfloat16)  # the kernel fills it
+    part = torch.empty((plan.splits, N, nh), device=dev) if plan.splits > 1 else None
+    dh = torch.empty((N, nh), device=dev)
+    dw = torch.empty((nh, V), device=dev)
+    lib = _lib("ce_bwd_bf16", _BWD_ARGTYPES, "ce_bwd")
+    with torch.cuda.device(dev):
+        err = lib.ce_bwd_bf16(
+            logits.data_ptr(), logits.stride(0), lse.data_ptr(), tgt.data_ptr(), g.data_ptr(),
+            hb.data_ptr(), wt.data_ptr(), d.data_ptr(),
+            part.data_ptr() if part is not None else None, dh.data_ptr(), dw.data_ptr(), N, nh,
+            V, plan.ldh, plan.Vp, plan.Kp, *plan.args(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, err, "ce_bwd")
+    build.LAUNCHES["ce_bwd"] += 1
+    return dh.to(h.dtype), dw.to(w.dtype)
+
+
 class FusedCEFn(torch.autograd.Function):
     """``logp = FusedCEFn.apply(h, w, tgt, operand_dtype)``: the per-row
     target log-probability with the gradient of ``_fused_ce_bwd`` for h and
     w (tgt and operand_dtype take none). The forward goes through
-    ``ce_forward(..., save_logits=True)``, so a CUDA input launches the
-    grad-mode kernel and a CPU input runs the plain version."""
+    ``ce_forward(..., save_logits=True)`` and the backward through
+    ``ce_backward``, so a CUDA input launches the grad-mode kernel and the
+    backward kernel (bf16 operands; the forward's bf16 h and packed W^T are
+    kept for it, 41 MB of W^T at the Yahoo width) and a CPU input runs the
+    plain versions."""
 
     @staticmethod
     def forward(ctx, h, w, tgt, operand_dtype):
-        logp, lse, logits = ce_forward(h, w, tgt, operand_dtype, save_logits=True)
+        (logp, lse, logits), operands = _ce_forward(h, w, tgt, operand_dtype, True)
         ctx.operand_dtype = operand_dtype
-        ctx.save_for_backward(h, w, tgt, lse, logits)
+        ctx.save_for_backward(h, w, tgt, lse, logits, *(operands or ()))
         return logp
 
     @staticmethod
     def backward(ctx, g):
-        h, w, tgt, lse, logits = ctx.saved_tensors
-        dh, dw = ce_backward(h, w, tgt, lse, logits, g, ctx.operand_dtype)
+        h, w, tgt, lse, logits, *operands = ctx.saved_tensors
+        dh, dw = ce_backward(h, w, tgt, lse, logits, g, ctx.operand_dtype,
+                             operands=tuple(operands) or None)
         return dh, dw, None, None

@@ -509,15 +509,22 @@ def run_training(cfg: ExperimentConfig, vae: VAE, train_pool: Pool, val_pool: Po
                 log.info(f"[resume] the autosave holds no generator state of this package "
                          f"(written by the JAX package?): epoch {epoch} continues from step "
                          f"{start} on this run's own draws")
-        # the first epoch after epoch 0 (or the only epoch this run executes)
+        # the first epoch after epoch 0 (or the only epoch this run executes);
+        # on the card between a primer and a postamble that are cut from the
+        # trace (utils/profiling.py: a session loses its first launches' events)
         profiler = None
         if lead and cfg.profile_dir and epoch == max(start_epoch, min(1, cfg.epochs - 1)):
             from torch.profiler import ProfilerActivity, profile
+
+            from ..utils.profiling import PRIMER_PAUSE_S, primer, window_trace
 
             acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda"
                                              else [])
             profiler = profile(activities=acts)
             profiler.start()
+            if dev.type == "cuda":
+                primer(dev)
+                time.sleep(PRIMER_PAUSE_S)
         budget = None if _stop_after_steps is None else _stop_after_steps - steps_run
         graphs0 = dict(GRAPHS)
         opt_state, kl_weight, sums, inner_iters = epoch_fn(
@@ -541,11 +548,18 @@ def run_training(cfg: ExperimentConfig, vae: VAE, train_pool: Pool, val_pool: Po
         if profiler is not None:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
+                time.sleep(PRIMER_PAUSE_S)
+                primer(dev)  # the postamble
             profiler.stop()
             os.makedirs(cfg.profile_dir, exist_ok=True)
             trace = os.path.join(cfg.profile_dir, f"epoch{epoch}.pt.trace.json.gz")
             profiler.export_chrome_trace(trace)
-            log.info(f"[profile] trace for epoch {epoch} written to {trace}")
+            note = ""
+            if dev.type == "cuda":
+                _, untraced = window_trace(trace)
+                note = (f" (the primer and the postamble cut; {len(untraced)} launch calls "
+                        "without device events: a graph capture's launches run none)")
+            log.info(f"[profile] trace for epoch {epoch} written to {trace}{note}")
             _write_dossier(cfg, log, epoch, ran)
         dt = time.time() - t0
         log.info(f"epoch {epoch}: loss {loss_s / n_sent:.4f} "

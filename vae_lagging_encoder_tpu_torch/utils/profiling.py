@@ -15,13 +15,26 @@ parent, as the JAX package's walk does for nested XLA ops, so that both
 packages read the same nested trace alike (kernels on one CUDA stream do
 not nest, so on a torch trace self time equals duration). Ops are the
 port's kernels under their wrappers' names (``lstm_fwd_residuals``,
-``lstm_fwd_infer``, ``lstm_bwd``, ``ce_fwd``, ``ce_fwd_train``, and the
-CE's ``ce_pack_wt`` / ``ce_merge``), other kernels under their symbol
-without the parameter list; the rollup is by kind (``KINDS``). Device-busy
-time is the union of the device intervals; ``chip_smoke.py``'s ``profiled``
-exports its window's trace and derives the idle share from it and the
-window's wall time. ``render_dossier`` writes the same text as the JAX
-package's for the same summary.
+``lstm_fwd_infer``, ``lstm_bwd``, ``ce_fwd``, ``ce_fwd_train``, one kernel
+per launch of each), the other kernels of a launch under names of their
+own (the CE forward's ``ce_pack_wt`` / ``ce_merge``), other kernels under
+their symbol without the parameter list; the rollup is by kind (``KINDS``).
+A launch whose work is several kernels (``LAUNCH_PARTS``: the CE
+backward's ``ce_bwd_d`` pass, ``ce_bwd_dh`` / ``ce_bwd_dw`` products and
+``ce_bwd_merge``) has each kernel as an op, and the summary's ``launches``
+sums them under the wrapper's name (``ce_bwd``), which the dossier's
+header states. Device-busy time is the union of the device intervals;
+``chip_smoke.py``'s ``profiled`` exports its window's trace and derives the
+idle share from it and the window's wall time. ``render_dossier`` writes
+the same text as the JAX package's for the same summary.
+
+A profiler session loses the device events of its first ~25 launches (the
+first ~1-4 ms after its first device activity), even after a pause, and
+once a window's last one (seen on an NVIDIA H100). So a profiled window
+on the card runs between a ``primer`` and a postamble (the same), each
+beside a pause of ``PRIMER_PAUSE_S``, which take those losses, and
+``window_trace`` cuts them from the exported trace: ``chip_smoke.py``'s
+``profiled`` and ``--profile_dir`` (``train/loop.py``) both do.
 """
 from __future__ import annotations
 
@@ -50,12 +63,73 @@ PORT_KERNELS = (
     (re.compile(r"ce_(bf16|f32)_kernel<false>"), "ce_fwd"),
     (re.compile(r"ce_pack_wt_kernel"), "ce_pack_wt"),
     (re.compile(r"ce_merge_kernel"), "ce_merge"),
+    (re.compile(r"ce_bwd_d_kernel"), "ce_bwd_d"),
+    (re.compile(r"ce_bwd_gemm_kernel<false>"), "ce_bwd_dh"),
+    (re.compile(r"ce_bwd_gemm_kernel<true>"), "ce_bwd_dw"),
+    (re.compile(r"ce_bwd_merge_kernel"), "ce_bwd_merge"),
 )
+# the wrappers whose launch runs several kernels -> their ops, the first of
+# them once a launch
+LAUNCH_PARTS = {"ce_bwd": ("ce_bwd_d", "ce_bwd_dh", "ce_bwd_dw", "ce_bwd_merge")}
+# the CUDA API calls (runtime ``cuda*``, low-level ``cu*``) that put work on a
+# stream, as the profiler names them (a graph replay is one cudaGraphLaunch)
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchCooperativeKernel",
+               "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+               "cudaMemsetAsync")
+PRIMER_LAUNCHES = 64   # small kernels of the primer and of the postamble
+PRIMER_PAUSE_S = 0.2   # the pause beside each
 # kinds of the rollup, first match wins (after the port's kernels)
 KINDS = (("gemm", re.compile(r"gemm|cutlass|xmma|sm90_|wgmma", re.I)),
          ("elementwise", re.compile(r"elementwise", re.I)),
          ("reduce", re.compile(r"reduce|softmax|norm", re.I)),
          ("index", re.compile(r"index|gather|scatter|embedding", re.I)))
+
+
+def primer(device="cuda") -> None:
+    """``PRIMER_LAUNCHES`` small kernels on ``device``, then a synchronize:
+    what a profiled window's primer and postamble run (see the module
+    docstring); the caller pauses ``PRIMER_PAUSE_S`` beside each."""
+    import torch
+
+    x = torch.zeros(1, device=device)
+    for _ in range(PRIMER_LAUNCHES):
+        x.add_(1.0)
+    torch.cuda.synchronize(device)
+
+
+def window_trace(path: str) -> tuple:
+    """Rewrite the Chrome trace at ``path`` (gzipped or not) to the
+    profiled window alone: its complete events stamped between the middles
+    of the two pauses, the first and the last gap of at least half a pause
+    between two host runtime calls. Raises when the trace shows fewer than
+    two such gaps. Returns the window's launch calls by name
+    (``LAUNCH_APIS``) and those of them that have no device event of their
+    correlation id."""
+    path = str(path)
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rt") as fh:
+        trace = json.load(fh)
+    events = trace["traceEvents"]
+    host = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                  if e.get("ph") == "X" and e.get("cat") == "cuda_runtime")
+    pauses = [(b[0] + a[1]) / 2 for a, b in zip(host, host[1:])
+              if b[0] - a[1] >= PRIMER_PAUSE_S / 2 * 1e6]
+    if len(pauses) < 2:
+        raise AssertionError(f"the profiled trace shows {len(pauses)} of the primer's and the "
+                             "postamble's pauses, not 2")
+    events = [e for e in events
+              if e.get("ph") != "X" or pauses[0] <= e["ts"] <= pauses[-1]]
+    trace["traceEvents"] = events
+    with opener(path, "wt") as fh:
+        json.dump(trace, fh)
+    xs = [e for e in events if e.get("ph") == "X"]
+    traced = {e.get("args", {}).get("correlation") for e in xs
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")}
+    launches = [e for e in xs if e.get("cat") == "cuda_runtime" and e["name"] in LAUNCH_APIS]
+    calls = {}
+    for e in launches:
+        calls[e["name"]] = calls.get(e["name"], 0) + 1
+    return calls, [e["name"] for e in launches if e["args"].get("correlation") not in traced]
 
 
 def find_trace(trace_root: str) -> Optional[str]:
@@ -168,12 +242,20 @@ def distill_trace(trace_root: str, steps: int) -> Optional[dict]:
         "category": c, "ms_per_step": round(us / per_dev / steps, 4),
         "pct_device": round(100.0 * us / max(total_us, 1e-9), 2),
     } for c, us in cats.most_common()]
+    launches = {}
+    for wrapper, parts in LAUNCH_PARTS.items():
+        us = sum(ops[(op, "port kernel")] for op in parts)
+        if counts[(parts[0], "port kernel")]:
+            launches[wrapper] = {
+                "calls": int(round(counts[(parts[0], "port kernel")] / n_dev)),
+                "ms_total": round(us / per_dev, 3),
+                "ms_per_step": round(us / per_dev / steps, 4), "ops": list(parts)}
     busy = sum(busy_us(evs) for evs in by_pid.values())
     return {"trace": path, "steps": steps, "devices": n_dev, "graph_launches": graph_launches,
             "device_busy_ms": round(busy / per_dev, 3),
             "ops_total_ms": round(total_us / per_dev, 3),
             "ms_per_step_device": round(total_us / per_dev / steps, 4),
-            "categories": categories, "table": table}
+            "categories": categories, "table": table, "launches": launches}
 
 
 def render_dossier(summary: dict, title: str = "Profiler dossier",
@@ -214,13 +296,17 @@ def write_dossier(trace_root: str, steps: int, out_path: str,
     summary = distill_trace(trace_root, steps)
     if summary is None:
         return None
-    header = ()
+    header = []
     if summary["graph_launches"]:
-        header = (f"- {summary['graph_launches']} CUDA-graph replays (cudaGraphLaunch) in the "
-                  "window: the kernels inside them are counted below as their own device "
-                  "events", "")
+        header.append(f"- {summary['graph_launches']} CUDA-graph replays (cudaGraphLaunch) in "
+                      "the window: the kernels inside them are counted below as their own "
+                      "device events")
+    for wrapper, row in summary["launches"].items():
+        header.append(f"- `{wrapper}`: {row['calls']} launches, {row['ms_per_step']:.3f} ms/step "
+                      f"over its kernels {', '.join(row['ops'])} (each listed below)")
+    header += [""] * bool(header)
     with open(out_path, "w") as fh:
-        fh.write(render_dossier(summary, title=title, header_lines=header))
+        fh.write(render_dossier(summary, title=title, header_lines=tuple(header)))
     with open(os.path.splitext(out_path)[0] + ".json", "w") as fh:
         json.dump(summary, fh, indent=1)
     return summary
