@@ -12,7 +12,11 @@ Phases (each raises on failure; the script then exits non-zero):
    asynchronous-copy (LDGSTS: cp.async; UTMALDG, UBLKCP: TMA) instructions
    from the build logs; a tensor-core source without both fails the run,
    and so do ``lstm_infer`` and ``lstm_bwd`` without a wide-row kernel,
-   and ``ce_bwd`` without a product kernel, that has both HGMMA and UTMALDG;
+   and ``ce_bwd`` without a product kernel, that has both HGMMA and UTMALDG,
+   and ``lstm_infer`` and ``lstm_bwd`` without a narrow-row kernel that has
+   both HMMA and UBLKCP; then it builds ``lstm_ablation.py``'s empty-step
+   copies of the kernels that the 32- and 20-row plans run (the floor
+   below);
 2. kernel checks at the Yahoo shapes of the evaluation and the training
    paths: each kernel against its plain PyTorch version on the card, in
    bf16 and f32 operand mode, with timings (CUDA events), the plain
@@ -31,7 +35,12 @@ Phases (each raises on failure; the script then exits non-zero):
    memory beside the plain version's. Each LSTM kernel's
    launch plans print with their bf16 operand bytes a step into each SM
    and from L2 (``plan*``, ``sm_bytes_per_step*``, ``l2_bytes_per_step*``;
-   ``*_mma_rows640``: the mma.sync plan at 640 rows, for comparison).
+   ``*_mma_rows640`` and ``*_mma_rows32``: the mma.sync plan at 640 and 32
+   rows, for comparison), and below the wide path each timed shape its
+   empty-step floor (``floor_ms*``: the kernel's step reduced to the
+   barrier and the operand exchange, ``lstm_ablation.py``'s "empty_step"
+   copy timed under the same plan; T times its step is the least the
+   design reaches).
    Library yardsticks compute what the kernel computes and
    are timed in turns with it (library, port, port, library;
    ``*_turns``): cuDNN's training forward for the residual-saving forward,
@@ -291,7 +300,8 @@ def check_lstm(save_residuals: bool, rows: int, ni: int, launches_key: str, dev)
     for n, n_in, tag in extras:
         more = _check_lstm(save_residuals, n, n_in, launches_key, dev)
         r.update({f"{k}_{tag}": more[k] for k in ("err_f32", "err_bf16", "ms", "plain_ms",
-                                                  "library_ms", "bound_ms")})
+                                                  "library_ms", "bound_ms", "floor_ms")
+                  if k in more})
         if tag == "rows640":
             r.update(library_ms_turns_rows640=more["library_ms_turns"],
                      ms_turns_rows640=more["ms_turns"])
@@ -302,6 +312,7 @@ def check_lstm(save_residuals: bool, rows: int, ni: int, launches_key: str, dev)
                             f"_rows{n}" if n != rows else ""))
     r.update(plan_bytes(lstm_cuda.mma_infer_plan(NSAMPLES_ROWS, NH, nsm, save_residuals),
                         "_mma_rows640"))
+    r.update(plan_bytes(lstm_cuda.mma_infer_plan(B, NH, nsm, save_residuals), "_mma_rows32"))
     return r
 
 
@@ -310,9 +321,47 @@ RAGGED_ROWS = 600  # a ragged wide-row shape: row groups of 320 and 280
 
 def plan_bytes(plan, tag: str = ""):
     """A launch plan and its bf16 operand bytes a step: into each SM, and
-    from L2 over the grid (``MMAPlan`` / ``WidePlan``)."""
+    from L2 over the grid (``NarrowPlan`` / ``MMAPlan`` / ``WidePlan``)."""
     return {f"plan{tag}": repr(plan), f"sm_bytes_per_step{tag}": plan.sm_bytes_per_step,
             f"l2_bytes_per_step{tag}": plan.l2_bytes_per_step}
+
+
+# The empty-step floor of the plans below WIDE_MIN_ROWS: lstm_ablation.py's
+# "empty_step" copy of the kernel the plan runs, a step of only the barrier
+# and the operand exchange (no product, no cell); T times its step is the
+# least this design can reach, whatever the byte bound says. Built in phase
+# 1 beside the kernels; {group: library}.
+FLOORS = {}
+
+
+def floor_group(plan) -> str:
+    """lstm_ablation.py's group of the kernel a plan below the wide path runs."""
+    from vae_lagging_encoder_tpu_torch.ops import lstm_cuda
+
+    name = "lstm_bwd" if plan.kind == "bwd" else "lstm_infer"
+    return name + ("_narrow" if isinstance(plan, lstm_cuda.NarrowPlan) else "")
+
+
+def build_floors(nsm: int) -> float:
+    """Build the empty-step copies of the kernels of the 32-row plans."""
+    import lstm_ablation
+    from vae_lagging_encoder_tpu_torch.ops import lstm_cuda
+
+    t0 = time.perf_counter()
+    plans = [lstm_cuda.infer_plan(n, NH, nsm, res) for n in (B, 20) for res in (False, True)]
+    plans += [lstm_cuda.bwd_plan(n, NH, nsm) for n in (B, 20)]
+    groups = sorted({floor_group(p) for p in plans})
+    FLOORS.update({g: libs["empty_step"] for g, libs in
+                   lstm_ablation.build_variants(groups, kinds=("empty_step",)).items()})
+    return time.perf_counter() - t0
+
+
+def floor_ms(plan, fn) -> float:
+    """``fn`` (a launch under ``plan``) timed with the empty-step copy."""
+    import lstm_ablation
+
+    g = floor_group(plan)
+    return lstm_ablation.time_with(lstm_ablation.source_of(g), FLOORS[g], fn)
 
 
 def _check_lstm(save_residuals: bool, rows: int, ni: int, launches_key: str, dev,
@@ -371,6 +420,10 @@ def _check_lstm(save_residuals: bool, rows: int, ni: int, launches_key: str, dev
     out_f = T * rows * H * (2 + 4 if save_residuals else 1) + 2 * rows * H
     nbytes = 4.0 * (T * rows * 4 * H + T * rows + 2 * rows * H + out_f) + 2.0 * H * 4 * H
     bms, by = bound(ops, nbytes, PEAK_BF16)
+    nsm = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = lstm_cuda.infer_plan(rows, H, nsm, save_residuals)
+    if not isinstance(plan, lstm_cuda.WidePlan):
+        out.update(floor_ms=floor_ms(plan, port), floor_plan=repr(plan))
     return dict(err_f32=errs["f32"], err_bf16=errs["bf16"], ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bms, bound_by=by,
                 shape=f"T {T}, rows {rows}, input {ni}, H {H}, wh bf16", **out)
@@ -465,7 +518,8 @@ def check_lstm_bwd(dev):
     for n, seed, tag in ((20, 9, "b20"), (NSAMPLES_ROWS, 10, "rows640")):
         more = _check_lstm_bwd(n, seed, dev)
         r.update({f"{k}_{tag}": more[k] for k in ("err_f32", "err_bf16", "ms", "plain_ms",
-                                                  "library_ms", "port_bwd_ms", "bound_ms")})
+                                                  "library_ms", "port_bwd_ms", "bound_ms",
+                                                  "floor_ms") if k in more})
         if tag == "rows640":
             r.update(library_ms_turns_rows640=more["library_ms_turns"],
                      port_bwd_ms_turns_rows640=more["port_bwd_ms_turns"])
@@ -475,6 +529,7 @@ def check_lstm_bwd(dev):
     r.update(plan_bytes(lstm_cuda.bwd_plan(B, NH, nsm)))
     r.update(plan_bytes(lstm_cuda.bwd_plan(NSAMPLES_ROWS, NH, nsm), "_rows640"))
     r.update(plan_bytes(lstm_cuda.mma_bwd_plan(NSAMPLES_ROWS, NH, nsm), "_mma_rows640"))
+    r.update(plan_bytes(lstm_cuda.mma_bwd_plan(B, NH, nsm), "_mma_rows32"))
     return r
 
 
@@ -546,7 +601,13 @@ def _check_lstm_bwd(rows: int, seed: int, dev, timed: bool = True):
     nbytes = 4.0 * (T * rows * 4 * H + T * rows + 2 * T * rows * H + 2 * rows * H
                     + T * rows * 4 * H + 2 * rows * H) + 2.0 * H * 4 * H
     bms, by = bound(ops, nbytes, PEAK_BF16)
-    return dict(err_f32=errs["f32"], err_bf16=errs["bf16"], ms=ms, plain_ms=plain_ms,
+    nsm = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = lstm_cuda.bwd_plan(rows, H, nsm)
+    floor = {}
+    if not isinstance(plan, lstm_cuda.WidePlan):
+        floor = dict(floor_ms=floor_ms(plan, lambda: lstm_cuda.lstm_bwd(*args["bf16"])),
+                     floor_plan=repr(plan))
+    return dict(err_f32=errs["f32"], err_bf16=errs["bf16"], ms=ms, plain_ms=plain_ms, **floor,
                 library_ms=float(np.median(turns["library"])),
                 port_bwd_ms=float(np.median(turns["port"])),
                 library_ms_turns=turns["library"], port_bwd_ms_turns=turns["port"],
@@ -2627,6 +2688,9 @@ def main() -> int:
         f"torch {torch.__version__} cuda {torch.version.cuda}")
     build_s = build.build()
     log(f"[build] {len(build.SOURCES)} CUDA sources built in {build_s:.1f} s")
+    nsm = torch.cuda.get_device_properties(dev).multi_processor_count
+    floors_s = build_floors(nsm)
+    log(f"[build] empty-step floors {sorted(FLOORS)} built in {floors_s:.1f} s")
     # the tensor-core kernels: lstm_infer (both LSTM forwards) and lstm_bwd
     # on mma.sync (HMMA) with cp.async (LDGSTS) below WIDE_MIN_ROWS rows and
     # on wgmma (HGMMA) with TMA (UTMALDG) from there; ce_fwd on wgmma (HGMMA)
@@ -2647,6 +2711,10 @@ def main() -> int:
         if name != "ce_fwd" and not any(k["hgmma"] and k["utmaldg"] for k in census):
             raise AssertionError(f"{name}: no wide-row or product kernel with both HGMMA "
                                  f"(wgmma) and UTMALDG (TMA tile loads): {rep}")
+        if name in ("lstm_infer", "lstm_bwd") and not any(
+                "narrow" in k["function"] and k["hmma"] and k["ublkcp"] for k in census):
+            raise AssertionError(f"{name}: no narrow-row kernel with both HMMA (mma.sync) and "
+                                 f"UBLKCP (cp.async.bulk): {rep}")
     phase_done("1")
 
     # phase 2 — kernels against their plain versions at the slice's shapes

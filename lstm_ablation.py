@@ -1,43 +1,56 @@
 #!/usr/bin/env python3
-"""Ablations of the PyTorch port's tensor-core LSTM kernels, and the row
-sweep that sets ``ops/lstm_cuda.py::WIDE_MIN_ROWS``, timed on the card.
+"""Ablations of the PyTorch port's tensor-core LSTM kernels, their phase
+profiles, and the row sweep that sets ``ops/lstm_cuda.py::WIDE_MIN_ROWS``,
+timed on the card.
 
-    python3 lstm_ablation.py
+    python3 lstm_ablation.py [ablations] [sweep] [phases] [clusters] [--groups G1,G2]
 
-Builds copies of ``csrc/lstm_infer.cu`` and ``csrc/lstm_bwd.cu`` with one
-part of the per-step work removed and times each beside the intact kernel
-through the port's own launchers under a given plan
-(``ops/lstm_cuda.py::lstm_infer`` and ``lstm_bwd_bf16``), with the variant's library in place of the built one. The
-wide-row kernels (``namespace wide``, from ``WIDE_MIN_ROWS`` rows): the
-wgmma products, the TMA loads of the operand ring, the cell epilogue, and
-the backward's exchange of partial tiles between the two blocks of a
-cluster; at T 96, H 1024 and 640 rows (the IW decoder's forward, and
-``--nsamples 40`` training's forward and backward). The mma.sync kernels
-(below it): the products, the cp.async copies, the shared-memory reads of
-the A or B fragments, the whole k-loop, the cell epilogue, the backward's
-L2 prefetch and its other k-chunks; at 32 rows (the encoder, the training
-forward and backward). The time an ablation saves is what that part costs
-when the rest runs. The ablated kernels compute wrong values; only their
-times are read. Then the sweep: each of the three kernels under the
-mma.sync plan and the wide plan at 32-640 rows, in turns (mma, wide, wide,
-mma).
+Kernel groups (``ABLATIONS``): the wide-row kernels (``*_wide``: ``namespace
+wide`` of ``csrc/lstm_infer.cu`` and ``csrc/lstm_bwd.cu``, from
+``WIDE_MIN_ROWS`` rows; profiled at T 96, H 1024, 640 rows: the IW
+decoder's forward, ``--nsamples 40`` training's forward and backward), the
+narrow-row kernels (``*_narrow``: ``namespace narrow``, below it where a
+narrow plan fits) and the mma.sync kernels (``lstm_infer``, ``lstm_bwd``:
+the rows between), the last two at 32 rows (the encoder, the training
+forward and backward).
 
-Last, the wide kernels' step at 640 rows split into phases: a copy of each
-source with clock64() timers around the waits, the k-loop and the barrier
-(``PHASES``), kept in registers and written out once, read back as SM
-clocks a step for each consumer warpgroup (and the backward's epilogue
-warpgroup) of the mean block; the timers add their own cost.
+``ablations`` builds copies of each group's source with one part of the
+per-step work removed (text substitutions: one that no longer applies
+raises) and times each beside the intact kernel through the port's own
+launchers under the group's plan (``lstm_cuda.lstm_infer`` and
+``lstm_bwd_bf16``), with the variant's library in place of the built one:
+the products, the copies, the cell, the backward's exchange of partial
+tiles, the forward's multicast, and ``empty_step``: a step of only the
+barrier and the operand exchange, whose time over T steps is the floor of
+that design. The time an ablation saves is what that part costs when the
+rest runs; the ablated kernels compute wrong values and only their times
+are read.
+
+``sweep`` times each of the three kernels under every plan that fits
+(mma.sync, narrow, wide) at 1-640 rows, in turns (each plan, then in
+reverse): the mma.sync plans run this tree's copy of the kernels the
+narrow ones replaced.
+
+``phases`` builds a copy of each source with clock64() timers around the
+waits, the products, the exchange and the barrier (``PHASES``), kept in
+registers and written out once, read back as SM clocks a step for the
+roles of the mean block (``PHASE_ROLES``); the timers add their own cost.
+
+``clusters`` prints how many blocks of 512 threads a cooperative launch
+admits in clusters of 1-16 at a few sizes of shared memory
+(``cudaOccupancyMaxActiveClusters``; ``lstm_cuda.CLUSTER_BLOCKS_H100``).
 
 Prints the card and its power limit, then one JSON line per ablated shape
 (median CUDA-event milliseconds of each variant, the intact kernel timed
-first and last), per swept row count and per profiled kernel. Needs one CUDA GPU and ``nvcc``;
-builds into ``build/lstm_ablation``. Each ablation is a list of text
-substitutions in the source: when the source changes, a substitution that
-no longer applies raises. A development tool: nothing in the package or its
-tests imports it.
+first and last), per swept row count and per profiled kernel. Needs one
+CUDA GPU and ``nvcc``; builds into ``build/lstm_ablation``.
+``chip_smoke.py`` builds and times the ``empty_step`` copies of the 32-row
+plans' kernels through ``build_variants`` and ``time_with``. Nothing in
+the package or its tests imports this file.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import dataclasses
 import json
@@ -52,13 +65,28 @@ import torch
 from vae_lagging_encoder_tpu_torch.ops import build, lstm_cuda
 
 T, H = 96, 1024
-SWEEP_ROWS = (32, 64, 96, 128, 192, 256, 320, 640)
+SWEEP_ROWS = (1, 20, 32, 48, 64, 96, 128, 192, 320, 640)
 # the wide kernels' products, TMA tile loads and epilogues (the backward's
 # is its epilogue warpgroup's cell), and the backward's cluster exchange;
 # each ablation keeps every barrier's arrivals (a TMA-free ring slot
 # completes on its producer's one arrival)
 _NO_TMA = [("wg::mbar_arrive_tx(full_bar(w, s), wg::kTileBytes);",
             "wg::mbar_arrive(full_bar(w, s)); if (0)")]
+_NARROW_FWD_MMA = ("for (int nt = 0; nt < NTILES; ++nt) mma_bf16(acc[nt], af, b[nt * 32]);",
+                   "for (int nt = 0; nt < NTILES; ++nt) "
+                   "acc[nt][0] += __uint_as_float(af.x ^ b[nt * 32].x);")
+_NARROW_FWD_CELL = ("      if (!pok[i]) continue;\n      const int r16 = prow[i] & 15, j = punit[i] - u0;\n",
+                    "      if (!pok[i] || t >= 0) continue;\n      const int r16 = prow[i] & 15, j = punit[i] - u0;\n")
+_NARROW_BWD_MMA = ("if (m < MT) mma_bf16(acc[m][n], af[m], bfr[kk][n]);",
+                   "if (m < MT) acc[m][n][0] += __uint_as_float(af[m].x ^ bfr[kk][n].x);")
+# the empty step: no k-loop at all (no shared-memory reads of the operands)
+_NARROW_FWD_LOOP = ("    for (int ks = ks0; ks < ks1; ++ks) {", "    for (int ks = ks0; ks < 0; ++ks) {")
+_NARROW_BWD_LOOP = ("        if (kw0 + kk >= kw1) break;", "        if (kw0 + kk >= 0) break;")
+# the stores of the outputs (hs, cs, gates; da) skipped
+_NARROW_FWD_OUT = ("      const size_t so = (size_t)prow[i] * H + punit[i];\n      hs[(size_t)t * rows * H + so] = h[i];",
+                   "      const size_t so = (size_t)prow[i] * H + punit[i];\n      if (t < 0) hs[(size_t)t * rows * H + so] = h[i];\n      if (t >= 0) continue;")
+_NARROW_BWD_OUT = ("      store_da(t - 1);  // after the barrier", "      if (t < 0) store_da(t - 1);  // after the barrier")
+_NARROW_BWD_CELL = ("      if (t > 0)\n        cell(t - 1, i, dh_in);", "      if (t < 0)\n        cell(t - 1, i, dh_in);")
 ABLATIONS = {
     "lstm_infer_wide": {
         "no_mma": [("wg::wgmma_slab<kN>(", "if (0) wg::wgmma_slab<kN>(")],
@@ -85,6 +113,11 @@ ABLATIONS = {
         "no_k_loop": [("const int n_items = cdiv(ks1 - ks0, CK);",
                        "const int n_items = 0 * cdiv(ks1 - ks0, CK);")],
         "no_epilogue": [("if (wk != 0) continue;", "if (wk != 0 || t >= 0) continue;")],
+        # the empty step: the grid barrier and the operand copy into shared
+        # memory, nothing else (no product, K-slice sum or cell)
+        "empty_step": [("if (live[m]) mma_bf16(acc[m][nt], af[m], bf);", ";"),
+                       ("if (WK > 1) {  // sum the K slices", "if (0) {  // sum the K slices"),
+                       ("if (wk != 0) continue;", "if (wk != 0 || t >= 0) continue;")],
     },
     "lstm_bwd": {
         "no_mma": [("mma_bf16(acc[m][nt], af, b[nt * 32]);",
@@ -94,6 +127,33 @@ ABLATIONS = {
         "no_k_loop": [("const int n_items = cdiv(ks1 - ks0, CK);",
                        "const int n_items = 0 * cdiv(ks1 - ks0, CK);")],
         "no_prefetch": [("if (t > 0) prefetch_cell(t - 1);", "")],
+        "empty_step": [("for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[m][nt], af, b[nt * 32]);",
+                        ";"),
+                       ("if (t > 0) prefetch_cell(t - 1);", ""),
+                       ("      // sum the warps' partial tiles, then the cell backward of step t-1\n",
+                        "      continue;\n")],
+    },
+    # the narrow-row kernels at 32 rows: the products, the cell, the
+    # outputs' stores, the backward's exchange of partial tiles, the
+    # forward's multicast; the empty step keeps the barriers and the copies
+    # (and the backward's exchange and cluster barrier)
+    "lstm_infer_narrow": {
+        "no_mma": [_NARROW_FWD_MMA],
+        "no_cell": [_NARROW_FWD_CELL],
+        "no_outputs": [_NARROW_FWD_OUT],
+        # every block copies the whole tile for itself (no multicast)
+        "own_copy": [("  const int KSP = cdiv(KS, C), p0 = min(KS, crank * KSP), p1 = min(KS, p0 + KSP);",
+                      "  const int KSP = KS, p0 = 0, p1 = KS;"),
+                     ("(uint16_t)((1u << C) - 1));", "(uint16_t)(1u << crank));")],
+        "empty_step": [_NARROW_FWD_LOOP, _NARROW_FWD_CELL],
+    },
+    "lstm_bwd_narrow": {
+        "no_mma": [_NARROW_BWD_MMA],
+        "no_exchange": [("      wg::st_cluster(wg::map_rank(slot, owner), v);",
+                         "      if (v.x == 12345.f) wg::st_cluster(wg::map_rank(slot, owner), v);")],
+        "no_cell": [_NARROW_BWD_CELL],
+        "no_outputs": [_NARROW_BWD_OUT],
+        "empty_step": [_NARROW_BWD_LOOP, _NARROW_BWD_CELL],
     },
 }
 OUT_DIR = build.BUILD_DIR.parent / "lstm_ablation"
@@ -103,7 +163,7 @@ OUT_DIR = build.BUILD_DIR.parent / "lstm_ablation"
 # to g_prof at the end. Each entry wraps one statement (or opens/closes a
 # span) by text substitution, as the ablations do.
 _PROF_HEAD = ("__device__ long long g_prof[132 * 4 * 8];\n"
-              "__device__ long long _p[8];  // the 32-row kernels' timers, unread\n"
+              "__device__ long long _p[8];  // the timers of a kernel with none of its own, unread\n"
               "#define PROF(k, v) (_p[k] += (v))\n")
 _PROF_READ = ('extern "C" int prof_read(long long* h) {\n'
               "  return cudaMemcpyFromSymbol(h, g_prof, sizeof(g_prof));\n}\n")
@@ -111,17 +171,29 @@ _WRITE = ("  if (!producer && lt == 0)\n    for (int k = 0; k < 8; ++k)\n"
           "      g_prof[(blockIdx.x * 4 + (EPI ? 2 : w)) * 8 + k] = _p[k];\n")
 
 
+# the mma.sync kernels: warp 0 and the last warp of each block, roles 0 and 1
+_WRITE_MMA = ("  if ((threadIdx.x & 31) == 0 && (threadIdx.x == 0 || threadIdx.x == blockDim.x - 32))\n"
+              "    for (int k = 0; k < 8; ++k)\n"
+              "      g_prof[(blockIdx.x * 4 + (threadIdx.x ? 1 : 0)) * 8 + k] = _p[k];\n")
+
+
+# the narrow-row kernels: warp 0's lane 0 and the last warp's lane 0
+_WRITE_NARROW = ("  if ((tid & 31) == 0 && (tid == 0 || tid == nthr - 32))\n"
+                 "    for (int k = 0; k < 8; ++k)\n"
+                 "      g_prof[(blockIdx.x * 4 + (tid ? 1 : 0)) * 8 + k] = _p[k];\n")
+
+
 def _timed(stmt: str, k: int) -> tuple:
     return stmt, "{ long long _a = clock64(); " + stmt + f" PROF({k}, clock64() - _a); }}"
 
 
 PHASES = {
-    "lstm_infer": (
+    "lstm_infer_wide": (
         ["full_wait", "wgmma_wait", "release", "k_loop", "xw_wait", "grid_sync", "step"],
         [("  const bool producer = tid >= kConsumers;\n",
           "  const bool producer = tid >= kConsumers;\n  long long _p[8] = {};\n"),
-         ("  cluster.sync();  // no block leaves", _WRITE.replace("EPI", "false")
-          + "  cluster.sync();  // no block leaves"),
+         ("  cluster.sync();  // no block leaves while the other", _WRITE.replace("EPI", "false")
+          + "  cluster.sync();  // no block leaves while the other"),
          ("  for (int t = 0; t < T_; ++t) {\n    if (producer) {",
           "  for (int t = 0; t < T_; ++t) {\n    long long _s0 = clock64();\n"
           "    if (producer) {"),
@@ -136,13 +208,13 @@ PHASES = {
          ("        wg::wgmma_wait<0>();\n",
           "        PROF(3, clock64() - _k0);\n        wg::wgmma_wait<0>();\n"),
          _timed("wg::mbar_wait(x_bar(w), xseq & 1);", 4)]),
-    "lstm_bwd": (
+    "lstm_bwd_wide": (
         ["full_wait", "wgmma_wait", "release", "k_loop", "recv_wait", "grid_sync", "step",
          "sums_wait"],
         [("  const bool epilogue = tid >= kConsumers + kProducers;\n",
           "  const bool epilogue = tid >= kConsumers + kProducers;\n  long long _p[8] = {};\n"),
-         ("  cluster.sync();  // no block leaves", _WRITE.replace("EPI", "epilogue")
-          + "  cluster.sync();  // no block leaves"),
+         ("  cluster.sync();  // no block leaves while the other", _WRITE.replace("EPI", "epilogue")
+          + "  cluster.sync();  // no block leaves while the other"),
          ("    if (epilogue && t > 0) prefetch_cell(t - 1);\n",
           "    long long _s0 = clock64();\n    if (epilogue && t > 0) prefetch_cell(t - 1);\n"),
          ("    }\n    seq += n_loads;\n  }\n",
@@ -160,51 +232,150 @@ PHASES = {
           "        PROF(3, clock64() - _k0);\n        wg::wgmma_wait<0>();\n"),
          _timed("wg::mbar_wait_cluster(recv_bar(j), use & 1);", 4),
          _timed("wg::mbar_wait(epi_bar(j), slot_use(t, mt) & 1);", 7)]),
+    # the mma.sync kernels at 32 rows: warp 0 (K slice 0 of the forward's
+    # first m-tile column, which runs the cell) and the last warp
+    "lstm_infer": (
+        ["copy_wait", "k_loop", "k_sum", "epilogue", "grid_sync", "step"],
+        [("  const int g = lane >> 2, tig = lane & 3;\n",
+          "  const int g = lane >> 2, tig = lane & 3;\n  long long _p[8] = {}, _e0 = 0;\n"),
+         ("  for (int t = 0; t < T_; ++t) {\n    const __nv_bfloat16* src",
+          "  for (int t = 0; t < T_; ++t) {\n    long long _s0 = clock64();\n"
+          "    const __nv_bfloat16* src"),
+         ("      const int n_items = cdiv(ks1 - ks0, CK);",
+          "      long long _k0 = clock64();\n      const int n_items = cdiv(ks1 - ks0, CK);"),
+         ("      if (WK > 1) {  // sum the K slices",
+          "      PROF(1, clock64() - _k0);\n      long long _r0 = clock64();\n"
+          "      if (WK > 1) {  // sum the K slices"),
+         ("      if (wk != 0) continue;\n",
+          "      PROF(2, clock64() - _r0);\n      if (wk != 0) continue;\n      _e0 = clock64();\n"),
+         ("    if (t + 1 < T_) grid.sync();\n  }\n}\n\nsize_t smem_bytes_for",
+          "    if (wk == 0) PROF(3, clock64() - _e0);\n"
+          "    { long long _a = clock64(); if (t + 1 < T_) grid.sync(); PROF(4, clock64() - _a); }\n"
+          "    PROF(5, clock64() - _s0);\n  }\n" + _WRITE_MMA + "}\n\nsize_t smem_bytes_for"),
+         _timed("cp_async_wait<kStages - 1>();", 0)]),
+    "lstm_bwd": (
+        ["copy_wait", "k_loop", "k_sum", "epilogue", "grid_sync", "step"],
+        [("  const int ks0 = min(KS, warp * KSW), ks1 = min(KS, ks0 + KSW);\n",
+          "  const int ks0 = min(KS, warp * KSW), ks1 = min(KS, ks0 + KSW);\n"
+          "  long long _p[8] = {};\n"),
+         ("    if (t > 0) prefetch_cell(t - 1);\n    grid.sync();  // da_t (ring slot t % 2) is "
+          "complete in every block\n",
+          "    long long _s0 = clock64();\n    if (t > 0) prefetch_cell(t - 1);\n"
+          "    { long long _a = clock64(); grid.sync(); PROF(4, clock64() - _a); }\n"),
+         ("      const int n_items = cdiv(ks1 - ks0, CK);",
+          "      long long _k0 = clock64();\n      const int n_items = cdiv(ks1 - ks0, CK);"),
+         ("      // sum the warps' partial tiles, then the cell backward of step t-1\n",
+          "      PROF(1, clock64() - _k0);\n      long long _r0 = clock64();\n"),
+         ("      __syncthreads();\n      for (int s = threadIdx.x; s < SLOTS; s += blockDim.x) {",
+          "      __syncthreads();\n      PROF(2, clock64() - _r0);\n      long long _e0 = clock64();\n"
+          "      for (int s = threadIdx.x; s < SLOTS; s += blockDim.x) {"),
+         ("      __syncthreads();  // red is rewritten by the next pass\n    }\n  }\n}\n",
+          "      PROF(3, clock64() - _e0);\n      __syncthreads();  // red is rewritten by the next pass\n"
+          "    }\n    PROF(5, clock64() - _s0);\n  }\n" + _WRITE_MMA + "}\n"),
+         _timed("cp_async_wait<kStages - 1>();", 0)]),
+    # the narrow-row kernels at 32 rows: warp 0's lane 0 and the last warp's
+    # lane 0 (the copier)
+    "lstm_infer_narrow": (
+        ["inputs", "full_wait", "product", "k_sum", "cell", "grid_sync", "step"],
+        [("  const int KSP = cdiv(KS, C), p0 = min(KS, crank * KSP), p1 = min(KS, p0 + KSP);\n",
+          "  const int KSP = cdiv(KS, C), p0 = min(KS, crank * KSP), p1 = min(KS, p0 + KSP);\n"
+          "  long long _p[8] = {};\n"),
+         ("    // the cell's inputs of step t, requested before the copy and the product\n",
+          "    long long _s0 = clock64();\n"),
+         ("    // this block's piece of h_{t-1} (ring slot (t + 1) % 2), into every\n",
+          "    PROF(0, clock64() - _s0);\n"),
+         ("    wg::mbar_wait(full_bar, t & 1);\n\n    float acc[NTILES][4];",
+          "    { long long _a = clock64(); wg::mbar_wait(full_bar, t & 1); PROF(1, clock64() - _a); }\n"
+          "    long long _m0 = clock64();\n    float acc[NTILES][4];"),
+         ("    {\n      float4* mine = red",
+          "    PROF(2, clock64() - _m0);\n    long long _r0 = clock64();\n    {\n      float4* mine = red"),
+         ("    // the cell; h_t goes to the ring before the barrier, the outputs after it\n",
+          "    PROF(3, clock64() - _r0);\n    long long _e0 = clock64();\n"),
+         ("    if (t + 1 < T_) {  // h_t is out in every block; the partial tiles are read\n",
+          "    PROF(4, clock64() - _e0);\n    long long _g0 = clock64();\n"
+          "    if (t + 1 < T_) {  // h_t is out in every block; the partial tiles are read\n"),
+         ("    // the outputs, after the barrier: the next step's copy does not wait for them\n",
+          "    PROF(5, clock64() - _g0);\n"),
+         ("        for (int q = 0; q < 4; ++q) gt[(size_t)q * H] = act[i][q];\n      }\n    }\n  }\n",
+          "        for (int q = 0; q < 4; ++q) gt[(size_t)q * H] = act[i][q];\n      }\n    }\n"
+          "    PROF(6, clock64() - _s0);\n  }\n"),
+         ("  cluster.sync();  // no block leaves while a piece it copied may still land in another",
+          _WRITE_NARROW + "  cluster.sync();  // no block leaves while a piece it copied may still land")]),
+    "lstm_bwd_narrow": (
+        ["inputs", "full_wait", "product", "exchange", "cell", "grid_sync", "step"],
+        [("  const uint32_t full_bar = wg::smem_u32(smem + L.bar);\n",
+          "  const uint32_t full_bar = wg::smem_u32(smem + L.bar);\n  long long _p[8] = {};\n"),
+         ("    const int s = T_ - 1 - t;  // steps done\n    if (t > 0) load_in(t - 1);\n",
+          "    const int s = T_ - 1 - t;  // steps done\n    long long _s0 = clock64();\n"
+          "    if (t > 0) load_in(t - 1);\n    PROF(0, clock64() - _s0);\n"),
+         ("    if (k0 < k1) wg::mbar_wait(full_bar, s & 1);\n",
+          "    { long long _a = clock64(); if (k0 < k1) wg::mbar_wait(full_bar, s & 1); "
+          "PROF(1, clock64() - _a); }\n    long long _m0 = clock64();\n"),
+         ("    cluster.sync();  // every partial tile is in its owner's receive slot\n",
+          "    PROF(2, clock64() - _m0);\n    { long long _a = clock64(); cluster.sync(); "
+          "PROF(3, clock64() - _a); }\n    long long _e0 = clock64();\n"),
+         ("    if (t > 0) {  // da_{t-1} is out in every block; the receive slots are read\n",
+          "    PROF(4, clock64() - _e0);\n    long long _g0 = clock64();\n"
+          "    if (t > 0) {  // da_{t-1} is out in every block; the receive slots are read\n"),
+         ("      store_da(t - 1);  // after the barrier: the next step's copy does not wait for it\n"
+          "    }\n  }\n",
+          "      PROF(5, clock64() - _g0);\n"
+          "      store_da(t - 1);  // after the barrier: the next step's copy does not wait for it\n"
+          "    }\n    PROF(6, clock64() - _s0);\n  }\n"),
+         ("  cluster.sync();  // no block leaves while another may still write to it",
+          _WRITE_NARROW + "  cluster.sync();  // no block leaves while another may still write to it")]),
 }
 
 
 def source_of(group: str) -> str:
-    return group.replace("_wide", "")
+    return group.replace("_wide", "").replace("_narrow", "")
 
 
-def build_profiled() -> Dict[str, ctypes.CDLL]:
-    """Each source with the ``PHASES`` timers, one ``nvcc`` each, together."""
+def build_profiled(groups) -> Dict[str, ctypes.CDLL]:
+    """A copy of each group's source with its ``PHASES`` timers, one
+    ``nvcc`` each, all started together."""
     procs = {}
-    for name, (_, subs) in PHASES.items():
+    for group in groups:
+        _, subs = PHASES[group]
+        name = source_of(group)
         src = (build.CSRC_DIR / f"{name}.cu").read_text()
         src = src.replace('#include "lstm_wgmma.cuh"\n', '#include "lstm_wgmma.cuh"\n' + _PROF_HEAD)
         for old, new in subs:
             if src.count(old) != 1:
-                raise RuntimeError(f"{name}: a phase timer no longer applies: {old!r}")
+                raise RuntimeError(f"{group}: a phase timer no longer applies: {old!r}")
             src = src.replace(old, new)
-        d = OUT_DIR / "phases"
+        d = OUT_DIR / "phases" / group
         d.mkdir(parents=True, exist_ok=True)
         for hdr in build.CSRC_DIR.glob("*.cuh"):
             shutil.copy(hdr, d / hdr.name)
         (d / f"{name}.cu").write_text(src + _PROF_READ)
-        procs[name] = subprocess.Popen(
+        procs[group] = subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, "-o", str(d / f"{name}.so"), str(d / f"{name}.cu")],
-            stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)
+            stdout=open(d / f"{name}.log", "w"), stderr=subprocess.STDOUT)
     out = {}
-    for name, p in procs.items():
+    for group, p in procs.items():
         if p.wait() != 0:
-            raise RuntimeError(f"{name}: the timed copy does not build")
-        out[name] = ctypes.CDLL(str(OUT_DIR / "phases" / f"{name}.so"))
+            raise RuntimeError(f"{group}: the timed copy does not build:\n"
+                               + (OUT_DIR / "phases" / group / f"{source_of(group)}.log")
+                               .read_text()[-3000:])
+        out[group] = ctypes.CDLL(str(OUT_DIR / "phases" / group / f"{source_of(group)}.so"))
     return out
 
 
-def build_variants() -> Dict[str, Dict[str, ctypes.CDLL]]:
-    """Per group of ``ABLATIONS``: the intact source and each ablation, one
-    ``nvcc`` each, all started together."""
+def build_variants(groups, kinds=None) -> Dict[str, Dict[str, ctypes.CDLL]]:
+    """Per group of ``ABLATIONS`` in ``groups``: the intact source and each
+    ablation (or only the ``kinds`` named), one ``nvcc`` each, all started
+    together."""
     procs = {}
-    for group, abl in ABLATIONS.items():
+    for group in groups:
+        abl = {k: v for k, v in ABLATIONS[group].items() if kinds is None or k in kinds}
         name = source_of(group)
         src = (build.CSRC_DIR / f"{name}.cu").read_text()
         d = OUT_DIR / group
         d.mkdir(parents=True, exist_ok=True)
         for hdr in build.CSRC_DIR.glob("*.cuh"):
             shutil.copy(hdr, d / hdr.name)
-        texts = {"intact": src}
+        texts = {"intact": src} if kinds is None else {}
         for k, subs in abl.items():
             text = src
             for old, new in subs:
@@ -216,11 +387,12 @@ def build_variants() -> Dict[str, Dict[str, ctypes.CDLL]]:
             (d / f"{k}.cu").write_text(text)
             procs[group, k] = subprocess.Popen(
                 [build._nvcc(), *build.NVCC_FLAGS, "-o", str(d / f"{k}.so"), str(d / f"{k}.cu")],
-                stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)
-    libs: Dict[str, Dict[str, ctypes.CDLL]] = {g: {} for g in ABLATIONS}
+                stdout=open(d / f"{k}.log", "w"), stderr=subprocess.STDOUT)
+    libs: Dict[str, Dict[str, ctypes.CDLL]] = {g: {} for g in groups}
     for (group, k), p in procs.items():
         if p.wait() != 0:
-            raise RuntimeError(f"{group}: variant {k} does not build")
+            raise RuntimeError(f"{group}: variant {k} does not build:\n"
+                               + (OUT_DIR / group / f"{k}.log").read_text()[-3000:])
         libs[group][k] = ctypes.CDLL(str(OUT_DIR / group / f"{k}.so"))
     return libs
 
@@ -289,60 +461,159 @@ def bwd_args(rows: int, seed: int, dev):
 
 
 def sweep(nsm: int, dev):
-    """Each kernel under the mma.sync plan and the wide plan at
-    ``SWEEP_ROWS``, in turns (mma, wide, wide, mma): the medians."""
+    """Each kernel under every plan that fits at ``SWEEP_ROWS`` (the
+    mma.sync plan, the narrow plan, the wide plan), timed in turns (each
+    plan in order, then in reverse): the medians."""
     for rows in SWEEP_ROWS:
         xw, mask, wh, h0, c0 = inputs(rows, rows, dev)
         args = bwd_args(rows, rows + 1, dev)
         line = {"sweep_rows": rows}
         for kind in ("infer", "resid", "bwd"):
+            res, key = kind == "resid", "bwd" if kind == "bwd" else "infer"
+            plans = {"mma": (lstm_cuda.mma_bwd_plan(rows, H, nsm) if key == "bwd"
+                             else lstm_cuda.mma_infer_plan(rows, H, nsm, res)),
+                     "narrow": lstm_cuda.narrow_plan(key, rows, H, nsm),
+                     "wide": lstm_cuda.wide_plan(key, rows, H, nsm)}
             fns = {}
-            for wide in (False, True):
-                if kind == "bwd":
-                    plan = (lstm_cuda.wide_plan("bwd", rows, H, nsm) if wide
-                            else lstm_cuda.mma_bwd_plan(rows, H, nsm))
-                    fns[wide] = lambda plan=plan: lstm_cuda.lstm_bwd_bf16(*args, plan)
-                else:
-                    res = kind == "resid"
-                    plan = (lstm_cuda.wide_plan("infer", rows, H, nsm) if wide
-                            else lstm_cuda.mma_infer_plan(rows, H, nsm, res))
-                    fns[wide] = (lambda plan=plan, res=res:
-                                 lstm_cuda.lstm_infer(xw, mask, wh, h0, c0, plan, res))
-            turns = {False: [], True: []}
-            for wide in (False, True, True, False):
-                turns[wide].append(time_ms(fns[wide]))
-            line[kind] = {"mma_ms": float(np.median(turns[False])),
-                          "wide_ms": float(np.median(turns[True]))}
+            for name, plan in plans.items():
+                if plan is None:
+                    continue
+                fns[name] = ((lambda plan=plan: lstm_cuda.lstm_bwd_bf16(*args, plan)) if key == "bwd"
+                             else (lambda plan=plan: lstm_cuda.lstm_infer(xw, mask, wh, h0, c0, plan,
+                                                                          res)))
+            turns = {k: [] for k in fns}
+            for k in list(fns) + list(fns)[::-1]:
+                turns[k].append(time_ms(fns[k]))
+            line[kind] = {f"{k}_ms": float(np.median(v)) for k, v in turns.items()}
         print(json.dumps(line), flush=True)
 
 
-def phases(nsm: int, dev, rows: int = 640):
-    """One launch of each wide kernel at ``rows`` with the timed copy: SM
-    clocks a step by phase for consumer warpgroups 0 and 1 (and the
-    backward's epilogue warpgroup), the mean over blocks."""
-    libs = build_profiled()
-    for name, (names, _) in PHASES.items():
+def phases(nsm: int, dev, groups):
+    """One launch of each kernel of ``PHASES`` in ``groups`` with its timed
+    copy: SM clocks a step by phase, the mean over blocks; the wide kernels
+    at 640 rows (consumer warpgroups 0 and 1, the backward's epilogue
+    warpgroup), the others at 32 (the roles ``PHASE_ROLES`` names, else
+    warp 0 and the last warp)."""
+    groups = [g for g in groups if g in PHASES]
+    libs = build_profiled(groups)
+    for group in groups:
+        names, _ = PHASES[group]
+        name, wide = source_of(group), group.endswith("_wide")
+        rows = 640 if wide else 32
+        plan = plan_of(group, rows, nsm)
         if name == "lstm_infer":
             xw, mask, wh, h0, c0 = inputs(rows, 7, dev)
-            plan = lstm_cuda.wide_plan("infer", rows, H, nsm)
-            fn = lambda: lstm_cuda.lstm_infer(xw, mask, wh, h0, c0, plan, False)
+            fn = lambda plan=plan: lstm_cuda.lstm_infer(xw, mask, wh, h0, c0, plan, False)
         else:
             args = bwd_args(rows, 8, dev)
-            plan = lstm_cuda.wide_plan("bwd", rows, H, nsm)
-            fn = lambda: lstm_cuda.lstm_bwd_bf16(*args, plan)
-        ms = time_with(name, libs[name], fn)  # the last launch's timers stay
+            fn = lambda plan=plan: lstm_cuda.lstm_bwd_bf16(*args, plan)
+        ms = time_with(name, libs[group], fn)  # the last launch's timers stay
         h = (ctypes.c_longlong * (132 * 4 * 8))()
-        libs[name].prof_read(h)
+        libs[group].prof_read(h)
         a = np.array(h[:], dtype=np.float64).reshape(132, 4, 8)[:plan.blocks] / T
-        roles = {"consumer0": 0, "consumer1": 1} | ({"epilogue": 2} if name == "lstm_bwd" else {})
+        roles = ({"consumer0": 0, "consumer1": 1} | ({"epilogue": 2} if name == "lstm_bwd" else {})
+                 if wide else PHASE_ROLES.get(group, {"warp0": 0, "last_warp": 1}))
         print(json.dumps({"phases": "lstm_fwd_infer" if name == "lstm_infer" else name,
-                          "rows": rows, "plan": repr(plan), "timed_ms": ms,
+                          "kernel": group, "rows": rows, "plan": repr(plan), "timed_ms": ms,
                           "sm_clocks_per_step": {
                               r: dict(zip(names, a[:, i, :len(names)].mean(0).round(1).tolist()))
                               for r, i in roles.items()}}), flush=True)
 
 
+def plan_of(group: str, rows: int, nsm: int, save_residuals: bool = False):
+    """The plan the kernels of ``group`` run under: the wide, the narrow or
+    the mma.sync plan."""
+    kind = "bwd" if source_of(group) == "lstm_bwd" else "infer"
+    if group.endswith("_wide"):
+        return lstm_cuda.wide_plan(kind, rows, H, nsm)
+    if group.endswith("_narrow"):
+        return lstm_cuda.narrow_plan(kind, rows, H, nsm)
+    if kind == "infer":
+        return lstm_cuda.mma_infer_plan(rows, H, nsm, save_residuals)
+    return lstm_cuda.mma_bwd_plan(rows, H, nsm)
+
+
+PHASE_ROLES = {"lstm_infer_narrow": {"warp0": 0, "copier": 1},
+               "lstm_bwd_narrow": {"warp0": 0, "copier": 1}}
+
+# What cudaOccupancyMaxActiveClusters admits on this card for a block of
+# 512 threads at a few sizes of dynamic shared memory, by cluster size
+# (above 8: a non-portable size): the largest cooperative cluster grid.
+_CLUSTER_PROBE = r"""
+#include <cuda_runtime.h>
+__global__ void probe_kernel(int* p) { if (p) p[0] = 0; }
+extern "C" int max_clusters(int cluster, int smem, int threads) {
+  cudaFuncSetAttribute(probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (cluster > 8) cudaFuncSetAttribute(probe_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster * 64);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute a[1];
+  a[0].id = cudaLaunchAttributeClusterDimension;
+  a[0].val.clusterDim.x = cluster; a[0].val.clusterDim.y = 1; a[0].val.clusterDim.z = 1;
+  cfg.attrs = a;
+  cfg.numAttrs = 1;
+  int n = -1;
+  cudaError_t e = cudaOccupancyMaxActiveClusters(&n, (const void*)probe_kernel, &cfg);
+  return e == cudaSuccess ? n : -(int)e;
+}
+"""
+
+
+def cluster_capacity() -> None:
+    d = OUT_DIR / "clusters"
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "probe.cu").write_text(_CLUSTER_PROBE)
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(d / "probe.so"),
+                    str(d / "probe.cu")], check=True, stdout=subprocess.DEVNULL,
+                   stderr=subprocess.DEVNULL)
+    lib = ctypes.CDLL(str(d / "probe.so"))
+    for smem in (98304, 196608, 229376):
+        print(json.dumps({"cluster_capacity_blocks": {
+            c: c * lib.max_clusters(c, smem, 512) for c in (1, 2, 4, 8, 16)},
+            "smem_bytes": smem, "threads": 512}), flush=True)
+
+
+PARTS = ("ablations", "sweep", "phases", "clusters")
+
+
+def ablations(nsm: int, dev, groups) -> None:
+    libs = build_variants(groups)
+    for group in groups:
+        rows = 640 if group.endswith("_wide") else 32
+        if source_of(group) == "lstm_infer":
+            xw, mask, wh, h0, c0 = inputs(rows, rows, dev)
+            for res in (False, True):
+                plan = plan_of(group, rows, nsm, res)
+                ms = run("lstm_infer", libs[group],
+                         lambda: lstm_cuda.lstm_infer(xw, mask, wh, h0, c0, plan, res), {})
+                print(json.dumps({"kernel": "lstm_fwd_residuals" if res else "lstm_fwd_infer",
+                                  "group": group, "rows": rows, "plan": repr(plan), "ms": ms}),
+                      flush=True)
+            continue
+        args = bwd_args(rows, 5, dev)
+        plan = plan_of(group, rows, nsm)
+        alts = {}
+        if isinstance(plan, lstm_cuda.MMAPlan):
+            for ck in (1, 2, 4):
+                alt = dataclasses.replace(plan, k_chunk=ck)
+                if ck != plan.k_chunk and alt.smem_bytes <= lstm_cuda.SMEM_MAX:
+                    alts[f"k_chunk_{ck}"] = lambda alt=alt: lstm_cuda.lstm_bwd_bf16(*args, alt)
+        ms = run("lstm_bwd", libs[group], lambda: lstm_cuda.lstm_bwd_bf16(*args, plan), alts)
+        print(json.dumps({"kernel": "lstm_bwd", "group": group, "rows": rows,
+                          "plan": repr(plan), "ms": ms}), flush=True)
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("parts", nargs="*", help=f"any of {PARTS} (default: all)")
+    ap.add_argument("--groups", default=",".join(ABLATIONS),
+                    help="kernel groups of the ablations and phases (comma-separated)")
+    args = ap.parse_args()
+    parts, groups = args.parts or list(PARTS), args.groups.split(",")
+    if any(p not in PARTS for p in parts) or any(g not in ABLATIONS for g in groups):
+        ap.error(f"parts are {PARTS}, groups {tuple(ABLATIONS)}")
     if not torch.cuda.is_available():
         print("lstm_ablation: needs a CUDA GPU", file=sys.stderr)
         return 2
@@ -351,31 +622,14 @@ def main() -> int:
                          capture_output=True, text=True).stdout.strip()
     print(f"{torch.cuda.get_device_name(0)} | {smi}", flush=True)
     nsm = torch.cuda.get_device_properties(dev).multi_processor_count
-    libs = build_variants()
-    for rows, res, group in ((640, False, "lstm_infer_wide"), (640, True, "lstm_infer_wide"),
-                             (32, False, "lstm_infer"), (32, True, "lstm_infer")):
-        plan = (lstm_cuda.wide_plan("infer", rows, H, nsm) if group.endswith("wide")
-                else lstm_cuda.mma_infer_plan(rows, H, nsm, res))
-        xw, mask, wh, h0, c0 = inputs(rows, rows, dev)
-        ms = run("lstm_infer", libs[group],
-                 lambda: lstm_cuda.lstm_infer(xw, mask, wh, h0, c0, plan, res), {})
-        print(json.dumps({"kernel": "lstm_fwd_residuals" if res else "lstm_fwd_infer",
-                          "rows": rows, "plan": repr(plan), "ms": ms}), flush=True)
-    for rows, group in ((640, "lstm_bwd_wide"), (32, "lstm_bwd")):
-        args = bwd_args(rows, 5, dev)
-        plan = (lstm_cuda.wide_plan("bwd", rows, H, nsm) if group.endswith("wide")
-                else lstm_cuda.mma_bwd_plan(rows, H, nsm))
-        alts = {}
-        if isinstance(plan, lstm_cuda.MMAPlan):
-            for ck in (1, 2, 4):
-                alt = dataclasses.replace(plan, k_chunk=ck)
-                if ck != plan.k_chunk and alt.smem_bytes <= lstm_cuda.SMEM_MAX:
-                    alts[f"k_chunk_{ck}"] = lambda alt=alt: lstm_cuda.lstm_bwd_bf16(*args, alt)
-        ms = run("lstm_bwd", libs[group], lambda: lstm_cuda.lstm_bwd_bf16(*args, plan), alts)
-        print(json.dumps({"kernel": "lstm_bwd", "rows": rows, "plan": repr(plan), "ms": ms}),
-              flush=True)
-    sweep(nsm, dev)
-    phases(nsm, dev)
+    if "clusters" in parts:
+        cluster_capacity()
+    if "ablations" in parts:
+        ablations(nsm, dev, groups)
+    if "sweep" in parts:
+        sweep(nsm, dev)
+    if "phases" in parts:
+        phases(nsm, dev, groups)
     return 0
 
 

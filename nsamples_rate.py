@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Steady rate of graphed ``--nsamples 40`` training steps on the card.
 
-    python3 nsamples_rate.py [--runs N]
+    python3 nsamples_rate.py [--runs N] [--nsamples S] [--eager]
 
 The Yahoo-config text model (ni 512, nh 1024, nz 32, V 20004; weights from
 a seed) on ``chip_smoke.py``'s training corpus (8 batches of 32 sentences,
@@ -17,7 +17,10 @@ Prints the card's name and power limit, then one JSON line a run: the timed
 window's steps/s, the first pass's seconds, the profiled window's device
 busy ms a step and idle share, and whether the steps ran as graphs. It
 imports ``chip_smoke.py`` and the package from the working directory, so
-run from a checkout's root it times that checkout. Needs one CUDA GPU.
+run from a checkout's root it times that checkout. ``--nsamples 1`` times
+the plain training step at B 32, T 96 instead (the LSTM kernels at 32
+rows, one decoder pass); ``--eager`` times the same steps launched one by
+one (phase 9's eager comparison) instead of graphed. Needs one CUDA GPU.
 """
 from __future__ import annotations
 
@@ -36,6 +39,8 @@ NSAMPLES = 40
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--runs", type=int, default=1)
+    ap.add_argument("--nsamples", type=int, default=NSAMPLES)
+    ap.add_argument("--eager", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("nsamples_rate: needs a CUDA GPU", file=sys.stderr)
@@ -53,10 +58,10 @@ def main() -> int:
         cs.write_train_corpus(tmp)
         cfg, pool, make_vae, _ = cs.graph_model("text", tmp, dev)
         model = (cfg, pool, make_vae,
-                 lambda vae: make_loss_fn(vae, nsamples=NSAMPLES, train=True))
+                 lambda vae: make_loss_fn(vae, nsamples=args.nsamples, train=True))
         for i in range(args.runs):
-            run, _ = cs.graph_run(model, "plain", True, dev)
-            print(json.dumps({"nsamples": NSAMPLES, "run": i, "checkout": str(Path.cwd()),
+            run, _ = cs.graph_run(model, "plain", not args.eager, dev)
+            print(json.dumps({"nsamples": args.nsamples, "run": i, "checkout": str(Path.cwd()),
                               **{k: run[k] for k in (
                                   "graphs", "steps_per_sec", "timed_steps", "first_pass_s",
                                   "device_busy_ms_per_step", "idle_share", "capture_seconds",

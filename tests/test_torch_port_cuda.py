@@ -853,3 +853,81 @@ def test_capture_failure_raises_on_cuda(tmp_path):
         epoch_fn(opt_init(), GeneratorNoise(4, "cuda"), np.float32(0.1), cfg.lr, np.arange(3),
                  False)
     assert epoch_fn.steps.stats["eager_steps"] == 1 and epoch_fn.steps.stats["graph_steps"] == 0
+
+
+# ------------------------------------------- narrow-row LSTM kernels
+# Below WIDE_MIN_ROWS the bf16 forwards and the backward run the narrow-row
+# kernels (lstm_cuda.NarrowPlan) wherever a plan fits: the training batch
+# (32), a short last batch (20), a partial m-tile (37), four m-tiles (64),
+# and the row count below each threshold (95 for the backward, 127 for the
+# forwards), where the wrapper's plan may be the mma.sync one.
+NARROW_ROWS = [20, 32, 37, 64, "threshold"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask_kind", ["holes", "lengths"])
+@pytest.mark.parametrize("rows", NARROW_ROWS)
+def test_lstm_narrow_kernels_match_plain_on_cuda(rows, mask_kind):
+    """Both forwards and the backward sweep at H 1024, T 24, bf16 wh, under
+    the plan the wrappers pick, against the plain versions with chip_smoke's
+    tolerances (forward 2e-3, backward 5e-4: a flipped bf16 rounding of an
+    operand carried through the steps), and each twice: equal bits (every
+    sum in a fixed order, no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    nsm = torch.cuda.get_device_properties(0).multi_processor_count
+    T, H = 24, 1024
+    g = torch.Generator().manual_seed(51 + (rows if isinstance(rows, int) else 0))
+    for kind, key in (("infer", "lstm_fwd_infer"), ("resid", "lstm_fwd_residuals"),
+                      ("bwd", "lstm_bwd")):
+        k = "bwd" if kind == "bwd" else "infer"
+        B = lstm_cuda.WIDE_MIN_ROWS[k] - 1 if rows == "threshold" else rows
+        xw = torch.randn(T, B, 4 * H, generator=g).cuda()
+        mask = _mask(mask_kind, T, B, g, B).cuda()
+        wh = (torch.rand(H, 4 * H, generator=g) * 2 - 1).div(H ** 0.5).bfloat16().cuda()
+        h0, c0 = ((0.1 * torch.randn(B, H, generator=g)).cuda() for _ in range(2))
+        plan = (lstm_cuda.bwd_plan(B, H, nsm) if k == "bwd"
+                else lstm_cuda.infer_plan(B, H, nsm, kind == "resid"))
+        if B <= 32:
+            assert isinstance(plan, lstm_cuda.NarrowPlan), plan
+        if kind == "bwd":
+            _, cs, gates, _, _ = lstm_cuda.lstm_seq_plain(xw, mask, wh, h0, c0, True)
+            dhs = (0.1 * torch.randn(T, B, H, generator=g)).cuda()
+            dhT, dcT = ((0.1 * torch.randn(B, H, generator=g)).cuda() for _ in range(2))
+            args = (gates, mask, wh, torch.cat([c0[None], cs[:-1]]), dhs, dhT, dcT)
+            run, ref, tol = (lambda: lstm_cuda.lstm_bwd(*args), lstm_cuda.lstm_bwd_plain(*args),
+                             5e-4)
+        else:
+            res = kind == "resid"
+            run = lambda: lstm_cuda.lstm_seq(xw, mask, wh, h0, c0, res)
+            ref, tol = lstm_cuda.lstm_seq_plain(xw, mask, wh, h0, c0, res), 2e-3
+        n = build.LAUNCHES[key]
+        got, again = run(), run()
+        torch.cuda.synchronize()
+        assert build.LAUNCHES[key] == n + 2
+        for a, a2, b in zip(got, again, ref):
+            torch.testing.assert_close(a, b, atol=tol, rtol=0)
+            assert torch.equal(a, a2), f"{kind} rows {B}: two calls differ"
+
+
+@pytest.mark.cuda
+def test_lstm_narrow_refuses_a_foreign_plan_on_cuda():
+    """The narrow kernels check their plan: a plan with the wrong shared
+    memory, cluster or warps is refused (cudaErrorInvalidValue) and raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    import dataclasses
+    nsm = torch.cuda.get_device_properties(0).multi_processor_count
+    T, B, H = 3, 20, 256
+    xw, mask = torch.zeros(T, B, 4 * H, device="cuda"), torch.ones(T, B, device="cuda")
+    wh = torch.zeros(H, 4 * H, device="cuda", dtype=torch.bfloat16)
+    h0 = c0 = torch.zeros(B, H, device="cuda")
+    plan = lstm_cuda.narrow_plan("infer", B, H, nsm)
+    for bad in (dataclasses.replace(plan, cluster=3), dataclasses.replace(plan, warps=plan.warps + 1)):
+        with pytest.raises(RuntimeError, match="lstm_infer_narrow"):
+            lstm_cuda.lstm_infer(xw, mask, wh, h0, c0, bad)
+    bplan = lstm_cuda.narrow_plan("bwd", B, H, nsm)
+    gates, c_prev, dhs = (torch.zeros(T, B, n * H, device="cuda") for n in (4, 1, 1))
+    with pytest.raises(RuntimeError, match="lstm_bwd"):
+        lstm_cuda.lstm_bwd_bf16(gates, mask, wh, c_prev, dhs, h0, c0,
+                                dataclasses.replace(bplan, cluster=3))

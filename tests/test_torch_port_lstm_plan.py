@@ -119,13 +119,17 @@ def test_lstm_mma_plan_main_paths():
     wide plan, two row groups of 320 rows (five m-tiles over two
     warpgroups), 16 units a block in clusters of two sharing h (the
     forward), 32 units a block split over a cluster's two K halves (the
-    backward), four-deep rings; the encoder's 32 rows, and the training
-    forward's (with residuals), as 16 warps of 8 units, two m-tile columns
-    x 8 K slices; the training backward's 32 rows as one pass of two
-    m-tiles, K split over the 16 warps."""
-    iw, enc, bwd = (lstm_cuda.infer_plan(640, 1024, NSM), lstm_cuda.infer_plan(32, 1024, NSM),
-                    lstm_cuda.bwd_plan(32, 1024, NSM))
-    train = lstm_cuda.infer_plan(32, 1024, NSM, save_residuals=True)
+    backward), four-deep rings. The 32-row main paths run the narrow plans
+    (test_lstm_narrow_plan_main_paths); the mma.sync plans at 32 rows, which
+    the narrow ones replaced there and which serve the rows no narrow plan
+    fits: the encoder's and the training forward's (with residuals) as 16
+    warps of 8 units, two m-tile columns x 8 K slices; the training
+    backward's as one pass of two m-tiles, K split over the 16 warps."""
+    iw = lstm_cuda.infer_plan(640, 1024, NSM)
+    enc, bwd = lstm_cuda.mma_infer_plan(32, 1024, NSM), lstm_cuda.mma_bwd_plan(32, 1024, NSM)
+    train = lstm_cuda.mma_infer_plan(32, 1024, NSM, save_residuals=True)
+    assert isinstance(lstm_cuda.infer_plan(32, 1024, NSM), lstm_cuda.NarrowPlan)
+    assert isinstance(lstm_cuda.bwd_plan(32, 1024, NSM), lstm_cuda.NarrowPlan)
     wide_fields = ("row_groups", "rows_per_group", "units", "k_slices", "cluster", "warpgroups",
                    "stages", "blocks", "m_tiles")
     assert tuple(getattr(iw, f) for f in wide_fields) == (2, 320, 16, 1, 2, 2, 4, 128, 5)
@@ -206,8 +210,11 @@ def test_lstm_plan_bytes_per_step():
     wide backward's block reads 320 rows x its K half (1,310,720; x 128 =
     167,772,160), 4x below both. The forward: 1,310,720 a block and
     167,772,160 over the grid before; 320 rows x 1024 (655,360) a block,
-    each tile read once for a cluster of two (41,943,040) now. 32 rows keep
-    the mma.sync plans."""
+    each tile read once for a cluster of two (41,943,040) now. 32 rows: the
+    mma.sync plans' (every block reading all of the operand) against the
+    narrow plans' that replaced them (the forward's h tile read once a
+    cluster of two; the backward's da_t split between the two blocks of a
+    cluster)."""
     bwd_old = lstm_cuda.mma_bwd_plan(640, 1024, NSM)
     fwd_old = lstm_cuda.mma_infer_plan(640, 1024, NSM)
     bwd, fwd = lstm_cuda.bwd_plan(640, 1024, NSM), lstm_cuda.infer_plan(640, 1024, NSM)
@@ -217,10 +224,12 @@ def test_lstm_plan_bytes_per_step():
     assert (fwd.sm_bytes_per_step, fwd.l2_bytes_per_step) == (655360, 41943040)
     assert 4 * bwd.sm_bytes_per_step <= bwd_old.sm_bytes_per_step
     assert 4 * bwd.l2_bytes_per_step <= bwd_old.l2_bytes_per_step
-    b32, f32_ = lstm_cuda.bwd_plan(32, 1024, NSM), lstm_cuda.infer_plan(32, 1024, NSM)
-    assert isinstance(b32, lstm_cuda.MMAPlan) and isinstance(f32_, lstm_cuda.MMAPlan)
+    b32, f32_ = lstm_cuda.mma_bwd_plan(32, 1024, NSM), lstm_cuda.mma_infer_plan(32, 1024, NSM)
     assert (b32.sm_bytes_per_step, b32.l2_bytes_per_step) == (262144, 33554432)
     assert (f32_.sm_bytes_per_step, f32_.l2_bytes_per_step) == (65536, 8388608)
+    nb, nf = lstm_cuda.bwd_plan(32, 1024, NSM), lstm_cuda.infer_plan(32, 1024, NSM)
+    assert (nb.sm_bytes_per_step, nb.l2_bytes_per_step) == (131072, 16777216)
+    assert (nf.sm_bytes_per_step, nf.l2_bytes_per_step) == (65536, 4194304)
 
 
 # (rows, SMs, stages, receive slots, m-tiles a row group) of the backward at
@@ -614,3 +623,558 @@ def test_lstm_wide_backward_model_matches_plain(rows, H, nsm):
     ref = lstm_cuda.lstm_bwd_plain(*args)
     for a, b in zip(got, ref):
         np.testing.assert_allclose(a, b.numpy(), atol=1e-3, rtol=0)
+
+
+# ---------------------------------------------------------- narrow-row plans
+# csrc/lstm_infer.cu's and csrc/lstm_bwd.cu's narrow-row kernels (namespace
+# narrow), below lstm_cuda.WIDE_MIN_ROWS rows where a NarrowPlan fits.
+NARROW_NS = r"namespace narrow \{(.*?)\}  // namespace narrow"
+
+
+def _narrow_source(name):
+    return re.search(NARROW_NS, _source(name), re.S).group(1)
+
+
+def test_lstm_narrow_constants_match_the_kernels():
+    """The constants the narrow plans assume, read back from the kernels:
+    the pairs a thread, the backward's m-tiles and n-tiles a warp, the
+    cluster sizes the entry points take, the plan arguments in the order the
+    C entry points name them, and the cluster sizes the launch admits
+    without the non-portable attribute (up to 8)."""
+    for name in ("lstm_infer.cu", "lstm_bwd.cu"):
+        assert _int_const(_narrow_source(name), "kMaxPairs") == lstm_cuda.NARROW_MAX_PAIRS
+        fn = "lstm_infer_narrow" if name == "lstm_infer.cu" else "lstm_bwd_narrow"
+        params = _entry_params(_source(name), fn)
+        names = lstm_cuda.NARROW_PLAN_ARGS
+        assert params[-len(names) - 1:-1] == list(names) and params[-1] == "stream"
+    body = _source("lstm_infer.cu")[_source("lstm_infer.cu").index("int lstm_infer_narrow("):]
+    sizes = re.search(r"\(C != (\d+) && C != (\d+) && C != (\d+)\s*&& C != (\d+)\)", body)
+    assert tuple(int(v) for v in sizes.groups()) == lstm_cuda.NARROW_CLUSTERS
+    bwd = _narrow_source("lstm_bwd.cu")
+    assert _int_const(bwd, "kMaxM") == lstm_cuda.NARROW_MAX_M
+    assert _int_const(bwd, "kMaxKPW") == lstm_cuda.NARROW_MAX_KPW
+    assert "cluster > 8" in _source("lstm_wgmma.cuh")
+    assert set(lstm_cuda.CLUSTER_BLOCKS_H100) == set(lstm_cuda.NARROW_CLUSTERS)
+    # the backward's clusters are pairs, its warps one K part each
+    assert {c for _, c in lstm_cuda.NARROW_PREFS["bwd"]} == {2}
+    assert "NT != 1 || C != 2 ||" in _source("lstm_bwd.cu")
+    assert "k_split != W" in _source("lstm_bwd.cu")
+    assert lstm_cuda.NARROW_PREFS["bwd"] == ((1, 2),)
+
+
+NARROW_ROWS = [1, 20, 32, 37, 64, "threshold"]
+
+
+@pytest.mark.parametrize("H", [200, 1024])
+@pytest.mark.parametrize("rows", NARROW_ROWS)
+@pytest.mark.parametrize("nsm", [NSM, NSM_PCIE])
+@pytest.mark.parametrize("kind", ["infer", "resid", "bwd"])
+def test_lstm_narrow_plan(kind, nsm, rows, H):
+    """Below ``WIDE_MIN_ROWS`` the wrappers take the narrow plan wherever one
+    fits: every (row, unit) pair owned by exactly one (block, warp); whole
+    clusters of a size the launch takes, no more blocks than the card admits
+    in such clusters (``cluster_capacity``); shared memory, warps and pairs
+    a thread within the kernels' limits; the bytes a step by hand. Where
+    none fits (more rows than a block's shared memory holds) the mma.sync
+    plan, and at the threshold the wide plan."""
+    key = "bwd" if kind == "bwd" else "infer"
+    rows = lstm_cuda.WIDE_MIN_ROWS[key] - 1 if rows == "threshold" else rows
+    plan = (lstm_cuda.bwd_plan(rows, H, nsm) if kind == "bwd"
+            else lstm_cuda.infer_plan(rows, H, nsm, save_residuals=kind == "resid"))
+    narrow = lstm_cuda.narrow_plan(key, rows, H, nsm)
+    if narrow is None:
+        assert isinstance(plan, lstm_cuda.MMAPlan)
+        for nt, c in lstm_cuda.NARROW_PREFS[key]:  # none of them fits
+            mt = -(-rows // 16)
+            assert mt > (16 if key == "infer" else lstm_cuda.NARROW_MAX_M) or all(
+                p.smem_bytes > lstm_cuda.SMEM_MAX or p.blocks > lstm_cuda.cluster_capacity(c, nsm)
+                or rows * p.units_per_block > lstm_cuda.NARROW_MAX_PAIRS * p.threads
+                or (key == "bwd" and -(-p.piece_k_steps // p.warps) > lstm_cuda.NARROW_MAX_KPW)
+                for p in _narrow_candidates(key, rows, H, nt, c))
+        assert lstm_cuda.infer_plan(lstm_cuda.WIDE_MIN_ROWS["infer"], H, nsm).__class__ \
+            is lstm_cuda.WidePlan
+        return
+    assert plan == narrow and (plan.kind, plan.rows, plan.H) == (key, rows, H)
+    owners = lstm_cuda.plan_owners(plan)
+    assert owners.shape == (rows * H, 3)
+    assert (owners[:, 2] == 1).all(), "a (row, unit) pair is owned by no or several warps"
+    assert (owners[:, 0] < plan.blocks).all() and (owners[:, 1] < plan.warps).all()
+    assert plan.cluster in lstm_cuda.NARROW_CLUSTERS and plan.blocks % plan.cluster == 0
+    assert plan.blocks <= lstm_cuda.cluster_capacity(plan.cluster, nsm) <= nsm
+    assert plan.smem_bytes <= lstm_cuda.SMEM_MAX and 1 <= plan.warps <= lstm_cuda.MAX_WARPS
+    assert rows * plan.units_per_block <= lstm_cuda.NARROW_MAX_PAIRS * plan.threads
+    J, mt, ks = plan.units_per_block, -(-rows // 16), plan.k_steps
+    assert plan.blocks == -(-(-(-H // J)) // plan.cluster) * plan.cluster
+    assert plan.ring_elems == 2 * mt * ks * 256
+    if key == "infer":
+        assert plan.warps == mt * plan.k_split and ks == -(-H // 16)
+        # the whole h tile into each SM; each cluster reads it once
+        assert plan.sm_bytes_per_step == mt * 16 * (ks * 16) * 2
+        assert plan.smem_bytes == (ks * 4 * J * 32 + mt * max(ks, J // 2) * 512
+                                   + plan.warps * 4 * J * 64 + 8)
+    else:
+        ksc = -(-ks // plan.cluster)
+        assert ks == -(-4 * H // 16) and plan.piece_k_steps == ksc
+        assert plan.k_split == plan.warps and mt <= lstm_cuda.NARROW_MAX_M
+        assert -(-ksc // plan.warps) <= lstm_cuda.NARROW_MAX_KPW
+        # wh lives in registers; shared memory holds the da slice and the receive slots
+        assert plan.smem_bytes == (mt * ksc * 512 + plan.warps * mt * plan.cluster * J * 64
+                                   + plan.cluster * mt * J * 64 + 8)
+        # this block's K slice into its SM; the cluster's slices cover K once
+        assert plan.sm_bytes_per_step == mt * 16 * (ksc * 16) * 2
+    assert plan.l2_bytes_per_step == plan.blocks // plan.cluster * mt * 16 * ks * 16 * 2
+    assert len(plan.args()) == len(lstm_cuda.NARROW_PLAN_ARGS)
+    assert all(isinstance(a, int) for a in plan.args())
+
+
+def _narrow_candidates(kind, rows, H, nt, c):
+    mt = -(-rows // 16)
+    if kind == "infer":
+        return [lstm_cuda.NarrowPlan(kind, rows, H, nt, c, mt * (w // mt), w // mt)
+                for w in (16, 8) if w >= mt]
+    return [lstm_cuda.NarrowPlan(kind, rows, H, nt, c, 16, 16)]
+
+
+def test_lstm_narrow_plan_main_paths():
+    """The plans of the training step's and the encoder's 32 rows (H 1024,
+    132 SMs), by hand: the forwards 128 blocks of 8 units in clusters of 2
+    (16 warps: 2 m-tiles x 8 K slices); the backward 128 blocks of 8 units
+    in clusters of 2 splitting 4H (16 warps, each both m-tiles x both
+    n-tiles of the cluster over 8 of its block's 128 k-steps). Bytes a
+    step: the forward 64 KiB of h into each SM, 4 MiB from L2 (8 MiB before,
+    every block reading all of h); the backward 128 KiB into each SM (256
+    KiB before), 16 MiB from L2 (32 MiB)."""
+    fwd, res = lstm_cuda.infer_plan(32, 1024, NSM), lstm_cuda.infer_plan(32, 1024, NSM, True)
+    bwd = lstm_cuda.bwd_plan(32, 1024, NSM)
+    assert fwd == res == lstm_cuda.NarrowPlan("infer", 32, 1024, 1, 2, 16, 8)
+    assert bwd == lstm_cuda.NarrowPlan("bwd", 32, 1024, 1, 2, 16, 16)
+    assert (fwd.blocks, bwd.blocks, bwd.piece_k_steps) == (128, 128, 128)
+    assert (fwd.sm_bytes_per_step, fwd.l2_bytes_per_step) == (65536, 4194304)
+    assert (bwd.sm_bytes_per_step, bwd.l2_bytes_per_step) == (131072, 16777216)
+    old_f, old_b = lstm_cuda.mma_infer_plan(32, 1024, NSM), lstm_cuda.mma_bwd_plan(32, 1024, NSM)
+    assert (old_f.l2_bytes_per_step, old_b.l2_bytes_per_step) == (8388608, 33554432)
+    assert lstm_cuda.bwd_plan(20, 1024, NSM) == dataclasses.replace(bwd, rows=20)
+
+
+# A numpy model of the narrow kernels' index arithmetic, step by step: the
+# bf16 ring in mma fragment order (lstm_mma.cuh a_frag_index), the B
+# fragments (b_frag_index), the m16n8k16 fragments of A, B and the
+# accumulator (PTX ISA, "Matrix Fragments for mma.m16n8k16"), the
+# forward's pieces copied into every block of a cluster and its K slices'
+# partial tiles summed in slice order before the cell,
+# the backward's K slices and its partial tiles stored into their owners'
+# receive slots (each block's sum of its warps' partials, in warp order)
+# and summed in rank order. Held against the plain versions.
+def _a_frag_index(row, k, KS):
+    r, c = row & 15, k & 15
+    lane = (r & 7) * 4 + ((c & 7) >> 1)
+    reg = (r >> 3) + 2 * (c >> 3)
+    return ((row >> 4) * KS + (k >> 4)) * 256 + lane * 8 + reg * 2 + (c & 1)
+
+
+def _b_frag_index(k, n, ntiles):
+    kk = k & 15
+    lane = (n & 7) * 4 + ((kk & 7) >> 1)
+    e = (kk & 1) + 2 * (kk >> 3)
+    return (((k >> 4) * ntiles + (n >> 3)) * 32 + lane) * 4 + e
+
+
+_LANE = np.arange(32)
+
+
+def _a_regs(tile):
+    """A [16, 16] from a fragment-order tile of 256 values (lane-major)."""
+    lane, reg, e = np.meshgrid(_LANE, np.arange(4), np.arange(2), indexing="ij")
+    a = np.zeros((16, 16))
+    a[(lane >> 2) + 8 * (reg & 1), 2 * (lane & 3) + e + 8 * (reg >> 1)] = \
+        tile[lane * 8 + reg * 2 + e]
+    return a
+
+
+def _b_regs(frag):
+    """B [16, 8] from one n-tile's B fragments at one k-step (32 x 4 values)."""
+    lane, e = np.meshgrid(_LANE, np.arange(4), indexing="ij")
+    b = np.zeros((16, 8))
+    b[2 * (lane & 3) + (e & 1) + 8 * (e >> 1), lane >> 2] = frag[lane * 4 + e]
+    return b
+
+
+def _c_frag(d):
+    """The accumulator fragments [32 lanes, 4] of D [16, 8]."""
+    lane, c = np.meshgrid(_LANE, np.arange(4), indexing="ij")
+    return d[(lane >> 2) + 8 * (c >> 1), 2 * (lane & 3) + (c & 1)]
+
+
+def _pair_slot(row, j):
+    """The (lane, register) of the accumulator holding (row % 16, unit j % 8)."""
+    r16 = row & 15
+    return (r16 & 7) * 4 + ((j & 7) >> 1), (r16 >> 3) * 2 + (j & 1)
+
+
+def _narrow_fwd_model(xw, mask, wh, h0, c0, plan, save):
+    T, R, H4 = xw.shape
+    H, J, NT, C = H4 // 4, plan.units_per_block, plan.n_sub, plan.cluster
+    KS, MT, W, WK = plan.k_steps, plan.m_tiles, plan.warps, plan.k_split
+    NTILES, slot = 4 * NT, MT * plan.k_steps * 256
+    ring = np.zeros(2 * slot)
+    hs, cs, gts = np.zeros((T, R, H)), np.zeros((T, R, H)), np.zeros((T, R, H4))
+    h, c = h0.astype(np.float64).copy(), c0.astype(np.float64).copy()
+    bfr = []
+    for b in range(plan.blocks):  # wh's gate columns of block b in B-fragment order
+        idx = np.arange(KS * 16 * NTILES * 8)
+        n, k = idx % (NTILES * 8), idx // (NTILES * 8)
+        unit = b * J + n % J
+        ok = (k < H) & (unit < H)
+        f = np.zeros(KS * NTILES * 128)
+        f[_b_frag_index(k, n, NTILES)] = np.where(
+            ok, wh[np.minimum(k, H - 1), np.minimum((n // J) * H + unit, H4 - 1)], 0)
+        bfr.append(f)
+    rr, uu = np.meshgrid(np.arange(R), np.arange(H), indexing="ij")
+    ring[slot + _a_frag_index(rr, uu, KS)] = _bf16(h0)
+    KSP = -(-KS // C)
+    for t in range(T):
+        src = ((t + 1) & 1) * slot
+        tiles = np.full((plan.blocks, slot), np.nan)
+        for b in range(plan.blocks):  # rank r's piece into every block of its cluster
+            r = b % C
+            p0, p1 = min(KS, r * KSP), min(KS, min(KS, r * KSP) + KSP)
+            for mt in range(MT):
+                off = (mt * KS + p0) * 256
+                for d in range(b - r, b - r + C):
+                    assert np.isnan(tiles[d, off:off + (p1 - p0) * 256]).all()
+                    tiles[d, off:off + (p1 - p0) * 256] = ring[src + off:src + off + (p1 - p0) * 256]
+        assert not np.isnan(tiles).any(), "a piece of the h tile was never copied"
+        new = np.zeros((R, H), bool)
+        for b in range(plan.blocks):
+            red = np.zeros((W, NTILES, 32, 4))
+            KSW = -(-KS // WK)
+            for w in range(W):
+                wm, wk = w % MT, w // MT
+                for ks in range(min(KS, wk * KSW), min(KS, min(KS, wk * KSW) + KSW)):
+                    a = _a_regs(tiles[b, (wm * KS + ks) * 256:(wm * KS + ks + 1) * 256])
+                    for nt in range(NTILES):
+                        f = bfr[b][(ks * NTILES + nt) * 128:(ks * NTILES + nt + 1) * 128]
+                        red[w, nt] += _c_frag(a @ _b_regs(f))
+            p = np.arange(R * J)
+            row, unit = p // J, b * J + p % J
+            ok = unit < H
+            row, unit, j = row[ok], unit[ok], (p % J)[ok]
+            pl, pc = _pair_slot(row, j)
+            sums = np.zeros((MT, NTILES, 32, 4))  # the block's sums, in slice order
+            for m in range(MT):
+                for wk in range(WK):
+                    sums[m] = sums[m] + red[wk * MT + m]
+            pre = [xw[t, row, q * H + unit] + sums[row >> 4, q * NT + (j >> 3), pl, pc]
+                   for q in range(4)]
+            sg = lambda v: 1 / (1 + np.exp(-v))
+            act = [sg(pre[0]), sg(pre[1]), np.tanh(pre[2]), sg(pre[3])]
+            m = mask[t, row]
+            c_raw = act[1] * c[row, unit] + act[0] * act[2]
+            h[row, unit] = m * act[3] * np.tanh(c_raw) + (1 - m) * h[row, unit]
+            c[row, unit] = m * c_raw + (1 - m) * c[row, unit]
+            hs[t, row, unit], cs[t, row, unit] = h[row, unit], c[row, unit]
+            for q in range(4):
+                gts[t, row, q * H + unit] = act[q]
+            ring[(t & 1) * slot + _a_frag_index(row, unit, KS)] = _bf16(h[row, unit])
+            assert not new[row, unit].any()
+            new[row, unit] = True
+        assert new.all()
+    return (hs, cs, gts, h, c) if save else (hs, h, c)
+
+
+def _narrow_bwd_model(gates, mask, wh, c_prev, dhs, dhT, dcT, plan):
+    T, B, H4 = gates.shape
+    H, J, NT, C = H4 // 4, plan.units_per_block, plan.n_sub, plan.cluster
+    KS, MT, W = plan.k_steps, plan.m_tiles, plan.warps
+    KSC, NTU, slot = plan.piece_k_steps, C * NT, MT * plan.k_steps * 256
+    KPW = -(-KSC // W)
+    assert plan.k_split == W and KPW <= lstm_cuda.NARROW_MAX_KPW
+    ring = np.zeros(2 * slot)
+    da = np.zeros((T, B, H4))
+    dh, dc = dhT.astype(np.float64).copy(), dcT.astype(np.float64).copy()
+
+    def cell(tc, row, unit, dh_in):
+        ig, fg, gg, og = (gates[tc, row, q * H + unit] for q in range(4))
+        cp = c_prev[tc, row, unit]
+        tanh_c = np.tanh(fg * cp + ig * gg)
+        dhk = dh_in + dhs[tc, row, unit]
+        dck = dc[row, unit]
+        m = mask[tc, row]
+        dc_tot = m * dck + m * dhk * og * (1 - tanh_c ** 2)
+        a = [dc_tot * gg * ig * (1 - ig), dc_tot * cp * fg * (1 - fg), dc_tot * ig * (1 - gg * gg),
+             m * dhk * tanh_c * og * (1 - og)]
+        for q in range(4):
+            da[tc, row, q * H + unit] = a[q]
+            ring[(tc & 1) * slot + _a_frag_index(row, q * H + unit, KS)] = _bf16(a[q])
+        dh[row, unit] = (1 - m) * dhk
+        dc[row, unit] = dc_tot * fg + (1 - m) * dck
+
+    def pairs(b):
+        p = np.arange(B * J)
+        row, unit = p // J, b * J + p % J
+        ok = unit < H
+        return row[ok], unit[ok], (p % J)[ok]
+
+    def slice_of(b):
+        r = b % C
+        k0 = min(KS, r * KSC)
+        return k0, min(KS, k0 + KSC)
+
+    def b_regs(b, ks, nt):
+        """The kernel's register B fragments of k-step ks, n-tile nt of
+        block b's cluster: lane l's b0, b1 hold wh[n, k], wh[n, k + 1] at
+        n = uc + 8 nt + l / 4, k = 16 ks + 2 (l % 4) (+ 8 for b1)."""
+        uc = (b - b % C) * J
+        f = np.zeros(128)
+        lane = np.arange(32)
+        n = uc + 8 * nt + (lane >> 2)
+        for r in range(2):
+            for e in range(2):
+                k = 16 * ks + 2 * (lane & 3) + 8 * r + e
+                ok = (n < H) & (k < H4)
+                f[lane * 4 + 2 * r + e] = np.where(ok, wh[np.minimum(n, H - 1),
+                                                          np.minimum(k, H4 - 1)], 0)
+        return _b_regs(f)
+
+    for b in range(plan.blocks):  # step T-1 from dhT, dcT
+        row, unit, _ = pairs(b)
+        cell(T - 1, row, unit, dh[row, unit].copy())
+    for t in range(T - 1, -1, -1):
+        tiles = {}
+        for b in range(plan.blocks):
+            k0, k1 = slice_of(b)
+            tiles[b] = np.stack([ring[(t & 1) * slot + (mt * KS + k0) * 256:
+                                      (t & 1) * slot + (mt * KS + k1) * 256] for mt in range(MT)])
+        recv = np.full((plan.blocks, C, MT, NT, 32, 4), np.nan)
+        for b in range(plan.blocks):
+            k0, k1 = slice_of(b)
+            red = np.zeros((W, MT, NTU, 32, 4))
+            for w in range(W):
+                kw0 = min(k1, k0 + w * KPW)
+                for m in range(MT):
+                    for nt in range(NTU):
+                        for ks in range(kw0, min(k1, kw0 + KPW)):
+                            kl = ks - k0
+                            a = _a_regs(tiles[b][m, kl * 256:(kl + 1) * 256])
+                            red[w, m, nt] += _c_frag(a @ b_regs(b, ks, nt))
+            for m in range(MT):  # the block's sums in warp order, to the owners
+                for nt in range(NTU):
+                    owner = b - b % C + nt // NT
+                    assert np.isnan(recv[owner, b % C, m, nt % NT]).all()
+                    recv[owner, b % C, m, nt % NT] = sum(red[w, m, nt] for w in range(W))
+        assert not np.isnan(recv).any(), "a receive slot was never written"
+        for b in range(plan.blocks):
+            row, unit, j = pairs(b)
+            pl, pc = _pair_slot(row, j)
+            tot = np.zeros(len(row))
+            for src in range(C):
+                tot = tot + recv[b, src, row >> 4, j >> 3, pl, pc]
+            dh_in = tot + dh[row, unit]
+            if t > 0:
+                cell(t - 1, row, unit, dh_in)
+            else:
+                dh[row, unit] = dh_in
+    return da, dh, dc
+
+
+# (rows, H, SMs, n_sub, cluster): the forward's 8-unit pairs and 16-unit
+# clusters of 16; H 200 (a last block with half its units past H, padding
+# blocks of a last cluster), H 64 (fewer k-steps than cluster ranks: empty
+# pieces), 37 rows (a partial third m-tile)
+NARROW_MODEL_SHAPES = [(20, 200, 132, 1, 2), (37, 64, 132, 2, 16), (32, 96, 132, 2, 8),
+                       (5, 40, 114, 2, 4)]
+# the backward's: 8-unit blocks in pairs; a last cluster with a padding
+# block (H 200, H 56), K parts past a short slice (H 40)
+NARROW_BWD_MODEL_SHAPES = [(20, 200, 132, 1, 2), (32, 96, 132, 1, 2), (5, 40, 114, 1, 2),
+                           (17, 56, 132, 1, 2)]
+
+
+@pytest.mark.parametrize("save", [False, True])
+@pytest.mark.parametrize("rows,H,nsm,nt,c", NARROW_MODEL_SHAPES)
+def test_lstm_narrow_forward_model_matches_plain(rows, H, nsm, nt, c, save):
+    xw, mask, wh, h0, c0 = _lstm_inputs(3, rows, H, seed=rows + H)
+    plan = lstm_cuda.narrow_plan("infer", rows, H, nsm, nt, c)
+    assert plan is not None
+    got = _narrow_fwd_model(xw.numpy(), mask.numpy(), wh.float().numpy(), h0.numpy(),
+                            c0.numpy(), plan, save)
+    ref = lstm_cuda.lstm_seq_plain(xw, mask, wh, h0, c0, save)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a, b.numpy(), atol=2e-3, rtol=0)
+
+
+@pytest.mark.parametrize("rows,H,nsm,nt,c", NARROW_BWD_MODEL_SHAPES)
+def test_lstm_narrow_backward_model_matches_plain(rows, H, nsm, nt, c):
+    import torch
+    xw, mask, wh, h0, c0 = _lstm_inputs(3, rows, H, seed=7 * rows + H)
+    _, cs, gates, _, _ = lstm_cuda.lstm_seq_plain(xw, mask, wh, h0, c0, True)
+    c_prev = torch.cat([c0[None], cs[:-1]])
+    g = torch.Generator().manual_seed(3)
+    dhs = 0.3 * torch.randn(3, rows, H, generator=g)
+    dhT, dcT = 0.3 * torch.randn(rows, H, generator=g), 0.3 * torch.randn(rows, H, generator=g)
+    plan = lstm_cuda.narrow_plan("bwd", rows, H, nsm, nt, c)
+    assert plan is not None
+    args = (gates, mask, wh, c_prev, dhs, dhT, dcT)
+    got = _narrow_bwd_model(*(a.float().numpy() for a in args), plan)
+    ref = lstm_cuda.lstm_bwd_plain(*args)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a, b.numpy(), atol=1e-3, rtol=0)
+
+
+# The narrow kernels' step protocol, simulated with one actor per block (and
+# one for the copy engine) run in seeded random orders: the grid barrier
+# that ends each step, the full mbarrier (an expect-tx arrival and pieces,
+# which may land before it: the tx count goes below zero meanwhile), the
+# forward's pieces copied into every block of a cluster, the backward's
+# block sums stored into their owners' receive slots and its cluster
+# barrier, and the bulk copies, which read the ring at any time before they
+# land. The ring holds, per block and slot, the step of what was written
+# there last. The checks: every copy reads the step it was issued for, no
+# piece lands in a tile still being read or while the barrier's phase of
+# the step before is still open, every receive slot is read before it is
+# written again, and nothing deadlocks.
+def _run_actors(actors, rng, what):
+    stalls = 0
+    while actors:
+        a = actors[rng.randint(len(actors))]
+        try:
+            progressed = next(a)
+        except StopIteration:
+            actors.remove(a)
+            stalls = 0
+            continue
+        stalls = 0 if progressed else stalls + 1
+        if stalls > 400 * len(actors):
+            raise AssertionError(f"deadlock in the {what} protocol")
+
+
+def _copy_engine(pending, blocks, rng):
+    """Lands pending copies in random order, each at a random later turn."""
+    while pending or any(blocks):
+        if pending and rng.rand() < 0.3:
+            pending.pop(rng.randint(len(pending)))()
+            yield True
+        else:
+            yield False
+
+
+def _grid_barrier(arrived, step, n):
+    """Wait at the grid barrier of ``step`` until all ``n`` blocks arrived."""
+    arrived[step] = arrived.get(step, 0) + 1
+    while arrived[step] < n:
+        yield False
+
+
+def _simulate_narrow_fwd(T, H, J, C, KS, seed):
+    rng = np.random.RandomState(seed)
+    nblk = -(-(-(-H // J)) // C) * C
+    KSP = -(-KS // C)
+    nonempty = sum(1 for r in range(C) if min(KS, r * KSP) < min(KS, r * KSP + KSP))
+    ring = {(1, b): -1 for b in range(nblk)}  # h0 in slot 1
+    expect = [1] * nblk                       # expect-tx arrivals (step 0's before the start)
+    landed = [[0] * T for _ in range(nblk)]
+    reading = [False] * nblk
+    waited = [0] * nblk  # full-barrier phases a block has waited out
+    arrived, pending, live = {}, [], [True] * nblk
+
+    def block(b):
+        r, g0 = b % C, b - b % C
+        p0, p1 = min(KS, r * KSP), min(KS, r * KSP + KSP)
+        yield from _grid_barrier(arrived, -1, nblk)
+        for t in range(T):
+            if p0 < p1:
+                def land(t=t):
+                    assert all(ring.get(((t + 1) & 1, p)) == t - 1 for p in range(nblk)
+                               if p * J < H), "the copy read a stale slot"
+                    for d in range(g0, g0 + C):
+                        assert not reading[d], "a piece landed on a tile in use"
+                        assert waited[d] >= t, "a piece landed in the barrier's phase before"
+                        landed[d][t] += 1
+                pending.append(land)
+                yield True
+            while not (expect[b] >= t + 1 and landed[b][t] == nonempty):  # the full barrier
+                yield False
+            waited[b] = t + 1
+            reading[b] = True
+            yield True
+            reading[b] = False  # the product has read the tile (the __syncthreads)
+            if t + 1 < T:
+                expect[b] += 1
+            yield True
+            if b * J < H:  # the cell writes h_t into slot t % 2
+                ring[t & 1, b] = t
+            yield True
+            if t + 1 < T:
+                yield from _grid_barrier(arrived, t, nblk)
+        live[b] = False
+
+    actors = [block(b) for b in range(nblk)]
+    actors.append(_copy_engine(pending, live, rng))
+    _run_actors(actors, rng, "forward")
+    assert not pending
+
+
+def _simulate_narrow_bwd(T, H, J, C, KS, seed):
+    rng = np.random.RandomState(seed)
+    nblk = -(-(-(-H // J)) // C) * C
+    KSC = -(-KS // C)
+    ring = {((T - 1) & 1, b): T - 1 for b in range(nblk)}  # step T-1's cell
+    landed = [[False] * T for _ in range(nblk)]
+    recv = {}  # (owner, source) -> step of the partial in it
+    arrived, cluster_arrived, pending, live = {}, {}, [], [True] * nblk
+
+    def block(b):
+        r, g0 = b % C, b - b % C
+        k0, k1 = min(KS, r * KSC), min(KS, r * KSC + KSC)
+        yield from _grid_barrier(arrived, T, nblk)
+        for t in range(T - 1, -1, -1):
+            s = T - 1 - t
+            if k0 < k1:
+                def land(t=t, s=s):
+                    assert all(ring.get((t & 1, p)) == t for p in range(nblk) if p * J < H), \
+                        "the copy read a stale slot"
+                    landed[b][s] = True
+                pending.append(land)
+                yield True
+                while not landed[b][s]:
+                    yield False
+            yield True  # the block's own partial tiles, summed after a block barrier
+            for o in range(g0, g0 + C):  # the block's sums, to every owner
+                key = (o, r)
+                assert recv.get(key) in (None, "read"), "a receive slot written before it was read"
+                recv[key] = s
+                yield True
+            cluster_arrived[g0, s] = cluster_arrived.get((g0, s), 0) + 1
+            while cluster_arrived[g0, s] < C:  # the cluster barrier
+                yield False
+            for src in range(C):
+                assert recv[b, src] == s
+                recv[b, src] = "read"
+            yield True
+            if t > 0:
+                if b * J < H:  # the cell writes da_{t-1}
+                    ring[(t - 1) & 1, b] = t - 1
+                yield True
+                yield from _grid_barrier(arrived, t, nblk)
+        live[b] = False
+
+    actors = [block(b) for b in range(nblk)]
+    actors.append(_copy_engine(pending, live, rng))
+    _run_actors(actors, rng, "backward")
+    assert not pending
+
+
+# (T, H, J, C): clusters of 2 and 16, a last cluster with padding blocks,
+# fewer k-steps than ranks (empty pieces and slices)
+NARROW_PROTOCOL_SHAPES = [(4, 64, 8, 2), (4, 200, 16, 4), (3, 256, 16, 16), (4, 40, 8, 4)]
+
+
+@pytest.mark.parametrize("T,H,J,C", NARROW_PROTOCOL_SHAPES)
+def test_lstm_narrow_forward_protocol(T, H, J, C):
+    for seed in range(6):
+        _simulate_narrow_fwd(T, H, J, C, -(-H // 16), seed)
+
+
+@pytest.mark.parametrize("T,H,J,C", NARROW_PROTOCOL_SHAPES)
+def test_lstm_narrow_backward_protocol(T, H, J, C):
+    for seed in range(6):
+        _simulate_narrow_bwd(T, H, J, C, -(-4 * H // 16), seed)

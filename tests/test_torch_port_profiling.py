@@ -91,6 +91,12 @@ def test_self_time_subtracts_nested_children(tmp_path):
     ("void (anonymous namespace)::wide::lstm_bwd_wide_kernel(CUtensorMap_st, float const*)",
      "lstm_bwd"),
     ("void (anonymous namespace)::lstm_bwd_mma_kernel<1, 2>(float const*)", "lstm_bwd"),
+    ("void (anonymous namespace)::narrow::lstm_infer_narrow_kernel<1, true>(float const*)",
+     "lstm_fwd_residuals"),
+    ("void (anonymous namespace)::narrow::lstm_infer_narrow_kernel<2, false>(float const*)",
+     "lstm_fwd_infer"),
+    ("void (anonymous namespace)::narrow::lstm_bwd_narrow_kernel<1, 2>(float const*)",
+     "lstm_bwd"),
     ("void (anonymous namespace)::ce_bwd_d_kernel(__nv_bfloat16 const*, int, float const*)",
      "ce_bwd_d"),
     ("void (anonymous namespace)::ce_bwd_gemm_kernel<false>(CUtensorMap_st, CUtensorMap_st)",
@@ -100,8 +106,9 @@ def test_self_time_subtracts_nested_children(tmp_path):
     ("void (anonymous namespace)::ce_bwd_merge_kernel(float const*, int, unsigned long, float*)",
      "ce_bwd_merge")])
 def test_op_name_wide_row_kernels(symbol, wrapper):
-    """The wide-row LSTM kernels (``namespace wide``) count under their
-    wrappers' names like the 32-row ones, not as an unnamed op; the CE
+    """The wide-row and narrow-row LSTM kernels (``namespace wide``,
+    ``namespace narrow``) count under their wrappers' names like the
+    mma.sync ones, not as an unnamed op; the CE
     backward's kernels (the d pass, the products, the merge) under names of
     their own, which ``LAUNCH_PARTS`` sums under the wrapper's."""
     assert op_name(symbol) == (wrapper, "port kernel")

@@ -17,9 +17,12 @@
 // h_prev^T @ da is one matrix product outside the kernel, as in the JAX
 // package's _fused_bwd.
 //
-// The bf16 path has two plans, by row count (ops/lstm_cuda.py::bwd_plan;
-// WIDE_MIN_ROWS): the wide-row kernel (namespace wide below: wgmma, TMA,
-// clusters) and the 32-row kernel (lstm_bwd_mma_kernel: mma.sync).
+// The bf16 path has three plans, by row count (ops/lstm_cuda.py::bwd_plan;
+// WIDE_MIN_ROWS): from WIDE_MIN_ROWS the wide-row kernel (namespace wide
+// below: wgmma, TMA, clusters); below it the narrow-row kernel (namespace
+// narrow: a cluster of two splits K, wh in registers) wherever its plan
+// fits (up to 32 rows at H 1024), and the mma.sync kernel
+// (lstm_bwd_mma_kernel) for the rows between.
 //
 // The wide-row kernel at --nsamples training's shape (T 96, 640 rows, H
 // 1024; plan 2 row groups of 320 rows x 32 unit groups of 32 units x the 2
@@ -70,17 +73,52 @@
 //   writes da (f32, the output) and bf16(da) into the row-major ring slot
 //   (t - 1) % 2 that the next step's TMA reads, and the carries.
 //
-// The 32-row kernel at the training shape (T 96, B 32, H 1024): the sweep
-// is serial in t, and each step's product [B, 4H] x [4H, H] needs every
-// unit's da_t: one grid-wide barrier per step (~1-2 us). The product is
-// 2*32*4096*1024 = 0.27 GFLOP a step, 512 mma.m16n8k16 per block over 128
-// blocks (< 1 us); but every block needs all of da_t, 262,144 bytes into
-// each SM and 33,554,432 from L2 a step over the grid (~5 us at L2 rates).
-// Over the call, the inputs (gates, c_prev, dhs) and da are ~100 MB of
-// device memory, read and written by the cell backward a step at a time:
-// with the barrier, about half of a step.
+// The narrow-row kernel at the training shape (T 96, B 32, H 1024; plan
+// 128 blocks of 8 units in clusters of 2, 16 warps):
+// - what bounds it (lstm_ablation.py, NVIDIA H100 80GB HBM3 at 700 W): the
+//   serial chain of a step, 11,196 SM clocks (the phase profile of warp 0):
+//   the wait for the copy of the block's half of da_t after the grid
+//   barrier ~2,300 (128 KiB into each SM), the products ~1,700-2,500, the
+//   exchange of the block's sums (the cluster barrier) ~1,000-1,800, the
+//   cell ~750, the grid barrier ~1,100-3,600. The empty step (barrier,
+//   copy, exchange; no product, no cell) takes 0.52 of 0.62-0.71 ms: T x
+//   that is the floor of this design, 13x the byte bound (0.040 ms). The
+//   mma.sync kernel's step is 11,829 clocks: its k-loop 6,649 (every block
+//   copying all of da_t: 262,144 bytes into each SM, 33,554,432 from L2 a
+//   step), the grid barrier 2,564, the cell 1,904.
+// - bytes of da_t a step: 131,072 into each SM, 16,777,216 from L2 over
+//   the grid (each half read once for its cluster).
 //
-// Design of the 32-row kernel (wh in bf16: H > 512, the Yahoo path):
+// Design of the narrow-row kernel:
+// - Block b = 2 g + r owns units [8 b, 8 b + 8); the cluster's two blocks
+//   take the product of its 16 units over the two halves of K = 4H, rank r
+//   half r, copied by cp.async.bulk from the ring after the grid barrier
+//   (fragment order: contiguous runs a m-tile).
+// - Warp w takes K part w of its half (8 k-steps at H 1024) for both
+//   m-tiles and both n-tiles, with those wh fragments in its registers for
+//   the whole sequence (32 a thread): a step reads only da_t from shared
+//   memory, each A fragment once. The mma.sync kernel read wh's fragments
+//   from shared memory every step. With 16 units a block (64 blocks) the
+//   fragments take 64 registers a thread and spill: the plan is 8 units in
+//   pairs.
+// - The block sums its warps' partial tiles in warp order and stores each
+//   sum into the receive slot of the block that owns its units
+//   (st.shared::cluster); after the cluster barrier the owning thread adds
+//   the two halves' sums in rank order: no atomics, equal inputs give equal
+//   bits.
+// - Thread p owns pairs (row p / 8, unit 8 b + p % 8); the carries dh, dc
+//   stay in its registers; gates, c_prev, dhs and the mask of step t-1 are
+//   requested with non-caching loads at the top of the step, before the
+//   copy; bf16(da_{t-1}) goes to the ring before the grid barrier, the f32
+//   da after it.
+//
+// The mma.sync kernel (rows no narrow plan fits), at 32 rows for scale:
+// the sweep is serial in t, and each step's product [B, 4H] x [4H, H] needs
+// every unit's da_t: one grid-wide barrier per step; the product is
+// 2*32*4096*1024 = 0.27 GFLOP a step, 512 mma.m16n8k16 per block over 128
+// blocks; but every block needs all of da_t.
+//
+// Design of the mma.sync kernel (wh in bf16):
 // - Persistent cooperative grid (launch plan from
 //   ops/lstm_cuda.py::bwd_plan): block b owns hidden units [b*J, b*J + J),
 //   J = 8 * NT, keeps those units' ROWS of wh (wh[j, :], all 4H columns) in
@@ -364,6 +402,296 @@ cudaError_t launch_mma(const float* gates, const float* mask, const __nv_bfloat1
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
+
+// ------------------------------------------------------------ bf16: narrow rows
+// The narrow-row path (ops/lstm_cuda.py::NarrowPlan): the cluster splits
+// K, its blocks swap partial dh tiles through distributed shared memory,
+// wh in registers, the carries in registers, the cell's inputs requested
+// before the step's copy.
+namespace narrow {
+namespace wg = lstm_wgmma;
+
+constexpr int kMaxPairs = 2;     // (row, unit) pairs a thread owns at most
+constexpr int kMaxM = 2;         // m-tiles (rows / 16) the kernel takes
+constexpr int kMaxKPW = 8;       // k-steps of a warp's K part (its B fragments in registers)
+constexpr int kSumBatch = 8;     // partial tiles a thread loads before adding them, in order
+
+// Byte offsets in shared memory: the slice of da_t in the ring's fragment
+// order [MT][KSC] x 512 bytes, the warps' partial tiles [W][MT][C NT][32]
+// float4, the receive slots [C ranks][MT][NT][32] float4, the full
+// mbarrier. wh lives in registers.
+struct Smem {
+  size_t red, recv, bar, total;
+};
+__host__ __device__ inline Smem smem_layout(int H, int NT, int C, int MT, int W) {
+  const size_t KSC = cdiv(cdiv(4 * H, 16), C);
+  Smem s;
+  s.red = (size_t)MT * KSC * 512;
+  s.recv = s.red + (size_t)W * MT * C * NT * 512;
+  s.bar = s.recv + (size_t)C * MT * NT * 512;
+  s.total = s.bar + 8;
+  return s;
+}
+
+// Block b = g C + r (cluster g, rank r) owns units [b J, b J + J), J = 8 NT,
+// for every row; the cluster's C blocks take the product of its C J units
+// over the C slices of K = 4H, rank r slice r: k-steps [r KSC, r KSC + KSC)
+// of da_t, copied from the ring (cp.async.bulk) after the grid barrier that
+// ends the step before. Warp w takes K part w of the
+// slice (KPW k-steps) for every m-tile and every n-tile of the cluster's
+// units, with its B fragments (wh's rows there) held in registers for the
+// whole sequence: a step reads only da_t from shared memory, each A
+// fragment once. The block sums its warps' partial tiles in warp order and
+// stores each sum into the receive slot of the block that owns the
+// n-tile's units (st.shared::cluster); after the cluster barrier the owner
+// adds the C ranks' sums in rank order: no atomics, the same bits every
+// run.
+template <int NT, int C>
+__global__ void __launch_bounds__(kMaxWarps * 32, 1)
+lstm_bwd_narrow_kernel(const float* __restrict__ gates, const float* __restrict__ mask,
+                       const __nv_bfloat16* __restrict__ wh, const float* __restrict__ cprev,
+                       const float* __restrict__ dhs, const float* __restrict__ dhT,
+                       const float* __restrict__ dcT, float* __restrict__ da,
+                       __nv_bfloat16* __restrict__ ring, float* __restrict__ dh0,
+                       float* __restrict__ dc0, int T_, int B, int H) {
+  constexpr int J = 8 * NT;
+  constexpr int NTU = C * NT;  // n-tiles of the cluster's units
+  cg::grid_group grid = cg::this_grid();
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int H4 = 4 * H, KS = cdiv(H4, 16), MT = cdiv(B, 16);
+  const int nthr = blockDim.x, W = nthr >> 5, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int crank = (int)cluster.block_rank();
+  const int KSC = cdiv(KS, C), k0 = min(KS, crank * KSC), k1 = min(KS, k0 + KSC);
+  const int KPW = cdiv(KSC, W), kw0 = min(k1, k0 + warp * KPW), kw1 = min(k1, kw0 + KPW);
+  const int uc = (blockIdx.x - crank) * J, u0 = blockIdx.x * J;
+  const size_t slot_elems = (size_t)MT * KS * kTileElems;
+  const Smem L = smem_layout(H, NT, C, MT, W);
+  const uint4* a_s = reinterpret_cast<const uint4*>(smem);
+  float4* red = reinterpret_cast<float4*>(smem + L.red);
+  const float* recv = reinterpret_cast<const float*>(smem + L.recv);
+  const uint32_t s_a = wg::smem_u32(smem), s_recv = wg::smem_u32(smem + L.recv);
+  const uint32_t full_bar = wg::smem_u32(smem + L.bar);
+  // this lane's B fragments of its warp's K part, for good: B[k, n] =
+  // wh[uc + n, k] (zero past H and 4H), registers b0, b1 of m16n8k16 (PTX
+  // ISA): k = 16 ks + 2 (lane % 4) + {0, 1} (+ 8 for b1), n = 8 nt + lane / 4
+  uint2 bfr[kMaxKPW][NTU];
+#pragma unroll
+  for (int kk = 0; kk < kMaxKPW; ++kk)
+#pragma unroll
+    for (int nt = 0; nt < NTU; ++nt) {
+      const int ks = kw0 + kk, n = uc + 8 * nt + (lane >> 2);
+      uint32_t v[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int k = 16 * ks + 2 * (lane & 3) + 8 * r;
+        const bool ok = kk < KPW && ks < kw1 && n < H;
+        const __nv_bfloat16 lo = ok && k < H4 ? wh[(size_t)n * H4 + k] : __float2bfloat16(0.f);
+        const __nv_bfloat16 hi =
+            ok && k + 1 < H4 ? wh[(size_t)n * H4 + k + 1] : __float2bfloat16(0.f);
+        v[r] = (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+      }
+      bfr[kk][nt] = make_uint2(v[0], v[1]);
+    }
+  // this thread's pairs p = tid + i nthr: row p / J, unit u0 + p % J; their
+  // carries dh ((1 - m) dhk between steps) and dc live in registers
+  int prow[kMaxPairs], punit[kMaxPairs];
+  bool pok[kMaxPairs];
+  float dh[kMaxPairs], dc[kMaxPairs];
+  float g4[kMaxPairs][4], cpv[kMaxPairs], dhsv[kMaxPairs], mk[kMaxPairs];
+#pragma unroll
+  for (int i = 0; i < kMaxPairs; ++i) {
+    const int p = tid + i * nthr;
+    prow[i] = p / J;
+    punit[i] = u0 + p % J;
+    pok[i] = prow[i] < B && punit[i] < H;
+    const size_t so = (size_t)prow[i] * H + punit[i];
+    dh[i] = pok[i] ? dhT[so] : 0.f;
+    dc[i] = pok[i] ? dcT[so] : 0.f;
+  }
+  // the cell inputs of step tc for this thread's pairs
+  auto load_in = [&](int tc) {
+#pragma unroll
+    for (int i = 0; i < kMaxPairs; ++i) {
+      const size_t to = ((size_t)tc * B + prow[i]) * H + punit[i];
+      const size_t go = ((size_t)tc * B + prow[i]) * H4 + punit[i];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) g4[i][q] = pok[i] ? ld_nc(gates + go + (size_t)q * H) : 0.f;
+      cpv[i] = pok[i] ? ld_nc(cprev + to) : 0.f;
+      dhsv[i] = pok[i] ? ld_nc(dhs + to) : 0.f;
+      mk[i] = pok[i] ? ld_nc(mask + (size_t)tc * B + prow[i]) : 0.f;
+    }
+  };
+  // the cell backward of step tc from dh_in: its bf16 da in ring slot tc %
+  // 2, the carries (as cell_bwd above); the f32 da stays in dav for
+  // store_da, once the ring slot is published
+  float dav[kMaxPairs][4];
+  auto store_da = [&](int tc) {
+#pragma unroll
+    for (int i = 0; i < kMaxPairs; ++i) {
+      if (!pok[i]) continue;
+      const size_t go = ((size_t)tc * B + prow[i]) * H4 + punit[i];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) da[go + (size_t)q * H] = dav[i][q];
+    }
+  };
+  auto cell = [&](int tc, int i, float dh_in) {
+    const float ig = g4[i][0], fg = g4[i][1], gg = g4[i][2], og = g4[i][3], cp = cpv[i];
+    const float tanh_c = tanhf(fg * cp + ig * gg);
+    const float dhk = dh_in + dhsv[i];
+    const float dck = dc[i];
+    const float m = mk[i];
+    const float dh_raw = m * dhk, dc_raw = m * dck;
+    const float do_ = dh_raw * tanh_c;
+    const float dc_tot = dc_raw + dh_raw * og * (1.f - tanh_c * tanh_c);
+    float a[4];
+    a[0] = dc_tot * gg * ig * (1.f - ig);
+    a[1] = dc_tot * cp * fg * (1.f - fg);
+    a[2] = dc_tot * ig * (1.f - gg * gg);
+    a[3] = do_ * og * (1.f - og);
+    __nv_bfloat16* r = ring + (size_t)(tc & 1) * slot_elems;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      dav[i][q] = a[q];
+      r[a_frag_index(prow[i], q * H + punit[i], KS)] = __float2bfloat16(a[q]);
+    }
+    dh[i] = (1.f - m) * dhk;
+    dc[i] = dc_tot * fg + (1.f - m) * dck;
+  };
+
+  if (tid == 0) {
+    wg::mbar_init(full_bar, 1);
+    wg::fence_mbar_init();
+  }
+  // step T-1: the cell backward from the final carries dhT, dcT
+  load_in(T_ - 1);
+#pragma unroll
+  for (int i = 0; i < kMaxPairs; ++i)
+    if (pok[i]) cell(T_ - 1, i, dh[i]);
+  cluster.sync();  // the barrier's init, before the cluster's stores into its slots
+  if (tid == 0) wg::fence_proxy_async_global();  // the ring stores, before the bulk copies
+  grid.sync();
+  store_da(T_ - 1);
+
+  for (int t = T_ - 1; t >= 0; --t) {
+    const int s = T_ - 1 - t;  // steps done
+    if (t > 0) load_in(t - 1);
+    // this block's K slice of da_t (ring slot t % 2), by the last warp's
+    // lane 0 (the fewest pairs)
+    if (tid == nthr - 32 && k0 < k1) {
+      wg::fence_proxy_async_global();  // the ring stores before the barrier, before this copy
+      wg::mbar_arrive_tx(full_bar, (uint32_t)(MT * (k1 - k0) * 512));
+      const __nv_bfloat16* src = ring + (size_t)(t & 1) * slot_elems;
+      for (int mt = 0; mt < MT; ++mt)
+        bulk_load(s_a + (uint32_t)mt * KSC * 512, src + ((size_t)mt * KS + k0) * kTileElems,
+                  (uint32_t)(k1 - k0) * 512, full_bar);
+    }
+    if (k0 < k1) wg::mbar_wait(full_bar, s & 1);
+
+    // this warp's partial dh tiles: every m-tile x every n-tile over its K
+    // part, into the block's partial tiles
+    {
+      float acc[kMaxM][NTU][4];
+#pragma unroll
+      for (int m = 0; m < kMaxM; ++m)
+#pragma unroll
+        for (int n = 0; n < NTU; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kMaxKPW; ++kk) {
+        if (kw0 + kk >= kw1) break;
+        uint4 af[kMaxM];
+#pragma unroll
+        for (int m = 0; m < kMaxM; ++m)
+          if (m < MT) af[m] = a_s[((size_t)m * KSC + kw0 + kk - k0) * 32 + lane];
+#pragma unroll
+        for (int m = 0; m < kMaxM; ++m)
+#pragma unroll
+          for (int n = 0; n < NTU; ++n)
+            if (m < MT) mma_bf16(acc[m][n], af[m], bfr[kk][n]);
+      }
+#pragma unroll
+      for (int m = 0; m < kMaxM; ++m)
+#pragma unroll
+        for (int n = 0; n < NTU; ++n)
+          if (m < MT)
+            red[(((size_t)warp * MT + m) * NTU + n) * 32 + lane] =
+                make_float4(acc[m][n][0], acc[m][n][1], acc[m][n][2], acc[m][n][3]);
+    }
+    __syncthreads();
+    // the block's sum of each partial tile, in warp order, to the block that
+    // owns the tile's units: thread (m, n, lane) of MT x C NT x 32
+    if (tid < MT * NTU * 32) {
+      const int m = tid / (NTU * 32), n = (tid / 32) % NTU, l = tid & 31;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int w0 = 0; w0 < W; w0 += kSumBatch) {  // kSumBatch loads in flight, then the adds
+        float4 part[kSumBatch];
+#pragma unroll
+        for (int u = 0; u < kSumBatch; ++u)
+          if (w0 + u < W) part[u] = red[(((size_t)(w0 + u) * MT + m) * NTU + n) * 32 + l];
+#pragma unroll
+        for (int u = 0; u < kSumBatch; ++u)
+          if (w0 + u < W) {
+            v.x += part[u].x;
+            v.y += part[u].y;
+            v.z += part[u].z;
+            v.w += part[u].w;
+          }
+      }
+      const int owner = n / NT, nl = n % NT;
+      const uint32_t slot = s_recv + (uint32_t)((((size_t)crank * MT + m) * NT + nl) * 32 + l) * 16;
+      wg::st_cluster(wg::map_rank(slot, owner), v);
+    }
+    cluster.sync();  // every partial tile is in its owner's receive slot
+
+    // the owner's sums, in source order, then the cell backward of step t-1
+#pragma unroll
+    for (int i = 0; i < kMaxPairs; ++i) {
+      if (!pok[i]) continue;
+      const int r16 = prow[i] & 15, j = punit[i] - u0;
+      const int pl = (r16 & 7) * 4 + ((j & 7) >> 1), pc = (r16 >> 3) * 2 + (j & 1);
+      const int pm = prow[i] >> 4, nl = j >> 3;
+      const float* rp = recv + ((size_t)pm * NT + nl) * 128 + pl * 4 + pc;
+      float sum = 0.f;
+#pragma unroll
+      for (int r = 0; r < C; ++r) sum += rp[(size_t)r * MT * NT * 128];  // the ranks' sums in order
+      const float dh_in = sum + dh[i];
+      if (t > 0)
+        cell(t - 1, i, dh_in);
+      else
+        dh[i] = dh_in;
+    }
+    if (t > 0) {  // da_{t-1} is out in every block; the receive slots are read
+      __syncthreads();
+      if (tid == 0) wg::fence_proxy_async_global();  // the block's ring stores, before bulk copies
+      grid.sync();
+      store_da(t - 1);  // after the barrier: the next step's copy does not wait for it
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kMaxPairs; ++i) {
+    if (!pok[i]) continue;
+    const size_t so = (size_t)prow[i] * H + punit[i];
+    dh0[so] = dh[i];
+    dc0[so] = dc[i];
+  }
+  cluster.sync();  // no block leaves while another may still write to it
+}
+
+template <int NT, int C>
+cudaError_t launch(const float* gates, const float* mask, const __nv_bfloat16* wh,
+                   const float* cprev, const float* dhs, const float* dhT, const float* dcT,
+                   float* da, __nv_bfloat16* ring, float* dh0, float* dc0, int T_, int B, int H,
+                   int W, size_t smem, cudaStream_t stream) {
+  const int grid = cdiv(cdiv(H, 8 * NT), C) * C;
+  return wg::launch_cluster_cooperative(lstm_bwd_narrow_kernel<NT, C>, grid, W * 32, smem, C,
+                                        stream, gates, mask, wh, cprev, dhs, dhT, dcT, da, ring,
+                                        dh0, dc0, T_, B, H);
+}
+
+}  // namespace narrow
 
 // ------------------------------------------------------------ bf16: wide rows
 // The wide-row path (ops/lstm_cuda.py::WidePlan): wgmma, TMA, clusters.
@@ -890,6 +1218,30 @@ int lstm_bwd_bf16(const float* gates, const float* mask, const void* wh, const f
   LSTM_BWD_CASE(2, 4)
 #undef LSTM_BWD_CASE
   return cudaErrorInvalidValue;
+}
+
+// The narrow-row path: the same contract with the plan of
+// ops/lstm_cuda.py::NarrowPlan (n_sub 1: 8 units a block; cluster 2: the two
+// blocks that split K; warps W, and k_split = W: K parts of a block's
+// slice, one a warp; smem_bytes), refused with cudaErrorInvalidValue when
+// it is not one this kernel was built for. ring is the bf16 da ring of the
+// mma.sync path ([2, ceil(B/16), ceil(4H/16), 256], fragment order), zeros
+// on entry.
+int lstm_bwd_narrow(const float* gates, const float* mask, const void* wh, const float* cprev,
+                    const float* dhs, const float* dhT, const float* dcT, float* da, void* ring,
+                    float* dh0, float* dc0, int T, int B, int H, int n_sub, int cluster,
+                    int warps, int k_split, int smem_bytes, void* stream) {
+  const int NT = n_sub, C = cluster, W = warps, MT = cdiv(B, 16);
+  if (T < 1 || B < 1 || H < 1 || NT != 1 || C != 2 || W < 1 || W > kMaxWarps
+      || k_split != W || MT > narrow::kMaxM || cdiv(cdiv(cdiv(4 * H, 16), C), W) > narrow::kMaxKPW
+      || B * 8 * NT > narrow::kMaxPairs * 32 * W || smem_bytes < 0
+      || (size_t)smem_bytes != narrow::smem_layout(H, NT, C, MT, W).total)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* w = static_cast<const __nv_bfloat16*>(wh);
+  auto* r = static_cast<__nv_bfloat16*>(ring);
+  return narrow::launch<1, 2>(gates, mask, w, cprev, dhs, dhT, dcT, da, r, dh0, dc0, T, B, H, W,
+                              smem_bytes, s);
 }
 
 // The wide-row path: the same contract with the plan of

@@ -12,9 +12,12 @@
 // Outputs hs [T, rows, H] (the KEPT h), hT, cT (and the residuals). xw
 // [T, rows, 4H] f32, wh [H, 4H] bf16. The f32-wh forward is lstm_fwd.cu.
 //
-// Two paths, by row count (ops/lstm_cuda.py::infer_plan; WIDE_MIN_ROWS):
-// the wide-row path (namespace wide below: wgmma, TMA, clusters) and the
-// 32-row path (lstm_infer_kernel: mma.sync, cp.async).
+// Three paths, by row count (ops/lstm_cuda.py::infer_plan; WIDE_MIN_ROWS):
+// from WIDE_MIN_ROWS the wide-row path (namespace wide below: wgmma, TMA,
+// clusters); below it the narrow-row path (namespace narrow: mma.sync on an
+// h tile shared by a cluster through bulk-copy multicast) wherever its plan
+// fits shared memory (up to 64 rows at H 1024), and the mma.sync path
+// (lstm_infer_kernel: cp.async) for the rows between.
 //
 // The wide-row path, at the IW decoder's shape (T 96, 640 rows, H 1024; plan
 // 2 row groups of 320 rows x 64 unit groups of 16 units, 128 blocks in
@@ -65,18 +68,60 @@
 //   bf16(h_t) into ring slot t % 2 as bf16x2; rows and units past the
 //   problem are never written (the ring's padding stays zero).
 //
-// The 32-row path: what bounds it on the H100, at the encoder's and the
-// training forward's 32 rows (H 1024; 128 blocks of 8 units):
-// - the recurrence is serial in t, and each step's product [rows, H] x
-//   [H, 4H] needs all of h_{t-1}: one grid-wide barrier per step (~2 us);
-// - every block reads the h_{t-1} rows it multiplies (65,536 bytes into each
-//   SM, 8,388,608 from L2 over the grid a step at 32 rows);
-// - the cell epilogue reads and writes the f32 state.
-// At 32 rows the barrier and the epilogue dominate. The residuals add 5
-// floats of stores per (row, unit) and step to the epilogue (20 KB a step
-// at 32 rows); the product, the ring and the barrier are the same.
+// The narrow-row path, at the encoder's and the training forward's 32 rows
+// (T 96, H 1024; plan 128 blocks of 8 units in clusters of 2, 16 warps):
+// - what bounds it (lstm_ablation.py, NVIDIA H100 80GB HBM3 at 700 W): the
+//   serial chain of a step, 7,893 SM clocks at 32 rows (the phase profile
+//   of warp 0): the grid barrier ~2,000, the wait for the copy of h_{t-1}
+//   after it ~2,050 (its 64 KiB into each SM), the products ~1,780, the
+//   K-slice sum ~690, the cell ~730. The empty step (the barrier and the
+//   copy, no product, no cell) takes 0.30 of 0.46-0.54 ms: T x that is the
+//   floor of this design, 7x the byte bound (0.040 ms). The mma.sync
+//   kernel's step is 10,737 clocks (epilogue 4,207 of them, its dependent
+//   loads of xw, c, h_{t-1} and the mask issued after the product; grid
+//   barrier 2,331, k-loop 3,290, K-slice sum 737); its empty step 0.24 ms.
+// - bytes of h_{t-1} a step: 65,536 into each SM, 4,194,304 from L2 over
+//   the grid (each piece read once for the cluster; the mma.sync plan read
+//   8,388,608: every block all of h).
+// - per-block publication flags with release/acquire in place of the grid
+//   barrier measured slower (a step's flag wait ~5,000 clocks, the empty
+//   step 0.48-0.54 ms): each copier waits on the 64 blocks of its piece,
+//   which is the whole grid's step every time; the grid barrier stays.
 //
-// Design of the 32-row path:
+// Design of the narrow-row path:
+// - Block b owns units [b J, b J + J), J = 8 NT, for every row, keeps their
+//   four gate columns of wh in shared memory in B-fragment order (as the
+//   mma.sync path) and multiplies the whole h tile: warp w takes m-tile
+//   w % MT over K slice w / MT; every warp stores its partial tiles, the
+//   block's threads sum them in slice order over the read h tile (no
+//   atomics: equal inputs, equal bits), and the pairs' threads read four
+//   sums each.
+// - The h tile arrives by cp.async.bulk .multicast::cluster: after the grid
+//   barrier that ends step t-1, cluster rank r copies its 1/C of the k-steps
+//   of every m-tile from the ring (fragment order: contiguous runs) into the
+//   same offset of every block of the cluster; one mbarrier counts the
+//   bytes of all pieces (its expect-tx arrival for step t+1 comes once the
+//   tile of step t has been read). mma.sync stays, not wgmma: a warpgroup's
+//   m64 tile would take 64 of 32 rows, or 4J = 64 gate columns a block (64
+//   blocks, twice the products an SM), and the wide path measured ~200 SM clocks a
+//   wgmma m64n32k16 on this card; 16 warps of mma.sync take ~1,800.
+// - Thread p owns pairs (row p / J, unit u0 + p % J): c and h stay in its
+//   registers for the sequence; xw[t] and mask[t] are requested with
+//   non-caching loads at the top of the step, before the copy and the
+//   product; bf16(h_t) goes to the ring before the barrier, and hs, cs and
+//   the gates after it, so the next step's copy does not wait for them. cT
+//   and hT are written once, at the end.
+// - The ring's stores reach the bulk copies through a proxy fence of one
+//   thread after a block barrier, before the grid barrier, and another by
+//   the copying thread after it.
+// - 8-unit blocks (128 at H 1024) in pairs beat 16-unit blocks in clusters
+//   of 16 (64 blocks: twice the products an SM), 0.53 against 0.65 ms.
+//   Clusters of 4 or more admit only 120 blocks on this card.
+//
+// The mma.sync path (rows no narrow plan fits): what bounds it is the grid
+// barrier, the epilogue's dependent loads and every block reading all of
+// h_{t-1} (1,310,720 bytes into each SM at 640 rows).
+// Design of the mma.sync path:
 // - Persistent cooperative grid (launch plan from
 //   ops/lstm_cuda.py::infer_plan, an MMAPlan). Block u owns hidden units [u*J, u*J + J),
 //   J = 8 * NT, for every row, keeps their four gate columns of wh resident
@@ -107,10 +152,11 @@
 //   f32 product (TF32 keeps 10 bits of mantissa), and the f32 route is
 //   defined by f32 products.
 //
-// Both paths: ring slot t % 2 holds bf16(h_t); slot 1 holds bf16(h0) for step 0. Step t
-// reads slot (t + 1) % 2 while slot t % 2 is written; the barrier between
-// steps orders them. The state c lives in cT, each element read and written
-// by its one owning lane; hs[t - 1] is read back by the lane that wrote it.
+// All paths: ring slot t % 2 holds bf16(h_t); slot 1 holds bf16(h0) for
+// step 0. Step t reads slot (t + 1) % 2 while slot t % 2 is written; the
+// grid barrier between steps orders them. In the mma.sync and wide paths
+// the state c lives in cT, each element read and written by its one owning
+// lane, and hs[t - 1] is read back by the lane that wrote it.
 
 #include <cooperative_groups.h>
 
@@ -387,6 +433,255 @@ cudaError_t launch(const float* xw, const float* mask, const __nv_bfloat16* wh, 
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
+
+// ---------------------------------------------------------------- narrow rows
+// The narrow-row path (ops/lstm_cuda.py::NarrowPlan): mma.sync on an h tile
+// that the cluster shares by bulk-copy multicast, the state in registers,
+// the cell's inputs requested before the step's barrier.
+namespace narrow {
+namespace wg = lstm_wgmma;
+
+constexpr int kMaxPairs = 2;  // (row, unit) pairs a thread owns at most
+constexpr int kSumBatch = 8;  // partial tiles a thread loads before adding them, in order
+
+// Byte offsets in shared memory: wh's B fragments [KS][4NT][32] x 8 bytes,
+// the h tile in the ring's fragment order [MT][KS] x 512 bytes, which the
+// sums of the partial tiles [MT][4NT][32] float4 overwrite once it has been
+// read (the next step's pieces land only after the grid barrier), the
+// warps' partial tiles [W][4NT][32] float4, the full mbarrier.
+struct Smem {
+  size_t a, red, bar, total;
+};
+__host__ __device__ inline Smem smem_layout(int H, int NT, int MT, int W) {
+  const size_t KS = cdiv(H, 16);
+  Smem s;
+  s.a = KS * 4 * NT * 256;
+  s.red = s.a + (size_t)MT * (KS > 4 * NT ? KS : 4 * NT) * 512;
+  s.bar = s.red + (size_t)W * 4 * NT * 512;
+  s.total = s.bar + 8;
+  return s;
+}
+
+// Block b owns units [b J, b J + J), J = 8 NT, for every row, in a cluster
+// of C consecutive blocks. After the grid barrier that ends step t-1,
+// cluster rank r copies k-steps [r KSP, r KSP + KSP) of h_{t-1} (every
+// m-tile) from the ring into the same offset of all C blocks
+// (cp.async.bulk .multicast::cluster); the full mbarrier counts the bytes
+// of every piece. Warp w takes m-tile w % MT over K slice w / MT; the
+// block's threads sum the partial tiles in slice order, then the threads
+// that own the pairs run the cell.
+template <int NT, bool kSaveResiduals>
+__global__ void __launch_bounds__(kMaxWarps * 32, 1)
+lstm_infer_narrow_kernel(const float* __restrict__ xw, const float* __restrict__ mask,
+                         const __nv_bfloat16* __restrict__ wh, const float* __restrict__ h0,
+                         const float* __restrict__ c0, float* __restrict__ hs,
+                         float* __restrict__ cs, float* __restrict__ gates, float* __restrict__ hT,
+                         float* __restrict__ cT, __nv_bfloat16* __restrict__ ring, int T_,
+                         int rows, int H, int WK) {
+  constexpr int NTILES = 4 * NT;  // n-tile q * NT + j: gate q, units [j*8, j*8 + 8)
+  constexpr int J = 8 * NT;
+  cg::grid_group grid = cg::this_grid();
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int KS = cdiv(H, 16), MT = cdiv(rows, 16);
+  const int nthr = blockDim.x, W = nthr >> 5, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int wm = warp % MT, wk = warp / MT;  // m-tile, K slice
+  const int KSW = cdiv(KS, WK), ks0 = min(KS, wk * KSW), ks1 = min(KS, ks0 + KSW);
+  const int u0 = blockIdx.x * J;
+  const int C = (int)cluster.num_blocks(), crank = (int)cluster.block_rank();
+  const size_t H4 = 4 * (size_t)H, slot_elems = (size_t)MT * KS * kTileElems;
+  const Smem L = smem_layout(H, NT, MT, W);
+  const uint2* b_s = reinterpret_cast<const uint2*>(smem);
+  const uint4* a_s = reinterpret_cast<const uint4*>(smem + L.a);
+  float4* red = reinterpret_cast<float4*>(smem + L.red);
+  float4* sums = reinterpret_cast<float4*>(smem + L.a);  // over the h tile, once read
+  const uint32_t s_a = wg::smem_u32(smem + L.a), full_bar = wg::smem_u32(smem + L.bar);
+  const uint32_t a_bytes = (uint32_t)(slot_elems * 2);
+  // this block's piece of the tile: k-steps [p0, p1)
+  const int KSP = cdiv(KS, C), p0 = min(KS, crank * KSP), p1 = min(KS, p0 + KSP);
+
+  // wh's gate columns of this block's units, zero-padded, in B-fragment order
+  {
+    __nv_bfloat16* b_w = reinterpret_cast<__nv_bfloat16*>(smem);
+    const int total = KS * 16 * NTILES * 8;
+    for (int base = tid; base < total; base += kFillBatch * nthr) {
+      __nv_bfloat16 v[kFillBatch];
+#pragma unroll
+      for (int u = 0; u < kFillBatch; ++u) {
+        const int idx = base + u * nthr;
+        const int n = idx % (NTILES * 8), k = idx / (NTILES * 8);
+        const int q = n / J, unit = u0 + n % J;
+        v[u] = (idx < total && k < H && unit < H) ? wh[(size_t)k * H4 + (size_t)q * H + unit]
+                                                  : __float2bfloat16(0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < kFillBatch; ++u) {
+        const int idx = base + u * nthr;
+        if (idx < total) b_w[b_frag_index(idx / (NTILES * 8), idx % (NTILES * 8), NTILES)] = v[u];
+      }
+    }
+  }
+  // this thread's pairs p = tid + i nthr: row p / J, unit u0 + p % J; their
+  // state lives in registers for the whole sequence
+  int prow[kMaxPairs], punit[kMaxPairs];
+  bool pok[kMaxPairs];
+  float c[kMaxPairs], h[kMaxPairs];
+#pragma unroll
+  for (int i = 0; i < kMaxPairs; ++i) {
+    const int p = tid + i * nthr;
+    prow[i] = p / J;
+    punit[i] = u0 + p % J;
+    pok[i] = prow[i] < rows && punit[i] < H;
+    const size_t so = (size_t)prow[i] * H + punit[i];
+    c[i] = pok[i] ? c0[so] : 0.f;
+    h[i] = pok[i] ? h0[so] : 0.f;
+    // bf16(h0) into ring slot 1
+    if (pok[i]) ring[slot_elems + a_frag_index(prow[i], punit[i], KS)] = __float2bfloat16(h[i]);
+  }
+  if (tid == 0) {
+    wg::mbar_init(full_bar, 1);
+    wg::fence_mbar_init();
+    wg::mbar_arrive_tx(full_bar, a_bytes);  // step 0's tile
+  }
+  cluster.sync();  // the barrier, before the other blocks' pieces complete on it
+  if (tid == 0) wg::fence_proxy_async_global();  // the ring's h0, before the bulk copies read it
+  grid.sync();
+
+  const float* sf = reinterpret_cast<const float*>(sums);
+  for (int t = 0; t < T_; ++t) {
+    // the cell's inputs of step t, requested before the copy and the product
+    float x[kMaxPairs][4], mk[kMaxPairs];
+#pragma unroll
+    for (int i = 0; i < kMaxPairs; ++i) {
+      const size_t xo = ((size_t)t * rows + prow[i]) * H4 + punit[i];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) x[i][q] = pok[i] ? ld_nc(xw + xo + (size_t)q * H) : 0.f;
+      mk[i] = pok[i] ? ld_nc(mask + (size_t)t * rows + prow[i]) : 0.f;
+    }
+    // this block's piece of h_{t-1} (ring slot (t + 1) % 2), into every
+    // block of the cluster, by the last warp's lane 0 (the fewest pairs)
+    if (tid == nthr - 32 && p0 < p1) {
+      wg::fence_proxy_async_global();  // the ring stores before the barrier, before this copy
+      const __nv_bfloat16* src = ring + (size_t)((t + 1) & 1) * slot_elems;
+      for (int mt = 0; mt < MT; ++mt) {
+        const size_t off = ((size_t)mt * KS + p0) * kTileElems;
+        bulk_load_mc(s_a + (uint32_t)(off * 2), src + off, (uint32_t)(p1 - p0) * 512, full_bar,
+                     (uint16_t)((1u << C) - 1));
+      }
+    }
+    wg::mbar_wait(full_bar, t & 1);
+
+    float acc[NTILES][4];
+#pragma unroll
+    for (int nt = 0; nt < NTILES; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+#pragma unroll 4
+    for (int ks = ks0; ks < ks1; ++ks) {
+      const uint4 af = a_s[((size_t)wm * KS + ks) * 32 + lane];
+      const uint2* b = b_s + (size_t)ks * NTILES * 32 + lane;
+#pragma unroll
+      for (int nt = 0; nt < NTILES; ++nt) mma_bf16(acc[nt], af, b[nt * 32]);
+    }
+    {
+      float4* mine = red + (size_t)warp * NTILES * 32 + lane;
+#pragma unroll
+      for (int nt = 0; nt < NTILES; ++nt)
+        mine[nt * 32] = make_float4(acc[nt][0], acc[nt][1], acc[nt][2], acc[nt][3]);
+    }
+    __syncthreads();
+    // the tile has been read: the next step's pieces may complete on the barrier
+    if (tid == 0 && t + 1 < T_) wg::mbar_arrive_tx(full_bar, a_bytes);
+    // the sum of the K slices' partial tiles, in slice order: thread (m, n,
+    // lane) of MT x 4NT x 32
+    for (int e = tid; e < MT * NTILES * 32; e += nthr) {
+      const int m = e / (NTILES * 32), rest = e % (NTILES * 32);
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int w0 = 0; w0 < WK; w0 += kSumBatch) {  // kSumBatch loads in flight, then the adds
+        float4 part[kSumBatch];
+#pragma unroll
+        for (int u = 0; u < kSumBatch; ++u)
+          if (w0 + u < WK) part[u] = red[((size_t)(w0 + u) * MT + m) * NTILES * 32 + rest];
+#pragma unroll
+        for (int u = 0; u < kSumBatch; ++u)
+          if (w0 + u < WK) {
+            v.x += part[u].x;
+            v.y += part[u].y;
+            v.z += part[u].z;
+            v.w += part[u].w;
+          }
+      }
+      sums[e] = v;
+    }
+    __syncthreads();
+
+    // the cell; h_t goes to the ring before the barrier, the outputs after it
+    float act[kMaxPairs][4];
+#pragma unroll
+    for (int i = 0; i < kMaxPairs; ++i) {
+      if (!pok[i]) continue;
+      const int r16 = prow[i] & 15, j = punit[i] - u0;
+      const int pl = (r16 & 7) * 4 + ((j & 7) >> 1), pc = (r16 >> 3) * 2 + (j & 1);
+      const int pm = prow[i] >> 4;
+      float pre[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        pre[q] = x[i][q] + sf[(((size_t)pm * NTILES + q * NT + (j >> 3)) * 32 + pl) * 4 + pc];
+      const float ig = sigmoid(pre[0]), fg = sigmoid(pre[1]), gg = tanhf(pre[2]),
+                  og = sigmoid(pre[3]);
+      const float c_raw = fg * c[i] + ig * gg;
+      const float h_raw = og * tanhf(c_raw);
+      h[i] = mk[i] * h_raw + (1.f - mk[i]) * h[i];
+      c[i] = mk[i] * c_raw + (1.f - mk[i]) * c[i];
+      act[i][0] = ig;
+      act[i][1] = fg;
+      act[i][2] = gg;
+      act[i][3] = og;
+      ring[(size_t)(t & 1) * slot_elems + a_frag_index(prow[i], punit[i], KS)] =
+          __float2bfloat16(h[i]);
+    }
+    if (t + 1 < T_) {  // h_t is out in every block; the partial tiles are read
+      __syncthreads();
+      if (tid == 0) wg::fence_proxy_async_global();  // the block's ring stores, before bulk copies
+      grid.sync();
+    }
+    // the outputs, after the barrier: the next step's copy does not wait for them
+#pragma unroll
+    for (int i = 0; i < kMaxPairs; ++i) {
+      if (!pok[i]) continue;
+      const size_t so = (size_t)prow[i] * H + punit[i];
+      hs[(size_t)t * rows * H + so] = h[i];
+      if (kSaveResiduals) {
+        cs[(size_t)t * rows * H + so] = c[i];
+        float* gt = gates + ((size_t)t * rows + prow[i]) * H4 + punit[i];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) gt[(size_t)q * H] = act[i][q];
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kMaxPairs; ++i) {
+    if (!pok[i]) continue;
+    const size_t so = (size_t)prow[i] * H + punit[i];
+    hT[so] = h[i];
+    cT[so] = c[i];
+  }
+  cluster.sync();  // no block leaves while a piece it copied may still land in another
+}
+
+template <int NT, bool kSaveResiduals>
+cudaError_t launch(const float* xw, const float* mask, const __nv_bfloat16* wh, const float* h0,
+                   const float* c0, float* hs, float* cs, float* gates, float* hT, float* cT,
+                   __nv_bfloat16* ring, int T_, int rows, int H, int C, int W, int WK,
+                   size_t smem, cudaStream_t stream) {
+  const int grid = cdiv(cdiv(H, 8 * NT), C) * C;
+  return wg::launch_cluster_cooperative(lstm_infer_narrow_kernel<NT, kSaveResiduals>, grid,
+                                        W * 32, smem, C, stream, xw, mask, wh, h0, c0, hs, cs,
+                                        gates, hT, cT, ring, T_, rows, H, WK);
+}
+
+}  // namespace narrow
 
 // ------------------------------------------------------------------ wide rows
 // The wide-row path (ops/lstm_cuda.py::WidePlan): wgmma, TMA, clusters.
@@ -703,6 +998,38 @@ int lstm_infer(const float* xw, const float* mask, const void* wh, const float* 
 #undef LSTM_RESID_CASE
 #undef LSTM_INFER_CASE
 #undef LSTM_CASE
+  return cudaErrorInvalidValue;
+}
+
+// The narrow-row path: the same contract with the plan of
+// ops/lstm_cuda.py::NarrowPlan (n_sub NT: J = 8 NT units a block; cluster C
+// of 2..16 blocks sharing the h tile; warps W = ceil(rows / 16) x k_split;
+// smem_bytes), refused with cudaErrorInvalidValue when it is not one this
+// kernel was built for. ring is the bf16 h ring of the mma.sync path
+// ([2, ceil(rows/16), ceil(H/16), 256], fragment order), zeros on entry.
+int lstm_infer_narrow(const float* xw, const float* mask, const void* wh, const float* h0,
+                      const float* c0, float* hs, float* cs, float* gates, float* hT, float* cT,
+                      void* ring, int T, int rows, int H, int save_residuals, int n_sub,
+                      int cluster, int warps, int k_split, int smem_bytes, void* stream) {
+  const int NT = n_sub, C = cluster, W = warps, WK = k_split, MT = cdiv(rows, 16);
+  if (T < 1 || rows < 1 || H < 1 || (NT != 1 && NT != 2) || (C != 2 && C != 4 && C != 8
+      && C != 16) || WK < 1 || W != MT * WK || W > kMaxWarps
+      || rows * 8 * NT > narrow::kMaxPairs * 32 * W || smem_bytes < 0
+      || (size_t)smem_bytes != narrow::smem_layout(H, NT, MT, W).total
+      || (save_residuals && (!cs || !gates)))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* w = static_cast<const __nv_bfloat16*>(wh);
+  auto* r = static_cast<__nv_bfloat16*>(ring);
+#define NARROW_CASE(nt, res)                                                                    \
+  if (NT == nt && !save_residuals == !res)                                                      \
+    return narrow::launch<nt, res>(xw, mask, w, h0, c0, hs, cs, gates, hT, cT, r, T, rows, H,  \
+                                   C, W, WK, smem_bytes, s);
+  NARROW_CASE(1, false)
+  NARROW_CASE(2, false)
+  NARROW_CASE(1, true)
+  NARROW_CASE(2, true)
+#undef NARROW_CASE
   return cudaErrorInvalidValue;
 }
 

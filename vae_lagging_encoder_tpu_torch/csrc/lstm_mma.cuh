@@ -1,13 +1,17 @@
 // Tensor-core and asynchronous-copy building blocks shared by the bf16 LSTM
-// kernels' 32-row path (lstm_infer.cu, the bf16 path of lstm_bwd.cu, below
-// ops/lstm_cuda.py::WIDE_MIN_ROWS rows; the wide-row path is built from
-// lstm_wgmma.cuh), and the two operand layouts they use.
+// kernels below ops/lstm_cuda.py::WIDE_MIN_ROWS rows (lstm_infer.cu, the
+// bf16 path of lstm_bwd.cu: the narrow-row kernels and the mma.sync
+// kernels; the wide-row path is built from lstm_wgmma.cuh), and the two
+// operand layouts they use.
 //
 // Product tiles are mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32
 // (one warp: a 16x16 bf16 A tile times a 16x8 bf16 B tile into 16x8 f32).
 // wgmma needs a 64-row A tile; the backward's product has B = 32 rows (and
 // fewer on a short last batch), and each forward warp owns its own 16-row
-// tiles, so mma.sync wastes nothing at these shapes where wgmma would.
+// tiles, so mma.sync wastes nothing at these shapes where wgmma would. The
+// narrow-row kernels bring the operand in by cp.async.bulk (bulk_load,
+// bulk_load_mc: one instruction for a contiguous run of tiles, multicast
+// to a cluster), the mma.sync kernels by cp.async.
 //
 // A operand in fragment order ("frag layout"): a [Mpad, Kpad] bf16 matrix
 // stored as 16x16 tiles, tile (mt, ks) at index mt * KS + ks, each tile
@@ -72,6 +76,34 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 1-D bulk copy (the TMA unit, no tensor map) of `bytes` (a multiple of 16,
+// both ends 16-byte aligned) from global memory to shared memory at `dst`,
+// completing its bytes on the mbarrier at `bar`; with a mask, the same
+// bytes into offset `dst` of every cluster block in it, each completing on
+// its own mbarrier at offset `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_load_mc(uint32_t dst, const void* src, uint32_t bytes,
+                                             uint32_t bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+      "[%0], [%1], %2, [%3], %4;\n" ::"r"(dst), "l"(src), "r"(bytes), "r"(bar), "h"(mask)
+      : "memory");
+}
+
+// A read-only global load issued where it stands: asm volatile keeps the
+// compiler from sinking it past the waits that follow to its first use.
+__device__ __forceinline__ float ld_nc(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.f32 %0, [%1];\n" : "=f"(v) : "l"(p));
+  return v;
 }
 
 // Bring the 128-byte line holding *p into L2 (no register, no wait).

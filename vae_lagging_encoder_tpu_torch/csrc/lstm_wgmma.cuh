@@ -125,6 +125,11 @@ __device__ __forceinline__ void fence_proxy_async_smem() {
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async;\n" ::: "memory");
 }
+// The same for global memory only: the writes this thread has seen (a
+// block barrier before it covers the block's), before async-proxy reads.
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
 // Named barrier of `threads` threads (a warpgroup: 128), id 1..15.
 __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
@@ -281,6 +286,10 @@ inline cudaError_t launch_cluster_cooperative(void (*kern)(Exp...), int grid, in
   if (!coop || smem > (size_t)smem_max || grid % cluster) return cudaErrorInvalidValue;
   if ((err = cudaFuncSetAttribute((const void*)kern,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
+    return err;
+  if (cluster > 8  // a cluster past the portable 8 blocks
+      && (err = cudaFuncSetAttribute((const void*)kern,
+                                     cudaFuncAttributeNonPortableClusterSizeAllowed, 1)))
     return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);

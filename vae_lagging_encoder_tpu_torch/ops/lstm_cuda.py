@@ -11,15 +11,19 @@ plain versions + the autograd Function.
   sweep); it launches ``csrc/lstm_bwd.cu`` (tensor cores with bf16 ``wh``,
   CUDA cores with f32).
 - ``infer_plan`` / ``bwd_plan`` compute the launch plans of the two
-  tensor-core kernels, which the kernels check: below ``WIDE_MIN_ROWS`` an
-  ``MMAPlan`` (``mma_infer_plan`` / ``mma_bwd_plan``: ``mma.sync``; blocks,
-  units per block, warps, m-tiles per pass, pipeline stages, shared
-  memory), from there a ``WidePlan`` (``wide_plan``)
+  tensor-core kernels, which the kernels check: below ``WIDE_MIN_ROWS`` a
+  ``NarrowPlan`` (``narrow_plan``: ``mma.sync`` on an operand brought by
+  ``cp.async.bulk``, in clusters: the forward's multicast to the cluster,
+  the backward's K split between a cluster's two blocks; units per block,
+  cluster, warps, K slices, shared memory) where one fits, else an
+  ``MMAPlan`` (``mma_infer_plan`` / ``mma_bwd_plan``: ``mma.sync`` with
+  ``cp.async``; blocks, units per block, warps, m-tiles per pass, pipeline
+  stages, shared memory); from there a ``WidePlan`` (``wide_plan``)
   (``wgmma`` with TMA in clusters of two blocks; row groups, units per
   block, K slices, cluster, warpgroups, stages, the backward's receive
-  slots, shared memory, and the operand bytes a step per SM and from L2),
-  or ValueError where no wide plan fits; ``plan_owners`` lists which
-  (block, warp) owns each (row, unit) pair.
+  slots, shared memory), or ValueError where no wide plan fits. Each plan
+  gives its operand bytes a step per SM and from L2; ``plan_owners`` lists
+  which (block, warp) owns each (row, unit) pair.
 - ``lstm_infer`` / ``lstm_bwd_bf16`` launch the bf16 kernels under a given
   plan (``lstm_seq`` / ``lstm_bwd`` call them with the plan above).
 - ``LSTMSeqFn`` is the counterpart of ``lstm_seq_fused`` with its
@@ -82,11 +86,32 @@ WIDE_CLUSTER = 2
 WIDE_TILE_ROWS = 64     # rows of a wgmma m-tile
 WIDE_RECV_BYTES = 128 * 8 * 4  # kRecvBytes: a backward receive slot (128 threads x 8 f32)
 # From this many rows the wide plan (measured faster on the H100 from there,
-# lstm_ablation.py's sweep; PERF.md) and below it the mma.sync plan: the
-# two forwards (with and without residuals), the backward.
+# lstm_ablation.py's sweep; PERF.md) and below it the narrow plan, or the
+# mma.sync plan where no narrow plan fits: the two forwards (with and
+# without residuals), the backward.
 WIDE_MIN_ROWS = {"infer": 128, "bwd": 96}
 WIDE_PLAN_ARGS = ("row_groups", "rows_per_group", "units", "k_slices", "cluster",
                   "warpgroups", "stages", "smem_bytes")
+# The narrow-row kernels (lstm_infer.cu's and lstm_bwd.cu's namespace
+# narrow): at most kMaxPairs (row, unit) pairs a thread, the backward's
+# kChains accumulators a warp, the cluster sizes they are launched with.
+NARROW_PLAN_ARGS = ("n_sub", "cluster", "warps", "k_split", "smem_bytes")
+NARROW_MAX_PAIRS = 2
+NARROW_CLUSTERS = (2, 4, 8, 16)
+# Blocks of one per SM that a cooperative launch admits in clusters of C on
+# an H100 SXM (132 SMs; cudaOccupancyMaxActiveClusters, ``python3
+# lstm_ablation.py clusters``): a cluster's blocks share one GPC. Scaled
+# by the SM count elsewhere; the launch checks the card's own.
+CLUSTER_BLOCKS_H100 = {2: 132, 4: 120, 8: 120, 16: 112}
+# (n_sub, cluster) of the narrow plans in order of preference: 8 units a
+# block in pairs (128 blocks at H 1024), else 16 units in the largest
+# cluster the card admits (lstm_ablation.py: 0.48 against 0.56-0.68 ms at 32
+# rows on an H100). The backward has only the first: with 16 units a block
+# wh's fragments take 64 registers a thread and spill.
+NARROW_PREFS = {"infer": ((1, 2), (2, 16), (2, 8), (2, 4), (2, 2)),
+                "bwd": ((1, 2),)}
+NARROW_MAX_M = 2        # kMaxM: m-tiles the backward takes
+NARROW_MAX_KPW = 8      # kMaxKPW: k-steps of a backward warp's K part (its wh in registers)
 WIDE_BWD_PLAN_ARGS = WIDE_PLAN_ARGS + ("recv_slots",)
 # lstm_infer: pointers, (T, rows, H, save_residuals), the plan, the stream;
 # lstm_bwd_bf16: pointers, (T, rows, H), the plan, the stream; the same for
@@ -99,6 +124,11 @@ INFER_WIDE_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * (4 + len(WIDE_P
                        + [ctypes.c_void_p])
 BWD_WIDE_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * (3 + len(WIDE_BWD_PLAN_ARGS))
                      + [ctypes.c_void_p])
+# lstm_infer_narrow / lstm_bwd_narrow: the same with the narrow plan
+INFER_NARROW_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * (4 + len(NARROW_PLAN_ARGS))
+                         + [ctypes.c_void_p])
+BWD_NARROW_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * (3 + len(NARROW_PLAN_ARGS))
+                       + [ctypes.c_void_p])
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -287,6 +317,129 @@ class WidePlan:
         return tuple(getattr(self, n) for n in names)
 
 
+@dataclass(frozen=True)
+class NarrowPlan:
+    """Launch plan of a narrow-row kernel (``lstm_infer_narrow``,
+    ``lstm_bwd_narrow``): block b owns units [b J, b J + J), J = 8
+    ``n_sub``, for every row, in clusters of ``cluster`` consecutive blocks
+    (the grid padded to whole clusters); ``warps`` warps a block.
+
+    Forward ("infer"): each block keeps its units' 4J gate columns of wh;
+    cluster rank r copies k-steps [r P, r P + P) of h_{t-1} (P =
+    ``piece_k_steps``) into every block of its cluster (bulk-copy multicast);
+    warp w takes m-tile w % MT over K slice w / MT of ``k_split``.
+    Backward ("bwd"): the cluster's C J units take the product over the C
+    slices of K = 4H, rank r slice r (``piece_k_steps`` k-steps); warp w
+    takes K part w of the slice (``k_split`` = ``warps`` parts) for every
+    m-tile and every n-tile of the cluster's units, its wh fragments held in
+    registers; the block sums its warps' partial tiles and stores each sum
+    into the receive slot of the block that owns its units (distributed
+    shared memory). Both read the
+    two-slot bf16 ring of the mma.sync path, one grid barrier a step."""
+    kind: str
+    rows: int
+    H: int
+    n_sub: int
+    cluster: int
+    warps: int
+    k_split: int
+
+    @property
+    def units_per_block(self) -> int:
+        return 8 * self.n_sub
+
+    @property
+    def blocks(self) -> int:
+        return _cdiv(_cdiv(self.H, self.units_per_block), self.cluster) * self.cluster
+
+    @property
+    def m_tiles(self) -> int:
+        return _cdiv(self.rows, 16)
+
+    @property
+    def k_steps(self) -> int:
+        return _cdiv(self.H if self.kind == "infer" else 4 * self.H, 16)
+
+    @property
+    def piece_k_steps(self) -> int:
+        """k-steps of the piece a cluster rank copies (the forward) or of
+        the K slice it multiplies (the backward); the last may be shorter."""
+        return _cdiv(self.k_steps, self.cluster)
+
+    @property
+    def threads(self) -> int:
+        return 32 * self.warps
+
+    @property
+    def smem_bytes(self) -> int:
+        """The kernels' layout: the forward's wh B fragments, the operand
+        tile (in the forward also the sums of the partial tiles, once read),
+        the warps' partial tiles, the backward's receive slots, the full
+        mbarrier."""
+        mt, nt = self.m_tiles, self.n_sub
+        if self.kind == "infer":
+            return (self.k_steps * 4 * nt * 256 + mt * max(self.k_steps, 4 * nt) * 512
+                    + self.warps * 4 * nt * 512 + 8)
+        ksc, c = self.piece_k_steps, self.cluster
+        return mt * ksc * 512 + self.warps * mt * c * nt * 512 + c * mt * nt * 512 + 8
+
+    @property
+    def ring_elems(self) -> int:
+        """bf16 elements of the two-slot operand ring in mma fragment order."""
+        return 2 * self.m_tiles * self.k_steps * 256
+
+    @property
+    def sm_bytes_per_step(self) -> int:
+        """Bytes of the product's bf16 operand one block takes into its SM
+        a step: the whole h tile (the forward), its K slice of da_t (the
+        backward)."""
+        ks = self.k_steps if self.kind == "infer" else self.piece_k_steps
+        return self.m_tiles * ks * 512
+
+    @property
+    def l2_bytes_per_step(self) -> int:
+        """Bytes of that operand read from L2 a step over the grid: once a
+        cluster (the forward's multicast pieces, the backward's slices)."""
+        return self.blocks // self.cluster * self.m_tiles * self.k_steps * 512
+
+    def args(self) -> Tuple[int, ...]:
+        return tuple(getattr(self, n) for n in NARROW_PLAN_ARGS)
+
+
+def cluster_capacity(cluster: int, nsm: int) -> int:
+    """Blocks a cooperative launch of one block per SM admits in clusters of
+    ``cluster`` (``CLUSTER_BLOCKS_H100`` scaled to ``nsm`` SMs, whole
+    clusters)."""
+    return CLUSTER_BLOCKS_H100[cluster] * nsm // 132 // cluster * cluster
+
+
+def narrow_plan(kind: str, rows: int, H: int, nsm: int, n_sub: Optional[int] = None,
+                cluster: Optional[int] = None) -> Optional[NarrowPlan]:
+    """The narrow-row plan of ``kind`` ("infer" or "bwd"): the first
+    (n_sub, cluster) of ``NARROW_PREFS`` (or the one given) whose grid the
+    card admits in clusters and whose layout fits shared memory with at
+    most ``NARROW_MAX_PAIRS`` pairs a thread; the forward with 16 warps
+    where they fit, else 8. None where none fits (too many rows for one
+    block's shared memory)."""
+    prefs = [(n, c) for n, c in NARROW_PREFS[kind]
+             if (n_sub is None or n == n_sub) and (cluster is None or c == cluster)]
+    mt = _cdiv(rows, 16)
+    for nt, c in prefs:
+        if mt > (16 if kind == "infer" else NARROW_MAX_M):
+            break
+        if kind == "infer":
+            cands = [NarrowPlan(kind, rows, H, nt, c, mt * (w // mt), w // mt)
+                     for w in (16, 8) if w >= mt]
+        else:  # 16 warps, one K part each
+            cands = [NarrowPlan(kind, rows, H, nt, c, MAX_WARPS, MAX_WARPS)]
+        for p in cands:
+            if (p.blocks <= cluster_capacity(c, nsm) and p.smem_bytes <= SMEM_MAX
+                    and rows * p.units_per_block <= NARROW_MAX_PAIRS * p.threads
+                    and (kind == "infer" or _cdiv(p.piece_k_steps, p.warps) <= NARROW_MAX_KPW)):
+                return p
+    return None
+
+
 def wide_plan(kind: str, rows: int, H: int, nsm: int) -> Optional[WidePlan]:
     """The wide-row plan of ``kind`` ("infer" or "bwd"): as many row groups
     as the SMs hold beside the unit groups (and K slices), each a multiple of
@@ -333,10 +486,11 @@ def _wide_or_raise(kind: str, rows: int, H: int, nsm: int) -> WidePlan:
 
 def infer_plan(rows: int, H: int, nsm: int, save_residuals: bool = False):
     """The forward's plan: from ``WIDE_MIN_ROWS`` rows the ``WidePlan``
-    (raises where none fits), below it ``mma_infer_plan``'s."""
+    (raises where none fits), below it ``narrow_plan``'s, and where no
+    narrow plan fits shared memory ``mma_infer_plan``'s."""
     if rows >= WIDE_MIN_ROWS["infer"]:
         return _wide_or_raise("infer", rows, H, nsm)
-    return mma_infer_plan(rows, H, nsm, save_residuals)
+    return narrow_plan("infer", rows, H, nsm) or mma_infer_plan(rows, H, nsm, save_residuals)
 
 
 def mma_infer_plan(rows: int, H: int, nsm: int, save_residuals: bool = False) -> MMAPlan:
@@ -362,10 +516,11 @@ def mma_infer_plan(rows: int, H: int, nsm: int, save_residuals: bool = False) ->
 
 def bwd_plan(B: int, H: int, nsm: int):
     """The backward's plan: from ``WIDE_MIN_ROWS`` rows the ``WidePlan``
-    (raises where none fits), below it ``mma_bwd_plan``'s."""
+    (raises where none fits), below it ``narrow_plan``'s, and where no
+    narrow plan fits shared memory ``mma_bwd_plan``'s."""
     if B >= WIDE_MIN_ROWS["bwd"]:
         return _wide_or_raise("bwd", B, H, nsm)
-    return mma_bwd_plan(B, H, nsm)
+    return narrow_plan("bwd", B, H, nsm) or mma_bwd_plan(B, H, nsm)
 
 
 def mma_bwd_plan(B: int, H: int, nsm: int) -> MMAPlan:
@@ -398,6 +553,14 @@ def plan_owners(plan) -> np.ndarray:
         np.add.at(count, (r, u), 1)
         owner[r, u, 0], owner[r, u, 1] = b, (w[ok] if np.ndim(w) else w)
 
+    if isinstance(plan, NarrowPlan):
+        # block b's pairs p = tid + i threads: row p / J, unit b J + p % J;
+        # the warp is tid / 32
+        J = plan.units_per_block
+        p = np.arange(rows * J)
+        for b in range(plan.blocks):
+            own(p // J, b * J + p % J, b, (p % plan.threads) // 32)
+        return np.concatenate([owner.reshape(-1, 2), count.reshape(-1, 1)], axis=1)
     if isinstance(plan, WidePlan):
         # block (rg, ug[, kc]); the forward's pair: warp (row % 64) / 16 of the
         # consumer warpgroup mt % 2 of its m-tile mt; the backward's: that warp
@@ -597,9 +760,10 @@ def lstm_infer(xw: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor, h0: torch
     cs = torch.empty((T, B, H), device=xw.device) if save_residuals else None
     gates = torch.empty((T, B, H4), device=xw.device) if save_residuals else None
     ring = torch.zeros(plan.ring_elems, device=xw.device, dtype=torch.bfloat16)
-    fn = "lstm_infer_wide" if isinstance(plan, WidePlan) else "lstm_infer"
-    lib = _lib(fn, INFER_WIDE_ARGTYPES if isinstance(plan, WidePlan) else INFER_ARGTYPES,
-               source="lstm_infer")
+    fn, argtypes = {WidePlan: ("lstm_infer_wide", INFER_WIDE_ARGTYPES),
+                    NarrowPlan: ("lstm_infer_narrow", INFER_NARROW_ARGTYPES),
+                    MMAPlan: ("lstm_infer", INFER_ARGTYPES)}[type(plan)]
+    lib = _lib(fn, argtypes, source="lstm_infer")
     with torch.cuda.device(xw.device):
         err = getattr(lib, fn)(
             xw.data_ptr(), mask.data_ptr(), wh.data_ptr(), h0.data_ptr(), c0.data_ptr(),
@@ -665,9 +829,10 @@ def lstm_bwd_bf16(gates: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
         raise ValueError(f"lstm_bwd: plan {plan} does not fit B {B}, H {H}, wh {wh.dtype}")
     da, dh0, dc0 = _bwd_outputs(T, B, H, gates.device)
     ring = torch.zeros(plan.ring_elems, device=gates.device, dtype=torch.bfloat16)
-    wide = isinstance(plan, WidePlan)
-    fn = "lstm_bwd_wide" if wide else "lstm_bwd_bf16"
-    lib = _lib(fn, BWD_WIDE_ARGTYPES if wide else BWD_BF16_ARGTYPES, source="lstm_bwd")
+    fn, argtypes = {WidePlan: ("lstm_bwd_wide", BWD_WIDE_ARGTYPES),
+                    NarrowPlan: ("lstm_bwd_narrow", BWD_NARROW_ARGTYPES),
+                    MMAPlan: ("lstm_bwd_bf16", BWD_BF16_ARGTYPES)}[type(plan)]
+    lib = _lib(fn, argtypes, source="lstm_bwd")
     with torch.cuda.device(gates.device):
         err = getattr(lib, fn)(
             *(a.data_ptr() for a in (gates, mask, wh, c_prev, dhs, dhT, dcT, da)),

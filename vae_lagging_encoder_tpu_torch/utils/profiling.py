@@ -55,6 +55,9 @@ PORT_KERNELS = (
     (re.compile(r"lstm_infer_wide_kernel<true>"), "lstm_fwd_residuals"),
     (re.compile(r"lstm_infer_wide_kernel<false>"), "lstm_fwd_infer"),
     (re.compile(r"lstm_bwd_wide_kernel"), "lstm_bwd"),
+    (re.compile(r"lstm_infer_narrow_kernel<.*true>"), "lstm_fwd_residuals"),
+    (re.compile(r"lstm_infer_narrow_kernel<.*false>"), "lstm_fwd_infer"),
+    (re.compile(r"lstm_bwd_narrow_kernel"), "lstm_bwd"),
     (re.compile(r"lstm_infer_kernel<.*true>"), "lstm_fwd_residuals"),
     (re.compile(r"lstm_infer_kernel<.*false>"), "lstm_fwd_infer"),
     (re.compile(r"lstm_fwd_kernel"), "lstm_fwd_f32"),
