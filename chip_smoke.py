@@ -32,7 +32,11 @@ Phases (each raises on failure; the script then exits non-zero):
    ragged 600 rows (``err_*_rows600``, untimed); the CE backward (dh and dW
    on the grad-mode residuals) at N 3040, 1000 and 60800, each twice (equal
    bits), with its kernels' device times (``kernel_ms``) and its extra peak
-   memory beside the plain version's. Each LSTM kernel's
+   memory beside the plain version's; the mma.sync LSTM kernels, which
+   serve the rows between the narrow and the wide plans, through the
+   wrappers at 96 rows (forwards) and 64 (backward) and under their own
+   plan at 32 rows, timed there beside the narrow kernels, each twice
+   (``*_mma_rows96``, ``*_mma_rows64``, ``*_mma_rows32``). Each LSTM kernel's
    launch plans print with their bf16 operand bytes a step into each SM
    and from L2 (``plan*``, ``sm_bytes_per_step*``, ``l2_bytes_per_step*``;
    ``*_mma_rows640`` and ``*_mma_rows32``: the mma.sync plan at 640 and 32
@@ -308,12 +312,70 @@ def check_lstm(save_residuals: bool, rows: int, ni: int, launches_key: str, dev)
     more = _check_lstm(save_residuals, RAGGED_ROWS, NI + NZ, launches_key, dev, timed=False)
     r.update(err_f32_rows600=more["err_f32"], err_bf16_rows600=more["err_bf16"])
     for n in sorted({rows, B, NSAMPLES_ROWS}):
-        r.update(plan_bytes(lstm_cuda.infer_plan(n, NH, nsm, save_residuals),
+        r.update(plan_bytes(port_plan("infer", n, dev, save_residuals),
                             f"_rows{n}" if n != rows else ""))
     r.update(plan_bytes(lstm_cuda.mma_infer_plan(NSAMPLES_ROWS, NH, nsm, save_residuals),
                         "_mma_rows640"))
     r.update(plan_bytes(lstm_cuda.mma_infer_plan(B, NH, nsm, save_residuals), "_mma_rows32"))
+    r.update(check_mma("infer", save_residuals, dev))
     return r
+
+
+# The mma.sync kernels serve the rows between the narrow plans and the wide
+# ones (at H 1024 on 132 SMs the forwards' 65-127 rows, the backward's
+# 33-95): each is held against its plain version through the wrapper at
+# MMA_ROWS (``*_mma_rows96`` / ``*_mma_rows64``), and under its own plan at
+# the main path's 32 rows (``*_mma_rows32``), timed there beside the narrow
+# kernel; each twice (equal bits).
+MMA_ROWS = {"infer": 96, "bwd": 64}
+
+
+def check_mma(kind: str, save_residuals: bool, dev):
+    from vae_lagging_encoder_tpu_torch.ops import lstm_cuda
+
+    nsm = torch.cuda.get_device_properties(dev).multi_processor_count
+    T, H = T_CHECK, NH
+    out = {}
+    for rows in (B, MMA_ROWS[kind]):
+        g = torch.Generator(device="cpu").manual_seed(30 + rows + 2 * save_residuals)
+        xw = (0.5 * torch.randn(T, rows, 4 * H, generator=g)).to(dev)
+        wh = torch.empty(H, 4 * H).uniform_(-1 / math.sqrt(H), 1 / math.sqrt(H), generator=g)
+        wh = wh.bfloat16().to(dev)
+        h0, c0 = (0.1 * torch.randn(2, rows, H, generator=g)).to(dev)
+        lens = lengths_like_yahoo(np.random.RandomState(rows), rows, T)
+        mask = torch.from_numpy((np.arange(T)[:, None] < lens[None, :]).astype(np.float32)).to(dev)
+        h0, c0 = h0.contiguous(), c0.contiguous()
+        if kind == "bwd":
+            _, cs, gates, _, _ = lstm_cuda.lstm_seq_plain(xw, mask, wh, h0, c0, True)
+            dhs = (0.1 * torch.randn(T, rows, H, generator=g)).to(dev)
+            dhT, dcT = (0.1 * torch.randn(2, rows, H, generator=g)).to(dev)
+            args = (gates, mask, wh, torch.cat([c0[None], cs[:-1]]), dhs, dhT.contiguous(),
+                    dcT.contiguous())
+            plan = lstm_cuda.mma_bwd_plan(rows, H, nsm)
+            wrapped = port_plan("bwd", rows, dev)
+            run = ((lambda: lstm_cuda.lstm_bwd_bf16(*args, plan)) if rows == B
+                   else (lambda: lstm_cuda.lstm_bwd(*args)))
+            ref, tol = lstm_cuda.lstm_bwd_plain(*args), TOL[("lstm_bwd", "bf16")]
+        else:
+            plan = lstm_cuda.mma_infer_plan(rows, H, nsm, save_residuals)
+            wrapped = port_plan("infer", rows, dev, save_residuals)
+            run = ((lambda: lstm_cuda.lstm_infer(xw, mask, wh, h0, c0, plan, save_residuals))
+                   if rows == B else (lambda: lstm_cuda.lstm_seq(xw, mask, wh, h0, c0,
+                                                                 save_residuals)))
+            ref = lstm_cuda.lstm_seq_plain(xw, mask, wh, h0, c0, save_residuals)
+            tol = TOL[("lstm", "bf16")]
+        if rows != B and wrapped != plan:
+            raise AssertionError(f"{kind} rows {rows}: the wrapper runs {wrapped}, not the "
+                                 f"mma.sync plan {plan}")
+        got, again = run(), run()
+        torch.cuda.synchronize()
+        err = max(float((a - r).abs().max()) for a, r in zip(got, ref))
+        if not err <= tol or not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{kind} mma.sync rows {rows}: max abs err {err} (tolerance "
+                                 f"{tol}), equal bits {[torch.equal(a, b) for a, b in zip(got, again)]}")
+        out[f"err_bf16_mma_rows{rows}"] = err
+        out[f"ms_mma_rows{rows}"] = time_ms(run)
+    return out
 
 
 RAGGED_ROWS = 600  # a ragged wide-row shape: row groups of 320 and 280
@@ -342,14 +404,25 @@ def floor_group(plan) -> str:
     return name + ("_narrow" if isinstance(plan, lstm_cuda.NarrowPlan) else "")
 
 
-def build_floors(nsm: int) -> float:
-    """Build the empty-step copies of the kernels of the 32-row plans."""
-    import lstm_ablation
+def port_plan(kind: str, rows: int, dev, save_residuals: bool = False):
+    """The plan the wrappers pick at ``rows``, H ``NH`` on this card (the
+    narrow plans within the blocks its pairs hold, ``narrow_blocks``)."""
     from vae_lagging_encoder_tpu_torch.ops import lstm_cuda
 
+    nsm = torch.cuda.get_device_properties(dev).multi_processor_count
+    if kind == "bwd":
+        return lstm_cuda.bwd_plan(rows, NH, nsm, lstm_cuda.narrow_blocks(dev, "bwd"))
+    return lstm_cuda.infer_plan(rows, NH, nsm, save_residuals,
+                                lstm_cuda.narrow_blocks(dev, "infer", save_residuals))
+
+
+def build_floors(dev) -> float:
+    """Build the empty-step copies of the kernels of the 32-row plans."""
+    import lstm_ablation
+
     t0 = time.perf_counter()
-    plans = [lstm_cuda.infer_plan(n, NH, nsm, res) for n in (B, 20) for res in (False, True)]
-    plans += [lstm_cuda.bwd_plan(n, NH, nsm) for n in (B, 20)]
+    plans = [port_plan("infer", n, dev, res) for n in (B, 20) for res in (False, True)]
+    plans += [port_plan("bwd", n, dev) for n in (B, 20)]
     groups = sorted({floor_group(p) for p in plans})
     FLOORS.update({g: libs["empty_step"] for g, libs in
                    lstm_ablation.build_variants(groups, kinds=("empty_step",)).items()})
@@ -420,8 +493,7 @@ def _check_lstm(save_residuals: bool, rows: int, ni: int, launches_key: str, dev
     out_f = T * rows * H * (2 + 4 if save_residuals else 1) + 2 * rows * H
     nbytes = 4.0 * (T * rows * 4 * H + T * rows + 2 * rows * H + out_f) + 2.0 * H * 4 * H
     bms, by = bound(ops, nbytes, PEAK_BF16)
-    nsm = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = lstm_cuda.infer_plan(rows, H, nsm, save_residuals)
+    plan = port_plan("infer", rows, dev, save_residuals)
     if not isinstance(plan, lstm_cuda.WidePlan):
         out.update(floor_ms=floor_ms(plan, port), floor_plan=repr(plan))
     return dict(err_f32=errs["f32"], err_bf16=errs["bf16"], ms=ms, plain_ms=plain_ms,
@@ -526,10 +598,11 @@ def check_lstm_bwd(dev):
     more = _check_lstm_bwd(RAGGED_ROWS, 11, dev, timed=False)
     r.update(err_f32_rows600=more["err_f32"], err_bf16_rows600=more["err_bf16"])
     nsm = torch.cuda.get_device_properties(dev).multi_processor_count
-    r.update(plan_bytes(lstm_cuda.bwd_plan(B, NH, nsm)))
-    r.update(plan_bytes(lstm_cuda.bwd_plan(NSAMPLES_ROWS, NH, nsm), "_rows640"))
+    r.update(plan_bytes(port_plan("bwd", B, dev)))
+    r.update(plan_bytes(port_plan("bwd", NSAMPLES_ROWS, dev), "_rows640"))
     r.update(plan_bytes(lstm_cuda.mma_bwd_plan(NSAMPLES_ROWS, NH, nsm), "_mma_rows640"))
     r.update(plan_bytes(lstm_cuda.mma_bwd_plan(B, NH, nsm), "_mma_rows32"))
+    r.update(check_mma("bwd", False, dev))
     return r
 
 
@@ -601,8 +674,7 @@ def _check_lstm_bwd(rows: int, seed: int, dev, timed: bool = True):
     nbytes = 4.0 * (T * rows * 4 * H + T * rows + 2 * T * rows * H + 2 * rows * H
                     + T * rows * 4 * H + 2 * rows * H) + 2.0 * H * 4 * H
     bms, by = bound(ops, nbytes, PEAK_BF16)
-    nsm = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = lstm_cuda.bwd_plan(rows, H, nsm)
+    plan = port_plan("bwd", rows, dev)
     floor = {}
     if not isinstance(plan, lstm_cuda.WidePlan):
         floor = dict(floor_ms=floor_ms(plan, lambda: lstm_cuda.lstm_bwd(*args["bf16"])),
@@ -2689,7 +2761,7 @@ def main() -> int:
     build_s = build.build()
     log(f"[build] {len(build.SOURCES)} CUDA sources built in {build_s:.1f} s")
     nsm = torch.cuda.get_device_properties(dev).multi_processor_count
-    floors_s = build_floors(nsm)
+    floors_s = build_floors(dev)
     log(f"[build] empty-step floors {sorted(FLOORS)} built in {floors_s:.1f} s")
     # the tensor-core kernels: lstm_infer (both LSTM forwards) and lstm_bwd
     # on mma.sync (HMMA) with cp.async (LDGSTS) below WIDE_MIN_ROWS rows and

@@ -3,7 +3,7 @@
 profiles, and the row sweep that sets ``ops/lstm_cuda.py::WIDE_MIN_ROWS``,
 timed on the card.
 
-    python3 lstm_ablation.py [ablations] [sweep] [phases] [clusters] [--groups G1,G2]
+    python3 lstm_ablation.py [ablations] [sweep] [pairs] [host] [phases] [--groups G1,G2]
 
 Kernel groups (``ABLATIONS``): the wide-row kernels (``*_wide``: ``namespace
 wide`` of ``csrc/lstm_infer.cu`` and ``csrc/lstm_bwd.cu``, from
@@ -31,14 +31,23 @@ are read.
 reverse): the mma.sync plans run this tree's copy of the kernels the
 narrow ones replaced.
 
+``pairs`` times the narrow and the mma.sync plan of each kernel at 1, 20
+and 32 rows in ``PAIRS`` pairs, in turns (narrow first in odd pairs,
+mma.sync first in even ones): each pair's times and ratio, the medians and
+how many pairs the narrow plan won, so that a gain can be set against the
+spread between calls.
+
+``host`` gives the host's milliseconds a call of the eager wrappers at 32
+rows and T 2 (``lstm_seq`` with residuals, ``lstm_bwd``: the plan, the
+outputs' allocation, the launch with its co-residency check), and of the
+check's own CUDA runtime calls alone (``narrow_blocks``' query: the
+kernel's shared-memory attribute and ``cudaOccupancyMaxActiveClusters``,
+which ``launch_cluster_cooperative`` makes before every launch).
+
 ``phases`` builds a copy of each source with clock64() timers around the
 waits, the products, the exchange and the barrier (``PHASES``), kept in
 registers and written out once, read back as SM clocks a step for the
 roles of the mean block (``PHASE_ROLES``); the timers add their own cost.
-
-``clusters`` prints how many blocks of 512 threads a cooperative launch
-admits in clusters of 1-16 at a few sizes of shared memory
-(``cudaOccupancyMaxActiveClusters``; ``lstm_cuda.CLUSTER_BLOCKS_H100``).
 
 Prints the card and its power limit, then one JSON line per ablated shape
 (median CUDA-event milliseconds of each variant, the intact kernel timed
@@ -397,17 +406,23 @@ def build_variants(groups, kinds=None) -> Dict[str, Dict[str, ctypes.CDLL]]:
     return libs
 
 
-def time_ms(fn: Callable[[], object], reps: int = 10) -> float:
+def time_ms(fn: Callable[[], object], reps: int = 10, batch: int = 1) -> float:
+    """Median CUDA-event ms of ``fn``: one call at a time, each from an idle
+    stream (its host time before the launch falls inside the events), or
+    ``batch`` calls back to back, divided by ``batch`` (the host enqueues
+    the next call while the card runs the last: device time, where the
+    host's time a call is shorter)."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(batch):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / batch)
     return float(np.median(times))
 
 
@@ -460,32 +475,95 @@ def bwd_args(rows: int, seed: int, dev):
             dcT.contiguous())
 
 
+def plan_fns(kind: str, rows: int, nsm: int, fwd_in, bwd_in) -> Dict[str, Callable[[], object]]:
+    """A launch of ``kind`` ("infer", "resid" or "bwd") under each plan that
+    fits at ``rows`` (the mma.sync, the narrow, the wide plan)."""
+    res, key = kind == "resid", "bwd" if kind == "bwd" else "infer"
+    plans = {"mma": (lstm_cuda.mma_bwd_plan(rows, H, nsm) if key == "bwd"
+                     else lstm_cuda.mma_infer_plan(rows, H, nsm, res)),
+             "narrow": lstm_cuda.narrow_plan(key, rows, H, nsm),
+             "wide": lstm_cuda.wide_plan(key, rows, H, nsm)}
+    return {name: ((lambda plan=plan: lstm_cuda.lstm_bwd_bf16(*bwd_in, plan)) if key == "bwd"
+                   else (lambda plan=plan: lstm_cuda.lstm_infer(*fwd_in, plan, res)))
+            for name, plan in plans.items() if plan is not None}
+
+
 def sweep(nsm: int, dev):
     """Each kernel under every plan that fits at ``SWEEP_ROWS`` (the
     mma.sync plan, the narrow plan, the wide plan), timed in turns (each
     plan in order, then in reverse): the medians."""
     for rows in SWEEP_ROWS:
-        xw, mask, wh, h0, c0 = inputs(rows, rows, dev)
-        args = bwd_args(rows, rows + 1, dev)
+        fwd_in, bwd_in = inputs(rows, rows, dev), bwd_args(rows, rows + 1, dev)
         line = {"sweep_rows": rows}
         for kind in ("infer", "resid", "bwd"):
-            res, key = kind == "resid", "bwd" if kind == "bwd" else "infer"
-            plans = {"mma": (lstm_cuda.mma_bwd_plan(rows, H, nsm) if key == "bwd"
-                             else lstm_cuda.mma_infer_plan(rows, H, nsm, res)),
-                     "narrow": lstm_cuda.narrow_plan(key, rows, H, nsm),
-                     "wide": lstm_cuda.wide_plan(key, rows, H, nsm)}
-            fns = {}
-            for name, plan in plans.items():
-                if plan is None:
-                    continue
-                fns[name] = ((lambda plan=plan: lstm_cuda.lstm_bwd_bf16(*args, plan)) if key == "bwd"
-                             else (lambda plan=plan: lstm_cuda.lstm_infer(xw, mask, wh, h0, c0, plan,
-                                                                          res)))
+            fns = plan_fns(kind, rows, nsm, fwd_in, bwd_in)
             turns = {k: [] for k in fns}
             for k in list(fns) + list(fns)[::-1]:
                 turns[k].append(time_ms(fns[k]))
             line[kind] = {f"{k}_ms": float(np.median(v)) for k, v in turns.items()}
         print(json.dumps(line), flush=True)
+
+
+PAIR_ROWS = (1, 20, 32)
+PAIRS = 12
+
+
+def pairs(nsm: int, dev) -> None:
+    """The narrow and the mma.sync plan of each kernel at ``PAIR_ROWS`` in
+    ``PAIRS`` pairs, in turns: each pair's ms (narrow, mma.sync), the
+    medians, the ratios' range and the pairs the narrow plan won; one call
+    at a time from an idle stream (``single``) and ten back to back
+    (``back_to_back``: the device's time)."""
+    for rows in PAIR_ROWS:
+        fwd_in, bwd_in = inputs(rows, rows, dev), bwd_args(rows, rows + 1, dev)
+        for kind in ("infer", "resid", "bwd"):
+            fns = plan_fns(kind, rows, nsm, fwd_in, bwd_in)
+            if "narrow" not in fns:
+                continue
+            got = {"single": [], "back_to_back": []}
+            for i in range(PAIRS):
+                order = ("narrow", "mma") if i % 2 == 0 else ("mma", "narrow")
+                for mode, batch in (("single", 1), ("back_to_back", 10)):
+                    t = {k: time_ms(fns[k], batch=batch) for k in order}
+                    got[mode].append((t["narrow"], t["mma"]))
+            line = {"pairs_rows": rows, "kernel": kind, "pairs": PAIRS}
+            for mode, g in got.items():
+                n, m = np.array(g).T
+                line[mode] = {"pairs_ms": g, "narrow_median_ms": float(np.median(n)),
+                              "mma_median_ms": float(np.median(m)),
+                              "ratio_min": float((n / m).min()),
+                              "ratio_median": float(np.median(n / m)),
+                              "ratio_max": float((n / m).max()), "narrow_won": int((n < m).sum())}
+            print(json.dumps(line), flush=True)
+
+
+def host(dev, calls: int = 200) -> None:
+    """Host ms a call: the eager wrappers at 32 rows, T 2, and the cluster
+    capacity query of each narrow kernel alone."""
+    import time
+    T2, rows = 2, 32
+    xw, mask, wh, h0, c0 = inputs(rows, 3, dev)
+    xw, mask = xw[:T2].contiguous(), mask[:T2].contiguous()
+    hs, cs, gates, _, _ = lstm_cuda.lstm_seq(xw, mask, wh, h0, c0, True)
+    c_prev = torch.cat([c0[None], cs[:-1]])
+    lib_f, lib_b = build.library("lstm_infer"), build.library("lstm_bwd")
+    n = ctypes.c_int(0)
+    fns = {"lstm_seq_residuals": lambda: lstm_cuda.lstm_seq(xw, mask, wh, h0, c0, True),
+           "lstm_bwd": lambda: lstm_cuda.lstm_bwd(gates, mask, wh, c_prev, hs, h0, c0),
+           "capacity_query_infer": lambda: lib_f.lstm_infer_narrow_blocks(1, ctypes.byref(n)),
+           "capacity_query_bwd": lambda: lib_b.lstm_bwd_narrow_blocks(ctypes.byref(n))}
+    out = {}
+    for k, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        out[k] = {"host_ms_per_call": (t1 - t0) * 1e3 / calls,
+                  "wall_ms_per_call": (time.perf_counter() - t0) * 1e3 / calls}
+    print(json.dumps({"host": out, "rows": rows, "T": T2, "calls": calls}), flush=True)
 
 
 def phases(nsm: int, dev, groups):
@@ -536,46 +614,7 @@ def plan_of(group: str, rows: int, nsm: int, save_residuals: bool = False):
 PHASE_ROLES = {"lstm_infer_narrow": {"warp0": 0, "copier": 1},
                "lstm_bwd_narrow": {"warp0": 0, "copier": 1}}
 
-# What cudaOccupancyMaxActiveClusters admits on this card for a block of
-# 512 threads at a few sizes of dynamic shared memory, by cluster size
-# (above 8: a non-portable size): the largest cooperative cluster grid.
-_CLUSTER_PROBE = r"""
-#include <cuda_runtime.h>
-__global__ void probe_kernel(int* p) { if (p) p[0] = 0; }
-extern "C" int max_clusters(int cluster, int smem, int threads) {
-  cudaFuncSetAttribute(probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (cluster > 8) cudaFuncSetAttribute(probe_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster * 64);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cudaLaunchAttribute a[1];
-  a[0].id = cudaLaunchAttributeClusterDimension;
-  a[0].val.clusterDim.x = cluster; a[0].val.clusterDim.y = 1; a[0].val.clusterDim.z = 1;
-  cfg.attrs = a;
-  cfg.numAttrs = 1;
-  int n = -1;
-  cudaError_t e = cudaOccupancyMaxActiveClusters(&n, (const void*)probe_kernel, &cfg);
-  return e == cudaSuccess ? n : -(int)e;
-}
-"""
-
-
-def cluster_capacity() -> None:
-    d = OUT_DIR / "clusters"
-    d.mkdir(parents=True, exist_ok=True)
-    (d / "probe.cu").write_text(_CLUSTER_PROBE)
-    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(d / "probe.so"),
-                    str(d / "probe.cu")], check=True, stdout=subprocess.DEVNULL,
-                   stderr=subprocess.DEVNULL)
-    lib = ctypes.CDLL(str(d / "probe.so"))
-    for smem in (98304, 196608, 229376):
-        print(json.dumps({"cluster_capacity_blocks": {
-            c: c * lib.max_clusters(c, smem, 512) for c in (1, 2, 4, 8, 16)},
-            "smem_bytes": smem, "threads": 512}), flush=True)
-
-
-PARTS = ("ablations", "sweep", "phases", "clusters")
+PARTS = ("ablations", "sweep", "pairs", "host", "phases")
 
 
 def ablations(nsm: int, dev, groups) -> None:
@@ -622,12 +661,14 @@ def main() -> int:
                          capture_output=True, text=True).stdout.strip()
     print(f"{torch.cuda.get_device_name(0)} | {smi}", flush=True)
     nsm = torch.cuda.get_device_properties(dev).multi_processor_count
-    if "clusters" in parts:
-        cluster_capacity()
     if "ablations" in parts:
         ablations(nsm, dev, groups)
     if "sweep" in parts:
         sweep(nsm, dev)
+    if "pairs" in parts:
+        pairs(nsm, dev)
+    if "host" in parts:
+        host(dev)
     if "phases" in parts:
         phases(nsm, dev, groups)
     return 0

@@ -923,7 +923,8 @@ def test_lstm_narrow_refuses_a_foreign_plan_on_cuda():
     wh = torch.zeros(H, 4 * H, device="cuda", dtype=torch.bfloat16)
     h0 = c0 = torch.zeros(B, H, device="cuda")
     plan = lstm_cuda.narrow_plan("infer", B, H, nsm)
-    for bad in (dataclasses.replace(plan, cluster=3), dataclasses.replace(plan, warps=plan.warps + 1)):
+    for bad in (dataclasses.replace(plan, cluster=3), dataclasses.replace(plan, cluster=4),
+                dataclasses.replace(plan, n_sub=2), dataclasses.replace(plan, warps=plan.warps + 1)):
         with pytest.raises(RuntimeError, match="lstm_infer_narrow"):
             lstm_cuda.lstm_infer(xw, mask, wh, h0, c0, bad)
     bplan = lstm_cuda.narrow_plan("bwd", B, H, nsm)
@@ -931,3 +932,21 @@ def test_lstm_narrow_refuses_a_foreign_plan_on_cuda():
     with pytest.raises(RuntimeError, match="lstm_bwd"):
         lstm_cuda.lstm_bwd_bf16(gates, mask, wh, c_prev, dhs, h0, c0,
                                 dataclasses.replace(bplan, cluster=3))
+
+
+@pytest.mark.cuda
+def test_lstm_narrow_blocks_on_cuda():
+    """The blocks the card holds at once in pairs of each narrow kernel
+    (``narrow_blocks``, asked of the card once): whole pairs, no more than
+    its SMs; where they hold H 1024's 128 blocks the wrappers run the narrow
+    plan at 32 rows, else the mma.sync plan."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    dev = torch.device("cuda", 0)
+    nsm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for kind, res in (("infer", False), ("infer", True), ("bwd", False)):
+        n = lstm_cuda.narrow_blocks(dev, kind, res)
+        assert 0 < n <= nsm and n % 2 == 0, (kind, res, n)
+        plan = (lstm_cuda.infer_plan(32, 1024, nsm, res, n) if kind == "infer"
+                else lstm_cuda.bwd_plan(32, 1024, nsm, n))
+        assert isinstance(plan, lstm_cuda.NarrowPlan if n >= 128 else lstm_cuda.MMAPlan), (n, plan)

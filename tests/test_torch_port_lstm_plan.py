@@ -638,28 +638,31 @@ def _narrow_source(name):
 def test_lstm_narrow_constants_match_the_kernels():
     """The constants the narrow plans assume, read back from the kernels:
     the pairs a thread, the backward's m-tiles and n-tiles a warp, the
-    cluster sizes the entry points take, the plan arguments in the order the
-    C entry points name them, and the cluster sizes the launch admits
-    without the non-portable attribute (up to 8)."""
+    8-unit blocks in pairs the entry points take, the plan arguments in the
+    order the C entry points name them, and the capacity queries the
+    wrappers read."""
     for name in ("lstm_infer.cu", "lstm_bwd.cu"):
         assert _int_const(_narrow_source(name), "kMaxPairs") == lstm_cuda.NARROW_MAX_PAIRS
         fn = "lstm_infer_narrow" if name == "lstm_infer.cu" else "lstm_bwd_narrow"
         params = _entry_params(_source(name), fn)
         names = lstm_cuda.NARROW_PLAN_ARGS
         assert params[-len(names) - 1:-1] == list(names) and params[-1] == "stream"
-    body = _source("lstm_infer.cu")[_source("lstm_infer.cu").index("int lstm_infer_narrow("):]
-    sizes = re.search(r"\(C != (\d+) && C != (\d+) && C != (\d+)\s*&& C != (\d+)\)", body)
-    assert tuple(int(v) for v in sizes.groups()) == lstm_cuda.NARROW_CLUSTERS
+    fwd = _narrow_source("lstm_infer.cu")
+    assert (_int_const(fwd, "kNT"), _int_const(fwd, "kCluster")) == (
+        lstm_cuda.NARROW_N_SUB, lstm_cuda.NARROW_CLUSTER)
+    assert "n_sub != narrow::kNT || cluster != narrow::kCluster" in _source("lstm_infer.cu")
     bwd = _narrow_source("lstm_bwd.cu")
     assert _int_const(bwd, "kMaxM") == lstm_cuda.NARROW_MAX_M
     assert _int_const(bwd, "kMaxKPW") == lstm_cuda.NARROW_MAX_KPW
-    assert "cluster > 8" in _source("lstm_wgmma.cuh")
-    assert set(lstm_cuda.CLUSTER_BLOCKS_H100) == set(lstm_cuda.NARROW_CLUSTERS)
     # the backward's clusters are pairs, its warps one K part each
-    assert {c for _, c in lstm_cuda.NARROW_PREFS["bwd"]} == {2}
+    assert (lstm_cuda.NARROW_N_SUB, lstm_cuda.NARROW_CLUSTER) == (1, 2)
     assert "NT != 1 || C != 2 ||" in _source("lstm_bwd.cu")
     assert "k_split != W" in _source("lstm_bwd.cu")
-    assert lstm_cuda.NARROW_PREFS["bwd"] == ((1, 2),)
+    # the clusters a launch may take are the portable ones; the wrappers ask
+    # the card how many blocks its pairs hold
+    assert "NonPortableClusterSizeAllowed" not in _source("lstm_wgmma.cuh")
+    assert "int lstm_infer_narrow_blocks(int save_residuals, int* blocks)" in _source("lstm_infer.cu")
+    assert "int lstm_bwd_narrow_blocks(int* blocks)" in _source("lstm_bwd.cu")
 
 
 NARROW_ROWS = [1, 20, 32, 37, 64, "threshold"]
@@ -672,11 +675,12 @@ NARROW_ROWS = [1, 20, 32, 37, 64, "threshold"]
 def test_lstm_narrow_plan(kind, nsm, rows, H):
     """Below ``WIDE_MIN_ROWS`` the wrappers take the narrow plan wherever one
     fits: every (row, unit) pair owned by exactly one (block, warp); whole
-    clusters of a size the launch takes, no more blocks than the card admits
-    in such clusters (``cluster_capacity``); shared memory, warps and pairs
-    a thread within the kernels' limits; the bytes a step by hand. Where
-    none fits (more rows than a block's shared memory holds) the mma.sync
-    plan, and at the threshold the wide plan."""
+    pairs of 8-unit blocks, no more blocks than the card holds in pairs (by
+    default its SMs in whole pairs: at H 1024 128 blocks fit 132 SMs, not
+    114); shared memory, warps and pairs a thread within the kernels'
+    limits; the bytes a step by hand. Where none fits (more rows than a
+    block's shared memory holds, or too large a grid) the mma.sync plan, and
+    at the threshold the wide plan."""
     key = "bwd" if kind == "bwd" else "infer"
     rows = lstm_cuda.WIDE_MIN_ROWS[key] - 1 if rows == "threshold" else rows
     plan = (lstm_cuda.bwd_plan(rows, H, nsm) if kind == "bwd"
@@ -684,13 +688,13 @@ def test_lstm_narrow_plan(kind, nsm, rows, H):
     narrow = lstm_cuda.narrow_plan(key, rows, H, nsm)
     if narrow is None:
         assert isinstance(plan, lstm_cuda.MMAPlan)
-        for nt, c in lstm_cuda.NARROW_PREFS[key]:  # none of them fits
-            mt = -(-rows // 16)
-            assert mt > (16 if key == "infer" else lstm_cuda.NARROW_MAX_M) or all(
-                p.smem_bytes > lstm_cuda.SMEM_MAX or p.blocks > lstm_cuda.cluster_capacity(c, nsm)
-                or rows * p.units_per_block > lstm_cuda.NARROW_MAX_PAIRS * p.threads
-                or (key == "bwd" and -(-p.piece_k_steps // p.warps) > lstm_cuda.NARROW_MAX_KPW)
-                for p in _narrow_candidates(key, rows, H, nt, c))
+        mt = -(-rows // 16)  # none of the candidates fits
+        assert mt > (16 if key == "infer" else lstm_cuda.NARROW_MAX_M) or all(
+            p.smem_bytes > lstm_cuda.SMEM_MAX or p.blocks > nsm // 2 * 2
+            or rows * p.units_per_block > lstm_cuda.NARROW_MAX_PAIRS * p.threads
+            or (key == "bwd" and -(-p.piece_k_steps // p.warps) > lstm_cuda.NARROW_MAX_KPW)
+            for p in _narrow_candidates(key, rows, H))
+        assert (nsm, H) != (NSM, 1024) or rows > (64 if key == "infer" else 32)
         assert lstm_cuda.infer_plan(lstm_cuda.WIDE_MIN_ROWS["infer"], H, nsm).__class__ \
             is lstm_cuda.WidePlan
         return
@@ -699,8 +703,11 @@ def test_lstm_narrow_plan(kind, nsm, rows, H):
     assert owners.shape == (rows * H, 3)
     assert (owners[:, 2] == 1).all(), "a (row, unit) pair is owned by no or several warps"
     assert (owners[:, 0] < plan.blocks).all() and (owners[:, 1] < plan.warps).all()
-    assert plan.cluster in lstm_cuda.NARROW_CLUSTERS and plan.blocks % plan.cluster == 0
-    assert plan.blocks <= lstm_cuda.cluster_capacity(plan.cluster, nsm) <= nsm
+    assert (plan.n_sub, plan.cluster) == (1, 2) and plan.blocks % plan.cluster == 0
+    assert plan.blocks <= nsm
+    # a card that holds fewer of the kernel's blocks in pairs gets no narrow plan
+    assert lstm_cuda.narrow_plan(key, rows, H, nsm, plan.blocks) == plan
+    assert lstm_cuda.narrow_plan(key, rows, H, nsm, plan.blocks - 2) is None
     assert plan.smem_bytes <= lstm_cuda.SMEM_MAX and 1 <= plan.warps <= lstm_cuda.MAX_WARPS
     assert rows * plan.units_per_block <= lstm_cuda.NARROW_MAX_PAIRS * plan.threads
     J, mt, ks = plan.units_per_block, -(-rows // 16), plan.k_steps
@@ -727,12 +734,12 @@ def test_lstm_narrow_plan(kind, nsm, rows, H):
     assert all(isinstance(a, int) for a in plan.args())
 
 
-def _narrow_candidates(kind, rows, H, nt, c):
+def _narrow_candidates(kind, rows, H):
     mt = -(-rows // 16)
     if kind == "infer":
-        return [lstm_cuda.NarrowPlan(kind, rows, H, nt, c, mt * (w // mt), w // mt)
+        return [lstm_cuda.NarrowPlan(kind, rows, H, 1, 2, mt * (w // mt), w // mt)
                 for w in (16, 8) if w >= mt]
-    return [lstm_cuda.NarrowPlan(kind, rows, H, nt, c, 16, 16)]
+    return [lstm_cuda.NarrowPlan(kind, rows, H, 1, 2, 16, 16)]
 
 
 def test_lstm_narrow_plan_main_paths():
@@ -977,23 +984,21 @@ def _narrow_bwd_model(gates, mask, wh, c_prev, dhs, dhT, dcT, plan):
     return da, dh, dc
 
 
-# (rows, H, SMs, n_sub, cluster): the forward's 8-unit pairs and 16-unit
-# clusters of 16; H 200 (a last block with half its units past H, padding
-# blocks of a last cluster), H 64 (fewer k-steps than cluster ranks: empty
-# pieces), 37 rows (a partial third m-tile)
-NARROW_MODEL_SHAPES = [(20, 200, 132, 1, 2), (37, 64, 132, 2, 16), (32, 96, 132, 2, 8),
-                       (5, 40, 114, 2, 4)]
-# the backward's: 8-unit blocks in pairs; a last cluster with a padding
-# block (H 200, H 56), K parts past a short slice (H 40)
-NARROW_BWD_MODEL_SHAPES = [(20, 200, 132, 1, 2), (32, 96, 132, 1, 2), (5, 40, 114, 1, 2),
-                           (17, 56, 132, 1, 2)]
+# (rows, H, SMs): 8-unit blocks in pairs; H 200 (a last block with half
+# its units past H, padding blocks of a last cluster), H 8 (one k-step, fewer
+# than the cluster's ranks: an empty piece), 37 rows (a partial third
+# m-tile), 5 rows at 114 SMs
+NARROW_MODEL_SHAPES = [(20, 200, 132), (37, 8, 132), (32, 96, 132), (5, 40, 114)]
+# the backward's: a last cluster with a padding block (H 200, H 56), K parts
+# past a short slice (H 40)
+NARROW_BWD_MODEL_SHAPES = [(20, 200, 132), (32, 96, 132), (5, 40, 114), (17, 56, 132)]
 
 
 @pytest.mark.parametrize("save", [False, True])
-@pytest.mark.parametrize("rows,H,nsm,nt,c", NARROW_MODEL_SHAPES)
-def test_lstm_narrow_forward_model_matches_plain(rows, H, nsm, nt, c, save):
+@pytest.mark.parametrize("rows,H,nsm", NARROW_MODEL_SHAPES)
+def test_lstm_narrow_forward_model_matches_plain(rows, H, nsm, save):
     xw, mask, wh, h0, c0 = _lstm_inputs(3, rows, H, seed=rows + H)
-    plan = lstm_cuda.narrow_plan("infer", rows, H, nsm, nt, c)
+    plan = lstm_cuda.narrow_plan("infer", rows, H, nsm)
     assert plan is not None
     got = _narrow_fwd_model(xw.numpy(), mask.numpy(), wh.float().numpy(), h0.numpy(),
                             c0.numpy(), plan, save)
@@ -1002,8 +1007,8 @@ def test_lstm_narrow_forward_model_matches_plain(rows, H, nsm, nt, c, save):
         np.testing.assert_allclose(a, b.numpy(), atol=2e-3, rtol=0)
 
 
-@pytest.mark.parametrize("rows,H,nsm,nt,c", NARROW_BWD_MODEL_SHAPES)
-def test_lstm_narrow_backward_model_matches_plain(rows, H, nsm, nt, c):
+@pytest.mark.parametrize("rows,H,nsm", NARROW_BWD_MODEL_SHAPES)
+def test_lstm_narrow_backward_model_matches_plain(rows, H, nsm):
     import torch
     xw, mask, wh, h0, c0 = _lstm_inputs(3, rows, H, seed=7 * rows + H)
     _, cs, gates, _, _ = lstm_cuda.lstm_seq_plain(xw, mask, wh, h0, c0, True)
@@ -1011,7 +1016,7 @@ def test_lstm_narrow_backward_model_matches_plain(rows, H, nsm, nt, c):
     g = torch.Generator().manual_seed(3)
     dhs = 0.3 * torch.randn(3, rows, H, generator=g)
     dhT, dcT = 0.3 * torch.randn(rows, H, generator=g), 0.3 * torch.randn(rows, H, generator=g)
-    plan = lstm_cuda.narrow_plan("bwd", rows, H, nsm, nt, c)
+    plan = lstm_cuda.narrow_plan("bwd", rows, H, nsm)
     assert plan is not None
     args = (gates, mask, wh, c_prev, dhs, dhT, dcT)
     got = _narrow_bwd_model(*(a.float().numpy() for a in args), plan)
@@ -1163,9 +1168,9 @@ def _simulate_narrow_bwd(T, H, J, C, KS, seed):
     assert not pending
 
 
-# (T, H, J, C): clusters of 2 and 16, a last cluster with padding blocks,
-# fewer k-steps than ranks (empty pieces and slices)
-NARROW_PROTOCOL_SHAPES = [(4, 64, 8, 2), (4, 200, 16, 4), (3, 256, 16, 16), (4, 40, 8, 4)]
+# (T, H, J, C): 8-unit blocks in pairs; a last cluster with a padding block
+# (H 200, H 40), fewer k-steps than ranks (H 8: an empty piece)
+NARROW_PROTOCOL_SHAPES = [(4, 64, 8, 2), (4, 200, 8, 2), (3, 8, 8, 2), (4, 40, 8, 2)]
 
 
 @pytest.mark.parametrize("T,H,J,C", NARROW_PROTOCOL_SHAPES)

@@ -91,9 +91,9 @@ def test_self_time_subtracts_nested_children(tmp_path):
     ("void (anonymous namespace)::wide::lstm_bwd_wide_kernel(CUtensorMap_st, float const*)",
      "lstm_bwd"),
     ("void (anonymous namespace)::lstm_bwd_mma_kernel<1, 2>(float const*)", "lstm_bwd"),
-    ("void (anonymous namespace)::narrow::lstm_infer_narrow_kernel<1, true>(float const*)",
+    ("void (anonymous namespace)::narrow::lstm_infer_narrow_kernel<true>(float const*)",
      "lstm_fwd_residuals"),
-    ("void (anonymous namespace)::narrow::lstm_infer_narrow_kernel<2, false>(float const*)",
+    ("void (anonymous namespace)::narrow::lstm_infer_narrow_kernel<false>(float const*)",
      "lstm_fwd_infer"),
     ("void (anonymous namespace)::narrow::lstm_bwd_narrow_kernel<1, 2>(float const*)",
      "lstm_bwd"),

@@ -1244,6 +1244,19 @@ int lstm_bwd_narrow(const float* gates, const float* mask, const void* wh, const
                               smem_bytes, s);
 }
 
+// Blocks of the narrow-row backward that the card holds at once in its
+// clusters of 2, at the most shared memory a block may take (any plan's
+// blocks fit at least as densely), into *blocks.
+int lstm_bwd_narrow_blocks(int* blocks) {
+  int dev, smem_max;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)))
+    return err;
+  return lstm_wgmma::cluster_blocks(narrow::lstm_bwd_narrow_kernel<1, 2>, kMaxWarps * 32,
+                                    smem_max, 2, blocks);
+}
+
 // The wide-row path: the same contract with the plan of
 // ops/lstm_cuda.py::WidePlan (row_groups x rows_per_group rows, units per
 // block, k_slices, cluster, warpgroups, stages, smem_bytes), refused with

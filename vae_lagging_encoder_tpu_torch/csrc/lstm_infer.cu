@@ -114,9 +114,11 @@
 // - The ring's stores reach the bulk copies through a proxy fence of one
 //   thread after a block barrier, before the grid barrier, and another by
 //   the copying thread after it.
-// - 8-unit blocks (128 at H 1024) in pairs beat 16-unit blocks in clusters
-//   of 16 (64 blocks: twice the products an SM), 0.53 against 0.65 ms.
-//   Clusters of 4 or more admit only 120 blocks on this card.
+// - 8-unit blocks (128 at H 1024) in pairs only: 16-unit blocks in clusters
+//   of 16 (64 blocks: twice the products an SM) measured 0.65 against 0.53
+//   ms, and clusters of 4 or more admit only 120 blocks on this card. Where
+//   the card's pairs cannot hold the grid (ops/lstm_cuda.py asks the card:
+//   lstm_infer_narrow_blocks) the mma.sync plan runs.
 //
 // The mma.sync path (rows no narrow plan fits): what bounds it is the grid
 // barrier, the epilogue's dependent loads and every block reading all of
@@ -443,6 +445,8 @@ namespace wg = lstm_wgmma;
 
 constexpr int kMaxPairs = 2;  // (row, unit) pairs a thread owns at most
 constexpr int kSumBatch = 8;  // partial tiles a thread loads before adding them, in order
+constexpr int kNT = 1;        // 8-unit n-tiles a gate: J = 8 units a block
+constexpr int kCluster = 2;   // blocks of a cluster, sharing the h tile
 
 // Byte offsets in shared memory: wh's B fragments [KS][4NT][32] x 8 bytes,
 // the h tile in the ring's fragment order [MT][KS] x 512 bytes, which the
@@ -470,7 +474,7 @@ __host__ __device__ inline Smem smem_layout(int H, int NT, int MT, int W) {
 // of every piece. Warp w takes m-tile w % MT over K slice w / MT; the
 // block's threads sum the partial tiles in slice order, then the threads
 // that own the pairs run the cell.
-template <int NT, bool kSaveResiduals>
+template <bool kSaveResiduals>
 __global__ void __launch_bounds__(kMaxWarps * 32, 1)
 lstm_infer_narrow_kernel(const float* __restrict__ xw, const float* __restrict__ mask,
                          const __nv_bfloat16* __restrict__ wh, const float* __restrict__ h0,
@@ -478,6 +482,7 @@ lstm_infer_narrow_kernel(const float* __restrict__ xw, const float* __restrict__
                          float* __restrict__ cs, float* __restrict__ gates, float* __restrict__ hT,
                          float* __restrict__ cT, __nv_bfloat16* __restrict__ ring, int T_,
                          int rows, int H, int WK) {
+  constexpr int NT = kNT;
   constexpr int NTILES = 4 * NT;  // n-tile q * NT + j: gate q, units [j*8, j*8 + 8)
   constexpr int J = 8 * NT;
   cg::grid_group grid = cg::this_grid();
@@ -670,14 +675,14 @@ lstm_infer_narrow_kernel(const float* __restrict__ xw, const float* __restrict__
   cluster.sync();  // no block leaves while a piece it copied may still land in another
 }
 
-template <int NT, bool kSaveResiduals>
+template <bool kSaveResiduals>
 cudaError_t launch(const float* xw, const float* mask, const __nv_bfloat16* wh, const float* h0,
                    const float* c0, float* hs, float* cs, float* gates, float* hT, float* cT,
-                   __nv_bfloat16* ring, int T_, int rows, int H, int C, int W, int WK,
-                   size_t smem, cudaStream_t stream) {
-  const int grid = cdiv(cdiv(H, 8 * NT), C) * C;
-  return wg::launch_cluster_cooperative(lstm_infer_narrow_kernel<NT, kSaveResiduals>, grid,
-                                        W * 32, smem, C, stream, xw, mask, wh, h0, c0, hs, cs,
+                   __nv_bfloat16* ring, int T_, int rows, int H, int W, int WK, size_t smem,
+                   cudaStream_t stream) {
+  const int grid = cdiv(cdiv(H, 8 * kNT), kCluster) * kCluster;
+  return wg::launch_cluster_cooperative(lstm_infer_narrow_kernel<kSaveResiduals>, grid, W * 32,
+                                        smem, kCluster, stream, xw, mask, wh, h0, c0, hs, cs,
                                         gates, hT, cT, ring, T_, rows, H, WK);
 }
 
@@ -1002,35 +1007,47 @@ int lstm_infer(const float* xw, const float* mask, const void* wh, const float* 
 }
 
 // The narrow-row path: the same contract with the plan of
-// ops/lstm_cuda.py::NarrowPlan (n_sub NT: J = 8 NT units a block; cluster C
-// of 2..16 blocks sharing the h tile; warps W = ceil(rows / 16) x k_split;
-// smem_bytes), refused with cudaErrorInvalidValue when it is not one this
-// kernel was built for. ring is the bf16 h ring of the mma.sync path
+// ops/lstm_cuda.py::NarrowPlan (n_sub 1: 8 units a block; cluster 2 blocks
+// sharing the h tile; warps W = ceil(rows / 16) x k_split; smem_bytes),
+// refused with cudaErrorInvalidValue when it is not one this kernel was
+// built for. ring is the bf16 h ring of the mma.sync path
 // ([2, ceil(rows/16), ceil(H/16), 256], fragment order), zeros on entry.
 int lstm_infer_narrow(const float* xw, const float* mask, const void* wh, const float* h0,
                       const float* c0, float* hs, float* cs, float* gates, float* hT, float* cT,
                       void* ring, int T, int rows, int H, int save_residuals, int n_sub,
                       int cluster, int warps, int k_split, int smem_bytes, void* stream) {
-  const int NT = n_sub, C = cluster, W = warps, WK = k_split, MT = cdiv(rows, 16);
-  if (T < 1 || rows < 1 || H < 1 || (NT != 1 && NT != 2) || (C != 2 && C != 4 && C != 8
-      && C != 16) || WK < 1 || W != MT * WK || W > kMaxWarps
-      || rows * 8 * NT > narrow::kMaxPairs * 32 * W || smem_bytes < 0
-      || (size_t)smem_bytes != narrow::smem_layout(H, NT, MT, W).total
+  const int W = warps, WK = k_split, MT = cdiv(rows, 16);
+  if (T < 1 || rows < 1 || H < 1 || n_sub != narrow::kNT || cluster != narrow::kCluster
+      || WK < 1 || W != MT * WK || W > kMaxWarps
+      || rows * 8 * narrow::kNT > narrow::kMaxPairs * 32 * W || smem_bytes < 0
+      || (size_t)smem_bytes != narrow::smem_layout(H, narrow::kNT, MT, W).total
       || (save_residuals && (!cs || !gates)))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* w = static_cast<const __nv_bfloat16*>(wh);
   auto* r = static_cast<__nv_bfloat16*>(ring);
-#define NARROW_CASE(nt, res)                                                                    \
-  if (NT == nt && !save_residuals == !res)                                                      \
-    return narrow::launch<nt, res>(xw, mask, w, h0, c0, hs, cs, gates, hT, cT, r, T, rows, H,  \
-                                   C, W, WK, smem_bytes, s);
-  NARROW_CASE(1, false)
-  NARROW_CASE(2, false)
-  NARROW_CASE(1, true)
-  NARROW_CASE(2, true)
-#undef NARROW_CASE
-  return cudaErrorInvalidValue;
+  if (save_residuals)
+    return narrow::launch<true>(xw, mask, w, h0, c0, hs, cs, gates, hT, cT, r, T, rows, H, W, WK,
+                                smem_bytes, s);
+  return narrow::launch<false>(xw, mask, w, h0, c0, hs, cs, gates, hT, cT, r, T, rows, H, W, WK,
+                               smem_bytes, s);
+}
+
+// Blocks of the narrow-row forward (with or without residuals) that the
+// card holds at once in its clusters, at the most shared memory a block may
+// take (any plan's blocks fit at least as densely), into *blocks.
+int lstm_infer_narrow_blocks(int save_residuals, int* blocks) {
+  int dev, smem_max;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)))
+    return err;
+  return save_residuals ? lstm_wgmma::cluster_blocks(narrow::lstm_infer_narrow_kernel<true>,
+                                                     kMaxWarps * 32, smem_max, narrow::kCluster,
+                                                     blocks)
+                        : lstm_wgmma::cluster_blocks(narrow::lstm_infer_narrow_kernel<false>,
+                                                     kMaxWarps * 32, smem_max, narrow::kCluster,
+                                                     blocks);
 }
 
 // The wide-row path: the same contract with the plan of

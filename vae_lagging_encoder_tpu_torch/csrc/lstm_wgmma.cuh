@@ -269,6 +269,33 @@ inline cudaError_t encode_2d(CUtensorMap* m, CUtensorMapDataType dtype, const vo
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// Blocks of `threads` with `smem` bytes of dynamic shared memory a block
+// that the card holds at once in clusters of `cluster` consecutive blocks
+// (cudaOccupancyMaxActiveClusters), into *blocks; sets the kernel's
+// dynamic shared memory to `smem`.
+template <typename... Exp>
+inline cudaError_t cluster_blocks(void (*kern)(Exp...), int threads, size_t smem, int cluster,
+                                  int* blocks) {
+  cudaError_t err = cudaFuncSetAttribute((const void*)kern,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kern, &cfg);
+  *blocks = clusters * cluster;
+  return err;
+}
+
 // Launch `kern` on `grid` blocks of `threads` in clusters of `cluster`
 // consecutive blocks, cooperatively (every block resident at once, as the
 // kernels' grid.sync() needs): refused (cudaErrorCooperativeLaunchTooLarge)
@@ -277,20 +304,15 @@ template <typename... Exp, typename... Act>
 inline cudaError_t launch_cluster_cooperative(void (*kern)(Exp...), int grid, int threads,
                                               size_t smem, int cluster, cudaStream_t stream,
                                               Act&&... args) {
-  int dev, coop, smem_max;
+  int dev, coop, smem_max, blocks = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev))) return err;
   if ((err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)))
     return err;
   if (!coop || smem > (size_t)smem_max || grid % cluster) return cudaErrorInvalidValue;
-  if ((err = cudaFuncSetAttribute((const void*)kern,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
-    return err;
-  if (cluster > 8  // a cluster past the portable 8 blocks
-      && (err = cudaFuncSetAttribute((const void*)kern,
-                                     cudaFuncAttributeNonPortableClusterSizeAllowed, 1)))
-    return err;
+  if ((err = cluster_blocks(kern, threads, smem, cluster, &blocks))) return err;
+  if (blocks < grid) return cudaErrorCooperativeLaunchTooLarge;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);
   cfg.blockDim = dim3(threads);
@@ -304,10 +326,6 @@ inline cudaError_t launch_cluster_cooperative(void (*kern)(Exp...), int grid, in
   attrs[1].id = cudaLaunchAttributeCooperative;
   attrs[1].val.cooperative = 1;
   cfg.attrs = attrs;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  if ((err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kern, &cfg))) return err;
-  if (clusters * cluster < grid) return cudaErrorCooperativeLaunchTooLarge;
   cfg.numAttrs = 2;
   if ((err = cudaLaunchKernelEx(&cfg, kern, static_cast<Act&&>(args)...))) return err;
   return cudaGetLastError();

@@ -42,6 +42,7 @@ the KEPT state at masked steps.
 from __future__ import annotations
 
 import ctypes
+import functools
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -93,23 +94,14 @@ WIDE_MIN_ROWS = {"infer": 128, "bwd": 96}
 WIDE_PLAN_ARGS = ("row_groups", "rows_per_group", "units", "k_slices", "cluster",
                   "warpgroups", "stages", "smem_bytes")
 # The narrow-row kernels (lstm_infer.cu's and lstm_bwd.cu's namespace
-# narrow): at most kMaxPairs (row, unit) pairs a thread, the backward's
-# kChains accumulators a warp, the cluster sizes they are launched with.
+# narrow): at most kMaxPairs (row, unit) pairs a thread; 8 units a block
+# (n_sub 1) in clusters of 2 (128 blocks at H 1024; 16-unit blocks in
+# larger clusters measured slower on an H100, and in the backward wh's
+# fragments would spill).
 NARROW_PLAN_ARGS = ("n_sub", "cluster", "warps", "k_split", "smem_bytes")
 NARROW_MAX_PAIRS = 2
-NARROW_CLUSTERS = (2, 4, 8, 16)
-# Blocks of one per SM that a cooperative launch admits in clusters of C on
-# an H100 SXM (132 SMs; cudaOccupancyMaxActiveClusters, ``python3
-# lstm_ablation.py clusters``): a cluster's blocks share one GPC. Scaled
-# by the SM count elsewhere; the launch checks the card's own.
-CLUSTER_BLOCKS_H100 = {2: 132, 4: 120, 8: 120, 16: 112}
-# (n_sub, cluster) of the narrow plans in order of preference: 8 units a
-# block in pairs (128 blocks at H 1024), else 16 units in the largest
-# cluster the card admits (lstm_ablation.py: 0.48 against 0.56-0.68 ms at 32
-# rows on an H100). The backward has only the first: with 16 units a block
-# wh's fragments take 64 registers a thread and spill.
-NARROW_PREFS = {"infer": ((1, 2), (2, 16), (2, 8), (2, 4), (2, 2)),
-                "bwd": ((1, 2),)}
+NARROW_N_SUB = 1
+NARROW_CLUSTER = 2
 NARROW_MAX_M = 2        # kMaxM: m-tiles the backward takes
 NARROW_MAX_KPW = 8      # kMaxKPW: k-steps of a backward warp's K part (its wh in registers)
 WIDE_BWD_PLAN_ARGS = WIDE_PLAN_ARGS + ("recv_slots",)
@@ -406,37 +398,30 @@ class NarrowPlan:
         return tuple(getattr(self, n) for n in NARROW_PLAN_ARGS)
 
 
-def cluster_capacity(cluster: int, nsm: int) -> int:
-    """Blocks a cooperative launch of one block per SM admits in clusters of
-    ``cluster`` (``CLUSTER_BLOCKS_H100`` scaled to ``nsm`` SMs, whole
-    clusters)."""
-    return CLUSTER_BLOCKS_H100[cluster] * nsm // 132 // cluster * cluster
-
-
-def narrow_plan(kind: str, rows: int, H: int, nsm: int, n_sub: Optional[int] = None,
-                cluster: Optional[int] = None) -> Optional[NarrowPlan]:
-    """The narrow-row plan of ``kind`` ("infer" or "bwd"): the first
-    (n_sub, cluster) of ``NARROW_PREFS`` (or the one given) whose grid the
-    card admits in clusters and whose layout fits shared memory with at
-    most ``NARROW_MAX_PAIRS`` pairs a thread; the forward with 16 warps
-    where they fit, else 8. None where none fits (too many rows for one
-    block's shared memory)."""
-    prefs = [(n, c) for n, c in NARROW_PREFS[kind]
-             if (n_sub is None or n == n_sub) and (cluster is None or c == cluster)]
+def narrow_plan(kind: str, rows: int, H: int, nsm: int,
+                max_blocks: Optional[int] = None) -> Optional[NarrowPlan]:
+    """The narrow-row plan of ``kind`` ("infer" or "bwd"), if its grid of
+    8-unit blocks in pairs fits ``max_blocks`` (the blocks the card holds at
+    once in pairs, ``narrow_blocks``; by default ``nsm`` in whole pairs) and
+    its layout fits shared memory with at most ``NARROW_MAX_PAIRS`` pairs a
+    thread; the forward with 16 warps where they fit, else 8. None where
+    none fits (too many rows for one block's shared memory, or too large a
+    grid for the card)."""
     mt = _cdiv(rows, 16)
-    for nt, c in prefs:
-        if mt > (16 if kind == "infer" else NARROW_MAX_M):
-            break
-        if kind == "infer":
-            cands = [NarrowPlan(kind, rows, H, nt, c, mt * (w // mt), w // mt)
-                     for w in (16, 8) if w >= mt]
-        else:  # 16 warps, one K part each
-            cands = [NarrowPlan(kind, rows, H, nt, c, MAX_WARPS, MAX_WARPS)]
-        for p in cands:
-            if (p.blocks <= cluster_capacity(c, nsm) and p.smem_bytes <= SMEM_MAX
-                    and rows * p.units_per_block <= NARROW_MAX_PAIRS * p.threads
-                    and (kind == "infer" or _cdiv(p.piece_k_steps, p.warps) <= NARROW_MAX_KPW)):
-                return p
+    if mt > (16 if kind == "infer" else NARROW_MAX_M):
+        return None
+    if max_blocks is None:
+        max_blocks = nsm // NARROW_CLUSTER * NARROW_CLUSTER
+    if kind == "infer":
+        cands = [NarrowPlan(kind, rows, H, NARROW_N_SUB, NARROW_CLUSTER, mt * (w // mt), w // mt)
+                 for w in (16, 8) if w >= mt]
+    else:  # 16 warps, one K part each
+        cands = [NarrowPlan(kind, rows, H, NARROW_N_SUB, NARROW_CLUSTER, MAX_WARPS, MAX_WARPS)]
+    for p in cands:
+        if (p.blocks <= max_blocks and p.smem_bytes <= SMEM_MAX
+                and rows * p.units_per_block <= NARROW_MAX_PAIRS * p.threads
+                and (kind == "infer" or _cdiv(p.piece_k_steps, p.warps) <= NARROW_MAX_KPW)):
+            return p
     return None
 
 
@@ -484,13 +469,16 @@ def _wide_or_raise(kind: str, rows: int, H: int, nsm: int) -> WidePlan:
     return plan
 
 
-def infer_plan(rows: int, H: int, nsm: int, save_residuals: bool = False):
+def infer_plan(rows: int, H: int, nsm: int, save_residuals: bool = False,
+               narrow_max_blocks: Optional[int] = None):
     """The forward's plan: from ``WIDE_MIN_ROWS`` rows the ``WidePlan``
-    (raises where none fits), below it ``narrow_plan``'s, and where no
-    narrow plan fits shared memory ``mma_infer_plan``'s."""
+    (raises where none fits), below it ``narrow_plan``'s (within
+    ``narrow_max_blocks``), and where no narrow plan fits
+    ``mma_infer_plan``'s."""
     if rows >= WIDE_MIN_ROWS["infer"]:
         return _wide_or_raise("infer", rows, H, nsm)
-    return narrow_plan("infer", rows, H, nsm) or mma_infer_plan(rows, H, nsm, save_residuals)
+    return (narrow_plan("infer", rows, H, nsm, narrow_max_blocks)
+            or mma_infer_plan(rows, H, nsm, save_residuals))
 
 
 def mma_infer_plan(rows: int, H: int, nsm: int, save_residuals: bool = False) -> MMAPlan:
@@ -514,13 +502,14 @@ def mma_infer_plan(rows: int, H: int, nsm: int, save_residuals: bool = False) ->
                      "(H too large for one block's shared memory)")
 
 
-def bwd_plan(B: int, H: int, nsm: int):
+def bwd_plan(B: int, H: int, nsm: int, narrow_max_blocks: Optional[int] = None):
     """The backward's plan: from ``WIDE_MIN_ROWS`` rows the ``WidePlan``
-    (raises where none fits), below it ``narrow_plan``'s, and where no
-    narrow plan fits shared memory ``mma_bwd_plan``'s."""
+    (raises where none fits), below it ``narrow_plan``'s (within
+    ``narrow_max_blocks``), and where no narrow plan fits
+    ``mma_bwd_plan``'s."""
     if B >= WIDE_MIN_ROWS["bwd"]:
         return _wide_or_raise("bwd", B, H, nsm)
-    return narrow_plan("bwd", B, H, nsm) or mma_bwd_plan(B, H, nsm)
+    return narrow_plan("bwd", B, H, nsm, narrow_max_blocks) or mma_bwd_plan(B, H, nsm)
 
 
 def mma_bwd_plan(B: int, H: int, nsm: int) -> MMAPlan:
@@ -601,6 +590,22 @@ def plan_owners(plan) -> np.ndarray:
 
 def _num_sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def narrow_blocks(device: torch.device, kind: str, save_residuals: bool = False) -> int:
+    """Blocks of the narrow-row kernel of ``kind`` ("infer" with or without
+    residuals, or "bwd") that the card holds at once in pairs, at the most
+    shared memory a block may take (``cudaOccupancyMaxActiveClusters``;
+    ``narrow_plan``'s ``max_blocks``). One query a device and kernel."""
+    fn = "lstm_infer_narrow_blocks" if kind == "infer" else "lstm_bwd_narrow_blocks"
+    lib = build.library("lstm_infer" if kind == "infer" else "lstm_bwd")
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = (getattr(lib, fn)(int(save_residuals), ctypes.byref(blocks)) if kind == "infer"
+               else getattr(lib, fn)(ctypes.byref(blocks)))
+    build.check(lib, err, fn)
+    return blocks.value
 
 
 def lstm_seq_plain(xw: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
@@ -720,7 +725,8 @@ def lstm_seq(xw: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
         return lstm_seq_plain(xw, mask, wh, h0, c0, save_residuals)
     xw, mask, wh, h0, c0 = (a.contiguous() for a in (xw, mask, wh, h0, c0))
     if wh.dtype == torch.bfloat16:
-        plan = infer_plan(B, H, _num_sms(xw.device), save_residuals)
+        plan = infer_plan(B, H, _num_sms(xw.device), save_residuals,
+                          narrow_blocks(xw.device, "infer", save_residuals))
         return lstm_infer(xw, mask, wh, h0, c0, plan, save_residuals)
     hs = torch.empty((T, B, H), device=xw.device)
     hT = torch.empty((B, H), device=xw.device)
@@ -798,7 +804,8 @@ def lstm_bwd(gates: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
         return lstm_bwd_plain(gates, mask, wh, c_prev, dhs, dhT, dcT)
     args = tuple(a.contiguous() for a in (gates, mask, wh, c_prev, dhs, dhT, dcT))
     if wh.dtype == torch.bfloat16:
-        return lstm_bwd_bf16(*args, bwd_plan(B, H, _num_sms(gates.device)))
+        return lstm_bwd_bf16(*args, bwd_plan(B, H, _num_sms(gates.device),
+                                             narrow_blocks(gates.device, "bwd")))
     da, dh0, dc0 = _bwd_outputs(T, B, H, gates.device)
     da_r = torch.empty((2, B, H4), device=gates.device)
     lib = _lib("lstm_bwd_f32", _BWD_F32_ARGTYPES, source="lstm_bwd")
