@@ -504,7 +504,7 @@ def _check_lstm(save_residuals: bool, rows: int, ni: int, launches_key: str, dev
 CE_RAGGED_N = 1000  # not a multiple of the kernel's 128-row tile
 NSAMPLES = 40       # phase 7's --nsamples: two decoder chunks of IW_CHUNK samples
 NSAMPLES_ROWS = B * IW_CHUNK  # 640 LSTM rows in one chunk of --nsamples 40 training
-CE_SPLIT_N = B * (T_CHECK - 1)  # 3040, the training shape: the vocab split over blocks
+CE_SPLIT_N = B * (T_CHECK - 1)  # 3040, the training shape: row groups split between clusters
 
 
 def ce_inputs(N: int, seed: int, dev):
@@ -545,9 +545,43 @@ def ce_errors(h, w, tgt, save: bool):
     return errs, spill_errs
 
 
+def ce_same_bits(port, what: str) -> None:
+    """Two calls of the CE forward give the same bits in every output (the
+    partials are merged in one order); raises otherwise."""
+    a, b = port(), port()
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"{what}: two calls differ")
+
+
+def ce_plan_of(N: int, dev):
+    """The bf16 CE kernel's plan on this card at h [N, NH], W [NH, VOCAB]."""
+    from vae_lagging_encoder_tpu_torch.ops import ce_cuda
+
+    return ce_cuda.ce_plan(N, NH, VOCAB, ce_cuda.ce_clusters(
+        dev, ce_cuda.CEPlan(N, NH, VOCAB, 1).smem_bytes))
+
+
+def ce_kernel_ms(port, name: str, N: int, reps: int = 5) -> dict:
+    """The device ms a call of the CE forward's kernels (the W^T pack, the
+    products and epilogue, the merge) from one profiled window of ``reps``
+    calls; raises unless the window holds those three and ``reps`` launches."""
+    prof = profiled(lambda: [port() for _ in range(reps)], cpu=False)
+    parts = ("ce_pack_wt", name, "ce_merge")
+    kernel_ms = {o["op"]: o["ms_total"] / reps for o in prof["top_device_ops"]
+                 if o["op"] in parts}
+    if sorted(kernel_ms) != sorted(parts) or prof["port_kernel_calls"].get(name) != reps:
+        raise AssertionError(f"{name} N {N}: the profiled window's kernels {kernel_ms} and "
+                             f"launches {prof['port_kernel_calls']}, expected {parts} and "
+                             f"{reps} launches")
+    return {**kernel_ms, "total": sum(kernel_ms.values())}
+
+
 def check_ce(dev):
-    """The forward CE at the IW shape (N = 32 x 20 x 95 = 60800 rows, no
-    vocab split), and at a ragged N and the split plan's N 3040."""
+    """The forward CE at the IW shape (N = 32 x 20 x 95 = 60800 rows), and at
+    a ragged N and the training shape's N 3040; equal bits across calls at
+    N 3040 and 60800; the launch's kernels' device ms (``kernel_ms``) and the
+    plan's L2 -> shared bytes (``l2_bytes``) at both."""
     from vae_lagging_encoder_tpu_torch.ops import ce_cuda
 
     N = B * IW_CHUNK * (T_CHECK - 1)
@@ -555,10 +589,20 @@ def check_ce(dev):
     errs, _ = ce_errors(h, w, tgt, False)
     more = {}
     for n, seed in ((CE_RAGGED_N, 14), (CE_SPLIT_N, 15)):
-        e, _ = ce_errors(*ce_inputs(n, seed, dev), False)
+        hn, wn, tn = ce_inputs(n, seed, dev)
+        e, _ = ce_errors(hn, wn, tn, False)
         more.update({f"err_bf16_n{n}": e["bf16"], f"err_f32_n{n}": e["f32"]})
+        if n == CE_SPLIT_N:
+            hn, wn = hn.bfloat16(), wn.bfloat16()
+            small = lambda: ce_cuda.ce_forward(hn, wn, tn)
+            ce_same_bits(small, f"ce_fwd N {n}")
+            more.update({f"ms_n{n}": time_ms(small),
+                         f"kernel_ms_n{n}": ce_kernel_ms(small, "ce_fwd", n),
+                         f"l2_bytes_n{n}": ce_plan_of(n, dev).l2_bytes})
     hb, wb = h.bfloat16(), w.bfloat16()
     port = lambda: ce_cuda.ce_forward(hb, wb, tgt)
+    ce_same_bits(port, f"ce_fwd N {N}")
+    more.update(kernel_ms=ce_kernel_ms(port, "ce_fwd", N), l2_bytes=ce_plan_of(N, dev).l2_bytes)
     ms = time_ms(port)
     plain_ms = time_ms(lambda: ce_cuda.ce_logp_plain(hb, wb, tgt), reps=5)
 
@@ -570,12 +614,10 @@ def check_ce(dev):
     ops = 2.0 * N * NH * VOCAB
     nbytes = 2.0 * (N * NH + NH * VOCAB) + 4.0 * N + 8.0 * N
     bms, by = bound(ops, nbytes, PEAK_BF16)
-    nsm = torch.cuda.get_device_properties(dev).multi_processor_count
     return dict(err_f32=errs["f32"], err_bf16=errs["bf16"], ms=ms, plain_ms=plain_ms,
                 library_ms=t["library"][0], library_ms_turns=t["library"][1],
                 ms_turns=t["port"][1], bound_ms=bms, bound_by=by,
-                library="bf16 matmul, f32 logsumexp, gather",
-                plan=repr(ce_cuda.ce_plan(N, NH, VOCAB, nsm)),
+                library="bf16 matmul, f32 logsumexp, gather", plan=repr(ce_plan_of(N, dev)),
                 shape=f"N {N}, nh {NH}, V {VOCAB}, bf16 operands", **more)
 
 
@@ -692,8 +734,10 @@ def _check_lstm_bwd(rows: int, seed: int, dev, timed: bool = True):
 def check_ce_train(dev):
     """The grad-mode CE (logp, the logsumexp of the rounded logits and the
     spilled logits) against its plain version at the training shape
-    (N = 32 x 95 rows: the split plan), at a ragged N, and at the N 60800 of
-    a 20-sample chunk of ``--nsamples 40`` training (``*_n60800``)."""
+    (N = 32 x 95 rows), at a ragged N, and at the N 60800 of a 20-sample
+    chunk of ``--nsamples 40`` training (``*_n60800``); at N 3040 and 60800
+    equal bits across calls, the launch's kernels' device ms
+    (``kernel_ms``) and the plan's L2 -> shared bytes (``l2_bytes``)."""
     r = _check_ce_train(CE_SPLIT_N, 8, dev)
     e, se = ce_errors(*ce_inputs(CE_RAGGED_N, 18, dev), True)
     r.update({f"err_bf16_n{CE_RAGGED_N}": e["bf16"], f"err_f32_n{CE_RAGGED_N}": e["f32"],
@@ -702,7 +746,7 @@ def check_ce_train(dev):
     r.update({f"{k}_n60800": big[k] for k in (
         "err_f32", "err_bf16", "spill_err_bf16", "ms", "plain_ms", "library_ms",
         "library_ms_turns", "ms_turns", "library_fwd_bwd_ms", "port_fwd_bwd_ms", "bound_ms",
-        "plan")})
+        "kernel_ms", "l2_bytes", "plan")})
     return r
 
 
@@ -713,6 +757,8 @@ def _check_ce_train(N: int, seed: int, dev):
     errs, spill_errs = ce_errors(h, w, tgt, True)
     hb, wb = h.bfloat16(), w.bfloat16()
     port = lambda: ce_cuda.ce_forward(hb, wb, tgt, save_logits=True)
+    ce_same_bits(port, f"ce_fwd_train N {N}")
+    kernel_ms = ce_kernel_ms(port, "ce_fwd_train", N)
     ms = time_ms(port)
     plain_ms = time_ms(lambda: ce_cuda.ce_logp_plain(hb, wb, tgt, save_logits=True), reps=5)
     gout = torch.randn(N, generator=torch.Generator().manual_seed(9)).to(dev)
@@ -737,14 +783,14 @@ def _check_ce_train(N: int, seed: int, dev):
     ops = 2.0 * N * NH * VOCAB
     nbytes = 2.0 * (N * NH + NH * VOCAB + N * VOCAB) + 4.0 * N + 8.0 * N
     bms, by = bound(ops, nbytes, PEAK_BF16)
-    nsm = torch.cuda.get_device_properties(dev).multi_processor_count
     return dict(err_f32=errs["f32"], err_bf16=errs["bf16"], spill_err_bf16=spill_errs["bf16"],
-                ms=ms, plain_ms=plain_ms, library_ms=t["library"][0],
+                ms=ms, plain_ms=plain_ms, kernel_ms=kernel_ms,
+                l2_bytes=ce_plan_of(N, dev).l2_bytes, library_ms=t["library"][0],
                 library_ms_turns=t["library"][1], ms_turns=t["port"][1],
                 library="bf16 matmul (bf16 logits), f32 logsumexp of them, gather: forward only",
                 library_fwd_bwd_ms=tb["library"][0], library_fwd_bwd_ms_turns=tb["library"][1],
                 port_fwd_bwd_ms=tb["port"][0], port_fwd_bwd_ms_turns=tb["port"][1],
-                bound_ms=bms, bound_by=by, plan=repr(ce_cuda.ce_plan(N, NH, VOCAB, nsm)),
+                bound_ms=bms, bound_by=by, plan=repr(ce_plan_of(N, dev)),
                 shape=f"N {N}, nh {NH}, V {VOCAB}, bf16 operands, bf16 spill")
 
 
@@ -2765,8 +2811,8 @@ def main() -> int:
     log(f"[build] empty-step floors {sorted(FLOORS)} built in {floors_s:.1f} s")
     # the tensor-core kernels: lstm_infer (both LSTM forwards) and lstm_bwd
     # on mma.sync (HMMA) with cp.async (LDGSTS) below WIDE_MIN_ROWS rows and
-    # on wgmma (HGMMA) with TMA (UTMALDG) from there; ce_fwd on wgmma (HGMMA)
-    # with cp.async; ce_bwd's products on wgmma with TMA
+    # on wgmma (HGMMA) with TMA (UTMALDG) from there; ce_fwd's and ce_bwd's
+    # products on wgmma with TMA
     for name in ("lstm_infer", "lstm_bwd", "ce_fwd", "ce_bwd"):
         rep = build.kernel_report(name)
         log(json.dumps({"build": name, "kernels": rep}))
@@ -2780,7 +2826,7 @@ def main() -> int:
             raise AssertionError(f"{name}: no kernel with both tensor-core "
                                  f"({build.TENSOR_CORE_SASS}) and asynchronous-copy "
                                  f"({build.ASYNC_COPY_SASS}) instructions: {rep}")
-        if name != "ce_fwd" and not any(k["hgmma"] and k["utmaldg"] for k in census):
+        if not any(k["hgmma"] and k["utmaldg"] for k in census):
             raise AssertionError(f"{name}: no wide-row or product kernel with both HGMMA "
                                  f"(wgmma) and UTMALDG (TMA tile loads): {rep}")
         if name in ("lstm_infer", "lstm_bwd") and not any(

@@ -8,7 +8,8 @@ imports JAX, hence:
     python -m pytest tests/test_torch_port_cuda.py --noconftest -q
 
 Small odd shapes: partial row tiles, partial hidden-unit blocks, a ragged
-last vocab tile. The CE backward (``csrc/ce_bwd.cu``) at a small shape and
+last vocab tile; the bf16 CE under a plan whose segments split a row group,
+equal bits across calls, and a plan the card cannot hold. The CE backward (``csrc/ce_bwd.cu``) at a small shape and
 the training shape, bit-equal across calls, through ``FusedCEFn`` against
 the CPU, and its extra peak memory. Generation (plain PyTorch on the card) against the same
 calls on the CPU: the top-k tie order, greedy and beam decoding, the
@@ -273,7 +274,8 @@ def test_lstm_run_gradient_through_kernel_on_cuda():
 @pytest.mark.parametrize("n", [1000, 3040])
 def test_ce_kernel_at_yahoo_width_on_cuda(n, save):
     """The bf16 CE at nh 1024, V 20004 (a ragged last vocab tile): N 3040
-    (the training shape: 24 row tiles, the vocab split over 5 blocks each)
+    (the training shape: 12 row groups, most split between the persistent
+    clusters mid-vocab)
     and N 1000 (a ragged last row tile), both modes; the spill is the
     [N, V] view of the padded [N, Vp] buffer. Tolerances: chip_smoke.py's
     CE checks (bf16 operands: summation order only; the spill within one
@@ -530,6 +532,94 @@ def test_ce_train_kernel_at_n60800_on_cuda():
     torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=0)
     d = (spill.float() - rspill.float()).abs()
     assert bool((d <= 2.0 ** -7 * rspill.float().abs() + 1e-5).all())
+
+
+def _ce_split_plan(monkeypatch, n, nh, vocab, clusters):
+    """The card's bf16 CE plans taken with ``clusters`` clusters (at most the
+    card's), under which a cluster's segment boundary splits a row group
+    mid-vocab at h [n, nh], W [nh, vocab]."""
+    plan = ce_cuda.ce_plan(n, nh, vocab, clusters)
+    assert any(len(plan.merge_order(rg)) > 1 for rg in range(plan.row_groups))
+    assert clusters <= ce_cuda.ce_clusters(torch.device("cuda", 0), plan.smem_bytes)
+    monkeypatch.setattr(ce_cuda, "ce_clusters", lambda device, smem_bytes: clusters)
+    return plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("save", [False, True])
+def test_ce_segment_splitting_a_row_tile_on_cuda(save, monkeypatch):
+    """With 7 clusters at N 300 (2 row groups x 6 vocab tiles, 1 or 2 units
+    a cluster), the row groups are split between clusters mid-vocab: both
+    modes against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    h, w, tgt = (torch.from_numpy(a).cuda() for a in _ce_inputs(n=300, nh=72, vocab=1300, seed=6))
+    _ce_split_plan(monkeypatch, 300, 72, 1300, 7)
+    got = ce_cuda.ce_forward(h, w, tgt, torch.bfloat16, save_logits=save)
+    ref = ce_cuda.ce_logp_plain(h, w, tgt, torch.bfloat16, save_logits=save)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], ref[0], atol=1e-4, rtol=0)
+    torch.testing.assert_close(got[1], ref[1], atol=1e-4, rtol=0)
+    if save:
+        d = (got[2].float() - ref[2].float()).abs()
+        assert bool((d <= 2.0 ** -7 * ref[2].float().abs() + 1e-5).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("save", [False, True])
+def test_ce_kernel_bits_equal_across_calls_on_cuda(save):
+    """Two calls at the training shape (N 3040, the card's own plan) give
+    the same bits in every output: the partials are merged in one order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    h, w, tgt = (torch.from_numpy(a).cuda() for a in _ce_inputs(n=3040, nh=1024, vocab=20004,
+                                                                seed=7))
+    a = ce_cuda.ce_forward(h, w, tgt, torch.bfloat16, save_logits=save)
+    b = ce_cuda.ce_forward(h, w, tgt, torch.bfloat16, save_logits=save)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_ce_bwd_on_a_split_plans_spill_on_cuda(monkeypatch):
+    """``ce_bwd`` on the residuals of a grad-mode forward whose row groups
+    are split between clusters, against ``ce_backward_plain`` on the same
+    residuals, within the tensor cores' accumulation bound."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    n, nh, vocab = 300, 72, 1300
+    h, w, tgt = (torch.from_numpy(a).cuda() for a in _ce_inputs(n, nh, vocab, seed=9))
+    g = torch.randn(n, generator=torch.Generator().manual_seed(9)).cuda()
+    _ce_split_plan(monkeypatch, n, nh, vocab, 7)
+    (_, lse, spill), operands = ce_cuda._ce_forward(h, w, tgt, torch.bfloat16, True)
+    args = (h, w, tgt, lse, spill, g)
+    got = ce_cuda.ce_backward(*args, torch.bfloat16, operands=operands)
+    ref = ce_cuda.ce_backward_plain(*args, torch.bfloat16)
+    torch.cuda.synchronize()
+    plan = ce_cuda.ce_bwd_plan(n, nh, vocab, torch.cuda.get_device_properties(0)
+                               .multi_processor_count)
+    for a, r, k in zip(got, ref, (plan.Vp, n)):
+        torch.testing.assert_close(a, r, atol=_acc_bound(r, k), rtol=0)
+
+
+@pytest.mark.cuda
+def test_ce_plan_beyond_the_cards_clusters_raises_on_cuda(monkeypatch):
+    """A plan of one cluster more than the card holds at once is refused by
+    the kernel (no launch, no count), and a card without a cluster has no
+    plan: both raise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    h, w, tgt = (torch.from_numpy(a).cuda() for a in _ce_inputs(n=3040, nh=64, vocab=20004,
+                                                                seed=3))
+    have = ce_cuda.ce_clusters(torch.device("cuda", 0), ce_cuda.CEPlan(3040, 64, 20004, 1)
+                               .smem_bytes)
+    assert ce_cuda.ce_plan(3040, 64, 20004, have + 1).clusters == have + 1
+    n = build.LAUNCHES["ce_fwd"]
+    for clusters, err in ((have + 1, RuntimeError), (0, ValueError)):
+        monkeypatch.setattr(ce_cuda, "ce_clusters", lambda device, smem_bytes: clusters)
+        with pytest.raises(err):
+            ce_cuda.ce_forward(h, w, tgt, torch.bfloat16)
+    assert build.LAUNCHES["ce_fwd"] == n
 
 
 def _ce_bwd_case(n, nh, vocab, seed):

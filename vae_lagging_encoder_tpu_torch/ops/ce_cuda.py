@@ -11,11 +11,13 @@ rounded logits (``s2``), so each backward softmax row sums to exactly 1.
 On a CUDA tensor it launches ``csrc/ce_fwd.cu`` (counted as ``ce_fwd`` or
 ``ce_fwd_train``; raises on what the kernel does not take); on a CPU
 tensor it runs ``ce_logp_plain``. With bf16 operands (the main paths) the
-kernel runs on the tensor cores (wgmma) under the launch plan ``ce_plan``,
-which the kernel checks; it reads h in bf16 as it is (a copy only where a
-row is not 16-byte aligned), packs W (f32 or bf16) into a zero-padded
-K-major bf16 copy W^T [Vp, Kp] itself, and spills into [N, Vp], returned
-as the [:, :V] view.
+kernel runs on the tensor cores (wgmma, TMA, clusters of two blocks that
+share W^T by multicast, persistent over the card's clusters) under the
+launch plan ``ce_plan``, which the kernel checks; it reads h in bf16 as it
+is (a copy only where a row is not 16-byte aligned), packs W (f32 or bf16)
+into a zero-padded K-major bf16 copy W^T [Vp, Kp] itself, and spills into
+[N, Vp], returned as the [:, :V] view. A card without a plan (no cluster
+of two blocks resident) raises.
 
 ``ce_backward`` is the counterpart of ``_fused_ce_bwd`` (which the JAX
 package leaves to XLA as two dots): from the grad-mode residuals,
@@ -42,9 +44,10 @@ CPU tensor, and for f32 operands on either device, it runs
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 from fractions import Fraction
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -54,14 +57,17 @@ PLAIN_ROW_CHUNK = 8192  # rows of [rows, V] logits the plain version holds at on
 
 # --------------------------------------------------------------- launch plan
 # Constants the bf16 kernel is built for (csrc/ce_fwd.cu: kWarpgroups, kBN,
-# kBK, kStages, kAlign); tests/test_torch_port_ce_plan.py reads them back.
-CE_WARPGROUPS = 2       # 64-row wgmma warpgroups a block
-CE_BLOCK_N = 256        # vocab columns a tile (wgmma n)
+# kBK, kStages, kCluster, kAlign); tests/test_torch_port_ce_plan.py reads
+# them back.
+CE_WARPGROUPS = 2       # consumer warpgroups of 64 rows a block
+CE_BLOCK_N = 256        # vocab columns of a tile (wgmma n); ce_bwd's too
 CE_BLOCK_K = 64         # K slab: 128 bytes of bf16, the 128-byte swizzle
-CE_STAGES = 4           # shared-memory ring depth
-CE_ALIGN = 1024         # ring alignment of the swizzle
+CE_STAGES = 4           # ring depth
+CE_CLUSTER = 2          # blocks of a cluster: the two row tiles of a row group
+CE_ALIGN = 1024         # alignment of the swizzled tiles
 # ctypes order of the plan fields after the layout, as the C entry point names them
-CE_PLAN_ARGS = ("block_m", "block_n", "block_k", "stages", "splits", "blocks", "smem_bytes")
+CE_PLAN_ARGS = ("block_m", "block_n", "block_k", "stages", "cluster", "clusters", "slots",
+                "smem_bytes")
 _BF16_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * (8 + len(CE_PLAN_ARGS))
                   + [ctypes.c_void_p])
 _F32_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -92,28 +98,47 @@ def _round_up(a: int, b: int) -> int:
 class CEPlan:
     """Launch plan of the bf16 CE kernel for h [N, nh], W [nh, V].
 
-    Block b takes row tile ``b % row_tiles`` (``block_m`` rows) and the
-    vocab tiles ``vocab_range(b // row_tiles)``; the ``splits`` blocks of a
-    row tile partition the ``vocab_tiles`` tiles of ``block_n`` columns.
-    Operands: h read in place with row stride ``ldh`` (a zero-padded copy
-    when nh is not a multiple of 8), W as W^T ``[Vp, Kp]`` zero-padded to
-    whole tiles and K slabs; the grad-mode spill is ``[N, Vp]``."""
+    A block's tile is ``block_m`` rows (two warpgroups of 64) x ``block_n``
+    vocab columns; a unit is a row group (``group_rows``: the row tiles of a
+    cluster's two blocks) x one vocab tile, and the ``units`` are numbered
+    row group major. The grid is ``clusters`` persistent clusters (at most
+    what the card holds at once), and cluster c walks the contiguous units
+    ``unit_range(c)``, so a row group's vocab tiles may be split between
+    clusters at any tile (``segments``). Within a row group the vocab tiles
+    are visited from ``origin``: the clusters resident together walk the
+    same W^T columns at about the same time. Each (cluster c, row group rg)
+    segment writes its partials at slot ``c + rg`` of part [4, ``slots``,
+    ``group_rows``]; the merge sums a row's partials in cluster order
+    (``merge_order``). Operands: h read in place with row stride ``ldh`` (a
+    zero-padded copy when nh is not a multiple of 8), W as W^T ``[Vp, Kp]``
+    zero-padded to whole tiles and K slabs (ce_bwd reads it too); the
+    grad-mode spill is ``[N, Vp]``. Shared memory: a ring of
+    ``stages`` slabs, each the block's rows of h and the W^T slab."""
     N: int
     nh: int
     V: int
-    splits: int
+    clusters: int
     block_m: int = 64 * CE_WARPGROUPS
     block_n: int = CE_BLOCK_N
     block_k: int = CE_BLOCK_K
     stages: int = CE_STAGES
+    cluster: int = CE_CLUSTER
 
     @property
-    def row_tiles(self) -> int:
-        return _cdiv(self.N, self.block_m)
+    def group_rows(self) -> int:
+        return self.block_m * self.cluster
+
+    @property
+    def row_groups(self) -> int:
+        return _cdiv(self.N, self.group_rows)
 
     @property
     def vocab_tiles(self) -> int:
         return _cdiv(self.V, self.block_n)
+
+    @property
+    def units(self) -> int:
+        return self.row_groups * self.vocab_tiles
 
     @property
     def Vp(self) -> int:
@@ -129,34 +154,105 @@ class CEPlan:
 
     @property
     def blocks(self) -> int:
-        return self.row_tiles * self.splits
+        return self.clusters * self.cluster
+
+    @property
+    def slots(self) -> int:
+        return self.clusters + self.row_groups - 1
+
+    @property
+    def box_bytes(self) -> int:
+        """One TMA box: 64 rows (of h, or of W^T) x one K slab."""
+        return 64 * self.block_k * 2
+
+    @property
+    def a_bytes(self) -> int:
+        """A slab's rows of h: the block's ``block_m`` rows, two boxes."""
+        return self.block_m * self.block_k * 2
+
+    @property
+    def b_bytes(self) -> int:
+        """A slab's W^T: ``block_n`` vocab rows, two boxes from each block."""
+        return self.block_n * self.block_k * 2
 
     @property
     def stage_bytes(self) -> int:
-        return (self.block_m + self.block_n) * self.block_k * 2
+        return self.a_bytes + self.b_bytes
 
     @property
     def smem_bytes(self) -> int:
-        """The ring, plus slack to align it to the swizzle's 1024 bytes."""
-        return self.stages * self.stage_bytes + CE_ALIGN
+        """Slack to align the ring to 1024 bytes, the ring, and a full and an
+        empty mbarrier (8 bytes) per stage."""
+        return CE_ALIGN + self.stages * self.stage_bytes + 8 * 2 * self.stages
 
-    def vocab_range(self, split: int) -> Tuple[int, int]:
-        """Vocab tiles [t0, t1) of ``split``, as the kernel computes them."""
+    @property
+    def part_shape(self) -> Tuple[int, int, int]:
+        return (4, self.slots, self.group_rows)
+
+    def unit_range(self, c: int) -> Tuple[int, int]:
+        """Units [u0, u1) of cluster ``c``, as the kernel computes them."""
+        return c * self.units // self.clusters, (c + 1) * self.units // self.clusters
+
+    def cluster_of(self, u: int) -> int:
+        """The cluster whose range holds unit ``u``."""
+        return ((u + 1) * self.clusters - 1) // self.units
+
+    def origin(self, rg: int) -> int:
+        """The unit from which row group ``rg``'s vocab tiles are counted: the
+        first of the cluster holding the group's last unit."""
+        return self.unit_range(self.cluster_of((rg + 1) * self.vocab_tiles - 1))[0]
+
+    def vocab_tile(self, u: int) -> int:
+        return (u - self.origin(u // self.vocab_tiles)) % self.vocab_tiles
+
+    def segments(self, c: int) -> List[Tuple[int, int, int]]:
+        """Cluster ``c``'s (row group, first unit, end unit), in order."""
+        u0, u1 = self.unit_range(c)
         nv = self.vocab_tiles
-        return split * nv // self.splits, (split + 1) * nv // self.splits
+        return [(rg, max(u0, rg * nv), min(u1, (rg + 1) * nv))
+                for rg in range(u0 // nv, (u1 - 1) // nv + 1)]
+
+    def merge_order(self, rg: int) -> List[int]:
+        """The slots of row group ``rg``'s partials in the merge's order."""
+        nv = self.vocab_tiles
+        return [c + rg for c in range(self.cluster_of(rg * nv),
+                                      self.cluster_of((rg + 1) * nv - 1) + 1)]
+
+    @property
+    def l2_bytes(self) -> int:
+        """Bytes a call brings from L2 into shared memory: each block's rows
+        of h for every slab, and each W^T slab once for both blocks of the
+        cluster (multicast)."""
+        return self.units * (self.Kp // self.block_k) * (self.cluster * self.a_bytes
+                                                         + self.b_bytes)
 
     def args(self) -> Tuple[int, ...]:
         return tuple(getattr(self, n) for n in CE_PLAN_ARGS)
 
 
-def ce_plan(N: int, nh: int, V: int, nsm: int) -> CEPlan:
-    """The bf16 kernel's plan. One block fits an SM (its ring takes 193 KB
-    of shared memory), so with fewer row tiles than SMs the vocab tiles of
-    each row tile are split over the most blocks that still run in one wave
-    (``nsm // row_tiles``, at most one tile each); with as many row tiles as
-    SMs or more, no split."""
+def ce_plan(N: int, nh: int, V: int, clusters: int) -> CEPlan:
+    """The bf16 kernel's plan on a card that holds ``clusters`` clusters of
+    two blocks at once (``ce_clusters``): that many persistent clusters, or
+    one a unit where there are fewer units. Raises where the card holds no
+    cluster."""
     one = CEPlan(N, nh, V, 1)
-    return CEPlan(N, nh, V, max(1, min(one.vocab_tiles, nsm // one.row_tiles)))
+    if clusters < 1:
+        raise ValueError(f"ce_plan: the card holds no cluster of {one.cluster} blocks with "
+                         f"{one.smem_bytes} bytes of shared memory each")
+    return CEPlan(N, nh, V, min(clusters, one.units))
+
+
+@functools.lru_cache(maxsize=None)
+def ce_clusters(device: torch.device, smem_bytes: int) -> int:
+    """Clusters of two blocks of the bf16 kernel that the card holds at
+    once with ``smem_bytes`` of shared memory a block
+    (``cudaOccupancyMaxActiveClusters``). One query a device and size."""
+    lib = _lib("ce_fwd_clusters", [ctypes.c_int, ctypes.c_void_p])
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = lib.ce_fwd_clusters(smem_bytes, ctypes.byref(n))
+    build.check(lib, err, "ce_fwd_clusters")
+    return n.value
 
 
 @dataclass(frozen=True)
@@ -345,20 +441,20 @@ def _ce_forward(h: torch.Tensor, w: torch.Tensor, tgt: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     operands = None
     if dt == torch.bfloat16:
-        plan = ce_plan(N, nh, V, _num_sms(dev))
+        plan = ce_plan(N, nh, V, ce_clusters(dev, CEPlan(N, nh, V, 1).smem_bytes))
         h = _bf16_h(h, plan.ldh)
         if w.dtype not in (torch.float32, torch.bfloat16):
             w = w.float()
         w = w.contiguous()
         wt = torch.empty((plan.Vp, plan.Kp), device=dev, dtype=dt)  # the kernel fills it
         spill = torch.empty((N, plan.Vp), device=dev, dtype=dt) if save_logits else None
-        part = torch.empty((4, plan.splits, N), device=dev) if plan.splits > 1 else None
+        part = torch.empty(plan.part_shape, device=dev)
         lib = _lib("ce_fwd_bf16", _BF16_ARGTYPES)
         with torch.cuda.device(dev):
             err = lib.ce_fwd_bf16(
                 h.data_ptr(), w.data_ptr(), wt.data_ptr(), tgt.data_ptr(), logp.data_ptr(),
                 lse.data_ptr(), spill.data_ptr() if save_logits else None,
-                part.data_ptr() if part is not None else None, N, nh, V, plan.ldh, plan.Vp,
+                part.data_ptr(), N, nh, V, plan.ldh, plan.Vp,
                 plan.Kp, int(w.dtype == torch.float32), int(save_logits), *plan.args(), stream)
         build.check(lib, err, name)
         spill = spill[:, :V] if save_logits else None
