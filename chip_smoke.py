@@ -14,9 +14,10 @@ Phases (each raises on failure; the script then exits non-zero):
    and so do ``lstm_infer`` and ``lstm_bwd`` without a wide-row kernel,
    and ``ce_bwd`` without a product kernel, that has both HGMMA and UTMALDG,
    and ``lstm_infer`` and ``lstm_bwd`` without a narrow-row kernel that has
-   both HMMA and UBLKCP; then it builds ``lstm_ablation.py``'s empty-step
-   copies of the kernels that the 32- and 20-row plans run (the floor
-   below);
+   both HMMA and UBLKCP, and ``lstm_f32`` without FFMA and UTMALDG (or with a
+   tensor-core instruction) in both its kernels; then it builds
+   ``lstm_ablation.py``'s empty-step copies of the kernels that the 32- and
+   20-row plans run and of the f32 kernels (the floor below);
 2. kernel checks at the Yahoo shapes of the evaluation and the training
    paths: each kernel against its plain PyTorch version on the card, in
    bf16 and f32 operand mode, with timings (CUDA events), the plain
@@ -51,7 +52,15 @@ Phases (each raises on failure; the script then exits non-zero):
    the library's forward alone for the grad-mode CE (its forward and
    backward beside ``FusedCEFn``'s), for the CE backward d by torch ops and
    two bf16 ``torch.mm`` with f32 output, and, for the LSTM backward, the
-   port's whole backward of the layer (``port_bwd_ms``) against cuDNN's;
+   port's whole backward of the layer (``port_bwd_ms``) against cuDNN's.
+   Then the f32-wh route (``csrc/lstm_f32.cu``; ``check_f32``): its three
+   kernels at ``F32_SHAPES`` (H 512 at 32, 20, 600 and 640 rows, H 128, H
+   50, H 1024), each against its plain version, twice (equal bits), with
+   ``ms``, ``kernel_ms``, the plain version's, cuDNN's f32 LSTM with TF32
+   off in turns, the bound at the f32 rate (``PEAK_F32``) and the empty-step
+   floor (``{"f32_check"}`` lines); and the CE with f32 operands
+   (``ce_f32_kernel``, on no model path) timed at N 3040 and 60800 beside
+   the f32 library forward (``{"ce_f32_check"}``);
 3. the evaluation slice end to end through the normal entry point: a
    Yahoo-shaped corpus and a Yahoo-width random model (seeded) are written
    to a temporary directory, ``cli.text.main([... "--eval" ...])`` runs the
@@ -164,7 +173,15 @@ Phases (each raises on failure; the script then exits non-zero):
    training step, with their times with and without the deterministic
    ones; and the graphed image plain windows once more with cuDNN's default
    algorithms in the convs' backward too, for the device time a step that
-   the restriction (``ops/conv.py``) costs.
+   the restriction (``ops/conv.py``) costs;
+10. the Yahoo model narrowed to ``--enc_nh 512 --dec_nh 512`` (f32 compute,
+   the kernel route: every LSTM launch is the f32 kernels') through
+   ``cli.text`` on phase 4's corpus: an aggressive and a plain epoch
+   (graphed), four ``--nsamples 40`` steps (640 LSTM rows a decoder chunk),
+   ``--eval`` at IW 500/100 over 48 sentences; then phase 9's steady
+   windows at this width, plain and aggressive, graphed against eager bit
+   for bit, every profiled window's LSTM launches traced as the f32
+   kernels; a ``{"h512"}`` line (steps/s, IW sentences/s, launches).
 
 Prints one JSON line per kernel, ``{"trace_iw": ...}``, ``{"trace": ...}``,
 ``{"image": ...}`` (steps/s, IW images/s, per-evaluator seconds, peak
@@ -176,7 +193,8 @@ run's backend, world size, steps/s, peak memory and kernel launches per
 rank, the all-reduce time, the checks) and ``{"graphs": ...}`` (phase 9)
 lines, a ``{"kernels": [...]}`` line (its ``launches_by_path`` with the
 image, generation, toy, phase 7 paths', the ``dp`` / ``tp`` ranks' and
-phase 9's ``graphs`` counts), the card's name and power
+phase 9's ``graphs`` counts; the f32 kernels' entries, ``*_f32``, count
+phase 10's launches), a ``{"ce_f32"}`` line, the card's name and power
 limit, and as the last line ``{"ok": true,
 "device": {...}}``. Exits non-zero, printing no result, when no CUDA
 device is available or the port's package is missing.
@@ -417,13 +435,14 @@ def port_plan(kind: str, rows: int, dev, save_residuals: bool = False):
 
 
 def build_floors(dev) -> float:
-    """Build the empty-step copies of the kernels of the 32-row plans."""
+    """Build the empty-step copies of the kernels of the 32-row plans and of
+    the f32 kernels (``lstm_f32``: both directions, every plan)."""
     import lstm_ablation
 
     t0 = time.perf_counter()
     plans = [port_plan("infer", n, dev, res) for n in (B, 20) for res in (False, True)]
     plans += [port_plan("bwd", n, dev) for n in (B, 20)]
-    groups = sorted({floor_group(p) for p in plans})
+    groups = sorted({floor_group(p) for p in plans}) + ["lstm_f32"]
     FLOORS.update({g: libs["empty_step"] for g, libs in
                    lstm_ablation.build_variants(groups, kinds=("empty_step",)).items()})
     return time.perf_counter() - t0
@@ -731,6 +750,223 @@ def _check_lstm_bwd(rows: int, seed: int, dev, timed: bool = True):
                 shape=f"T {T}, B {rows}, H {H}, wh bf16, masked")
 
 
+# The f32-wh route: the kernel route keeps wh in f32 where H <= 512 and the
+# compute dtype is f32 (models/lstm_core.py), so every text VAE narrowed to
+# --enc_nh / --dec_nh <= 512 runs these kernels. The products are exact f32
+# products on the FMA pipes: the bound takes the card's f32 rate without
+# tensor cores (H100 SXM data sheet), and cuDNN's f32 LSTM is timed with
+# TF32 off. Shapes: H 512 (the narrowed Yahoo model) at the training
+# step's 32 rows, a short last batch of 20, --nsamples 40's and the IW
+# decoder's 640 and a ragged 600; H 128 and the off-tile H 50 (the
+# synthetic config's widths reach both); H 1024 at 32 and 640 rows.
+PEAK_F32 = 67e12
+F32_SHAPES = ((512, 32), (512, 20), (512, 640), (512, 600), (128, 32), (128, 640),
+              (50, 32), (50, 640), (1024, 32), (1024, 640))
+# kind -> the kernel's name in LAUNCHES and in the trace
+F32_KERNELS = {"infer": "lstm_fwd_infer_f32", "resid": "lstm_fwd_residuals_f32",
+               "bwd": "lstm_bwd_f32"}
+
+
+def f32_inputs(H: int, rows: int, seed: int, dev, ni: int = NI):
+    """Seeded inputs of the f32 route at ``H``, ``rows``, T ``T_CHECK``:
+    x [T, rows, ni], the layer's f32 weights, the hoisted xw, the initial
+    state, Yahoo-like lengths as the mask, the backward's incoming grads and
+    the residuals of one plain forward."""
+    from vae_lagging_encoder_tpu_torch.ops import lstm_cuda
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    T = T_CHECK
+    x = torch.randn(T, rows, ni, generator=g)
+    wx = torch.empty(ni, 4 * H).uniform_(-0.05, 0.05, generator=g)
+    wh = torch.empty(H, 4 * H).uniform_(-1 / math.sqrt(H), 1 / math.sqrt(H), generator=g)
+    b = torch.empty(4 * H).uniform_(-0.1, 0.1, generator=g)
+    h0, c0 = (0.1 * torch.randn(rows, H, generator=g) for _ in range(2))
+    dhs = 0.1 * torch.randn(T, rows, H, generator=g)
+    dhT, dcT = (0.1 * torch.randn(rows, H, generator=g) for _ in range(2))
+    lens = lengths_like_yahoo(np.random.RandomState(seed), rows, T)
+    mask = torch.from_numpy((np.arange(T)[:, None] < lens[None, :]).astype(np.float32))
+    d = dict(x=x, wx=wx, wh=wh, b=b, h0=h0, c0=c0, dhs=dhs, dhT=dhT, dcT=dcT, mask=mask)
+    d = {k: v.to(dev) for k, v in d.items()}
+    d["xw"] = (d["x"].reshape(T * rows, ni) @ d["wx"] + d["b"]).reshape(T, rows, 4 * H)
+    _, cs, gates, _, _ = lstm_cuda.lstm_seq_plain(d["xw"], d["mask"], d["wh"], d["h0"], d["c0"],
+                                                  True)
+    d["bwd_args"] = (gates, d["mask"], d["wh"], torch.cat([d["c0"][None], cs[:-1]]), d["dhs"],
+                     d["dhT"], d["dcT"])
+    return d
+
+
+def f32_bound(kind: str, H: int, rows: int, mask) -> tuple:
+    """The least time of one call at the f32 rate: the products at the
+    unmasked steps (a masked step keeps h and c), except for the residual
+    forward, whose ``gates`` output needs every step's; each input read
+    once, each output written once (wh in f32)."""
+    T = T_CHECK
+    steps = T * rows if kind == "resid" else float(mask.sum())
+    ops = 2.0 * steps * 4 * H * H
+    if kind == "bwd":
+        nbytes = 4.0 * (T * rows * 4 * H + T * rows + 2 * T * rows * H + 2 * rows * H
+                        + T * rows * 4 * H + 2 * rows * H + H * 4 * H)
+    else:
+        out_f = T * rows * H * (2 + 4 if kind == "resid" else 1) + 2 * rows * H
+        nbytes = 4.0 * (T * rows * 4 * H + T * rows + 2 * rows * H + out_f + H * 4 * H)
+    return bound(ops, nbytes, PEAK_F32)
+
+
+def f32_run(kind: str, d):
+    """A call of the f32 route's wrapper of ``kind``."""
+    from vae_lagging_encoder_tpu_torch.ops import lstm_cuda
+
+    if kind == "bwd":
+        return lambda: lstm_cuda.lstm_bwd(*d["bwd_args"])
+    return lambda: lstm_cuda.lstm_seq(d["xw"], d["mask"], d["wh"], d["h0"], d["c0"],
+                                      kind == "resid")
+
+
+def f32_library(kind: str, d, H: int, port_fn):
+    """cuDNN's f32 LSTM (TF32 off) for the same work, timed in turns with
+    ``port_fn``: the inference forward, the training forward (grad on, its
+    reserve space), or its whole backward against the port's whole backward
+    of the same layer (``LSTMSeqFn`` and the input projection's). Returns
+    (library ms, port ms, their turns)."""
+    from vae_lagging_encoder_tpu_torch.ops import lstm_cuda
+
+    ni, T, rows = d["x"].shape[-1], T_CHECK, d["x"].shape[1]
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False,
+                                    allow_tf32=False):
+        lib = torch.nn.LSTM(ni, H, device=d["x"].device, dtype=torch.float32)
+        lib.flatten_parameters()
+        if kind == "infer":
+            t = time_turns({"library": lambda: lib(d["x"]), "port": port_fn}, reps=5)
+        elif kind == "resid":
+            xg = d["x"].clone().requires_grad_()
+            with torch.enable_grad():
+                t = time_turns({"library": lambda: lib(xg), "port": port_fn}, reps=5)
+        else:
+            xg = d["x"].clone().requires_grad_()
+            with torch.enable_grad():
+                lib_out = lib(xg)[0]
+                lib_leaves = (xg, *lib.parameters())
+                leaves = [a.clone().requires_grad_() for a in (d["x"], d["wx"], d["b"], d["wh"])]
+                xr, wxr, br, whr = leaves
+                port_out = lstm_cuda.LSTMSeqFn.apply(
+                    (xr.reshape(T * rows, ni) @ wxr + br).reshape(T, rows, 4 * H), d["mask"],
+                    whr, d["h0"], d["c0"])[0]
+                t = time_turns({
+                    "library": lambda: torch.autograd.grad(lib_out, lib_leaves, d["dhs"],
+                                                           retain_graph=True),
+                    "port": lambda: torch.autograd.grad(port_out, leaves, d["dhs"],
+                                                        retain_graph=True)}, reps=5)
+    return t["library"][0], t["port"][0], {"library": t["library"][1], "port": t["port"][1]}
+
+
+def check_f32(dev):
+    """The f32-wh route's kernels (``F32_KERNELS``) at ``F32_SHAPES``: each
+    against its plain version (``TOL``'s f32 limits), two calls equal bit
+    for bit, its time (``ms``: one call from an idle stream), its device
+    time (``kernel_ms``: a profiled window of 3 calls), the plain version's,
+    cuDNN's f32 LSTM in turns, the bound at the f32 rate, the plan the
+    wrapper launched and the empty-step floor (``lstm_ablation.py``'s copy
+    of the f32 kernels). Returns {kind: {"H{H}_rows{rows}": figures}}."""
+    from vae_lagging_encoder_tpu_torch.ops import build, lstm_cuda
+
+    out = {k: {} for k in F32_KERNELS}
+    for H, rows in F32_SHAPES:
+        d = f32_inputs(H, rows, 500 + H + rows, dev)
+        for kind, key in F32_KERNELS.items():
+            run = f32_run(kind, d)
+            plain = ((lambda: lstm_cuda.lstm_bwd_plain(*d["bwd_args"])) if kind == "bwd" else
+                     (lambda: lstm_cuda.lstm_seq_plain(d["xw"], d["mask"], d["wh"], d["h0"],
+                                                       d["c0"], kind == "resid")))
+            before = dict(build.LAUNCHES)
+            got, again = run(), run()
+            ref = plain()
+            torch.cuda.synchronize()
+            launched = build.LAUNCHES[key] - before[key]
+            err = max(float((a - r).abs().max()) for a, r in zip(got, ref))
+            tol = TOL[("lstm_bwd" if kind == "bwd" else "lstm", "f32")]
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            if not (err <= tol and same and launched == 2):
+                raise AssertionError(f"f32 {kind} H {H} rows {rows}: max abs err {err} (tolerance "
+                                     f"{tol}), equal bits {same}, launches {launched}")
+            r = {"err": err, "tolerance": tol, "ms": time_ms(run, reps=10),
+                 "plain_ms": time_ms(plain, reps=2, warmup=1)}
+            prof = profiled(lambda: [run() for _ in range(3)], cpu=False)
+            r["kernel_ms"] = prof.get("device_busy_ms", float("nan")) / 3
+            r["kernel_ops"] = [o["op"] for o in prof.get("top_device_ops", [])]
+            r["library_ms"], r["port_ms"], r["turns"] = f32_library(kind, d, H, run)
+            if kind == "bwd":
+                r["port_bwd_ms"] = r.pop("port_ms")
+                r["library"] = "cuDNN nn.LSTM f32 backward alone, TF32 off; port_bwd_ms: the " \
+                               "port's backward of the same layer"
+            else:
+                r["library"] = ("cuDNN nn.LSTM f32 " + ("training forward (grad on)" if
+                                                        kind == "resid" else "forward (no grad)")
+                                + ", TF32 off")
+            r["bound_ms"], r["bound_by"] = f32_bound(kind, H, rows, d["mask"])
+            plan = lstm_cuda.f32_device_plan("bwd" if kind == "bwd" else "infer", rows, H, dev)
+            r.update(plan=repr(plan), sm_bytes_per_step=plan.sm_bytes_per_step,
+                     l2_bytes_per_step=plan.l2_bytes_per_step, floor_ms=f32_floor_ms(run))
+            out[kind][f"H{H}_rows{rows}"] = r
+            log(json.dumps({"f32_check": kind, "H": H, "rows": rows, **r}))
+        del d
+    return out
+
+
+def check_ce_f32(dev):
+    """``ce_f32_kernel`` (the CE forward with f32 operands, a SIMT tile
+    kernel; no model path passes f32 operands: the decoder gives bf16)
+    at the training shape's N 3040 and the IW shape's N 60800 (nh 1024, V
+    20004): its time, device time, the plain version's, the library's (f32
+    matmul with TF32 off, logsumexp, gather) in turns, and the bound at the
+    f32 rate without tensor cores."""
+    from vae_lagging_encoder_tpu_torch.ops import ce_cuda
+
+    out = {}
+    for N, seed in ((CE_SPLIT_N, 15), (B * IW_CHUNK * (T_CHECK - 1), 4)):
+        h, w, tgt = ce_inputs(N, seed, dev)
+        port = lambda: ce_cuda.ce_forward(h, w, tgt, None)  # f32 operands
+
+        def library():
+            logits = torch.matmul(h, w)
+            return logits.gather(1, tgt[:, None])[:, 0] - torch.logsumexp(logits, -1)
+
+        with _no_tf32():
+            t = time_turns({"library": library, "port": port}, reps=3)
+        prof = profiled(lambda: [port() for _ in range(2)], cpu=False)
+        bms, by = bound(2.0 * N * NH * VOCAB, 4.0 * (N * NH + NH * VOCAB) + 4.0 * N + 8.0 * N,
+                        PEAK_F32)
+        out[f"n{N}"] = dict(ms=time_ms(port, reps=3), plain_ms=time_ms(
+            lambda: ce_cuda.ce_logp_plain(h, w, tgt, None), reps=2, warmup=1),
+            kernel_ms=prof.get("device_busy_ms", float("nan")) / 2,
+            kernel_ops=[o["op"] for o in prof.get("top_device_ops", [])],
+            library_ms=t["library"][0], library_ms_turns=t["library"][1],
+            ms_turns=t["port"][1], bound_ms=bms, bound_by=by,
+            library="f32 matmul (TF32 off), logsumexp, gather")
+        log(json.dumps({"ce_f32_check": N, **out[f"n{N}"]}))
+        del h, w, tgt
+    return out
+
+
+class _no_tf32:
+    """TF32 off for f32 matrix products inside the block (PyTorch's default
+    too, set here so the yardstick does not depend on it)."""
+
+    def __enter__(self):
+        self.saved = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        torch.backends.cuda.matmul.allow_tf32 = self.saved
+
+
+def f32_floor_ms(fn) -> float:
+    """``fn`` timed with the empty-step copy of the f32 kernels (built in
+    phase 1, ``FLOORS["lstm_f32"]``)."""
+    import lstm_ablation
+
+    return lstm_ablation.time_with("lstm_f32", FLOORS["lstm_f32"], fn)
+
+
 def check_ce_train(dev):
     """The grad-mode CE (logp, the logsumexp of the rounded logits and the
     spilled logits) against its plain version at the training shape
@@ -974,12 +1210,13 @@ def expected_launches(pool, cfg):
     """Launches of the eval suite per batch: the encoder runs in ELBO, MI,
     AU (two passes) and once per IW chunk; the decoder LSTM and the CE once
     in ELBO and once per iw_chunk samples of IW."""
+    from vae_lagging_encoder_tpu_torch.ops import build
+
     n = pool.num_batches
     iw_chunks = cfg.iw_nsamples // cfg.iw_batch
     dec_calls = 1 + cfg.iw_nsamples // IW_CHUNK
-    return {"lstm_fwd_infer": n * (1 + 1 + 2 + iw_chunks + dec_calls),
-            "ce_fwd": n * dec_calls, "lstm_fwd_residuals": 0, "lstm_bwd": 0, "ce_fwd_train": 0,
-            "ce_bwd": 0}
+    return {**{k: 0 for k in build.LAUNCHES},
+            "lstm_fwd_infer": n * (1 + 1 + 2 + iw_chunks + dec_calls), "ce_fwd": n * dec_calls}
 
 
 def cross_check(pool, ck, cfg, vocab_size, dev):
@@ -1241,16 +1478,19 @@ def grad_cross_check(train_pool, cfg, dev, nsamples: int = 1):
                 launches=launches_k)
 
 
-def step_launches(nsamples: int = 1):
+def step_launches(nsamples: int = 1, f32: bool = False):
     """Kernel launches of one forward+backward: the encoder's forward and
     backward sweep, and per decoder chunk of IW_CHUNK samples its forward,
     backward sweep, grad-mode CE and CE backward; above one chunk each
     chunk's forward (LSTM and CE) runs again in the backward
-    (``torch.utils.checkpoint``)."""
+    (``torch.utils.checkpoint``). With ``f32`` (wh in f32) the LSTM
+    launches are the f32 kernels' (``*_f32``) and the bf16 ones' none."""
     chunks = -(-nsamples // IW_CHUNK)
     fwd = 2 if chunks > 1 else 1
-    return {"lstm_fwd_residuals": 1 + fwd * chunks, "lstm_bwd": 1 + chunks,
-            "ce_fwd_train": fwd * chunks, "ce_bwd": chunks}
+    lstm = {"lstm_fwd_residuals": 1 + fwd * chunks, "lstm_bwd": 1 + chunks}
+    if f32:
+        lstm = {**{k + "_f32": v for k, v in lstm.items()}, **{k: 0 for k in lstm}}
+    return {**lstm, "ce_fwd_train": fwd * chunks, "ce_bwd": chunks}
 
 
 GRAD_TOL = 5e-2
@@ -2503,12 +2743,12 @@ def write_bucket_corpus(path: Path):
     path.write_text("".join(f"{i % 10}\t{s}\n" for i, s in enumerate(sents)))
 
 
-def graph_model(kind: str, tmp: Path, dev):
+def graph_model(kind: str, tmp: Path, dev, nh: int = NH):
     """(cfg, pool, make_vae, loss_fn_of) of phase 9, seeded weights: the
     Yahoo-config text model on phase 4's corpus (``text``: 8 batches, T 96)
     or on the bucketed corpus (``text_buckets``: 20 batches over the ten
-    buckets), both V 20004, or the OmniGlot model on phase 5's cut
-    (``image``: 8 batches of 50)."""
+    buckets), both V 20004 (its LSTMs ``nh`` wide: phase 10 narrows them),
+    or the OmniGlot model on phase 5's cut (``image``: 8 batches of 50)."""
     from vae_lagging_encoder_tpu_torch.config import get_config
     from vae_lagging_encoder_tpu_torch.data import BucketedPool, ImagePool, MonoTextData
     from vae_lagging_encoder_tpu_torch.data.omniglot import load_omniglot
@@ -2518,7 +2758,7 @@ def graph_model(kind: str, tmp: Path, dev):
     gen = lambda: torch.Generator().manual_seed(GRAPH_SEED)
     if kind.startswith("text"):
         buckets = kind == "text_buckets"
-        cfg = get_config("yahoo", ni=NI, enc_nh=NH, dec_nh=NH, nz=NZ, warm_up=1, kl_start=0.1,
+        cfg = get_config("yahoo", ni=NI, enc_nh=nh, dec_nh=nh, nz=NZ, warm_up=1, kl_start=0.1,
                          **({"burn_max_iters": BUCKET_BURN} if buckets else {}))
         path = tmp / "buckets.train.txt" if buckets else tmp / "smoke.train.txt"
         if buckets:
@@ -2755,6 +2995,112 @@ def run_graph_phase(tmp: Path, dev):
     return out, text_launches
 
 
+# ---------------------------------------------------------------- phase 10
+# The Yahoo config narrowed to --enc_nh 512 --dec_nh 512 (ni 512, nz 32,
+# B 32, V 20004, f32 compute, the kernel route): wh stays f32 (H <= 512,
+# models/lstm_core.py), so every LSTM launch is csrc/lstm_f32.cu's.
+H512 = 512
+H512_EVAL_SENTS = 48      # --eval at IW 500/100 over phase 3's first 48 test sentences
+H512_NSAMPLES_STEPS = 4   # --nsamples 40 steps: a decoder chunk is 640 LSTM rows
+
+
+def run_h512_phase(tmp: Path, files, test_path: Path, dev):
+    """Phase 10 through ``cli.text`` on phase 4's corpus at H 512: an
+    aggressive and a plain epoch (graphed, the card's default; the final
+    evaluation at ``TRAIN_IW``), ``H512_NSAMPLES_STEPS`` steps of
+    ``--nsamples 40``, and ``--eval`` of the plain run's checkpoint at IW
+    500/100 over ``H512_EVAL_SENTS`` sentences; then phase 9's steady
+    windows at this width, plain and aggressive, graphed and eager from the
+    same weights and noise: every parameter equal bit for bit, the launches
+    ``step_launches(f32=True)`` a step (no bf16 LSTM kernel), and each
+    profiled window's traced kernels equal to its launches. Returns the phase's figures and its launches
+    by path."""
+    from vae_lagging_encoder_tpu_torch.cli import text as cli_text
+
+    flags = [f"--{k}={v}" for k, v in dict(ni=NI, enc_nh=H512, dec_nh=H512, nz=NZ).items()]
+    out, launches = {}, {}
+
+    def need_f32(name, got, kinds=tuple(F32_KERNELS)):
+        """Each f32 kernel of ``kinds`` launched, and no bf16 LSTM kernel."""
+        if not (all(got[F32_KERNELS[k]] > 0 for k in kinds)
+                and not any(got[k[:-len("_f32")]] for k in F32_KERNELS.values())):
+            raise AssertionError(f"phase 10 {name}: LSTM launches {got}: expected the f32 "
+                                 f"kernels of {kinds} and no bf16 one")
+
+    for name, extra in (("aggressive", ["--epochs", "1", "--aggressive", "1"]),
+                        ("plain", ["--epochs", "1", "--aggressive", "0"])):
+        run = run_train_cli(["--dataset", "yahoo", *extra, "--warm_up", "1", "--kl_start", "0.1",
+                             "--iw_nsamples", str(TRAIN_IW), "--save_path",
+                             str(tmp / f"h512_{name}.ckpt"), *files, *flags],
+                            tmp / f"exp_h512_{name}")
+        vals = [run["results"][k] for k in ("elbo_loss", "rec", "kl", "mi", "iw_nll")] + \
+            [e[k] for e in run["epochs"] for k in ("train_loss", "val_loss")]
+        if not all(map(math.isfinite, vals)):
+            raise AssertionError(f"phase 10 {name}: non-finite values {vals}")
+        need_f32(name, run["launches"])
+        launches[f"h512_train_{name}"] = run["launches"]
+        out[f"train_{name}"] = dict(epochs=run["epochs"], results=run["results"],
+                                    wall=run["wall"], launches=run["launches"],
+                                    max_memory_allocated=run["max_memory_allocated"])
+        log(f"[h512] {name}: {json.dumps(out[f'train_{name}'])}")
+    run = run_train_cli(["--dataset", "yahoo", "--epochs", "1", "--aggressive", "0",
+                         "--warm_up", "1", "--kl_start", "0.1", "--nsamples", str(NSAMPLES),
+                         "--save_path", str(tmp / "h512_nsamples.ckpt"), *files, *flags],
+                        tmp / "exp_h512_nsamples", stop=H512_NSAMPLES_STEPS)
+    need_f32("nsamples40", run["launches"], ("resid", "bwd"))
+    launches["h512_nsamples40"] = run["launches"]
+    out["nsamples40"] = dict(steps=H512_NSAMPLES_STEPS, wall=run["wall"],
+                             launches=run["launches"],
+                             launches_per_step=step_launches(NSAMPLES, f32=True),
+                             max_memory_allocated=run["max_memory_allocated"])
+    log(f"[h512] --nsamples {NSAMPLES}: {json.dumps(out['nsamples40'])}")
+    cut = tmp / "h512.test.txt"
+    cut.write_text("".join(test_path.read_text().splitlines(keepends=True)[:H512_EVAL_SENTS]))
+    ev_dir = tmp / "exp_h512_eval"
+    ev_launches, records, wall = run_cli(
+        cli_text.main, ["--dataset", "yahoo", "--eval", "--load_path", str(tmp / "h512_plain.ckpt"),
+                        "--iw_nsamples", "500", "--iw_batch", "100", files[0], files[1],
+                        files[2], files[3], "--test_data", str(cut), *flags],
+        ev_dir, "cli.text")
+    res = next(r for r in records if r.get("split") == "test")
+    secs = next(r for r in records if r.get("split") == "test_seconds")
+    vals = [res[k] for k in ("elbo_loss", "rec", "kl", "mi", "iw_nll", "iw_ppl")]
+    if not all(map(math.isfinite, vals)) or not 0 <= res["au"] <= NZ:
+        raise AssertionError(f"phase 10 eval: results {res}")
+    need_f32("eval", ev_launches, ("infer",))
+    launches["h512_eval"] = ev_launches
+    out["eval"] = dict(results=res, seconds=secs, wall=wall, launches=ev_launches,
+                       iw_sentences_per_sec=H512_EVAL_SENTS / secs["iw"])
+    log(f"[h512] --eval IW 500/100 over {H512_EVAL_SENTS} sentences: {json.dumps(out['eval'])}")
+
+    model = graph_model("text", tmp, dev, nh=H512)
+    graph_launches = {}
+    for mode in ("plain", "aggressive"):
+        runs, params = {}, {}
+        for name, on in (("graphed", True), ("eager", False)):
+            runs[name], params[name] = graph_run(model, mode, on, dev)
+            log(f"[h512] graphs {mode} {name}: {json.dumps(runs[name])}")
+            r = runs[name]
+            if r["traced_kernel_calls"] != r["profiled_launches"]:
+                raise AssertionError(f"phase 10 {mode} {name}: traced {r['traced_kernel_calls']} "
+                                     f"against the window's launches {r['profiled_launches']}")
+            for k, v in r["launches"].items():
+                graph_launches[k] = graph_launches.get(k, 0) + v
+        d = param_diff(params["graphed"], params["eager"])
+        runs["graphed"]["param_diff_vs_eager"] = d
+        want = {k: v * runs["graphed"]["steps"] for k, v in step_launches(f32=True).items()}
+        got = {k: runs["graphed"]["launches"][k] for k in want}
+        if d["max_abs"] != 0.0 or got != want or \
+                runs["graphed"]["launches"] != runs["eager"]["launches"]:
+            raise AssertionError(f"phase 10 {mode}: graphed against eager {d}, launches {got} "
+                                 f"(expected {want}; eager {runs['eager']['launches']})")
+        out[f"graphs_{mode}"] = runs
+        del params
+    need_f32("graphs", graph_launches, ("resid", "bwd"))
+    launches["h512_graphs"] = graph_launches
+    return out, launches
+
+
 KERNELS = [
     ("lstm_fwd_residuals", "vae_lagging_encoder_tpu_torch/csrc/lstm_infer.cu",
      "vae_lagging_encoder_tpu/ops/lstm_pallas.py:67", ("lstm", True, B, NI)),
@@ -2833,6 +3179,16 @@ def main() -> int:
                 "narrow" in k["function"] and k["hmma"] and k["ublkcp"] for k in census):
             raise AssertionError(f"{name}: no narrow-row kernel with both HMMA (mma.sync) and "
                                  f"UBLKCP (cp.async.bulk): {rep}")
+    # the f32-wh kernels: FFMA products on operands brought by TMA, no
+    # tensor-core instruction (the f32 route is defined by f32 products)
+    rep = build.kernel_report("lstm_f32")
+    log(json.dumps({"build": "lstm_f32", "kernels": rep}))
+    for kern in ("lstm_fwd_f32_kernel", "lstm_bwd_f32_kernel"):
+        found = [k for k in rep if kern in k["function"] and "ffma" in k]
+        if not found or not all(k["ffma"] and k["utmaldg"] and not (k["hmma"] or k["hgmma"])
+                                for k in found):
+            raise AssertionError(f"lstm_f32: {kern} without FFMA and UTMALDG, or with "
+                                 f"tensor-core instructions: {rep}")
     phase_done("1")
 
     # phase 2 — kernels against their plain versions at the slice's shapes
@@ -2849,6 +3205,10 @@ def main() -> int:
             results[name] = r
             log(json.dumps({"kernel_check": r}))
     phase_done("2")
+    with torch.no_grad():
+        f32_checks = check_f32(dev)
+        ce_f32 = check_ce_f32(dev)
+    phase_done("2, the f32 route")
 
     # phase 3 — the slice end to end through the CLI
     with tempfile.TemporaryDirectory() as td:
@@ -2969,6 +3329,10 @@ def main() -> int:
         graph_runs, graph_launches = run_graph_phase(tmp, dev)
         phase_done("9")
 
+        # phase 10 — the Yahoo model narrowed to H 512: the f32-wh kernels end to end
+        h512, h512_launches = run_h512_phase(tmp, files4, tmp / "yahoo.test.txt", dev)
+        phase_done("10")
+
     train_launches = {k: sum(r["launches"][k] for r in train_runs.values()) for k in launches}
     kernels = []
     for name, source, replaces, spec in KERNELS:
@@ -3010,6 +3374,32 @@ def main() -> int:
                             "name", "source", "replaces", "err_bf16", "err_f32", "ms", "plain_ms",
                             "bound_ms", "bound_by", "library_ms", "library", "shape",
                             "tolerance")}})
+    # the f32-wh kernels: their main path is phase 10's, where every LSTM
+    # launch is theirs; their figures at the H 512 model's shapes (the
+    # training step's 32 rows, the IW decoder's 640) beside every shape of
+    # phase 2's f32 checks
+    for name, kind, replaces, shape in (
+            ("lstm_fwd_residuals_f32", "resid", "vae_lagging_encoder_tpu/ops/lstm_pallas.py:67",
+             "H512_rows32"),
+            ("lstm_fwd_infer_f32", "infer", "vae_lagging_encoder_tpu/ops/lstm_pallas.py:166",
+             "H512_rows640"),
+            ("lstm_bwd_f32", "bwd", "vae_lagging_encoder_tpu/ops/lstm_pallas.py:269",
+             "H512_rows32")):
+        by_path = {path: got.get(name, 0) for path, got in h512_launches.items()}
+        if not sum(by_path.values()):
+            raise AssertionError(f"{name} was launched no time on the H 512 path: {by_path}")
+        r, checks_k = f32_checks[kind][shape], f32_checks[kind]
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "vae_lagging_encoder_tpu_torch/csrc/lstm_f32.cu",
+                        "replaces": replaces, "launches": sum(by_path.values()),
+                        "launches_by_path": by_path, "on_main_path": True,
+                        "max_abs_err": max(c["err"] for c in checks_k.values()),
+                        "tolerance": r["tolerance"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"], "library": r["library"],
+                        "kernel_ms": r["kernel_ms"], "floor_ms": r.get("floor_ms"),
+                        "shape": f"T {T_CHECK}, {shape.replace('_', ', ')}, wh f32",
+                        "f32_checks": checks_k})
     print(json.dumps({"trace_iw": trace_iw_res}), flush=True)
     print(json.dumps({"trace": trace}), flush=True)
     print(json.dumps({"image": img_line}), flush=True)
@@ -3032,6 +3422,11 @@ def main() -> int:
         "note": f"{PAR_RANKS} ranks sharing one card over gloo (collectives staged through "
                 "the host): not multi-card scaling"}}), flush=True)
     print(graphs_line(graph_runs, smi), flush=True)
+    print(json.dumps({"h512": {**h512, "device": torch.cuda.get_device_name(0),
+                               "nvidia_smi": smi}}), flush=True)
+    print(json.dumps({"ce_f32": {**ce_f32, "kernel": "ce_f32_kernel (f32 operands; on no model "
+                                 "path)", "device": torch.cuda.get_device_name(0),
+                                 "nvidia_smi": smi}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,7 +3,8 @@
 profiles, and the row sweep that sets ``ops/lstm_cuda.py::WIDE_MIN_ROWS``,
 timed on the card.
 
-    python3 lstm_ablation.py [ablations] [sweep] [pairs] [host] [phases] [--groups G1,G2]
+    python3 lstm_ablation.py [ablations] [sweep] [pairs] [host] [phases] [f32]
+                             [--groups G1,G2] [--old DIR]
 
 Kernel groups (``ABLATIONS``): the wide-row kernels (``*_wide``: ``namespace
 wide`` of ``csrc/lstm_infer.cu`` and ``csrc/lstm_bwd.cu``, from
@@ -12,7 +13,9 @@ decoder's forward, ``--nsamples 40`` training's forward and backward), the
 narrow-row kernels (``*_narrow``: ``namespace narrow``, below it where a
 narrow plan fits) and the mma.sync kernels (``lstm_infer``, ``lstm_bwd``:
 the rows between), the last two at 32 rows (the encoder, the training
-forward and backward).
+forward and backward); and the f32-wh kernels (``lstm_f32``: both
+directions of ``csrc/lstm_f32.cu``, the route of every model whose LSTMs
+are at most 512 wide in f32), at H 512 and 32 and 640 rows.
 
 ``ablations`` builds copies of each group's source with one part of the
 per-step work removed (text substitutions: one that no longer applies
@@ -43,6 +46,17 @@ outputs' allocation, the launch with its co-residency check), and of the
 check's own CUDA runtime calls alone (``narrow_blocks``' query: the
 kernel's shared-memory attribute and ``cudaOccupancyMaxActiveClusters``,
 which ``launch_cluster_cooperative`` makes before every launch).
+
+``f32`` times the f32 kernels (the residual forward, the forward without
+residuals, the backward) against an earlier tree's in turns at H 512 (32,
+20 and 640 rows), H 128 and H 50 (32 rows): ``--old DIR`` names a
+directory holding that tree's ``lstm_fwd.cu`` and ``lstm_bwd.cu`` with
+their headers (e.g. ``git archive <rev>
+vae_lagging_encoder_tpu_torch/csrc | tar -x -C build/old``, never
+committed), whose C entry points ``lstm_fwd`` and ``lstm_bwd_f32`` take no
+plan; each pair's times (one call from an idle stream, and five back to
+back: the device's time), the medians, and the new kernels' empty-step
+floor (``ABLATIONS["lstm_f32"]["empty_step"]``).
 
 ``phases`` builds a copy of each source with clock64() timers around the
 waits, the products, the exchange and the barrier (``PHASES``), kept in
@@ -96,7 +110,22 @@ _NARROW_FWD_OUT = ("      const size_t so = (size_t)prow[i] * H + punit[i];\n   
                    "      const size_t so = (size_t)prow[i] * H + punit[i];\n      if (t < 0) hs[(size_t)t * rows * H + so] = h[i];\n      if (t >= 0) continue;")
 _NARROW_BWD_OUT = ("      store_da(t - 1);  // after the barrier", "      if (t < 0) store_da(t - 1);  // after the barrier")
 _NARROW_BWD_CELL = ("      if (t > 0)\n        cell(t - 1, i, dh_in);", "      if (t < 0)\n        cell(t - 1, i, dh_in);")
+# the f32-wh kernels (both directions in csrc/lstm_f32.cu): the FMA loop
+# over a chunk's k (its waits and releases stay), the cell; the empty step
+# keeps the barriers, the copies, the K-slice sums and the backward's
+# exchange
+_F32_LOOP = ("#pragma unroll\n      for (int j = 0; j < 4; ++j) {\n        float4 hv[4];",
+             "#pragma unroll\n      for (int j = 0; j < 0; ++j) {\n        float4 hv[4];")
+_F32_CELLS = [("          if (row >= rows || unit >= H) continue;",
+               "          if (row >= rows || unit >= H || t >= 0) continue;"),
+              ("          if (row >= B || unit >= H) continue;",
+               "          if (row >= B || unit >= H || t >= 0) continue;")]
 ABLATIONS = {
+    "lstm_f32": {
+        "no_products": [_F32_LOOP],
+        "no_cell": _F32_CELLS,
+        "empty_step": [_F32_LOOP, *_F32_CELLS],
+    },
     "lstm_infer_wide": {
         "no_mma": [("wg::wgmma_slab<kN>(", "if (0) wg::wgmma_slab<kN>(")],
         "no_tma": _NO_TMA,
@@ -171,7 +200,7 @@ OUT_DIR = build.BUILD_DIR.parent / "lstm_ablation"
 # consumer warpgroups' and the epilogue warpgroup's thread 0 write theirs
 # to g_prof at the end. Each entry wraps one statement (or opens/closes a
 # span) by text substitution, as the ablations do.
-_PROF_HEAD = ("__device__ long long g_prof[132 * 4 * 8];\n"
+_PROF_HEAD = ("__device__ long long g_prof[{blocks} * 4 * 8];\n"
               "__device__ long long _p[8];  // the timers of a kernel with none of its own, unread\n"
               "#define PROF(k, v) (_p[k] += (v))\n")
 _PROF_READ = ('extern "C" int prof_read(long long* h) {\n'
@@ -186,6 +215,58 @@ _WRITE_MMA = ("  if ((threadIdx.x & 31) == 0 && (threadIdx.x == 0 || threadIdx.x
               "      g_prof[(blockIdx.x * 4 + (threadIdx.x ? 1 : 0)) * 8 + k] = _p[k];\n")
 
 
+# the f32 kernels: warp 0's lane 0 and the producer's lane 0
+_WRITE_F32 = ("  if (lane == 0 && (warp == 0 || producer))\n    for (int k = 0; k < 8; ++k)\n"
+              "      g_prof[(blockIdx.x * 4 + (producer ? 1 : 0)) * 8 + k] = _p[k];\n")
+
+
+def _f32_spans(direction: str) -> list:
+    """The f32 kernels' timers: a consumer's products (its chunks' waits
+    and FMAs), the wait for every warp's partial tile (and the backward's
+    slice sums and stores to the other block), the backward's cluster
+    barrier, the cell, the grid barrier, the step; the producer's chunk
+    loop as its products."""
+    fwd = direction == "fwd"
+    prods, n0 = ("products<4 * UPL>(acc,", "4 * UPL * cg4") if fwd else ("products<NU>(acc,",
+                                                                        "NU * cg4")
+    store = (f"        store_partial<{'4 * UPL' if fwd else 'NU'}>(red, acc, ks, RT, LD, "
+             f"mw * kTileRows, rgl, {n0});\n        wg::bar_sync(1, nthr);\n")
+    end = ("        wg::bar_sync(1, nthr);  // the partial tiles are rewritten by the next pass\n"
+           if fwd else "        wg::bar_sync(1, nthr);  // red is rewritten by the next pass\n")
+    produce = "produce<false>(" if fwd else "produce<true>("
+    produced = ("                     (t + 1) & 1, crank, lane);\n" if fwd else
+                "                    (t & 1) * 2 + (int)crank, crank, lane);\n")
+    top = ("    const uint32_t g0 = (uint32_t)t * P * NCH;\n" if fwd else
+           "    const uint32_t g0 = pbase * NCH;                    // their chunks\n")
+    tail = ("    if (t + 1 < T_) grid.sync();\n  }\n  cluster.sync();  // no block leaves while "
+            "the other may still write to it or arrive on it\n" if fwd else
+            "    if (t > 0) grid.sync();\n  }\n  cluster.sync();  // no block leaves while the "
+            "other may still write to it\n")
+    sync = "if (t + 1 < T_) grid.sync();" if fwd else "if (t > 0) grid.sync();"
+    decl = ("  const size_t H4 = 4 * (size_t)H, slot_elems = (size_t)rows * Hp;\n" if fwd else
+            "  const size_t H4 = 4 * (size_t)H;\n\n  // wh's rows of the cluster's units")
+    subs = [(decl, decl.replace("\n", "\n  long long _p[8] = {};\n", 1)),
+            (top, top + "    long long _s0 = clock64();\n"),
+            ("      " + produce, "      long long _m0 = clock64();\n      " + produce),
+            (produced, produced + "      PROF(0, clock64() - _m0);\n"),
+            ("        " + prods, "        long long _m0 = clock64();\n        " + prods),
+            (store, store.replace("        wg::bar_sync(1, nthr);\n",
+                                  "        PROF(0, clock64() - _m0);\n        long long _r0 = "
+                                  "clock64();\n        wg::bar_sync(1, nthr);\n")
+             + ("        PROF(1, clock64() - _r0);\n        long long _e0 = clock64();\n"
+                if fwd else "")),
+            (end, "        PROF(3, clock64() - _e0);\n" + end),
+            (tail, f"    {{ long long _a = clock64(); {sync} PROF(4, clock64() - _a); }}\n"
+                   "    PROF(5, clock64() - _s0);\n  }\n" + _WRITE_F32
+                   + tail.split("  }\n", 1)[1])]
+    if not fwd:
+        subs.append(("        cluster_sync_all();  // every sum is in its owner's receive buffer\n",
+                     "        PROF(1, clock64() - _r0);\n        { long long _a = clock64(); "
+                     "cluster_sync_all(); PROF(2, clock64() - _a); }\n"
+                     "        long long _e0 = clock64();\n"))
+    return subs
+
+
 # the narrow-row kernels: warp 0's lane 0 and the last warp's lane 0
 _WRITE_NARROW = ("  if ((tid & 31) == 0 && (tid == 0 || tid == nthr - 32))\n"
                  "    for (int k = 0; k < 8; ++k)\n"
@@ -197,6 +278,8 @@ def _timed(stmt: str, k: int) -> tuple:
 
 
 PHASES = {
+    "lstm_f32": (["products", "k_sum", "exchange", "cell", "grid_sync", "step"],
+                 _f32_spans("fwd") + _f32_spans("bwd")),
     "lstm_infer_wide": (
         ["full_wait", "wgmma_wait", "release", "k_loop", "xw_wait", "grid_sync", "step"],
         [("  const bool producer = tid >= kConsumers;\n",
@@ -340,15 +423,16 @@ def source_of(group: str) -> str:
     return group.replace("_wide", "").replace("_narrow", "")
 
 
-def build_profiled(groups) -> Dict[str, ctypes.CDLL]:
-    """A copy of each group's source with its ``PHASES`` timers, one
+def build_profiled(groups, nsm: int) -> Dict[str, ctypes.CDLL]:
+    """A copy of each group's source with its ``PHASES`` timers (room for
+    ``nsm`` blocks' timers; ``prof_clocks`` refuses a larger grid), one
     ``nvcc`` each, all started together."""
     procs = {}
     for group in groups:
         _, subs = PHASES[group]
         name = source_of(group)
         src = (build.CSRC_DIR / f"{name}.cu").read_text()
-        src = src.replace('#include "lstm_wgmma.cuh"\n', '#include "lstm_wgmma.cuh"\n' + _PROF_HEAD)
+        src = src.replace('#include "lstm_wgmma.cuh"\n', '#include "lstm_wgmma.cuh"\n' + _PROF_HEAD.format(blocks=nsm))
         for old, new in subs:
             if src.count(old) != 1:
                 raise RuntimeError(f"{group}: a phase timer no longer applies: {old!r}")
@@ -453,10 +537,11 @@ def run(name: str, libs: Dict[str, ctypes.CDLL], fn: Callable[[], object],
     return out
 
 
-def inputs(rows: int, seed: int, dev):
+def inputs(rows: int, seed: int, dev, H: int = H, wh_dtype=torch.bfloat16):
+    """``lstm_seq``'s inputs at ``H``: (xw, mask, wh, h0, c0)."""
     g = torch.Generator().manual_seed(seed)
     xw = (0.5 * torch.randn(T, rows, 4 * H, generator=g)).to(dev)
-    wh = torch.empty(H, 4 * H).uniform_(-H ** -0.5, H ** -0.5, generator=g).bfloat16().to(dev)
+    wh = torch.empty(H, 4 * H).uniform_(-H ** -0.5, H ** -0.5, generator=g).to(wh_dtype).to(dev)
     h0, c0 = (0.1 * torch.randn(2, rows, H, generator=g)).to(dev)
     lens = np.minimum(np.clip(np.random.RandomState(seed).normal(80, 25, rows), 20, 160)
                       .astype(int) + 2, T)
@@ -464,9 +549,9 @@ def inputs(rows: int, seed: int, dev):
     return xw, mask, wh, h0.contiguous(), c0.contiguous()
 
 
-def bwd_args(rows: int, seed: int, dev):
+def bwd_args(rows: int, seed: int, dev, H: int = H, wh_dtype=torch.bfloat16):
     """``lstm_bwd``'s inputs: the residuals of one masked forward, seeded grads."""
-    xw, mask, wh, h0, c0 = inputs(rows, seed, dev)
+    xw, mask, wh, h0, c0 = inputs(rows, seed, dev, H, wh_dtype)
     _, cs, gates, _, _ = lstm_cuda.lstm_seq_plain(xw, mask, wh, h0, c0, True)
     g = torch.Generator().manual_seed(seed + 1)
     dhs = (0.1 * torch.randn(T, rows, H, generator=g)).to(dev)
@@ -573,9 +658,12 @@ def phases(nsm: int, dev, groups):
     warpgroup), the others at 32 (the roles ``PHASE_ROLES`` names, else
     warp 0 and the last warp)."""
     groups = [g for g in groups if g in PHASES]
-    libs = build_profiled(groups)
+    libs = build_profiled(groups, nsm)
     for group in groups:
         names, _ = PHASES[group]
+        if group == "lstm_f32":
+            f32_phases(nsm, dev, libs[group], names)
+            continue
         name, wide = source_of(group), group.endswith("_wide")
         rows = 640 if wide else 32
         plan = plan_of(group, rows, nsm)
@@ -586,9 +674,7 @@ def phases(nsm: int, dev, groups):
             args = bwd_args(rows, 8, dev)
             fn = lambda plan=plan: lstm_cuda.lstm_bwd_bf16(*args, plan)
         ms = time_with(name, libs[group], fn)  # the last launch's timers stay
-        h = (ctypes.c_longlong * (132 * 4 * 8))()
-        libs[group].prof_read(h)
-        a = np.array(h[:], dtype=np.float64).reshape(132, 4, 8)[:plan.blocks] / T
+        a = prof_clocks(libs[group], nsm, plan.blocks)
         roles = ({"consumer0": 0, "consumer1": 1} | ({"epilogue": 2} if name == "lstm_bwd" else {})
                  if wide else PHASE_ROLES.get(group, {"warp0": 0, "last_warp": 1}))
         print(json.dumps({"phases": "lstm_fwd_infer" if name == "lstm_infer" else name,
@@ -596,6 +682,36 @@ def phases(nsm: int, dev, groups):
                           "sm_clocks_per_step": {
                               r: dict(zip(names, a[:, i, :len(names)].mean(0).round(1).tolist()))
                               for r, i in roles.items()}}), flush=True)
+
+
+def f32_phases(nsm: int, dev, lib, names) -> None:
+    """The f32 kernels' timed copy: SM clocks a step by phase, the mean over
+    blocks, for warp 0 (a consumer: its K slice 0's products) and the
+    producer warp, the residual forward and the backward at H 512, 32 and
+    640 rows."""
+    for rows in (32, 640):
+        fwd_in, bwd_in = f32_inputs(rows, 7, dev), f32_bwd_args(rows, 8, dev)
+        for kind, fn in (("lstm_fwd_residuals", lambda: lstm_cuda.lstm_seq(*fwd_in, True)),
+                         ("lstm_bwd", lambda: lstm_cuda.lstm_bwd(*bwd_in))):
+            plan = lstm_cuda.f32_device_plan("bwd" if kind == "lstm_bwd" else "infer", rows,
+                                             F32_H, dev)
+            ms = time_with("lstm_f32", lib, fn)  # the last launch's timers stay
+            a = prof_clocks(lib, nsm, plan.blocks)
+            print(json.dumps({"phases": kind, "kernel": "lstm_f32", "rows": rows, "H": F32_H,
+                              "plan": repr(plan), "timed_ms": ms, "sm_clocks_per_step": {
+                                  r: dict(zip(names, a[:, i, :len(names)].mean(0).round(1)
+                                              .tolist()))
+                                  for r, i in (("warp0", 0), ("producer", 1))}}), flush=True)
+
+
+def prof_clocks(lib, nsm: int, blocks: int) -> np.ndarray:
+    """The timed copy's clocks of its last launch, [blocks, 4 roles, 8
+    phases], a step each."""
+    if blocks > nsm:
+        raise ValueError(f"a grid of {blocks} blocks: the timers hold {nsm}")
+    h = (ctypes.c_longlong * (nsm * 4 * 8))()
+    lib.prof_read(h)
+    return np.array(h[:], dtype=np.float64).reshape(nsm, 4, 8)[:blocks] / T
 
 
 def plan_of(group: str, rows: int, nsm: int, save_residuals: bool = False):
@@ -614,12 +730,130 @@ def plan_of(group: str, rows: int, nsm: int, save_residuals: bool = False):
 PHASE_ROLES = {"lstm_infer_narrow": {"warp0": 0, "copier": 1},
                "lstm_bwd_narrow": {"warp0": 0, "copier": 1}}
 
-PARTS = ("ablations", "sweep", "pairs", "host", "phases")
+PARTS = ("ablations", "sweep", "pairs", "host", "phases", "f32")
+
+# the f32 kernels' width (the narrowed Yahoo model) and the shapes the f32
+# part times against the earlier tree's kernels: (H, rows)
+F32_H = 512
+F32_TURN_SHAPES = ((512, 32), (512, 20), (512, 640), (128, 32), (50, 32))
+F32_TURNS = 6
+_OLD_FWD_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 7
+                     + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+_OLD_BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+def f32_inputs(rows: int, seed: int, dev, H: int = F32_H):
+    return inputs(rows, seed, dev, H, torch.float32)
+
+
+def f32_bwd_args(rows: int, seed: int, dev, H: int = F32_H):
+    return bwd_args(rows, seed, dev, H, torch.float32)
+
+
+def build_old(old_dir: str) -> Dict[str, ctypes.CDLL]:
+    """The earlier tree's ``lstm_fwd.cu`` and ``lstm_bwd.cu`` (with the
+    headers beside them), one ``nvcc`` each, both started together."""
+    from pathlib import Path
+
+    src, d = Path(old_dir), OUT_DIR / "old"
+    d.mkdir(parents=True, exist_ok=True)
+    for f in list(src.glob("*.cuh")) + [src / "lstm_fwd.cu", src / "lstm_bwd.cu"]:
+        shutil.copy(f, d / f.name)
+    procs = {n: subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-o", str(d / f"{n}.so"),
+                                  str(d / f"{n}.cu")], stdout=open(d / f"{n}.log", "w"),
+                                 stderr=subprocess.STDOUT) for n in ("lstm_fwd", "lstm_bwd")}
+    libs = {}
+    for n, p in procs.items():
+        if p.wait() != 0:
+            raise RuntimeError(f"old {n} does not build:\n" + (d / f"{n}.log").read_text()[-3000:])
+        libs[n] = ctypes.CDLL(str(d / f"{n}.so"))
+    libs["lstm_fwd"].lstm_fwd.argtypes = _OLD_FWD_ARGTYPES
+    libs["lstm_bwd"].lstm_bwd_f32.argtypes = _OLD_BWD_ARGTYPES
+    return libs
+
+
+def old_call(libs, kind: str, fwd_in, bwd_in):
+    """A call of the earlier tree's f32 kernel of ``kind`` ("infer",
+    "resid" or "bwd") on the same inputs, into fresh outputs."""
+    stream = torch.cuda.current_stream().cuda_stream
+    if kind == "bwd":
+        gates, mask, wh, c_prev, dhs, dhT, dcT = bwd_in
+        Tn, B, H4 = gates.shape
+        da, da_r = torch.empty_like(gates), torch.empty((2, B, H4), device=gates.device)
+        dh0, dc0 = torch.empty_like(dhT), torch.empty_like(dcT)
+        err = libs["lstm_bwd"].lstm_bwd_f32(
+            *(a.data_ptr() for a in (gates, mask, wh, c_prev, dhs, dhT, dcT, da, da_r, dh0, dc0)),
+            Tn, B, H4 // 4, stream)
+        out = (da, dh0, dc0)
+    else:
+        xw, mask, wh, h0, c0 = fwd_in
+        Tn, B, H4 = xw.shape
+        res = kind == "resid"
+        hs, hT, cT = (torch.empty((Tn, B, H4 // 4), device=xw.device), torch.empty_like(h0),
+                      torch.empty_like(c0))
+        cs = torch.empty_like(hs) if res else None
+        gates = torch.empty_like(xw) if res else None
+        err = libs["lstm_fwd"].lstm_fwd(
+            xw.data_ptr(), mask.data_ptr(), wh.data_ptr(), 0, h0.data_ptr(), c0.data_ptr(),
+            hs.data_ptr(), cs.data_ptr() if res else None, gates.data_ptr() if res else None,
+            hT.data_ptr(), cT.data_ptr(), Tn, B, H4 // 4, int(res), stream)
+        out = (hs, cs, gates, hT, cT) if res else (hs, hT, cT)
+    if err != 0:
+        raise RuntimeError(f"old {kind}: CUDA error {err}")
+    return out
+
+
+def f32(nsm: int, dev, old_dir: str) -> None:
+    """The f32 kernels against the earlier tree's (``--old``) in
+    ``F32_TURNS`` pairs, in turns (new first in odd pairs), at
+    ``F32_TURN_SHAPES``: the two agree (f32 sums in another order), each
+    pair's times one call from an idle stream and five back to back, the
+    medians, and the new kernels' empty-step floor."""
+    old = build_old(old_dir)
+    floor = build_variants(["lstm_f32"], kinds=("empty_step",))["lstm_f32"]["empty_step"]
+    for H, rows in F32_TURN_SHAPES:
+        fwd_in, bwd_in = f32_inputs(rows, rows + H, dev, H), f32_bwd_args(rows, rows + H, dev, H)
+        for kind in ("infer", "resid", "bwd"):
+            new = ((lambda: lstm_cuda.lstm_bwd(*bwd_in)) if kind == "bwd" else
+                   (lambda: lstm_cuda.lstm_seq(*fwd_in, kind == "resid")))
+            prev = lambda: old_call(old, kind, fwd_in, bwd_in)
+            err = max(float((a - b).abs().max()) for a, b in zip(new(), prev()))
+            got = {"single": [], "back_to_back": []}
+            for i in range(F32_TURNS):
+                order = ("new", "old") if i % 2 == 0 else ("old", "new")
+                fns = {"new": new, "old": prev}
+                for mode, batch in (("single", 1), ("back_to_back", 5)):
+                    t = {k: time_ms(fns[k], reps=5, batch=batch) for k in order}
+                    got[mode].append((t["new"], t["old"]))
+            line = {"f32": {"infer": "lstm_fwd_infer", "resid": "lstm_fwd_residuals",
+                            "bwd": "lstm_bwd"}[kind], "H": H, "rows": rows, "T": T,
+                    "plan": repr(lstm_cuda.f32_device_plan("bwd" if kind == "bwd" else "infer",
+                                                           rows, H, dev)),
+                    "max_abs_diff_vs_old": err, "floor_ms": time_with("lstm_f32", floor, new)}
+            for mode, g in got.items():
+                n, o = np.array(g).T
+                line[mode] = {"pairs_ms": g, "new_median_ms": float(np.median(n)),
+                              "old_median_ms": float(np.median(o)),
+                              "ratio_median": float(np.median(n / o))}
+            print(json.dumps(line), flush=True)
 
 
 def ablations(nsm: int, dev, groups) -> None:
     libs = build_variants(groups)
     for group in groups:
+        if group == "lstm_f32":
+            for rows in (32, 640):
+                fwd_in, bwd_in = f32_inputs(rows, rows, dev), f32_bwd_args(rows, rows + 1, dev)
+                for kind, fn in (
+                        ("lstm_fwd_infer", lambda: lstm_cuda.lstm_seq(*fwd_in, False)),
+                        ("lstm_fwd_residuals", lambda: lstm_cuda.lstm_seq(*fwd_in, True)),
+                        ("lstm_bwd", lambda: lstm_cuda.lstm_bwd(*bwd_in))):
+                    plan = lstm_cuda.f32_device_plan("bwd" if kind == "lstm_bwd" else "infer",
+                                                     rows, F32_H, dev)
+                    print(json.dumps({"kernel": kind, "group": group, "rows": rows, "H": F32_H,
+                                      "plan": repr(plan), "ms": run("lstm_f32", libs[group], fn,
+                                                                    {})}), flush=True)
+            continue
         rows = 640 if group.endswith("_wide") else 32
         if source_of(group) == "lstm_infer":
             xw, mask, wh, h0, c0 = inputs(rows, rows, dev)
@@ -646,13 +880,18 @@ def ablations(nsm: int, dev, groups) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("parts", nargs="*", help=f"any of {PARTS} (default: all)")
+    ap.add_argument("parts", nargs="*", help=f"any of {PARTS} (default: all but f32)")
     ap.add_argument("--groups", default=",".join(ABLATIONS),
                     help="kernel groups of the ablations and phases (comma-separated)")
+    ap.add_argument("--old", default=None,
+                    help="f32: a directory with an earlier tree's lstm_fwd.cu, lstm_bwd.cu and "
+                         "headers")
     args = ap.parse_args()
-    parts, groups = args.parts or list(PARTS), args.groups.split(",")
+    parts, groups = args.parts or [p for p in PARTS if p != "f32"], args.groups.split(",")
     if any(p not in PARTS for p in parts) or any(g not in ABLATIONS for g in groups):
         ap.error(f"parts are {PARTS}, groups {tuple(ABLATIONS)}")
+    if "f32" in parts and not args.old:
+        ap.error("f32 needs --old DIR")
     if not torch.cuda.is_available():
         print("lstm_ablation: needs a CUDA GPU", file=sys.stderr)
         return 2
@@ -671,6 +910,8 @@ def main() -> int:
         host(dev)
     if "phases" in parts:
         phases(nsm, dev, groups)
+    if "f32" in parts:
+        f32(nsm, dev, args.old)
     return 0
 
 

@@ -19,6 +19,8 @@ bf16 ``wh`` lets a last-bit difference in h (forward) or da (backward) flip
 a bf16 rounding of the next step's product input (see chip_smoke.py for the
 Yahoo-width checks).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -35,6 +37,12 @@ def _ce_inputs(n, nh, vocab, seed):
     return h, w, tgt
 
 
+def _launch_key(name, wh_dtype):
+    """The ``LAUNCHES`` entry of an LSTM wrapper's launch: with f32 wh the
+    f32-wh kernel's (``*_f32``)."""
+    return name + ("_f32" if wh_dtype == torch.float32 else "")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("save_residuals", [False, True])
 @pytest.mark.parametrize("wh_dtype", [torch.float32, torch.bfloat16])
@@ -47,11 +55,12 @@ def test_lstm_kernel_matches_plain_on_cuda(save_residuals, wh_dtype):
     mask = (torch.rand(T, B, generator=g) > 0.3).float().cuda()
     wh = (0.1 * torch.randn(H, 4 * H, generator=g)).to(wh_dtype).cuda()
     h0, c0 = (0.1 * torch.randn(B, H, generator=g)).cuda(), torch.zeros(B, H).cuda()
-    n = build.LAUNCHES["lstm_fwd_residuals" if save_residuals else "lstm_fwd_infer"]
+    key = _launch_key("lstm_fwd_residuals" if save_residuals else "lstm_fwd_infer", wh_dtype)
+    n = build.LAUNCHES[key]
     got = lstm_cuda.lstm_seq(xw, mask, wh, h0, c0, save_residuals)
     ref = lstm_cuda.lstm_seq_plain(xw, mask, wh, h0, c0, save_residuals)
     torch.cuda.synchronize()
-    assert build.LAUNCHES["lstm_fwd_residuals" if save_residuals else "lstm_fwd_infer"] == n + 1
+    assert build.LAUNCHES[key] == n + 1
     tol = 1e-5 if wh_dtype == torch.float32 else 2e-3
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b, atol=tol, rtol=0)
@@ -143,26 +152,23 @@ def test_lstm_residual_forward_matches_plain_on_cuda(B):
 
 @pytest.mark.cuda
 def test_lstm_fwd_refuses_bf16_wh_on_cuda():
-    """csrc/lstm_fwd.cu keeps only f32 wh: the C entry point refuses bf16 wh
-    (the tensor-core lstm_infer.cu takes it), and the refusal raises."""
+    """csrc/lstm_f32.cu takes only f32 wh: its wrapper refuses bf16 wh (the
+    tensor-core lstm_infer.cu takes it), and its C entry point refuses a
+    plan it was not built for (16 units a block), which raises."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     T, B, H = 3, 4, 16
+    nsm = torch.cuda.get_device_properties(0).multi_processor_count
     xw, mask = torch.zeros(T, B, 4 * H, device="cuda"), torch.ones(T, B, device="cuda")
     wh = torch.zeros(H, 4 * H, device="cuda", dtype=torch.bfloat16)
     h0, c0 = torch.zeros(B, H, device="cuda"), torch.zeros(B, H, device="cuda")
-    hs, cs = torch.empty(T, B, H, device="cuda"), torch.empty(T, B, H, device="cuda")
-    gates = torch.empty(T, B, 4 * H, device="cuda")
-    hT, cT = torch.empty(B, H, device="cuda"), torch.empty(B, H, device="cuda")
-    lib = lstm_cuda._lib("lstm_fwd", lstm_cuda._ARGTYPES)
-    for save in (0, 1):
-        err = lib.lstm_fwd(xw.data_ptr(), mask.data_ptr(), wh.data_ptr(), 1, h0.data_ptr(),
-                           c0.data_ptr(), hs.data_ptr(), cs.data_ptr(), gates.data_ptr(),
-                           hT.data_ptr(), cT.data_ptr(), T, B, H, save,
-                           torch.cuda.current_stream().cuda_stream)
-        assert err != 0
-        with pytest.raises(RuntimeError, match="lstm_fwd"):
-            build.check(lib, err, "lstm_fwd")
+    plan = lstm_cuda.f32_plan("infer", B, H, nsm)
+    for save in (False, True):
+        with pytest.raises(ValueError, match="lstm_fwd_f32"):
+            lstm_cuda.lstm_fwd_f32(xw, mask, wh, h0, c0, plan, save)
+        with pytest.raises(RuntimeError, match="lstm_fwd_f32"):
+            lstm_cuda.lstm_fwd_f32(xw, mask, wh.float(), h0, c0,
+                                   dataclasses.replace(plan, units=16), save)
 
 
 def _lstm_bwd_inputs(T, B, H, wh_dtype, seed):
@@ -184,11 +190,12 @@ def test_lstm_bwd_kernel_matches_plain_on_cuda(wh_dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     args = _lstm_bwd_inputs(7, 37, 200, wh_dtype, seed=3)
-    n = build.LAUNCHES["lstm_bwd"]
+    key = _launch_key("lstm_bwd", wh_dtype)
+    n = build.LAUNCHES[key]
     got = lstm_cuda.lstm_bwd(*args)
     ref = lstm_cuda.lstm_bwd_plain(*args)
     torch.cuda.synchronize()
-    assert build.LAUNCHES["lstm_bwd"] == n + 1
+    assert build.LAUNCHES[key] == n + 1
     # f32: summation order only (~1e-7 here); bf16: a flipped rounding of one
     # da value (~1e-3 relative) times a wh entry of ~0.1
     tol = 1e-5 if wh_dtype == torch.float32 else 1e-3
@@ -205,11 +212,12 @@ def test_lstm_bwd_kernel_matches_plain_at_batch_sizes_on_cuda(B, wh_dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     args = _lstm_bwd_inputs(7, B, 256, wh_dtype, seed=4)
-    n = build.LAUNCHES["lstm_bwd"]
+    key = _launch_key("lstm_bwd", wh_dtype)
+    n = build.LAUNCHES[key]
     got = lstm_cuda.lstm_bwd(*args)
     ref = lstm_cuda.lstm_bwd_plain(*args)
     torch.cuda.synchronize()
-    assert build.LAUNCHES["lstm_bwd"] == n + 1
+    assert build.LAUNCHES[key] == n + 1
     # the tolerances of test_lstm_bwd_kernel_matches_plain_on_cuda
     tol = 1e-5 if wh_dtype == torch.float32 else 1e-3
     for a, b in zip(got, ref):
@@ -239,7 +247,8 @@ def test_ce_train_kernel_matches_plain_on_cuda(bf16):
 @pytest.mark.cuda
 def test_lstm_run_gradient_through_kernel_on_cuda():
     """A gradient through ``lstm_run``'s kernel route launches the forward
-    (residuals) and backward kernels and matches the plain route's."""
+    (residuals) and backward kernels (H 16 in f32: the f32-wh kernels) and
+    matches the plain route's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     from vae_lagging_encoder_tpu_torch.models.lstm_core import LSTMParams, lstm_run
@@ -258,15 +267,16 @@ def test_lstm_run_gradient_through_kernel_on_cuda():
         grads.append([q.grad.clone() for q in p.parameters()])
         launched = {k: build.LAUNCHES[k] - n[k] for k in n}
         if kernel_route:
-            assert launched["lstm_fwd_residuals"] == 1 and launched["lstm_bwd"] == 1, launched
+            assert launched["lstm_fwd_residuals_f32"] == 1 and launched["lstm_bwd_f32"] == 1, \
+                launched
         else:
             assert not any(launched.values()), launched
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4)
     with torch.no_grad():
-        n = build.LAUNCHES["lstm_fwd_infer"]
+        n = build.LAUNCHES["lstm_fwd_infer_f32"]
         lstm_run(p, x, kernel_route=True)
-        assert build.LAUNCHES["lstm_fwd_infer"] == n + 1
+        assert build.LAUNCHES["lstm_fwd_infer_f32"] == n + 1
 
 
 @pytest.mark.cuda
@@ -419,7 +429,7 @@ def test_lstm_kernels_at_640_rows_on_cuda(wh_dtype, save_residuals, rows, mask_k
     mask = _mask(mask_kind, T, B, g, rows).cuda()
     wh = (torch.rand(H, 4 * H, generator=g) * 2 - 1).div(H ** 0.5).to(wh_dtype).cuda()
     h0, c0 = ((0.1 * torch.randn(B, H, generator=g)).cuda() for _ in range(2))
-    key = "lstm_fwd_residuals" if save_residuals else "lstm_fwd_infer"
+    key = _launch_key("lstm_fwd_residuals" if save_residuals else "lstm_fwd_infer", wh_dtype)
     n = dict(build.LAUNCHES)
     got = lstm_cuda.lstm_seq(xw, mask, wh, h0, c0, save_residuals)
     ref = lstm_cuda.lstm_seq_plain(xw, mask, wh, h0, c0, save_residuals)
@@ -438,7 +448,8 @@ def test_lstm_kernels_at_640_rows_on_cuda(wh_dtype, save_residuals, rows, mask_k
     got = lstm_cuda.lstm_bwd(*args)
     ref = lstm_cuda.lstm_bwd_plain(*args)
     torch.cuda.synchronize()
-    assert build.LAUNCHES["lstm_bwd"] == n["lstm_bwd"] + 1
+    bwd_key = _launch_key("lstm_bwd", wh_dtype)
+    assert build.LAUNCHES[bwd_key] == n[bwd_key] + 1
     tol = 1e-5 if wh_dtype == torch.float32 else 1e-3
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b, atol=tol, rtol=0)
@@ -879,7 +890,8 @@ def test_graphed_epoch_equals_eager_on_cuda(kind, aggressive, tmp_path):
     assert e_graphs == {"captured": 0, "replays": 0}
     assert g_launch == e_launch
     if kind == "text":  # per forward+backward: 2 residual forwards, 2 backwards, 1 CE
-        per_step = {"lstm_fwd_residuals": 2, "lstm_bwd": 2, "ce_fwd_train": 1}
+        # (f32 at H 128: the f32-wh LSTM kernels)
+        per_step = {"lstm_fwd_residuals_f32": 2, "lstm_bwd_f32": 2, "ce_fwd_train": 1}
         assert {k: g_launch[k] for k in per_step} == {k: v * steps for k, v in per_step.items()}
 
 
@@ -907,7 +919,7 @@ def test_replays_count_launches_on_cuda(tmp_path):
     runs = {u: _graph_epoch("text", tmp_path, True, False, unroll=u) for u in (1, 3)}
     (v1, o1, s1, l1, g1, n), (v3, o3, s3, l3, g3, _) = runs[1], runs[3]
     assert g1["replays"] == s1.stats["graph_steps"] == n - s1.stats["eager_steps"]
-    assert l1["lstm_bwd"] == 2 * n and l1["ce_fwd_train"] == n
+    assert l1["lstm_bwd_f32"] == 2 * n and l1["ce_fwd_train"] == n  # f32 wh at H 128
     assert l3 == l1 and g3 == g1
     for (k, p), (_, q) in zip(v1.named_parameters(), v3.named_parameters()):
         assert torch.equal(p, q), k
@@ -1040,3 +1052,106 @@ def test_lstm_narrow_blocks_on_cuda():
         plan = (lstm_cuda.infer_plan(32, 1024, nsm, res, n) if kind == "infer"
                 else lstm_cuda.bwd_plan(32, 1024, nsm, n))
         assert isinstance(plan, lstm_cuda.NarrowPlan if n >= 128 else lstm_cuda.MMAPlan), (n, plan)
+
+
+# ------------------------------------------------------- the f32-wh kernels
+# csrc/lstm_f32.cu (wh in f32: H <= 512 with f32 compute on the kernel
+# route) at the shapes chip_smoke.py times: H 512 at the training step's 32
+# rows, a short batch of 20, --nsamples 40's and the IW decoder's 640 and a
+# ragged 600; H 128; the off-tile H 50; H 1024 (T 12 here). f32 on both
+# sides: the order of the f32 sums differs, 1e-5 as above.
+F32_SHAPES = [(512, 32), (512, 20), (512, 640), (512, 600), (128, 32), (128, 640), (50, 32),
+              (50, 640), (1024, 32)]
+
+
+def _f32_run(kind, H, B, T, seed):
+    g = torch.Generator().manual_seed(seed)
+    xw = torch.randn(T, B, 4 * H, generator=g).cuda()
+    mask = _mask("holes", T, B, g, seed).cuda()
+    wh = (torch.rand(H, 4 * H, generator=g) * 2 - 1).div(H ** 0.5).cuda()
+    h0, c0 = ((0.1 * torch.randn(B, H, generator=g)).cuda() for _ in range(2))
+    if kind != "bwd":
+        res = kind == "resid"
+        return (lambda: lstm_cuda.lstm_seq(xw, mask, wh, h0, c0, res),
+                lambda: lstm_cuda.lstm_seq_plain(xw, mask, wh, h0, c0, res))
+    _, cs, gates, _, _ = lstm_cuda.lstm_seq_plain(xw, mask, wh, h0, c0, True)
+    dhs = (0.1 * torch.randn(T, B, H, generator=g)).cuda()
+    dhT, dcT = ((0.1 * torch.randn(B, H, generator=g)).cuda() for _ in range(2))
+    args = (gates, mask, wh, torch.cat([c0[None], cs[:-1]]), dhs, dhT, dcT)
+    return lambda: lstm_cuda.lstm_bwd(*args), lambda: lstm_cuda.lstm_bwd_plain(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["infer", "resid", "bwd"])
+@pytest.mark.parametrize("H,rows", F32_SHAPES)
+def test_lstm_f32_kernels_match_plain_on_cuda(H, rows, kind):
+    """Each f32 kernel under the plan the wrapper picks against its plain
+    version, launched once a call, and two calls equal bit for bit (the K
+    slices and the backward's halves summed in a fixed order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    run, plain = _f32_run(kind, H, rows, 12, 61 + H + rows)
+    key = {"infer": "lstm_fwd_infer_f32", "resid": "lstm_fwd_residuals_f32",
+           "bwd": "lstm_bwd_f32"}[kind]
+    n = build.LAUNCHES[key]
+    got, again, ref = run(), run(), plain()
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[key] == n + 2
+    for a, a2, b in zip(got, again, ref):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+        assert torch.equal(a, a2), f"{kind} H {H} rows {rows}: two calls differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["infer", "resid", "bwd"])
+@pytest.mark.parametrize("H,rows", [(512, 32), (512, 640)])
+def test_lstm_f32_kernels_graph_replay_on_cuda(H, rows, kind):
+    """A CUDA graph of one f32 kernel call replays to the eager call's
+    bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    run, _ = _f32_run(kind, H, rows, 6, 71 + rows)
+    eager = run()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        run()  # the plan's capacity query and the library, outside the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(captured, eager):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_lstm_f32_capacity_query_on_cuda():
+    """``f32_blocks``: the blocks the card holds at once in pairs, at the
+    most shared memory a block may take, hold every plan ``f32_plan`` makes
+    for the card (H 512 on an H100: 128 blocks of 4 units); a plan past them
+    is refused with cudaErrorCooperativeLaunchTooLarge."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    dev = torch.device("cuda", 0)
+    nsm = torch.cuda.get_device_properties(0).multi_processor_count
+    for kind in ("infer", "bwd"):
+        cap = lstm_cuda.f32_blocks(dev, kind)
+        assert nsm // 2 * 2 <= cap <= nsm
+        for H in (50, 128, 512, 1024):
+            for rows in (32, 640):
+                assert lstm_cuda.f32_plan(kind, rows, H, nsm, cap).blocks <= cap
+    xw = torch.zeros(2, 32, 4 * 512, device="cuda")
+    mask, wh = torch.ones(2, 32, device="cuda"), torch.zeros(512, 4 * 512, device="cuda")
+    h0 = torch.zeros(32, 512, device="cuda")
+    plan = lstm_cuda.f32_plan("infer", 32, 512, nsm)
+    too_many = dataclasses.replace(plan, row_groups=2 + 2 * nsm // plan.unit_blocks,
+                                   rows=plan.rows_per_group * (2 + 2 * nsm // plan.unit_blocks))
+    xw_big = torch.zeros(2, too_many.rows, 4 * 512, device="cuda")
+    with pytest.raises(RuntimeError, match="lstm_fwd_f32"):
+        lstm_cuda.lstm_fwd_f32(xw_big, torch.ones(2, too_many.rows, device="cuda"), wh,
+                               torch.zeros(too_many.rows, 512, device="cuda"),
+                               torch.zeros(too_many.rows, 512, device="cuda"), too_many)
+    lstm_cuda.lstm_fwd_f32(xw, mask, wh, h0, h0, plan)  # the plan the card holds runs
+    torch.cuda.synchronize()

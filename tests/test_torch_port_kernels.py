@@ -4,8 +4,8 @@
   kernel route against the JAX ``lstm_run`` on its Pallas route, the
   Pallas kernels run in interpret mode (as tests/test_pallas.py runs
   them): ``_fwd_kernel`` at B 8 and ``_infer_kernel`` at B 136 with
-  ``inference=True``; H 128 in f32 and H 640, where both packages drop
-  ``wh`` to bf16. On its scan route against the JAX scan route.
+  ``inference=True``; H 128 and H 512 (the widest LSTM that keeps ``wh``
+  in f32) in f32, and H 640, where both packages drop ``wh`` to bf16. On its scan route against the JAX scan route.
 - ``ce_logp_plain`` against ``fused_ce_logp(..., interpret=True)`` with f32
   and bf16 operands, at an odd vocabulary and a row count that the TPU
   kernel pads.
@@ -79,6 +79,7 @@ def _assert_lstm_close(got, want, mask, atol):
     (8, 128, False, False),    # JAX: _fwd_kernel
     (8, 128, True, False),     # JAX: _fwd_kernel, masked carry
     (136, 128, True, True),    # JAX: _infer_kernel (B > 128, inference)
+    (8, 512, True, False),     # JAX: _fwd_kernel, the widest f32 wh (the H 512 path)
     (8, 640, True, False),     # JAX: _fwd_kernel with bf16 wh (H > 512)
 ])
 def test_lstm_run_kernel_route_matches_jax_pallas(B, H, masked, inference):

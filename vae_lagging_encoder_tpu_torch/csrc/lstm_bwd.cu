@@ -149,11 +149,9 @@
 //   step). Slot t % 2 is read in step t while step t-1's slot is written;
 //   the barrier between steps orders them.
 //
-// wh in f32 stays on CUDA cores (lstm_bwd_fma_kernel, FMA): tensor cores
-// have no exact f32 product (TF32 keeps 10 bits of mantissa), and the f32
-// route is defined by f32 products. It keeps the earlier design: da_t
-// staged through shared memory in k-chunks, 4 rows x 4 quarter-sums per
-// thread, an f32 ring read with __ldcg.
+// wh in f32 is lstm_f32.cu's (FMA pipes): tensor cores have no exact f32
+// product (TF32 keeps 10 bits of mantissa), and the f32 route is defined by
+// f32 products.
 
 #include <cooperative_groups.h>
 
@@ -167,8 +165,6 @@ namespace {
 
 constexpr int kStages = 4;     // cp.async ring depth per warp (stages in flight: kStages - 1)
 constexpr int kFillBatch = 8;  // wh loads a thread keeps in flight while filling b_s
-
-__host__ __device__ __forceinline__ size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
 // The cell backward of step t for (row, unit): writes da[t], the carries
 // (1 - m) * dhk -> dhc and dc_{t-1} -> dcc, and returns the four da values
@@ -1030,155 +1026,6 @@ lstm_bwd_wide_kernel(const __grid_constant__ CUtensorMap tm_da,
 
 }  // namespace wide
 
-// ------------------------------------------------------------ f32: CUDA cores
-
-constexpr int KC = 32;           // k-chunk of each gate quarter of da_t staged in shared memory
-constexpr int ROWS = 4;          // rows per thread
-constexpr int LB = 16;           // global loads a thread keeps in flight while staging
-constexpr int MAX_THREADS = 256;
-
-__global__ void lstm_bwd_fma_kernel(const float* __restrict__ gates,
-                                    const float* __restrict__ mask,
-                                    const float* __restrict__ wh,
-                                    const float* __restrict__ cprev,
-                                    const float* __restrict__ dhs,
-                                    const float* __restrict__ dhT,
-                                    const float* __restrict__ dcT,
-                                    float* da, float* da_r, float* dh0, float* dc0,
-                                    int T_, int B, int H, int J) {
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int G = blockDim.x / J;             // row groups of ROWS rows
-  const int BR = G * ROWS;                  // rows per tile
-  const int ld = BR + 4;                    // padded row of the staged chunk
-  const size_t H4 = 4 * (size_t)H;
-  float* w_s = reinterpret_cast<float*>(smem);  // [H][J][4]: w_s[(k*J + j)*4 + q] = wh[unit j, q*H + k]
-  float* d_s = reinterpret_cast<float*>(smem + align16(sizeof(float) * 4 * (size_t)H * J));
-
-  const int tid = threadIdx.x;
-  const int jj = tid % J, g = tid / J;
-  const int unit = blockIdx.x * J + jj;
-  const bool unit_ok = unit < H;
-
-  for (int idx = tid; idx < H * J * 4; idx += blockDim.x) {
-    const int k = idx % H, rest = idx / H, q = rest % 4, jl = rest / 4;
-    const int u = blockIdx.x * J + jl;
-    w_s[((size_t)k * J + jl) * 4 + q] = u < H ? wh[(size_t)u * H4 + (size_t)q * H + k] : 0.f;
-  }
-  __syncthreads();
-
-  auto cell = [&](int t, int row, float dh_in, float dc_in) {
-    float a[4];
-    cell_bwd(t, row, unit, B, H, gates, mask, cprev, dhs, dh_in, dc_in, da, dh0, dc0, a);
-    float* ring = da_r + (size_t)(t & 1) * B * H4 + (size_t)row * H4 + unit;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) ring[(size_t)q * H] = a[q];
-  };
-
-  // step T-1: the cell backward from the final carries dhT, dcT
-  for (int r0 = 0; r0 < B; r0 += BR) {
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const int row = r0 + g * ROWS + i;
-      if (row >= B || !unit_ok) continue;
-      const size_t so = (size_t)row * H + unit;
-      cell(T_ - 1, row, dhT[so], dcT[so]);
-    }
-  }
-
-  for (int t = T_ - 1; t >= 0; --t) {
-    grid.sync();  // da_t (ring slot t % 2) is complete in every block
-    const float* dr = da_r + (size_t)(t & 1) * B * H4;
-    for (int r0 = 0; r0 < B; r0 += BR) {
-      float acc[ROWS][4];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
-
-      for (int kc = 0; kc < H; kc += KC) {
-        __syncthreads();
-        // stage da_t[r0:r0+BR, q*H + kc : q*H + kc + KC] for q = 0..3
-        const int n_el = 4 * KC * BR;
-        for (int base = 0; base < n_el; base += LB * blockDim.x) {
-          float v[LB];
-#pragma unroll
-          for (int u = 0; u < LB; ++u) {
-            const int idx = base + u * blockDim.x + tid;
-            const int q = idx / (KC * BR), rem = idx % (KC * BR);
-            const int row = r0 + rem / KC, kk = kc + rem % KC;
-            v[u] = (idx < n_el && row < B && kk < H)
-                ? __ldcg(dr + (size_t)row * H4 + (size_t)q * H + kk) : 0.f;
-          }
-#pragma unroll
-          for (int u = 0; u < LB; ++u) {
-            const int idx = base + u * blockDim.x + tid;
-            if (idx < n_el) {
-              const int q = idx / (KC * BR), rem = idx % (KC * BR);
-              d_s[(q * KC + rem % KC) * ld + rem / KC] = v[u];
-            }
-          }
-        }
-        __syncthreads();
-        const int kn = min(KC, H - kc);
-#pragma unroll 4
-        for (int k = 0; k < kn; ++k) {
-          const float4 w = *reinterpret_cast<const float4*>(w_s + ((size_t)(kc + k) * J + jj) * 4);
-          const float wq[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const float4 dv = *reinterpret_cast<const float4*>(d_s + (q * KC + k) * ld + g * ROWS);
-            acc[0][q] = fmaf(dv.x, wq[q], acc[0][q]);
-            acc[1][q] = fmaf(dv.y, wq[q], acc[1][q]);
-            acc[2][q] = fmaf(dv.z, wq[q], acc[2][q]);
-            acc[3][q] = fmaf(dv.w, wq[q], acc[3][q]);
-          }
-        }
-      }
-
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        const int row = r0 + g * ROWS + i;
-        if (row >= B || !unit_ok) continue;
-        const size_t so = (size_t)row * H + unit;
-        const float dh = (acc[i][0] + acc[i][1]) + (acc[i][2] + acc[i][3]) + dh0[so];
-        if (t > 0) {
-          cell(t - 1, row, dh, dc0[so]);
-        } else {
-          dh0[so] = dh;
-        }
-      }
-    }
-  }
-}
-
-cudaError_t launch_fma(const float* gates, const float* mask, const float* wh,
-                       const float* cprev, const float* dhs, const float* dhT, const float* dcT,
-                       float* da, float* da_r, float* dh0, float* dc0, int T_, int B, int H,
-                       cudaStream_t stream) {
-  int dev, nsm;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev))) return err;
-  int J = (H + nsm - 1) / nsm;
-  const int grid = (H + J - 1) / J;
-  int G = MAX_THREADS / J;
-  if (G > (B + ROWS - 1) / ROWS) G = (B + ROWS - 1) / ROWS;
-  if (G < 1) G = 1;
-  const int block = J * G;
-  if (block > 1024) return cudaErrorInvalidValue;
-  const size_t smem = align16(sizeof(float) * 4 * (size_t)H * J)
-                      + sizeof(float) * 4 * KC * (size_t)(G * ROWS + 4);
-  auto kern = lstm_bwd_fma_kernel;
-  if ((err = check_cooperative((const void*)kern, grid, block, smem))) return err;
-  void* args[] = {(void*)&gates, (void*)&mask, (void*)&wh, (void*)&cprev, (void*)&dhs,
-                  (void*)&dhT, (void*)&dcT, (void*)&da, (void*)&da_r, (void*)&dh0,
-                  (void*)&dc0, (void*)&T_, (void*)&B, (void*)&H, (void*)&J};
-  err = cudaLaunchCooperativeKernel((void*)kern, dim3(grid), dim3(block), args, smem, stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -1290,16 +1137,6 @@ int lstm_bwd_wide(const float* gates, const float* mask, const void* wh, const f
       wide::lstm_bwd_wide_kernel, row_groups * UG * wide::kCluster, wide::kThreads,
       (size_t)smem_bytes, wide::kCluster, static_cast<cudaStream_t>(stream), tm_da, gates, mask,
       w, cprev, dhs, dhT, dcT, da, r, dh0, dc0, T, B, H, Kp, Rp, MP, UG, S, R);
-}
-
-// The same with wh [H, 4H] f32 (CUDA cores); da_r is an f32 scratch ring
-// [2, B, 4H]. The launch plan is computed here.
-int lstm_bwd_f32(const float* gates, const float* mask, const float* wh, const float* cprev,
-                 const float* dhs, const float* dhT, const float* dcT, float* da, float* da_r,
-                 float* dh0, float* dc0, int T, int B, int H, void* stream) {
-  if (T < 1 || B < 1 || H < 1) return cudaErrorInvalidValue;
-  return launch_fma(gates, mask, wh, cprev, dhs, dhT, dcT, da, da_r, dh0, dc0, T, B, H,
-                    static_cast<cudaStream_t>(stream));
 }
 
 const char* kernel_error_string(int err) {

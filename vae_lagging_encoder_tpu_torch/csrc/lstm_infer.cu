@@ -10,7 +10,7 @@
 //   c_raw = f * c + i * g;  h_raw = o * tanh(c_raw)
 //   h = m * h_raw + (1 - m) * h;  c = m * c_raw + (1 - m) * c   (m = mask[t, row])
 // Outputs hs [T, rows, H] (the KEPT h), hT, cT (and the residuals). xw
-// [T, rows, 4H] f32, wh [H, 4H] bf16. The f32-wh forward is lstm_fwd.cu.
+// [T, rows, 4H] f32, wh [H, 4H] bf16. The f32-wh forward is lstm_f32.cu.
 //
 // Three paths, by row count (ops/lstm_cuda.py::infer_plan; WIDE_MIN_ROWS):
 // from WIDE_MIN_ROWS the wide-row path (namespace wide below: wgmma, TMA,
@@ -150,7 +150,7 @@
 // - The epilogue's loads and stores are float2 (a lane's two units are
 //   adjacent; four lanes cover a row's 32-byte sector), the residuals too:
 //   cs like cT, and each gate's activations of the lane's two units.
-// - wh in f32 stays on CUDA cores (lstm_fwd.cu): tensor cores have no exact
+// - wh in f32 is lstm_f32.cu's (FMA pipes): tensor cores have no exact
 //   f32 product (TF32 keeps 10 bits of mantissa), and the f32 route is
 //   defined by f32 products.
 //

@@ -1,6 +1,6 @@
 """Build and load the hand-written CUDA kernels; device checks; launch counts.
 
-Each ``csrc/<name>.cu`` (``SOURCES``: ``lstm_fwd``, ``lstm_infer`` and
+Each ``csrc/<name>.cu`` (``SOURCES``: ``lstm_f32``, ``lstm_infer`` and
 ``lstm_bwd``, the LSTM kernels of ``ops/lstm_cuda.py``; ``ce_fwd`` and
 ``ce_bwd``, the fused CE's forward and backward of ``ops/ce_cuda.py``; the
 ``*.cuh`` headers they share) is compiled on first use by ``nvcc`` into its
@@ -15,8 +15,8 @@ source is rebuilt and a stale library is never loaded. ``nvcc``'s output
 library as ``<name>-<hash>.log``, followed by a census of each kernel's
 tensor-core instructions (``HMMA``: ``mma.sync``; ``HGMMA``: ``wgmma``) and
 asynchronous copies (``LDGSTS``: ``cp.async``; ``UTMALDG``: TMA tile loads;
-``UBLKCP``: bulk copies) from ``cuobjdump -sass``; ``kernel_report`` reads
-both back. Nothing here runs at import time.
+``UBLKCP``: bulk copies), and its f32 FMAs (``FFMA``), from ``cuobjdump
+-sass``; ``kernel_report`` reads both back. Nothing here runs at import time.
 
 This module is the port's counterpart of ``ops/vmem.py::pallas_available``
 in the JAX package: where that probe decided whether the Pallas kernels
@@ -46,13 +46,17 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
-SOURCES = ("lstm_fwd", "lstm_infer", "lstm_bwd", "ce_fwd", "ce_bwd")
+SOURCES = ("lstm_f32", "lstm_infer", "lstm_bwd", "ce_fwd", "ce_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # launches per kernel, counted by the wrappers in lstm_cuda.py / ce_cuda.py
+# (the f32-wh LSTM kernels of csrc/lstm_f32.cu under "*_f32", the names
+# utils/profiling.py traces them by)
 LAUNCHES: Dict[str, int] = {"lstm_fwd_residuals": 0, "lstm_fwd_infer": 0,
-                            "lstm_bwd": 0, "ce_fwd": 0, "ce_fwd_train": 0, "ce_bwd": 0}
+                            "lstm_bwd": 0, "lstm_fwd_residuals_f32": 0,
+                            "lstm_fwd_infer_f32": 0, "lstm_bwd_f32": 0, "ce_fwd": 0,
+                            "ce_fwd_train": 0, "ce_bwd": 0}
 
 # CUDA graphs of the training step: captured, and replays (train/graphs.py)
 GRAPHS: Dict[str, int] = {"captured": 0, "replays": 0}
@@ -131,7 +135,7 @@ def build(names: Iterable[str] = SOURCES) -> float:
     return time.perf_counter() - t0
 
 
-SASS_COUNTED = ("HMMA", "HGMMA", "LDGSTS", "UTMALDG", "UBLKCP")
+SASS_COUNTED = ("HMMA", "HGMMA", "LDGSTS", "UTMALDG", "UBLKCP", "FFMA")
 TENSOR_CORE_SASS = ("HMMA", "HGMMA")
 ASYNC_COPY_SASS = ("LDGSTS", "UTMALDG", "UBLKCP")
 

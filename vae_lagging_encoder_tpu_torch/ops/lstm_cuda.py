@@ -6,10 +6,10 @@ plain versions + the autograd Function.
   cell states and gate activations a backward pass needs) and
   ``_infer_kernel`` (``save_residuals=False``); it launches
   ``csrc/lstm_infer.cu`` (tensor cores) for bf16 ``wh``, with or without
-  residuals, and ``csrc/lstm_fwd.cu`` (CUDA cores) for f32 ``wh``.
+  residuals, and ``csrc/lstm_f32.cu`` (FMA pipes) for f32 ``wh``.
 - ``lstm_bwd`` is the counterpart of ``_bwd_kernel`` (the reverse-time
-  sweep); it launches ``csrc/lstm_bwd.cu`` (tensor cores with bf16 ``wh``,
-  CUDA cores with f32).
+  sweep); it launches ``csrc/lstm_bwd.cu`` (tensor cores) with bf16 ``wh``,
+  ``csrc/lstm_f32.cu`` with f32.
 - ``infer_plan`` / ``bwd_plan`` compute the launch plans of the two
   tensor-core kernels, which the kernels check: below ``WIDE_MIN_ROWS`` a
   ``NarrowPlan`` (``narrow_plan``: ``mma.sync`` on an operand brought by
@@ -24,8 +24,13 @@ plain versions + the autograd Function.
   slots, shared memory), or ValueError where no wide plan fits. Each plan
   gives its operand bytes a step per SM and from L2; ``plan_owners`` lists
   which (block, warp) owns each (row, unit) pair.
+- ``f32_plan`` computes the f32 kernels' ``F32Plan`` (both directions, any
+  row count: units per block, cluster, row groups, row tile, K slices, 16-k
+  blocks a chunk, ring stages, shared memory, operand bytes a step), or
+  raises ValueError where none fits.
 - ``lstm_infer`` / ``lstm_bwd_bf16`` launch the bf16 kernels under a given
-  plan (``lstm_seq`` / ``lstm_bwd`` call them with the plan above).
+  plan, ``lstm_fwd_f32`` / ``lstm_bwd_f32`` the f32 ones (``lstm_seq`` /
+  ``lstm_bwd`` call them with the plans above).
 - ``LSTMSeqFn`` is the counterpart of ``lstm_seq_fused`` with its
   ``_fused_fwd``/``_fused_bwd``: the residual-saving forward, then the
   backward sweep and dWh = h_prev^T da as one matrix product.
@@ -51,10 +56,6 @@ import numpy as np
 import torch
 
 from . import build
-
-_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_ARGTYPES[3] = ctypes.c_int  # wh_bf16
-_BWD_F32_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 # --------------------------------------------------------------- launch plans
 # Constants the tensor-core kernels are written for (csrc/lstm_mma.cuh,
@@ -121,6 +122,28 @@ INFER_NARROW_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * (4 + len(NARR
                          + [ctypes.c_void_p])
 BWD_NARROW_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * (3 + len(NARROW_PLAN_ARGS))
                        + [ctypes.c_void_p])
+
+
+# The f32-wh kernels (csrc/lstm_f32.cu): kKC, kTileRows, kMaxWarps, kPad,
+# the instantiated units a block, and the cluster of two blocks (the
+# forward's share each chunk of h by TMA multicast, the backward's split K).
+F32_KC = 16             # k of a block of the operand: 64-byte lines of f32
+F32_TILE_ROWS = 32      # rows of a consumer warp's tile
+F32_MAX_WARPS = 16      # consumer warps (+ a producer warp)
+F32_PAD = 4             # floats after each row of the partial tiles
+F32_UNITS = (4, 8)
+F32_CLUSTER = 2
+F32_MIN_STAGES = 2      # ring slots a plan keeps at least (or every chunk of a step)
+F32_CHUNKS = (4, 8, 16, 32, 64, 128)  # chunks a pass the plan tries, fewest first
+F32_SLICES = (16, 8, 4, 2, 1)  # K slices the plan tries, most first
+F32_PLAN_ARGS = ("units", "cluster", "row_groups", "rows_per_group", "row_tile", "k_slices",
+                 "k_blocks", "stages", "smem_bytes")
+# lstm_fwd_f32: pointers, (T, rows, H, save_residuals), the plan, the stream;
+# lstm_bwd_f32: pointers, (T, rows, H), the plan, the stream
+F32_FWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * (4 + len(F32_PLAN_ARGS))
+                    + [ctypes.c_void_p])
+F32_BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * (3 + len(F32_PLAN_ARGS))
+                    + [ctypes.c_void_p])
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -398,6 +421,171 @@ class NarrowPlan:
         return tuple(getattr(self, n) for n in NARROW_PLAN_ARGS)
 
 
+@dataclass(frozen=True)
+class F32Plan:
+    """Launch plan of an f32-wh kernel (``lstm_fwd_f32``, ``lstm_bwd_f32``):
+    the rows split into ``row_groups`` groups of ``rows_per_group``, each
+    taken in passes of ``row_tile`` rows (32-row tiles, one a consumer warp,
+    times ``k_slices`` K slices, slice ks taking the 16-k blocks b = ks mod
+    ``k_slices`` of K); ``units`` units a block, in clusters of ``cluster``
+    blocks; the operand's rows come in chunks of ``k_blocks`` 16-k blocks
+    (odd: conflict-free reads) through a TMA ring of ``stages`` slots that
+    every consumer warp reads in order.
+
+    Forward ("infer"): block rg UB + ub takes rows of group rg x units
+    [J ub, J ub + J) over all of K = H; the two blocks of a cluster (ub even
+    and odd) share each chunk, each loading half its rows for both (TMA
+    multicast). Backward ("bwd"): block rg UB + 2 c + r takes rows of group
+    rg x the cluster's units [2J c, 2J c + 2J) over K half r of 4H, and owns
+    units [2J c + J r, + J); the two blocks swap their sums for each other's
+    units through distributed shared memory. Consumer warp w takes tile w %
+    (row_tile / 32) of a pass over K slice w / (row_tile / 32); the block
+    sums the slices' partial tiles in slice order."""
+    kind: str
+    rows: int
+    H: int
+    units: int
+    row_groups: int
+    rows_per_group: int
+    row_tile: int
+    k_slices: int
+    k_blocks: int
+    stages: int
+    cluster: int = F32_CLUSTER
+
+    @property
+    def unit_blocks(self) -> int:
+        """Blocks of a row group (whole clusters)."""
+        J, C = self.units, self.cluster
+        if self.kind == "bwd":
+            return C * _cdiv(self.H, C * J)
+        return C * _cdiv(_cdiv(self.H, J), C)
+
+    @property
+    def blocks(self) -> int:
+        return self.row_groups * self.unit_blocks
+
+    @property
+    def passes(self) -> int:
+        return self.rows_per_group // self.row_tile
+
+    @property
+    def warps(self) -> int:
+        """Consumer warps (the producer warp besides)."""
+        return self.row_tile // F32_TILE_ROWS * self.k_slices
+
+    @property
+    def threads(self) -> int:
+        return 32 * (self.warps + 1)
+
+    @property
+    def k16_blocks(self) -> int:
+        """16-k blocks of a block's K: H (forward), its half 2H (backward)."""
+        return _cdiv(self.H if self.kind == "infer" else 2 * self.H, F32_KC)
+
+    @property
+    def chunks(self) -> int:
+        """Ring chunks of a pass: ``k_blocks`` 16-k blocks each."""
+        return _cdiv(self.k16_blocks, self.k_blocks)
+
+    @property
+    def columns(self) -> int:
+        """Columns of the block's product: 4J gate columns, the cluster's 2J units."""
+        return 4 * self.units if self.kind == "infer" else 2 * self.units
+
+    @property
+    def smem_bytes(self) -> int:
+        """The kernels' layout: 1024 bytes of alignment slack, the ring, wh's
+        slice, the partial tiles, the backward's two receive buffers, the
+        full and empty mbarriers."""
+        RT, ncol = self.row_tile, self.columns
+        return (1024 + self.stages * RT * self.k_blocks * F32_KC * 4
+                + self.k16_blocks * F32_KC * ncol * 4 + self.k_slices * RT * (ncol + F32_PAD) * 4
+                + (2 * RT * self.units * 4 if self.kind == "bwd" else 0) + 16 * self.stages)
+
+    @property
+    def sm_bytes_per_step(self) -> int:
+        """Bytes of the product's f32 operand one block takes into its SM a
+        step: its row group x its K (all of h_{t-1}'s H, or its half of da_t's
+        4H), in whole chunks."""
+        return self.rows_per_group * self.chunks * self.k_blocks * F32_KC * 4
+
+    @property
+    def l2_bytes_per_step(self) -> int:
+        """Bytes of that operand read from L2 a step over the grid: the
+        forward's chunk once a cluster (multicast), the backward's K halves
+        once each."""
+        share = self.cluster if self.kind == "infer" else 1
+        return self.blocks * self.sm_bytes_per_step // share
+
+    def args(self) -> Tuple[int, ...]:
+        return tuple(getattr(self, n) for n in F32_PLAN_ARGS)
+
+
+def f32_plan(kind: str, rows: int, H: int, nsm: int,
+             max_blocks: Optional[int] = None) -> F32Plan:
+    """The f32 kernels' plan of ``kind`` ("infer" or "bwd"): of the best
+    plans with 4 and with 8 units a block (``_f32_plan_units``) whose unit
+    blocks fit ``max_blocks`` (the blocks the card holds at once in pairs,
+    ``f32_blocks``; by default ``nsm`` in whole pairs), the one with the
+    least FMA work a block, then the fewest operand rows into a block a
+    step (at 640 rows 8 units a block make two row groups: half the rows
+    into each SM for the same products). Raises ValueError where none fits
+    (H past 8 units a block on the card's blocks, or wh's slice past shared
+    memory)."""
+    if max_blocks is None:
+        max_blocks = nsm // F32_CLUSTER * F32_CLUSTER
+    plans = [p for p in (_f32_plan_units(kind, rows, H, J, max_blocks) for J in F32_UNITS) if p]
+    if not plans:
+        raise ValueError(f"lstm_{'seq' if kind == 'infer' else 'bwd'}: no f32 plan for rows "
+                         f"{rows}, H {H} within {max_blocks} blocks (more than 8 units a block, "
+                         "or wh's slice too large for one block's shared memory)")
+    return min(plans, key=lambda p: (p.rows_per_group * p.units, p.rows_per_group))
+
+
+def _f32_plan_units(kind: str, rows: int, H: int, J: int,
+                    max_blocks: int) -> Optional[F32Plan]:
+    """The best plan with ``J`` units a block, or None where its unit
+    blocks pass ``max_blocks`` or no layout fits: as many row groups as fit
+    beside the unit blocks, each a multiple of 32 rows (or up to an eighth
+    more, where that divides into better passes). Of the layouts whose ring
+    keeps ``F32_MIN_STAGES`` slots (or every chunk of a step) in shared
+    memory: the most consumer warps (32 rows x ``F32_SLICES`` K slices
+    within the 16-k blocks of K, at most 16 warps), then the fewest passes
+    a step, then the fewest rows, then the fewest chunks a pass
+    (``F32_CHUNKS``; a chunk the fewest odd 16-k blocks that make that
+    many), each with the deepest ring that fits."""
+    probe = F32Plan(kind, rows, H, J, 1, F32_TILE_ROWS, F32_TILE_ROWS, 1, 1, 1)
+    if probe.unit_blocks > max_blocks:
+        return None
+    NC = probe.k16_blocks
+    rg = min(max_blocks // probe.unit_blocks, _cdiv(rows, F32_TILE_ROWS))
+    mt0 = _cdiv(_cdiv(rows, rg), F32_TILE_ROWS)
+    best = None
+    for mt in range(mt0, mt0 + mt0 // 8 + 1):
+        mp = mt * F32_TILE_ROWS
+        for passes in (p for p in range(1, mt + 1) if mt % p == 0 and mt // p <= F32_MAX_WARPS):
+            for ks in F32_SLICES:
+                if mt // passes * ks > F32_MAX_WARPS or ks > NC:
+                    continue
+                for nch in F32_CHUNKS:
+                    kb = _cdiv(NC, nch) | 1  # odd
+                    plan = F32Plan(kind, rows, H, J, _cdiv(rows, mp), mp, mp // passes, ks, kb, 1)
+                    per_step = passes * plan.chunks
+                    most = min((SMEM_MAX - plan.smem_bytes)
+                               // (plan.row_tile * kb * F32_KC * 4 + 16) + 1, per_step)
+                    if most < min(F32_MIN_STAGES, per_step):
+                        continue
+                    # more warps hide more latency: at 640 rows 16 warps whose
+                    # chunks split unevenly over 4 K slices beat 12 that split
+                    # them evenly over 3 (PERF.md)
+                    score = (plan.warps, -passes, -mp, -plan.chunks)
+                    if best is None or score > best[0]:
+                        best = (score, dataclasses.replace(plan, stages=most))
+                    break  # the fewest chunks that fit
+    return best[1] if best is not None else None
+
+
 def narrow_plan(kind: str, rows: int, H: int, nsm: int,
                 max_blocks: Optional[int] = None) -> Optional[NarrowPlan]:
     """The narrow-row plan of ``kind`` ("infer" or "bwd"), if its grid of
@@ -542,6 +730,18 @@ def plan_owners(plan) -> np.ndarray:
         np.add.at(count, (r, u), 1)
         owner[r, u, 0], owner[r, u, 1] = b, (w[ok] if np.ndim(w) else w)
 
+    if isinstance(plan, F32Plan):
+        # block (rg, ub); the pass's pair pp = (row pp / J, unit pp % J) goes
+        # to consumer thread pp % (32 warps), warp (pp % (32 warps)) / 32
+        J, ub_n, nthr = plan.units, plan.unit_blocks, 32 * plan.warps
+        pp = np.arange(plan.row_tile * J)
+        for rg in range(plan.row_groups):
+            for ub in range(ub_n):
+                b = rg * ub_n + ub
+                for p in range(plan.passes):
+                    r = rg * plan.rows_per_group + p * plan.row_tile + pp // J
+                    own(r, ub * J + pp % J, b, (pp % nthr) // 32)
+        return np.concatenate([owner.reshape(-1, 2), count.reshape(-1, 1)], axis=1)
     if isinstance(plan, NarrowPlan):
         # block b's pairs p = tid + i threads: row p / J, unit b J + p % J;
         # the warp is tid / 32
@@ -606,6 +806,30 @@ def narrow_blocks(device: torch.device, kind: str, save_residuals: bool = False)
                else getattr(lib, fn)(ctypes.byref(blocks)))
     build.check(lib, err, fn)
     return blocks.value
+
+
+@functools.lru_cache(maxsize=None)
+def f32_blocks(device: torch.device, kind: str) -> int:
+    """Blocks of the f32 kernel of ``kind`` ("infer" or "bwd") that the card
+    holds at once in pairs, at the most shared memory and threads a block
+    may take (``cudaOccupancyMaxActiveClusters``; ``f32_plan``'s
+    ``max_blocks``), the least over the instantiated units a block. One
+    query a device and kind."""
+    lib = build.library("lstm_f32")
+    blocks, least = ctypes.c_int(0), None
+    with torch.cuda.device(device):
+        for J in F32_UNITS:
+            err = lib.lstm_f32_blocks(int(kind == "bwd"), J, ctypes.byref(blocks))
+            build.check(lib, err, "lstm_f32_blocks")
+            least = blocks.value if least is None else min(least, blocks.value)
+    return least
+
+
+def f32_device_plan(kind: str, rows: int, H: int, device: torch.device) -> F32Plan:
+    """The plan the f32 wrappers launch for ``kind`` ("infer" or "bwd") on
+    ``device``: ``f32_plan`` within the blocks the card holds in pairs
+    (``f32_blocks``)."""
+    return f32_plan(kind, rows, H, _num_sms(device), f32_blocks(device, kind))
 
 
 def lstm_seq_plain(xw: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
@@ -728,22 +952,37 @@ def lstm_seq(xw: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
         plan = infer_plan(B, H, _num_sms(xw.device), save_residuals,
                           narrow_blocks(xw.device, "infer", save_residuals))
         return lstm_infer(xw, mask, wh, h0, c0, plan, save_residuals)
+    return lstm_fwd_f32(xw, mask, wh, h0, c0, f32_device_plan("infer", B, H, xw.device),
+                        save_residuals)
+
+
+def lstm_fwd_f32(xw: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor, h0: torch.Tensor,
+                 c0: torch.Tensor, plan: F32Plan,
+                 save_residuals: bool = False) -> Tuple[torch.Tensor, ...]:
+    """The f32 forward on ``csrc/lstm_f32.cu`` with ``plan`` (``f32_plan``):
+    ``(hs, hT, cT)``, or with ``save_residuals`` ``(hs, cs, gates, hT,
+    cT)``. Takes contiguous CUDA tensors that passed ``lstm_seq``'s checks;
+    ``lstm_seq`` calls it."""
+    T, B, H4 = xw.shape
+    H = H4 // 4
+    if (plan.kind, plan.rows, plan.H) != ("infer", B, H) or wh.dtype != torch.float32:
+        raise ValueError(f"lstm_fwd_f32: plan {plan} does not fit rows {B}, H {H}, wh {wh.dtype}")
     hs = torch.empty((T, B, H), device=xw.device)
     hT = torch.empty((B, H), device=xw.device)
     cT = torch.empty((B, H), device=xw.device)
     cs = torch.empty((T, B, H), device=xw.device) if save_residuals else None
     gates = torch.empty((T, B, H4), device=xw.device) if save_residuals else None
-    lib = _lib("lstm_fwd", _ARGTYPES)
+    ring = torch.zeros((2, B, plan.k16_blocks * F32_KC), device=xw.device)
+    lib = _lib("lstm_fwd_f32", F32_FWD_ARGTYPES, source="lstm_f32")
     with torch.cuda.device(xw.device):
-        err = lib.lstm_fwd(
-            xw.data_ptr(), mask.data_ptr(), wh.data_ptr(), 0,
-            h0.data_ptr(), c0.data_ptr(), hs.data_ptr(),
-            cs.data_ptr() if save_residuals else None,
-            gates.data_ptr() if save_residuals else None,
-            hT.data_ptr(), cT.data_ptr(), T, B, H, int(save_residuals),
+        err = lib.lstm_fwd_f32(
+            xw.data_ptr(), mask.data_ptr(), wh.data_ptr(), h0.data_ptr(), c0.data_ptr(),
+            hs.data_ptr(), cs.data_ptr() if save_residuals else None,
+            gates.data_ptr() if save_residuals else None, hT.data_ptr(), cT.data_ptr(),
+            ring.data_ptr(), T, B, H, int(save_residuals), *plan.args(),
             torch.cuda.current_stream(xw.device).cuda_stream)
-    build.check(lib, err, "lstm_fwd")
-    build.LAUNCHES["lstm_fwd_residuals" if save_residuals else "lstm_fwd_infer"] += 1
+    build.check(lib, err, "lstm_fwd_f32")
+    build.LAUNCHES["lstm_fwd_residuals_f32" if save_residuals else "lstm_fwd_infer_f32"] += 1
     if save_residuals:
         return hs, cs, gates, hT, cT
     return hs, hT, cT
@@ -789,7 +1028,7 @@ def lstm_bwd(gates: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
              dcT: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Same contract as ``lstm_bwd_plain``; launches the CUDA kernel for
     CUDA tensors: with bf16 ``wh`` ``lstm_bwd_bf16`` under ``bwd_plan``'s
-    plan, with f32 ``wh`` the CUDA-core kernel."""
+    plan, with f32 ``wh`` ``lstm_bwd_f32`` under ``f32_plan``'s."""
     if gates.device.type == "cpu":
         return lstm_bwd_plain(gates, mask, wh, c_prev, dhs, dhT, dcT)
     if gates.device.type != "cuda":
@@ -806,15 +1045,29 @@ def lstm_bwd(gates: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     if wh.dtype == torch.bfloat16:
         return lstm_bwd_bf16(*args, bwd_plan(B, H, _num_sms(gates.device),
                                              narrow_blocks(gates.device, "bwd")))
+    return lstm_bwd_f32(*args, f32_device_plan("bwd", B, H, gates.device))
+
+
+def lstm_bwd_f32(gates: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
+                 c_prev: torch.Tensor, dhs: torch.Tensor, dhT: torch.Tensor,
+                 dcT: torch.Tensor,
+                 plan: F32Plan) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The f32 backward on ``csrc/lstm_f32.cu`` with ``plan`` (``f32_plan``):
+    ``(da, dh0, dc0)``. Takes contiguous CUDA tensors that passed
+    ``lstm_bwd``'s checks; ``lstm_bwd`` calls it."""
+    T, B, H4 = gates.shape
+    H = H4 // 4
+    if (plan.kind, plan.rows, plan.H) != ("bwd", B, H) or wh.dtype != torch.float32:
+        raise ValueError(f"lstm_bwd_f32: plan {plan} does not fit B {B}, H {H}, wh {wh.dtype}")
     da, dh0, dc0 = _bwd_outputs(T, B, H, gates.device)
-    da_r = torch.empty((2, B, H4), device=gates.device)
-    lib = _lib("lstm_bwd_f32", _BWD_F32_ARGTYPES, source="lstm_bwd")
+    ring = torch.zeros((2, 2, B, plan.k16_blocks * F32_KC), device=gates.device)
+    lib = _lib("lstm_bwd_f32", F32_BWD_ARGTYPES, source="lstm_f32")
     with torch.cuda.device(gates.device):
-        err = lib.lstm_bwd_f32(*(a.data_ptr() for a in args), da.data_ptr(), da_r.data_ptr(),
-                               dh0.data_ptr(), dc0.data_ptr(), T, B, H,
-                               torch.cuda.current_stream(gates.device).cuda_stream)
-    build.check(lib, err, "lstm_bwd")
-    build.LAUNCHES["lstm_bwd"] += 1
+        err = lib.lstm_bwd_f32(
+            *(a.data_ptr() for a in (gates, mask, wh, c_prev, dhs, dhT, dcT, da, ring, dh0, dc0)),
+            T, B, H, *plan.args(), torch.cuda.current_stream(gates.device).cuda_stream)
+    build.check(lib, err, "lstm_bwd_f32")
+    build.LAUNCHES["lstm_bwd_f32"] += 1
     return da, dh0, dc0
 
 

@@ -14,9 +14,10 @@ walked in time order and an event's duration is credited to its immediate
 parent, as the JAX package's walk does for nested XLA ops, so that both
 packages read the same nested trace alike (kernels on one CUDA stream do
 not nest, so on a torch trace self time equals duration). Ops are the
-port's kernels under their wrappers' names (``lstm_fwd_residuals``,
-``lstm_fwd_infer``, ``lstm_bwd``, ``ce_fwd``, ``ce_fwd_train``, one kernel
-per launch of each), the other kernels of a launch under names of their
+port's kernels under their names in ``ops/build.py::LAUNCHES``
+(``lstm_fwd_residuals``, ``lstm_fwd_infer``, ``lstm_bwd``, their f32-wh
+kernels' ``*_f32``, ``ce_fwd``, ``ce_fwd_train``, one kernel per launch of
+each), the other kernels of a launch under names of their
 own (the CE forward's ``ce_pack_wt`` / ``ce_merge``), other kernels under
 their symbol without the parameter list; the rollup is by kind (``KINDS``).
 A launch whose work is several kernels (``LAUNCH_PARTS``: the CE
@@ -50,7 +51,7 @@ from typing import Optional
 # device event categories of torch's Chrome trace (Kineto), lower-cased
 DEVICE_CATS = {"kernel": "kernel", "gpu_memcpy": "memcpy", "gpu_memset": "memset",
                "memcpy": "memcpy", "memset": "memset"}
-# the port's kernels: symbol pattern -> the wrapper's name (ops/build.py::LAUNCHES)
+# the port's kernels: symbol pattern -> their name in ops/build.py::LAUNCHES
 PORT_KERNELS = (
     (re.compile(r"lstm_infer_wide_kernel<true>"), "lstm_fwd_residuals"),
     (re.compile(r"lstm_infer_wide_kernel<false>"), "lstm_fwd_infer"),
@@ -60,8 +61,11 @@ PORT_KERNELS = (
     (re.compile(r"lstm_bwd_narrow_kernel"), "lstm_bwd"),
     (re.compile(r"lstm_infer_kernel<.*true>"), "lstm_fwd_residuals"),
     (re.compile(r"lstm_infer_kernel<.*false>"), "lstm_fwd_infer"),
-    (re.compile(r"lstm_fwd_kernel"), "lstm_fwd_f32"),
-    (re.compile(r"lstm_bwd_(mma|fma)_kernel"), "lstm_bwd"),
+    (re.compile(r"lstm_bwd_mma_kernel"), "lstm_bwd"),
+    # the f32-wh kernels, counted apart from the bf16 ones of the same wrappers
+    (re.compile(r"lstm_fwd_f32_kernel<.*true>"), "lstm_fwd_residuals_f32"),
+    (re.compile(r"lstm_fwd_f32_kernel<.*false>"), "lstm_fwd_infer_f32"),
+    (re.compile(r"lstm_bwd_f32_kernel"), "lstm_bwd_f32"),
     (re.compile(r"ce_(bf16|f32)_kernel<true>"), "ce_fwd_train"),
     (re.compile(r"ce_(bf16|f32)_kernel<false>"), "ce_fwd"),
     (re.compile(r"ce_pack_wt_kernel"), "ce_pack_wt"),
