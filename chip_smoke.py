@@ -15,7 +15,8 @@ Phases (each raises on failure; the script then exits non-zero):
    and ``ce_bwd`` without a product kernel, that has both HGMMA and UTMALDG,
    and ``lstm_infer`` and ``lstm_bwd`` without a narrow-row kernel that has
    both HMMA and UBLKCP, and ``lstm_f32`` without FFMA and UTMALDG (or with a
-   tensor-core instruction) in both its kernels; then it builds
+   tensor-core instruction) in both its kernels, and ``ce_f32`` so in both
+   modes of its kernel, or with local-memory spills; then it builds
    ``lstm_ablation.py``'s empty-step copies of the kernels that the 32- and
    20-row plans run and of the f32 kernels (the floor below);
 2. kernel checks at the Yahoo shapes of the evaluation and the training
@@ -59,8 +60,11 @@ Phases (each raises on failure; the script then exits non-zero):
    ``ms``, ``kernel_ms``, the plain version's, cuDNN's f32 LSTM with TF32
    off in turns, the bound at the f32 rate (``PEAK_F32``) and the empty-step
    floor (``{"f32_check"}`` lines); and the CE with f32 operands
-   (``ce_f32_kernel``, on no model path) timed at N 3040 and 60800 beside
-   the f32 library forward (``{"ce_f32_check"}``);
+   (``csrc/ce_f32.cu``'s ``ce_f32_kernel``, on no model path) in both modes
+   at N 3040, 60800 and 1000 against its plain version, twice (equal bits),
+   timed at N 3040 and 60800 with its kernels' device ms and its plan
+   beside the f32 library forward in turns and the bound at the f32 rate
+   (``{"ce_f32_check"}`` lines);
 3. the evaluation slice end to end through the normal entry point: a
    Yahoo-shaped corpus and a Yahoo-width random model (seeded) are written
    to a temporary directory, ``cli.text.main([... "--eval" ...])`` runs the
@@ -194,7 +198,8 @@ rank, the all-reduce time, the checks) and ``{"graphs": ...}`` (phase 9)
 lines, a ``{"kernels": [...]}`` line (its ``launches_by_path`` with the
 image, generation, toy, phase 7 paths', the ``dp`` / ``tp`` ranks' and
 phase 9's ``graphs`` counts; the f32 kernels' entries, ``*_f32``, count
-phase 10's launches), a ``{"ce_f32"}`` line, the card's name and power
+phase 10's launches; the f32-operand CE's entry, ``ce_f32``, on no model
+path, counts none), a ``{"ce_f32"}`` line, the card's name and power
 limit, and as the last line ``{"ok": true,
 "device": {...}}``. Exits non-zero, printing no result, when no CUDA
 device is available or the port's package is missing.
@@ -581,12 +586,13 @@ def ce_plan_of(N: int, dev):
         dev, ce_cuda.CEPlan(N, NH, VOCAB, 1).smem_bytes))
 
 
-def ce_kernel_ms(port, name: str, N: int, reps: int = 5) -> dict:
-    """The device ms a call of the CE forward's kernels (the W^T pack, the
-    products and epilogue, the merge) from one profiled window of ``reps``
-    calls; raises unless the window holds those three and ``reps`` launches."""
+def ce_kernel_ms(port, name: str, N: int, reps: int = 5, pack: bool = True) -> dict:
+    """The device ms a call of the CE forward's kernels (the W^T pack of the
+    bf16 kernel, the products and epilogue, the merge) from one profiled
+    window of ``reps`` calls; raises unless the window holds those kernels
+    and ``reps`` launches."""
     prof = profiled(lambda: [port() for _ in range(reps)], cpu=False)
-    parts = ("ce_pack_wt", name, "ce_merge")
+    parts = (("ce_pack_wt",) if pack else ()) + (name, "ce_merge")
     kernel_ms = {o["op"]: o["ms_total"] / reps for o in prof["top_device_ops"]
                  if o["op"] in parts}
     if sorted(kernel_ms) != sorted(parts) or prof["port_kernel_calls"].get(name) != reps:
@@ -913,36 +919,59 @@ def check_f32(dev):
 
 
 def check_ce_f32(dev):
-    """``ce_f32_kernel`` (the CE forward with f32 operands, a SIMT tile
-    kernel; no model path passes f32 operands: the decoder gives bf16)
-    at the training shape's N 3040 and the IW shape's N 60800 (nh 1024, V
-    20004): its time, device time, the plain version's, the library's (f32
-    matmul with TF32 off, logsumexp, gather) in turns, and the bound at the
-    f32 rate without tensor cores."""
+    """``ce_f32_kernel`` (``csrc/ce_f32.cu``: the CE forward with f32
+    operands; no model path passes f32 operands: the decoder gives bf16) in
+    both modes at the training shape's N 3040, the IW shape's N 60800 and a
+    ragged N 1000 (nh 1024, V 20004): against the plain version (``TOL``,
+    the spill within 1e-5), equal bits across calls; at N 3040 and 60800
+    its time, the launch's kernels' device ms (``kernel_ms``: the products
+    and epilogue, the merge), its plan, the plain version's time, the
+    library's (one f32 matmul with TF32 off, logsumexp, gather: the logits
+    it keeps are grad mode's spill) in turns, and the bound at the f32 rate
+    without tensor cores (grad mode with the spill's bytes)."""
     from vae_lagging_encoder_tpu_torch.ops import ce_cuda
 
     out = {}
-    for N, seed in ((CE_SPLIT_N, 15), (B * IW_CHUNK * (T_CHECK - 1), 4)):
+    for N, seed in ((CE_SPLIT_N, 15), (NSAMPLES_ROWS * (T_CHECK - 1), 4), (CE_RAGGED_N, 16)):
         h, w, tgt = ce_inputs(N, seed, dev)
-        port = lambda: ce_cuda.ce_forward(h, w, tgt, None)  # f32 operands
+        plan = ce_cuda.ce_f32_plan(N, NH, VOCAB, ce_cuda.ce_f32_blocks(dev))
 
         def library():
             logits = torch.matmul(h, w)
-            return logits.gather(1, tgt[:, None])[:, 0] - torch.logsumexp(logits, -1)
+            return (logits.gather(1, tgt[:, None])[:, 0] - torch.logsumexp(logits, -1), logits)
 
-        with _no_tf32():
-            t = time_turns({"library": library, "port": port}, reps=3)
-        prof = profiled(lambda: [port() for _ in range(2)], cpu=False)
-        bms, by = bound(2.0 * N * NH * VOCAB, 4.0 * (N * NH + NH * VOCAB) + 4.0 * N + 8.0 * N,
-                        PEAK_F32)
-        out[f"n{N}"] = dict(ms=time_ms(port, reps=3), plain_ms=time_ms(
-            lambda: ce_cuda.ce_logp_plain(h, w, tgt, None), reps=2, warmup=1),
-            kernel_ms=prof.get("device_busy_ms", float("nan")) / 2,
-            kernel_ops=[o["op"] for o in prof.get("top_device_ops", [])],
-            library_ms=t["library"][0], library_ms_turns=t["library"][1],
-            ms_turns=t["port"][1], bound_ms=bms, bound_by=by,
-            library="f32 matmul (TF32 off), logsumexp, gather")
-        log(json.dumps({"ce_f32_check": N, **out[f"n{N}"]}))
+        for save in (False, True):
+            name, kind = ("ce_fwd_train", "ce_train") if save else ("ce_fwd", "ce")
+            port = lambda: ce_cuda.ce_forward(h, w, tgt, None, save_logits=save)
+            got = port()
+            ref = ce_cuda.ce_logp_plain(h, w, tgt, None, save_logits=save)
+            torch.cuda.synchronize()
+            err = max(float((a - r).abs().max()) for a, r in zip(got[:2], ref[:2]))
+            spill_err = float((got[2] - ref[2]).abs().max()) if save else None
+            del got, ref
+            if not (err <= TOL[(kind, "f32")] and (spill_err or 0.0) <= 1e-5):
+                raise AssertionError(f"{name} f32 N {N}: max abs err {err} (tolerance "
+                                     f"{TOL[(kind, 'f32')]}), spill {spill_err} (1e-5)")
+            ce_same_bits(port, f"{name} f32 N {N}")
+            r = dict(err=err, spill_err=spill_err, tolerance=TOL[(kind, "f32")],
+                     plan=repr(plan), band=plan.band, lanes=plan.lanes, blocks=plan.blocks,
+                     waves=plan.waves, l2_bytes=plan.l2_bytes, dram_bytes=plan.dram_bytes)
+            if N != CE_RAGGED_N:
+                with _no_tf32():
+                    t = time_turns({"library": library, "port": port}, reps=3)
+                nbytes = 4.0 * (N * NH + NH * VOCAB) + 4.0 * N + 8.0 * N \
+                    + (4.0 * N * VOCAB if save else 0.0)
+                bms, by = bound(2.0 * N * NH * VOCAB, nbytes, PEAK_F32)
+                r.update(ms=time_ms(port, reps=5), kernel_ms=ce_kernel_ms(port, name, N,
+                                                                           pack=False),
+                         plain_ms=time_ms(lambda: ce_cuda.ce_logp_plain(
+                             h, w, tgt, None, save_logits=save), reps=2, warmup=1),
+                         library_ms=t["library"][0], library_ms_turns=t["library"][1],
+                         ms_turns=t["port"][1], bound_ms=bms, bound_by=by,
+                         library="f32 matmul (TF32 off), logsumexp, gather")
+            out[f"{name}_n{N}"] = r
+            log(json.dumps({"ce_f32_check": name, "N": N, **r}))
+            torch.cuda.empty_cache()
         del h, w, tgt
     return out
 
@@ -3117,6 +3146,29 @@ KERNELS = [
 ]
 
 
+def f32_census() -> None:
+    """The f32 kernels' build report (the f32-wh LSTM, the f32-operand CE):
+    FFMA products on operands brought by TMA (UTMALDG), no tensor-core
+    instruction (the f32 route is defined by f32 products); the CE's two
+    modes also without local-memory spills. Raises otherwise."""
+    from vae_lagging_encoder_tpu_torch.ops import build
+
+    for source, kerns in (("lstm_f32", ("lstm_fwd_f32_kernel", "lstm_bwd_f32_kernel")),
+                          ("ce_f32", ("ce_f32_kernel",))):
+        rep = build.kernel_report(source)
+        log(json.dumps({"build": source, "kernels": rep}))
+        for kern in kerns:
+            found = [k for k in rep if kern in k["function"] and "ffma" in k]
+            if not found or not all(k["ffma"] and k["utmaldg"] and not (k["hmma"] or k["hgmma"])
+                                    for k in found):
+                raise AssertionError(f"{source}: {kern} without FFMA and UTMALDG, or with "
+                                     f"tensor-core instructions: {rep}")
+            if source == "ce_f32" and (len(found) != 2 or any(
+                    k.get("spill_bytes", 1) for k in found)):
+                raise AssertionError(f"ce_f32: {kern}'s two modes not both found, or with "
+                                     f"local-memory spills: {rep}")
+
+
 def graphs_line(graph_runs, smi):
     return json.dumps({"graphs": {**graph_runs, "device": torch.cuda.get_device_name(0),
                                   "nvidia_smi": smi}})
@@ -3179,16 +3231,7 @@ def main() -> int:
                 "narrow" in k["function"] and k["hmma"] and k["ublkcp"] for k in census):
             raise AssertionError(f"{name}: no narrow-row kernel with both HMMA (mma.sync) and "
                                  f"UBLKCP (cp.async.bulk): {rep}")
-    # the f32-wh kernels: FFMA products on operands brought by TMA, no
-    # tensor-core instruction (the f32 route is defined by f32 products)
-    rep = build.kernel_report("lstm_f32")
-    log(json.dumps({"build": "lstm_f32", "kernels": rep}))
-    for kern in ("lstm_fwd_f32_kernel", "lstm_bwd_f32_kernel"):
-        found = [k for k in rep if kern in k["function"] and "ffma" in k]
-        if not found or not all(k["ffma"] and k["utmaldg"] and not (k["hmma"] or k["hgmma"])
-                                for k in found):
-            raise AssertionError(f"lstm_f32: {kern} without FFMA and UTMALDG, or with "
-                                 f"tensor-core instructions: {rep}")
+    f32_census()
     phase_done("1")
 
     # phase 2 — kernels against their plain versions at the slice's shapes
@@ -3400,6 +3443,21 @@ def main() -> int:
                         "kernel_ms": r["kernel_ms"], "floor_ms": r.get("floor_ms"),
                         "shape": f"T {T_CHECK}, {shape.replace('_', ', ')}, wh f32",
                         "f32_checks": checks_k})
+    # the f32-operand CE kernel: on no model path (the decoder passes bf16),
+    # so no launch on a main path; its figures at the training shape's N
+    # 3040 (forward), every check of phase 2 beside them
+    r = ce_f32[f"ce_fwd_n{CE_SPLIT_N}"]
+    kernels.append({"name": "ce_f32", "route": "cuda",
+                    "source": "vae_lagging_encoder_tpu_torch/csrc/ce_f32.cu",
+                    "replaces": "vae_lagging_encoder_tpu/ops/ce_pallas.py:65", "launches": 0,
+                    "launches_by_path": {}, "on_main_path": False,
+                    "max_abs_err": max(c["err"] for c in ce_f32.values()),
+                    "tolerance": r["tolerance"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                    "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                    "library_ms": r["library_ms"], "library": r["library"],
+                    "kernel_ms": r["kernel_ms"],
+                    "shape": f"N {CE_SPLIT_N}, nh {NH}, V {VOCAB}, f32 operands",
+                    "ce_f32_checks": ce_f32})
     print(json.dumps({"trace_iw": trace_iw_res}), flush=True)
     print(json.dumps({"trace": trace}), flush=True)
     print(json.dumps({"image": img_line}), flush=True)
@@ -3424,8 +3482,9 @@ def main() -> int:
     print(graphs_line(graph_runs, smi), flush=True)
     print(json.dumps({"h512": {**h512, "device": torch.cuda.get_device_name(0),
                                "nvidia_smi": smi}}), flush=True)
-    print(json.dumps({"ce_f32": {**ce_f32, "kernel": "ce_f32_kernel (f32 operands; on no model "
-                                 "path)", "device": torch.cuda.get_device_name(0),
+    print(json.dumps({"ce_f32": {**ce_f32, "kernel": "ce_f32_kernel (csrc/ce_f32.cu, f32 "
+                                 "operands; on no model path)",
+                                 "device": torch.cuda.get_device_name(0),
                                  "nvidia_smi": smi}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -377,3 +377,269 @@ def test_ce_kernel_model_matches_plain(N, nh, V, clusters, save):
     np.testing.assert_allclose(lse, ref[1].numpy(), atol=1e-4, rtol=0)
     if save:  # the same logits may round to neighbouring bf16 values (one step)
         np.testing.assert_allclose(spill, ref[2].float().numpy(), rtol=2.0 ** -7, atol=1e-6)
+
+
+# ------------------------------------------------- the f32-operand kernel
+F32_SRC = (build.CSRC_DIR / "ce_f32.cu").read_text()
+F32_SHAPES = [(3040, 1024, 20004), (60800, 1024, 20004), (1000, 1024, 20004), (70, 40, 1100),
+              (129, 36, 1026), (1, 40, 1100), (300, 72, 1300)]
+
+
+def _f32_const(name):
+    return int(re.search(rf"constexpr int {name} = (\d+)", F32_SRC).group(1))
+
+
+def test_ce_f32_plan_constants_match_the_kernel():
+    assert re.search(r"kBM = (\d+), kBN = (\d+), kBK = (\d+);", F32_SRC).groups() == tuple(
+        str(x) for x in (ce_cuda.CE_F32_BLOCK_M, ce_cuda.CE_F32_BLOCK_N, ce_cuda.CE_F32_BLOCK_K))
+    assert _f32_const("kStages") == ce_cuda.CE_F32_STAGES
+    assert _f32_const("kConsumerWarps") == ce_cuda.CE_F32_WARPS
+    assert _f32_const("kAlign") == ce_cuda.CE_ALIGN
+    assert "kSmemBytes = kAlign + kStages * kStageBytes + 8 * 2 * kStages + kStateBytes" \
+        in F32_SRC and "kStateBytes = 4 * 8 * kConsumers * 4;" in F32_SRC
+    sig = re.search(r"int ce_fwd_f32\(([^)]*)\)", F32_SRC).group(1)
+    params = [p.split()[-1].lstrip("*") for p in sig.split(",")]
+    names = list(ce_cuda.CE_F32_PLAN_ARGS)
+    assert params[-len(names) - 1:-1] == names and params[-1] == "stream"
+    assert len(params) == len(ce_cuda._F32_ARGTYPES)
+    ints = {i for i, q in enumerate(sig.split(",")) if q.split()[0] == "int"}
+    assert ints == {i for i, t in enumerate(ce_cuda._F32_ARGTYPES) if t is ce_cuda.ctypes.c_int}
+    # f32 products on the FMA pipes: no tensor-core instruction, no bf16
+    for instr in ("wgmma.mma_async", "mma.sync", "__nv_bfloat16", "ce_wgmma.cuh"):
+        assert instr not in F32_SRC
+    # the old SIMT design (a logits tile in shared memory, one block a row tile) is gone
+    assert "ce_fwd_f32" not in SRC and "logits_tile" not in SRC and "ce_f32_kernel" not in SRC
+
+
+@pytest.mark.parametrize("nsm", [NSM, NSM_PCIE])
+@pytest.mark.parametrize("N,nh,V", F32_SHAPES)
+def test_ce_f32_plan(N, nh, V, nsm):
+    plan = ce_cuda.ce_f32_plan(N, nh, V, nsm)
+    R, nv = -(-N // 128), -(-V // 128)
+    assert (plan.row_tiles, plan.vocab_tiles) == (R, nv)
+    assert 1 <= plan.band <= R and 1 <= plan.lanes <= nv and plan.blocks <= nsm
+    assert plan.blocks == plan.band * plan.lanes
+    assert plan.units == -(-R // plan.band) * plan.band * nv
+    assert plan.band * plan.tile_bytes <= ce_cuda.CE_F32_L2_WINDOW or plan.band == 1
+    # the busiest block within 1 % of the fewest units any grid gives
+    fewest = min(-(-(-(-R // b)) * nv // l) for b in range(1, min(R, nsm) + 1)
+                 for l in range(1, min(nv, nsm // b) + 1))
+    assert plan.waves <= fewest * ce_cuda.CE_F32_WAVE_SLACK
+    assert max(len(plan.block_units(c)) for c in range(plan.blocks)) <= plan.waves
+    # shared memory: 1024 of slack, 4 slabs of h's 128 x 32 and W's 32 x 128 f32, 8
+    # barriers, the running (m, s, t, target) of 8 rows of 256 threads
+    assert plan.smem_bytes == 1024 + 4 * 32768 + 64 + 32768 == 164928 <= SMEM_MAX
+    # rows of whole 16 bytes for TMA and the spill's 16-byte stores
+    assert plan.ldh % 4 == 0 and 0 <= plan.ldh - nh < 4
+    assert plan.ldw % 4 == 0 and 0 <= plan.ldw - V < 4
+    assert plan.part_shape == (3, 2 * plan.lanes, R * 128)
+    # L2 -> shared: each real unit's slabs of h and W
+    assert plan.l2_bytes == R * nv * -(-nh // 32) * 32768
+    assert len(plan.args()) == len(ce_cuda.CE_F32_PLAN_ARGS)
+    assert all(isinstance(a, int) for a in plan.args())
+
+
+def test_ce_f32_plan_main_paths():
+    """Training (N 3040): 24 row tiles x 157 vocab tiles over 12 x 11
+    blocks, 2 bands, 28 or 29 units a block; IW (N 60800): 475 row tiles
+    over 4 x 33, 119 bands (the last with one empty row tile), 561 to 567
+    units a block; W read from device memory once a band: 0.18 / 10.0 GB;
+    L2 -> shared 3.95 / 78.2 GB."""
+    train, iw = (ce_cuda.ce_f32_plan(n, 1024, 20004, NSM) for n in (3040, 60800))
+    assert (train.band, train.lanes, train.bands, train.waves) == (12, 11, 2, 29)
+    assert (iw.band, iw.lanes, iw.bands, iw.waves) == (4, 33, 119, 567)
+    assert {len(train.block_units(c)) for c in range(132)} == {28, 29}
+    # the blocks of the band's row 3 have one empty unit in each of the last band's waves
+    assert {len(iw.block_units(c)) for c in range(132)} == {561, 562, 566, 567}
+    assert (train.ldh, train.ldw, train.slabs) == (1024, 20004, 32)
+    assert 0.17e9 < train.dram_bytes < 0.18e9 and 10.0e9 < iw.dram_bytes < 10.1e9
+    assert 3.9e9 < train.l2_bytes < 4.0e9 and 78.1e9 < iw.l2_bytes < 78.3e9
+    # 114 SMs: 19 x 6 blocks, 655 units (74,575 over 114: 654.2)
+    assert ce_cuda.ce_f32_plan(60800, 1024, 20004, NSM_PCIE).args()[4:7] == (19, 6, 114)
+
+
+def test_ce_f32_plan_refuses_what_no_card_holds():
+    """A card that holds no block has no plan: it raises. The shared memory
+    is the ring's whatever nh (more K slabs, not more bytes a slab)."""
+    assert ce_cuda.ce_f32_plan(100, 4100, 500, 1).smem_bytes == 164928
+    with pytest.raises(ValueError, match="no block"):
+        ce_cuda.ce_f32_plan(100, 1024, 500, 0)
+
+
+@pytest.mark.parametrize("nsm", [NSM, NSM_PCIE, 7])
+@pytest.mark.parametrize("N,nh,V", F32_SHAPES)
+def test_ce_f32_schedule_covers_each_unit_once(N, nh, V, nsm):
+    """The blocks' units cover every (row tile, vocab tile) once; block c
+    keeps row tile c % band of each band and vocab lane c // band; its
+    units on one row tile are consecutive (one segment), and each (row
+    tile, lane) has one segment; the blocks resident together work on
+    about ``band`` row tiles and ``lanes`` vocab tiles at each step."""
+    plan = ce_cuda.ce_f32_plan(N, nh, V, nsm)
+    R, nv, G = plan.row_tiles, plan.vocab_tiles, plan.blocks
+    seen = np.zeros((R, nv), int)
+    owner = {}
+    for c in range(G):
+        units = plan.block_units(c)
+        for rt, v in units:
+            seen[rt, v] += 1
+            assert rt % plan.band == c % plan.band
+            assert plan.lane(rt, v) == c // plan.band
+        segs = plan.segments(c)
+        assert [rt for rt, _ in segs] == sorted({rt for rt, _ in units})
+        for rt, vs in segs:
+            assert (rt, c // plan.band) not in owner
+            owner[rt, c // plan.band] = vs
+            assert vs == sorted(vs) and all(b - a == plan.lanes for a, b in zip(vs, vs[1:]))
+    assert (seen == 1).all()
+    for rt in range(R):  # a row tile's segments: its lanes, split mid-row-tile where lanes > 1
+        lanes = sorted(j for r, j in owner if r == rt)
+        assert lanes == sorted(plan.merge_order(rt))
+        assert [owner[rt, j][0] for j in plan.merge_order(rt)] == list(range(len(lanes)))
+    for step in range(plan.waves):
+        rows = {plan.unit(u)[0] for u in range(step * G, min((step + 1) * G, plan.units))}
+        cols = {plan.unit(u)[1] for u in range(step * G, min((step + 1) * G, plan.units))}
+        # (a step that crosses into the next band holds the ends of both)
+        assert len(rows) <= 2 * plan.band and len(cols) <= plan.lanes + 2
+
+
+def test_ce_f32_thread_layout_and_shared_loads():
+    """csrc/ce_f32.cu's consumer threads: warp w, lane l is (ty, tx) = (4 (w %
+    4) + l / 8, 8 (w / 4) + l % 8), the 256 threads cover 16 x 16 once, and
+    thread rows 16 i + ty cover the tile's 128 rows. Each 16-byte load of h
+    (row 16 i + ty, k 4q .. 4q + 3) reads where TMA's 128-byte swizzle put
+    those k, and the warp's 4 distinct addresses of a load fall in distinct
+    bank groups; each 16-byte load of W reads 8 distinct consecutive 16-byte
+    chunks (128 bytes): one wavefront a load."""
+    warp, lane = np.meshgrid(np.arange(8), np.arange(32), indexing="ij")
+    ty, tx = 4 * (warp % 4) + lane // 8, 8 * (warp // 4) + lane % 8
+    assert np.array_equal(np.sort((16 * ty + tx).ravel()), np.arange(256))
+    assert np.array_equal(np.sort((16 * np.arange(8)[:, None] + np.arange(16)).ravel()),
+                          np.arange(128))
+    assert "ty = 4 * (warp & 3) + (lane >> 3), tx = 8 * (warp >> 2) + (lane & 7)" in F32_SRC
+    assert "return 16 * i + ty;" in F32_SRC
+    a_off = (ty * 128) | ((ty & 7) << 4)  # the kernel's per-thread base
+    for i in range(8):
+        for q in range(8):
+            addr = (a_off ^ (q << 4)) + i * 16 * 128  # [warp, lane]
+            row = 16 * i + ty
+            assert np.array_equal(addr, _sw128(row * 128 + 16 * q))
+            for w in range(8):
+                uniq = np.unique(addr[w])
+                assert uniq.size == 4 and np.unique((uniq >> 4) & 7).size == 4
+    b_addr = 16 * tx  # W's chunk of columns 4 tx .. + 3 at one k (and + 256 bytes)
+    for w in range(8):
+        uniq = np.unique(b_addr[w])
+        assert uniq.size == 8 and uniq.max() - uniq.min() == 7 * 16
+
+
+def _f32_kernel_model(h, w, tgt, plan, save):
+    """The f32 kernel's reductions in numpy (f32 operands): for each block's
+    segment, each thread's online (max, sum, target) per row over its
+    columns (4 tx + j, 64 + 4 tx + j) of each unit's vocab tile, in the
+    segment's order, masked past V; the row's threads of each warp (tx 0-7,
+    8-15) merged into the segment's partials at part[:, 2 lane + half, row];
+    the merge of a row's partials in ``merge_order``, each lane's two halves
+    in turn; the spill [N, ldw] with the logits below V."""
+    N, V = h.shape[0], w.shape[1]
+    R, BM, BN = plan.row_tiles, plan.block_m, plan.block_n
+    logits = np.zeros((R * BM, plan.vocab_tiles * BN))
+    logits[:N, :V] = h.astype(np.float32) @ w.astype(np.float32)
+    tg = np.full(R * BM, -1)
+    tg[:N] = tgt
+    tx = np.arange(16)
+    cols = np.concatenate([4 * tx[:, None] + np.arange(4), 64 + 4 * tx[:, None] + np.arange(4)],
+                          axis=1)  # [thread tx, its 8 columns]
+    part = np.full(plan.part_shape, np.nan)
+    spill = np.full((N, plan.ldw), np.nan)
+    for c in range(plan.blocks):
+        lane = c // plan.band
+        for rt, vs in plan.segments(c):
+            rows = slice(rt * BM, (rt + 1) * BM)
+            m = np.full((BM, 16), -np.inf)
+            s, t = np.zeros((BM, 16)), np.zeros((BM, 16))
+            for v in vs:
+                cc = v * BN + cols  # [16, 8]
+                vals = logits[rows][:, cc]  # [rows, 16, 8]
+                if save:
+                    r_real = min(BM, N - rt * BM)
+                    for k in range(2):  # the 16-byte stores of column quads that start below V
+                        for q in range(16):
+                            c0 = cc[q, 4 * k]
+                            if c0 < V:
+                                spill[rt * BM:rt * BM + r_real, c0:c0 + 4] = \
+                                    vals[:r_real, q, 4 * k:4 * k + 4]
+                vals = np.where(cc[None] < V, vals, -np.inf)
+                t += np.where(cc[None] == tg[rows, None, None], vals, 0).sum(-1)
+                lm = vals.max(-1)
+                upd = lm > -np.inf
+                mn = np.maximum(m, lm)
+                with np.errstate(invalid="ignore"):
+                    ex = np.exp(vals - mn[..., None]).sum(-1)
+                    sc = np.where(np.isinf(m), 0.0, np.exp(m - mn))
+                s = np.where(upd, s * sc + ex, s)
+                m = np.where(upd, mn, m)
+            for half in range(2):
+                hs = slice(8 * half, 8 * half + 8)
+                Mh = m[:, hs].max(1, keepdims=True)
+                with np.errstate(invalid="ignore"):
+                    sc = np.where(np.isinf(m[:, hs]), 0.0, np.exp(m[:, hs] - Mh))
+                slot = 2 * lane + half
+                assert np.isnan(part[0, slot, rows]).all()  # one segment a (lane, row tile)
+                part[:, slot, rows] = (Mh[:, 0], (s[:, hs] * sc).sum(1), t[:, hs].sum(1))
+    logp, lse = np.zeros(N), np.zeros(N)
+    for n in range(N):
+        ps = np.array([part[:, 2 * j + half, n] for j in plan.merge_order(n // BM)
+                       for half in range(2)])
+        M = ps[:, 0].max()
+        lse[n] = M + np.log((ps[:, 1] * np.exp(ps[:, 0] - M)).sum())
+        logp[n] = ps[:, 2].sum() - lse[n]
+    return logp, lse, spill[:, :V]
+
+
+def _jax_f32_ce(h, w, tgt, save):
+    """The JAX package's kernel with full-precision operands
+    (``mxu_dtype=None``) in interpret mode, rows padded to its block of 8 as
+    ``fused_ce_logp`` pads them: (logp, lse, logits [N, V] or None)."""
+    import jax.numpy as jnp
+    from vae_lagging_encoder_tpu.ops.ce_pallas import _ce_forward
+
+    N, pad = h.shape[0], -h.shape[0] % 8
+    hp = np.pad(h, ((0, pad), (0, 0)))
+    tp = np.pad(tgt, (0, pad))
+    logp, lse, logits = _ce_forward(jnp.asarray(hp), jnp.asarray(w), jnp.asarray(tp), block_n=8,
+                                    block_v=1024, mxu_dtype=None, interpret=True,
+                                    save_logits=save)
+    return (np.asarray(logp)[:N], np.asarray(lse)[:N],
+            np.asarray(logits)[:N, :w.shape[1]] if save else None)
+
+
+@pytest.mark.parametrize("save", [False, True])
+@pytest.mark.parametrize("N,nh,V,blocks", [(70, 40, 1100, 132), (129, 36, 1026, 132),
+                                           (300, 72, 1300, 7), (257, 36, 1030, 5)])
+def test_ce_f32_kernel_model_matches_plain_and_jax(N, nh, V, blocks, save):
+    """Ragged N (129 and 257: one row in the last tile), nh not a multiple of
+    the 32-deep K slab (36, 40, 72), V neither a multiple of the 128-wide
+    tile nor of 4 (1026, 1030; 1100 and 1300 past the tile), segments that
+    split a row tile between lanes (every plan here), a row tile with lanes
+    of one tile and of two, several bands. Against ``ce_logp_plain`` with
+    f32 operands and the JAX package's kernel with ``mxu_dtype=None``."""
+    rng = np.random.RandomState(N + V + save)
+    h = (rng.randn(N, nh) * 0.5).astype(np.float32)
+    w = (rng.randn(nh, V) * 0.3).astype(np.float32)
+    tgt = rng.randint(0, V, N).astype(np.int32)
+    tgt[0], tgt[-1] = 0, V - 1
+    plan = ce_cuda.ce_f32_plan(N, nh, V, blocks)
+    assert plan.lanes > 1 and any(len(plan.segments(c)) > 1 for c in range(plan.blocks)) \
+        or blocks == 132
+    logp, lse, spill = _f32_kernel_model(h, w, tgt, plan, save)
+    ref = ce_cuda.ce_logp_plain(torch.from_numpy(h), torch.from_numpy(w), torch.from_numpy(tgt),
+                                None, save_logits=save)
+    jl, jlse, jlogits = _jax_f32_ce(h, w, tgt, save)
+    for got in (logp, lse):
+        assert np.isfinite(got).all()
+    for a, b in ((logp, ref[0].numpy()), (lse, ref[1].numpy()), (logp, jl), (lse, jlse)):
+        np.testing.assert_allclose(a, b, atol=1e-4, rtol=0)
+    if save:  # f32 logits are their own rounding: lse of the spill is lse
+        assert not np.isnan(spill).any()
+        np.testing.assert_allclose(spill, ref[2].numpy(), atol=1e-5, rtol=0)
+        np.testing.assert_allclose(spill, jlogits, atol=1e-5, rtol=0)

@@ -1155,3 +1155,92 @@ def test_lstm_f32_capacity_query_on_cuda():
                                torch.zeros(too_many.rows, 512, device="cuda"), too_many)
     lstm_cuda.lstm_fwd_f32(xw, mask, wh, h0, h0, plan)  # the plan the card holds runs
     torch.cuda.synchronize()
+
+
+# ------------------------------------------------ the f32-operand CE kernel
+# csrc/ce_f32.cu (operand_dtype None): f32 on both sides, only the order of
+# the sums differs (one nh-long dot, one V-long logsumexp): 1e-4 as
+# chip_smoke.py's f32 CE checks; the f32 spill within 1e-5 of the plain
+# logits. Ragged N (129, 257: one row in the last 128-row tile), nh off the
+# 32-deep K slab (36, 40, 72), V off the 128-wide tile and off 4 (1026,
+# 1030: a padded W and the [:, :V] view of a [N, Vs] spill), the Yahoo width
+# at the training shape's N 3040.
+CE_F32_SHAPES = [(70, 40, 1100), (129, 36, 1026), (257, 36, 1030), (300, 72, 1300),
+                 (3040, 1024, 20004)]
+
+
+def _ce_f32_case(n, nh, vocab, seed, save):
+    """The f32 kernel (twice) and its plain version on the same inputs,
+    targets at 0 and V - 1."""
+    h, w, tgt = (torch.from_numpy(a).cuda() for a in _ce_inputs(n, nh, vocab, seed))
+    tgt[0], tgt[-1] = 0, vocab - 1
+    name = "ce_fwd_train" if save else "ce_fwd"
+    launches = build.LAUNCHES[name]
+    got = ce_cuda.ce_forward(h, w, tgt, None, save_logits=save)
+    again = ce_cuda.ce_forward(h, w, tgt, None, save_logits=save)
+    ref = ce_cuda.ce_logp_plain(h, w, tgt, None, save_logits=save)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[name] == launches + 2
+    return got, again, ref
+
+
+def _assert_ce_f32_close(got, ref, save, vocab):
+    torch.testing.assert_close(got[0], ref[0], atol=1e-4, rtol=0)
+    torch.testing.assert_close(got[1], ref[1], atol=1e-4, rtol=0)
+    if save:
+        assert got[2].dtype == torch.float32 and tuple(got[2].shape) == (got[0].shape[0], vocab)
+        assert got[2].stride(0) == -(-vocab // 4) * 4 and got[2].data_ptr() % 16 == 0
+        torch.testing.assert_close(got[2], ref[2], atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("save", [False, True])
+@pytest.mark.parametrize("n,nh,vocab", CE_F32_SHAPES)
+def test_ce_f32_kernel_matches_plain_on_cuda(n, nh, vocab, save):
+    """``ce_f32_kernel`` under the card's own plan against its plain version
+    in both modes; two calls give the same bits (the partials are merged in
+    one order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    got, again, ref = _ce_f32_case(n, nh, vocab, 40 + n + save, save)
+    _assert_ce_f32_close(got, ref, save, vocab)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("save", [False, True])
+@pytest.mark.parametrize("blocks", [5, 7])
+def test_ce_f32_segments_splitting_a_row_tile_on_cuda(blocks, save, monkeypatch):
+    """Under a plan of 5 or 7 blocks at N 300, V 1030 (3 row tiles x 9 vocab
+    tiles) every row tile's vocab is split between lanes, and the blocks walk
+    several row tiles: both modes against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    plan = ce_cuda.ce_f32_plan(300, 72, 1030, blocks)
+    assert plan.lanes > 1 and any(len(plan.segments(c)) > 1 for c in range(plan.blocks))
+    monkeypatch.setattr(ce_cuda, "ce_f32_blocks", lambda device: blocks)
+    got, again, ref = _ce_f32_case(300, 72, 1030, 50 + blocks, save)
+    _assert_ce_f32_close(got, ref, save, 1030)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_ce_f32_plan_beyond_the_cards_blocks_raises_on_cuda(monkeypatch):
+    """A plan of more blocks than the card holds at once is refused by the
+    kernel (no launch, no count), and a card that holds no block has no
+    plan: both raise. The card's own plan is within its blocks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    dev = torch.device("cuda", 0)
+    have = ce_cuda.ce_f32_blocks(dev)
+    assert 0 < have <= 2 * torch.cuda.get_device_properties(0).multi_processor_count
+    assert ce_cuda.ce_f32_plan(3040, 1024, 20004, have).blocks <= have
+    h, w, tgt = (torch.from_numpy(a).cuda() for a in _ce_inputs(n=3040, nh=64, vocab=20004,
+                                                                seed=3))
+    assert ce_cuda.ce_f32_plan(3040, 64, 20004, have + 8).blocks > have
+    n = build.LAUNCHES["ce_fwd"]
+    for blocks, err in ((have + 8, RuntimeError), (0, ValueError)):
+        monkeypatch.setattr(ce_cuda, "ce_f32_blocks", lambda device: blocks)
+        with pytest.raises(err):
+            ce_cuda.ce_forward(h, w, tgt, None)
+    assert build.LAUNCHES["ce_fwd"] == n

@@ -9,8 +9,7 @@
 //     device memory;
 //   - grad mode (ce_fwd_train, save_logits = 1; the TPU kernel with
 //     save_logits=True): each logits tile is also written, rounded to the
-//     operand type (bf16, or f32 in f32-operand mode), into the residual
-//     spill, and a second running sum s2 of exp(rounded - running max) over
+//     operand type (bf16), into the residual spill, and a second running sum s2 of exp(rounded - running max) over
 //     the real columns gives lse[n] = m + log(s2), the logsumexp of the
 //     ROUNDED logits, so that the backward's exp(spill - lse) rows sum to
 //     exactly 1; logp keeps the unrounded m + log(s).
@@ -81,9 +80,10 @@
 //   of W itself (V = 20004: 40,008 bytes) is not 16-byte aligned for TMA;
 //   ce_bwd.cu reads the same W^T as its B operand.
 //
-// The f32-operand path (ce_fwd_f32, used by the f32 checks) is simple: 64-row
-// blocks over 128-column tiles, products on CUDA cores (FMA) through an f32
-// logits tile in shared memory (tensor cores have no exact f32 product).
+// f32 operands (mxu_dtype=None, the full-precision mode) take ce_f32.cu's
+// kernel: exact f32 products on the FMA pipes (tensor cores have no exact
+// f32 product), persistent over the card's blocks, a TMA ring, and the
+// same per-segment partials merged in a fixed order.
 
 #include <cooperative_groups.h>
 #include <math.h>
@@ -441,128 +441,6 @@ cudaError_t bf16_clusters(size_t smem, int* clusters) {
   return err;
 }
 
-// -------------------------------------------------------------- f32 path
-constexpr int BM = 64, BN = 128, BK = 32, NTHREADS = 256;
-constexpr float NEG = -1e30f;
-constexpr int LDA_F = BM + 4;  // f32 A tile stored transposed [BK][BM]
-constexpr int LDB_F = BN + 4;  // f32 B tile [BK][BN]
-constexpr int LDC = BN + 4;    // f32 logits tile [BM][BN]
-constexpr size_t kF32ABytes = sizeof(float) * BK * LDA_F;
-constexpr size_t kF32BBytes = sizeof(float) * BK * LDB_F;
-constexpr size_t kF32Smem = kF32ABytes + kF32BBytes + sizeof(float) * BM * LDC;
-
-// logits tile for rows [row0, row0+BM) x cols [col0, col0+BN) into Cs (f32)
-__device__ __forceinline__ void logits_tile(const float* __restrict__ h,
-                                            const float* __restrict__ w,
-                                            unsigned char* smem, int row0, int col0,
-                                            int N, int nh, int V) {
-  float* As = reinterpret_cast<float*>(smem);  // [BK][LDA_F], transposed
-  float* Bs = reinterpret_cast<float*>(smem + kF32ABytes);
-  float* Cs = reinterpret_cast<float*>(smem + kF32ABytes + kF32BBytes);
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;  // rows ty*4, cols tx*8
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < nh; k0 += BK) {
-    __syncthreads();
-    float va[BM * BK / NTHREADS], vb[BK * BN / NTHREADS];
-#pragma unroll
-    for (int u = 0; u < BM * BK / NTHREADS; ++u) {
-      const int idx = u * NTHREADS + tid, gr = row0 + idx / BK, gk = k0 + idx % BK;
-      va[u] = (gr < N && gk < nh) ? h[(size_t)gr * nh + gk] : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < BK * BN / NTHREADS; ++u) {
-      const int idx = u * NTHREADS + tid, gk = k0 + idx / BN, gc = col0 + idx % BN;
-      vb[u] = (gk < nh && gc < V) ? w[(size_t)gk * V + gc] : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < BM * BK / NTHREADS; ++u) {
-      const int idx = u * NTHREADS + tid;
-      As[(idx % BK) * LDA_F + idx / BK] = va[u];
-    }
-#pragma unroll
-    for (int u = 0; u < BK * BN / NTHREADS; ++u) {
-      const int idx = u * NTHREADS + tid;
-      Bs[(idx / BN) * LDB_F + idx % BN] = vb[u];
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < BK; ++k) {
-      float a[4], b[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[k * LDA_F + ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) b[j] = Bs[k * LDB_F + tx * 8 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) Cs[(ty * 4 + i) * LDC + tx * 8 + j] = acc[i][j];
-}
-
-template <bool kSave>
-__global__ void __launch_bounds__(NTHREADS)
-ce_f32_kernel(const float* __restrict__ h, const float* __restrict__ w, const int* __restrict__ tgt,
-              float* __restrict__ logp, float* __restrict__ lse, float* __restrict__ spill,
-              int N, int nh, int V) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const float* Cs = reinterpret_cast<const float*>(smem + kF32ABytes + kF32BBytes);
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * BM;
-  const int er = tid / 4, ep = tid % 4;  // 4 threads per row; thread ep takes cols c*4 + ep
-  const int grow = row0 + er;
-  const int target = grow < N ? tgt[grow] : -1;
-  float m_run = -INFINITY, s_run = 0.f, t_logit = 0.f;
-
-  for (int col0 = 0; col0 < V; col0 += BN) {
-    logits_tile(h, w, smem, row0, col0, N, nh, V);
-    __syncthreads();
-    if (kSave) {  // the residual: the tile, row-major [N, V]
-      for (int idx = tid; idx < BM * BN; idx += NTHREADS) {
-        const int r = idx / BN, c = idx % BN, gr = row0 + r, gc = col0 + c;
-        if (gr < N && gc < V) spill[(size_t)gr * V + gc] = Cs[r * LDC + c];
-      }
-    }
-    const float* crow = Cs + er * LDC;
-    float vmax = NEG;
-    for (int c = 0; c < BN / 4; ++c) {
-      const int n = c * 4 + ep, gc = col0 + n;
-      const float x = gc < V ? crow[n] : NEG;
-      vmax = fmaxf(vmax, x);
-      if (gc == target) t_logit += x;
-    }
-    vmax = fmaxf(vmax, __shfl_xor_sync(0xffffffffu, vmax, 1));
-    vmax = fmaxf(vmax, __shfl_xor_sync(0xffffffffu, vmax, 2));
-    const float m_new = fmaxf(m_run, vmax);
-    float ssum = 0.f;
-    for (int c = 0; c < BN / 4; ++c) {
-      const int n = c * 4 + ep, gc = col0 + n;
-      ssum += expf((gc < V ? crow[n] : NEG) - m_new);
-    }
-    ssum += __shfl_xor_sync(0xffffffffu, ssum, 1);
-    ssum += __shfl_xor_sync(0xffffffffu, ssum, 2);
-    s_run = s_run * expf(m_run - m_new) + ssum;
-    m_run = m_new;
-  }
-  t_logit += __shfl_xor_sync(0xffffffffu, t_logit, 1);
-  t_logit += __shfl_xor_sync(0xffffffffu, t_logit, 2);
-  if (ep == 0 && grow < N) {
-    // f32 logits are their own rounding: the s2 of grad mode is s
-    const float l = m_run + logf(s_run);
-    lse[grow] = l;
-    logp[grow] = t_logit - l;
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -640,20 +518,6 @@ int ce_fwd_bf16(const void* h, const void* w, void* wt, const int* tgt, float* l
 // smem_bytes), into *clusters.
 int ce_fwd_clusters(int smem_bytes, int* clusters) {
   return bf16_clusters(smem_bytes, clusters);
-}
-
-// f32 operands, both modes: h [N, nh], w [nh, V] f32 (the f32 checks). As
-// ce_fwd_bf16 with spill [N, V] f32 when save_logits.
-int ce_fwd_f32(const float* h, const float* w, const int* tgt, float* logp, float* lse,
-               float* spill, int N, int nh, int V, int save_logits, void* stream) {
-  if (N < 1 || nh < 1 || V < 1 || (save_logits && !spill)) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto kern = save_logits ? ce_f32_kernel<true> : ce_f32_kernel<false>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kF32Smem);
-  if (err != cudaSuccess) return err;
-  kern<<<cdiv(N, BM), NTHREADS, kF32Smem, s>>>(h, w, tgt, logp, lse, spill, N, nh, V);
-  return cudaGetLastError();
 }
 
 const char* kernel_error_string(int err) {

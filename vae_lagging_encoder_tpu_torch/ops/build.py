@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` (``SOURCES``: ``lstm_f32``, ``lstm_infer`` and
 ``lstm_bwd``, the LSTM kernels of ``ops/lstm_cuda.py``; ``ce_fwd`` and
-``ce_bwd``, the fused CE's forward and backward of ``ops/ce_cuda.py``; the
+``ce_bwd``, the fused CE's forward and backward of ``ops/ce_cuda.py``, and
+``ce_f32``, its forward with f32 operands; the
 ``*.cuh`` headers they share) is compiled on first use by ``nvcc`` into its
 own shared library with a plain C interface, which is loaded with ``ctypes``:
 
@@ -46,7 +47,7 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
-SOURCES = ("lstm_f32", "lstm_infer", "lstm_bwd", "ce_fwd", "ce_bwd")
+SOURCES = ("lstm_f32", "lstm_infer", "lstm_bwd", "ce_fwd", "ce_f32", "ce_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

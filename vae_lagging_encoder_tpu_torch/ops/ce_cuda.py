@@ -17,7 +17,13 @@ launch plan ``ce_plan``, which the kernel checks; it reads h in bf16 as it
 is (a copy only where a row is not 16-byte aligned), packs W (f32 or bf16)
 into a zero-padded K-major bf16 copy W^T [Vp, Kp] itself, and spills into
 [N, Vp], returned as the [:, :V] view. A card without a plan (no cluster
-of two blocks resident) raises.
+of two blocks resident) raises. With f32 operands (``operand_dtype=None``,
+on no model path: the decoder passes bf16) it launches ``csrc/ce_f32.cu``
+under the launch plan ``ce_f32_plan``, which the kernel checks: exact f32
+products on the FMA pipes, persistent over the card's blocks
+(``ce_f32_blocks``), h and W read in place by TMA (a padded copy only where
+nh or V is not a multiple of 4), the f32 spill [N, Vs] (Vs = V rounded up
+to 4) returned as the [:, :V] view.
 
 ``ce_backward`` is the counterpart of ``_fused_ce_bwd`` (which the JAX
 package leaves to XLA as two dots): from the grad-mode residuals,
@@ -70,7 +76,23 @@ CE_PLAN_ARGS = ("block_m", "block_n", "block_k", "stages", "cluster", "clusters"
                 "smem_bytes")
 _BF16_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * (8 + len(CE_PLAN_ARGS))
                   + [ctypes.c_void_p])
-_F32_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+# Constants the f32-operand kernel is built for (csrc/ce_f32.cu: kBM, kBN,
+# kBK, kStages, kConsumerWarps; the ring aligned like the bf16 kernel's,
+# CE_ALIGN); tests/test_torch_port_ce_plan.py reads them back.
+CE_F32_BLOCK_M = 128      # rows of a unit (16 x 16 threads of 8 x 8 outputs)
+CE_F32_BLOCK_N = 128      # vocab columns of a unit
+CE_F32_BLOCK_K = 32       # K slab: 128 bytes of f32, the 128-byte swizzle's row
+CE_F32_STAGES = 4         # ring depth
+CE_F32_WARPS = 8          # consumer warps (and one producer warp)
+# bytes of h's row tiles that a band holds in L2 at most: half the H100's
+# 50 MB; and the busiest block's units a plan may take above the fewest
+CE_F32_L2_WINDOW = 24 << 20
+CE_F32_WAVE_SLACK = 1.01
+CE_F32_PLAN_ARGS = ("block_m", "block_n", "block_k", "stages", "band", "lanes", "blocks",
+                    "smem_bytes")
+_F32_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * (6 + len(CE_F32_PLAN_ARGS))
+                 + [ctypes.c_void_p])
 
 # Constants the backward kernel is built for (csrc/ce_bwd.cu: kWarpgroups,
 # kBN, kBK, kStages; the ring aligned like the forward's, CE_ALIGN);
@@ -256,6 +278,190 @@ def ce_clusters(device: torch.device, smem_bytes: int) -> int:
 
 
 @dataclass(frozen=True)
+class CEF32Plan:
+    """Launch plan of the f32-operand CE kernel for h [N, nh], W [nh, V].
+
+    A unit is a row tile (``block_m`` rows) x a vocab tile (``block_n``
+    columns). The grid is ``band`` x ``lanes`` persistent blocks (at most
+    what the card holds at once). The units are numbered band by band
+    (``band`` row tiles each; the last band's row tiles past the last are
+    empty and skipped), vocab tile major within a band (``unit``), and
+    block c takes units c, c + blocks, c + 2 blocks, ... (``block_units``):
+    so the blocks resident together share ``band`` row tiles of h and
+    ``lanes`` vocab tiles of W (``window_bytes``), and block c keeps row
+    tile c % band of each band, walking its vocab tiles of lane c // band.
+    Each (block, row tile) is a segment (``segments``) whose partials go to
+    part [3, 2 ``lanes``, rows] at slots 2 lane and 2 lane + 1 (the two
+    warps that hold a row's columns); the merge sums a row's lanes in the
+    order of their first vocab tile (``merge_order``), each lane's two
+    slots in turn.
+    Operands: h [N, ``ldh``], W [nh, ``ldw``] (rows of whole 16 bytes, a
+    padded copy where needed), the grad-mode spill [N, ``ldw``]; a ring of
+    ``stages`` K slabs, each h's ``block_m`` rows and W's ``block_n``
+    columns over ``block_k`` k."""
+    N: int
+    nh: int
+    V: int
+    band: int
+    lanes: int
+    block_m: int = CE_F32_BLOCK_M
+    block_n: int = CE_F32_BLOCK_N
+    block_k: int = CE_F32_BLOCK_K
+    stages: int = CE_F32_STAGES
+
+    @property
+    def row_tiles(self) -> int:
+        return _cdiv(self.N, self.block_m)
+
+    @property
+    def vocab_tiles(self) -> int:
+        return _cdiv(self.V, self.block_n)
+
+    @property
+    def bands(self) -> int:
+        return _cdiv(self.row_tiles, self.band)
+
+    @property
+    def units(self) -> int:
+        """The schedule's units, the last band's empty ones included."""
+        return self.bands * self.band * self.vocab_tiles
+
+    @property
+    def blocks(self) -> int:
+        return self.band * self.lanes
+
+    @property
+    def waves(self) -> int:
+        """Units (empty ones included) of the block that walks the most."""
+        return _cdiv(self.units, self.blocks)
+
+    @property
+    def ldh(self) -> int:
+        return _round_up(self.nh, 4)
+
+    @property
+    def ldw(self) -> int:
+        return _round_up(self.V, 4)
+
+    @property
+    def slabs(self) -> int:
+        return _cdiv(self.nh, self.block_k)
+
+    @property
+    def stage_bytes(self) -> int:
+        return (self.block_m + self.block_n) * self.block_k * 4
+
+    @property
+    def state_bytes(self) -> int:
+        """The open segments' running (m, s, t, target) of each consumer
+        thread's 8 rows."""
+        return 4 * 8 * 32 * CE_F32_WARPS * 4
+
+    @property
+    def smem_bytes(self) -> int:
+        """Slack to align the ring to 1024 bytes (the 128-byte swizzle of h's
+        box), the ring, a full and an empty mbarrier per stage, the state."""
+        return CE_ALIGN + self.stages * self.stage_bytes + 8 * 2 * self.stages + self.state_bytes
+
+    @property
+    def part_shape(self) -> Tuple[int, int, int]:
+        return (3, 2 * self.lanes, self.row_tiles * self.block_m)
+
+    def unit(self, u: int) -> Tuple[int, int]:
+        """(row tile, vocab tile) of unit ``u``, as the kernel computes it
+        (a row tile past the last: an empty unit)."""
+        per_band = self.band * self.vocab_tiles
+        b, w = divmod(u, per_band)
+        v, i = divmod(w, self.band)
+        return b * self.band + i, v
+
+    def block_units(self, c: int) -> List[Tuple[int, int]]:
+        """Block ``c``'s units in its order, the empty ones skipped."""
+        return [rv for rv in map(self.unit, range(c, self.units, self.blocks))
+                if rv[0] < self.row_tiles]
+
+    def lane(self, rt: int, v: int) -> int:
+        """The vocab lane (block c // band) that takes unit (rt, v)."""
+        return (rt // self.band * self.vocab_tiles + v) % self.lanes
+
+    def segments(self, c: int) -> List[Tuple[int, List[int]]]:
+        """Block ``c``'s segments in order: (row tile, its vocab tiles)."""
+        segs: List[Tuple[int, List[int]]] = []
+        for rt, v in self.block_units(c):
+            if not segs or segs[-1][0] != rt:
+                segs.append((rt, []))
+            segs[-1][1].append(v)
+        return segs
+
+    def merge_order(self, rt: int) -> List[int]:
+        """The lanes of row tile ``rt``'s partials in the merge's order: by
+        their first vocab tile."""
+        b = rt // self.band
+        return [(b * self.vocab_tiles + q) % self.lanes
+                for q in range(min(self.vocab_tiles, self.lanes))]
+
+    @property
+    def tile_bytes(self) -> int:
+        """One row tile of h or one vocab tile of W over all of K."""
+        return self.block_m * self.slabs * self.block_k * 4
+
+    @property
+    def dram_bytes(self) -> int:
+        """Operand bytes a call reads from device memory where each band's h
+        stays in L2 while the band runs: h once, W once a band."""
+        return (self.row_tiles + self.bands * self.vocab_tiles) * self.tile_bytes
+
+    @property
+    def l2_bytes(self) -> int:
+        """Bytes a call brings from L2 into shared memory: each real unit's
+        slabs of h and of W."""
+        return self.row_tiles * self.vocab_tiles * self.slabs * self.stage_bytes
+
+    def args(self) -> Tuple[int, ...]:
+        return tuple(getattr(self, n) for n in CE_F32_PLAN_ARGS)
+
+
+@functools.lru_cache(maxsize=None)
+def ce_f32_plan(N: int, nh: int, V: int, blocks: int) -> CEF32Plan:
+    """The f32 kernel's plan on a card that holds ``blocks`` blocks at once
+    (``ce_f32_blocks``), among the grids ``band`` x ``lanes`` within them
+    (at most the row tiles and the vocab tiles; a band of h that
+    ``CE_F32_L2_WINDOW`` holds): of those whose busiest block walks at most
+    ``CE_F32_WAVE_SLACK`` x the fewest units, the one with the fewest bands
+    (W is read from device memory once a band), then the fewest units, the
+    narrower band. At N 3040, nh 1024, V 20004 on 132 SMs: 12 x 11 blocks,
+    2 bands, 29 units a block at most (3,768 over 132: 28.5); at N 60800:
+    4 x 33, 119 bands, 567 (565; 1 x 132 would read W 475 times). Raises
+    where the card holds no block."""
+    one = CEF32Plan(N, nh, V, 1, 1)
+    if blocks < 1:
+        raise ValueError(f"ce_f32_plan: the card holds no block of {CE_F32_WARPS + 1} warps "
+                         f"with {one.smem_bytes} bytes of shared memory")
+    R, nv = one.row_tiles, one.vocab_tiles
+    grids = [(band, lanes) for band in range(1, min(R, blocks) + 1)
+             if band == 1 or band * one.tile_bytes <= CE_F32_L2_WINDOW
+             for lanes in range(1, min(nv, blocks // band) + 1)]
+    waves = {g: _cdiv(_cdiv(R, g[0]) * nv, g[1]) for g in grids}
+    most = min(waves.values()) * CE_F32_WAVE_SLACK
+    band, lanes = min((g for g in grids if waves[g] <= most),
+                      key=lambda g: (_cdiv(R, g[0]), waves[g], g[0], g[1]))
+    return CEF32Plan(N, nh, V, band, lanes)
+
+
+@functools.lru_cache(maxsize=None)
+def ce_f32_blocks(device: torch.device) -> int:
+    """Blocks of the f32 kernel that the card holds at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` x its SMs). One query
+    a device."""
+    lib = _lib("ce_f32_blocks", [ctypes.c_void_p], "ce_f32")
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = lib.ce_f32_blocks(ctypes.byref(n))
+    build.check(lib, err, "ce_f32_blocks")
+    return n.value
+
+
+@dataclass(frozen=True)
 class CEBwdPlan:
     """Launch plan of the backward kernel for h [N, nh], W [nh, V].
 
@@ -394,12 +600,13 @@ def _lib(name: str, argtypes, source: str = "ce_fwd") -> ctypes.CDLL:
     return lib
 
 
-def _bf16_h(h: torch.Tensor, ldh: int) -> torch.Tensor:
-    """h in bf16 as the kernels read it: [N, ldh] rows, 16-byte aligned."""
-    h = h.to(torch.bfloat16).contiguous()
-    if ldh != h.shape[1]:
-        return torch.nn.functional.pad(h, (0, ldh - h.shape[1]))
-    return h.clone() if h.data_ptr() % 16 else h
+def _rows(x: torch.Tensor, dtype: torch.dtype, ld: int) -> torch.Tensor:
+    """x in ``dtype`` as the kernels read it by TMA: rows of ``ld`` elements
+    (zeros past x's), 16-byte aligned."""
+    x = x.to(dtype).contiguous()
+    if ld != x.shape[1]:
+        return torch.nn.functional.pad(x, (0, ld - x.shape[1]))
+    return x.clone() if x.data_ptr() % 16 else x
 
 
 def ce_forward(h: torch.Tensor, w: torch.Tensor, tgt: torch.Tensor,
@@ -442,7 +649,7 @@ def _ce_forward(h: torch.Tensor, w: torch.Tensor, tgt: torch.Tensor,
     operands = None
     if dt == torch.bfloat16:
         plan = ce_plan(N, nh, V, ce_clusters(dev, CEPlan(N, nh, V, 1).smem_bytes))
-        h = _bf16_h(h, plan.ldh)
+        h = _rows(h, torch.bfloat16, plan.ldh)
         if w.dtype not in (torch.float32, torch.bfloat16):
             w = w.float()
         w = w.contiguous()
@@ -457,20 +664,22 @@ def _ce_forward(h: torch.Tensor, w: torch.Tensor, tgt: torch.Tensor,
                 part.data_ptr(), N, nh, V, plan.ldh, plan.Vp,
                 plan.Kp, int(w.dtype == torch.float32), int(save_logits), *plan.args(), stream)
         build.check(lib, err, name)
-        spill = spill[:, :V] if save_logits else None
         operands = h, wt
     else:
-        h = h.float().contiguous()
-        w = w.float().contiguous()
-        spill = torch.empty((N, V), device=dev) if save_logits else None
-        lib = _lib("ce_fwd_f32", _F32_ARGTYPES)
+        plan = ce_f32_plan(N, nh, V, ce_f32_blocks(dev))
+        h = _rows(h, torch.float32, plan.ldh)
+        w = _rows(w, torch.float32, plan.ldw)
+        spill = torch.empty((N, plan.ldw), device=dev) if save_logits else None
+        part = torch.empty(plan.part_shape, device=dev)
+        lib = _lib("ce_fwd_f32", _F32_ARGTYPES, "ce_f32")
         with torch.cuda.device(dev):
             err = lib.ce_fwd_f32(h.data_ptr(), w.data_ptr(), tgt.data_ptr(), logp.data_ptr(),
                                  lse.data_ptr(), spill.data_ptr() if save_logits else None,
-                                 N, nh, V, int(save_logits), stream)
+                                 part.data_ptr(), N, nh, V, plan.ldh, plan.ldw,
+                                 int(save_logits), *plan.args(), stream)
         build.check(lib, err, name)
     build.LAUNCHES[name] += 1
-    return (logp, lse) + ((spill,) if save_logits else ()), operands
+    return (logp, lse) + ((spill[:, :V],) if save_logits else ()), operands
 
 
 def ce_backward_plain(h: torch.Tensor, w: torch.Tensor, tgt: torch.Tensor,

@@ -69,7 +69,7 @@ PORT_KERNELS = (
     (re.compile(r"ce_(bf16|f32)_kernel<true>"), "ce_fwd_train"),
     (re.compile(r"ce_(bf16|f32)_kernel<false>"), "ce_fwd"),
     (re.compile(r"ce_pack_wt_kernel"), "ce_pack_wt"),
-    (re.compile(r"ce_merge_kernel"), "ce_merge"),
+    (re.compile(r"ce_(f32_)?merge_kernel"), "ce_merge"),
     (re.compile(r"ce_bwd_d_kernel"), "ce_bwd_d"),
     (re.compile(r"ce_bwd_gemm_kernel<false>"), "ce_bwd_dh"),
     (re.compile(r"ce_bwd_gemm_kernel<true>"), "ce_bwd_dw"),
