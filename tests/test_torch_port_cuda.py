@@ -14,7 +14,9 @@ the training shape, bit-equal across calls, through ``FusedCEFn`` against
 the CPU, and its extra peak memory. Generation (plain PyTorch on the card) against the same
 calls on the CPU: the top-k tie order, greedy and beam decoding, the
 incremental PixelCNN sampler. ``tp_token_logp`` over two ranks sharing
-the card against the plain CE. Tolerances: f32 operands differ only in summation order;
+the card against the plain CE. The span recorder (utils/profiling.py) on a
+graphed epoch: the trace's clock, no event inside a capture, the same
+launch counts with tracing on. Tolerances: f32 operands differ only in summation order;
 bf16 ``wh`` lets a last-bit difference in h (forward) or da (backward) flip
 a bf16 rounding of the next step's product input (see chip_smoke.py for the
 Yahoo-width checks).
@@ -893,6 +895,95 @@ def test_graphed_epoch_equals_eager_on_cuda(kind, aggressive, tmp_path):
         # (f32 at H 128: the f32-wh LSTM kernels)
         per_step = {"lstm_fwd_residuals_f32": 2, "lstm_bwd_f32": 2, "ce_fwd_train": 1}
         assert {k: g_launch[k] for k in per_step} == {k: v * steps for k, v in per_step.items()}
+
+
+@pytest.mark.cuda
+def test_spans_share_the_trace_clock_on_cuda(tmp_path):
+    """The recorder (utils/profiling.py) on a tiny graphed aggressive epoch:
+    on under a session of CUDA activity alone (as port_bench/tracing.py
+    opens it); in one CPU+CUDA trace every span's start and end lie within
+    50 us of its annotation event's; the device spans inside a
+    capture record no event, those of eager steps and every replay do;
+    ``device_reads`` counts the reads; ``LAUNCHES``, ``GRAPHS`` and the
+    epoch's answers are those of the same epoch with tracing off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import collections
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from vae_lagging_encoder_tpu_torch.utils import profiling
+
+    profiling.take()
+    x = torch.ones(64, device="cuda")  # device spans need a CUDA context made before them
+    with profile(activities=[ProfilerActivity.CUDA]):
+        assert torch.autograd.profiler._is_profiler_enabled
+        with profiling.span("probe", device=True):
+            x.sum()
+    (probe,) = profiling.take()["spans"]
+    assert probe["device_ms"] is not None and probe["device_ms"] >= 0
+    # a process's first annotation may hold ~1 ms of one-time set-up
+    with profile(activities=[ProfilerActivity.CPU]):
+        with profiling.span("warm"):
+            pass
+    profiling.take()
+
+    off = _graph_epoch("text", tmp_path, True, True)
+    assert profiling.take()["spans"] == []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        on = _graph_epoch("text", tmp_path, True, True)
+    state = profiling.take()
+    assert on[3] == off[3] and on[4] == off[4]  # LAUNCHES, GRAPHS
+    assert on[1][2].tolist() == off[1][2].tolist() and on[1][3] == off[1][3]
+    for (k, p), (_, q) in zip(on[0].named_parameters(), off[0].named_parameters()):
+        assert torch.equal(p, q), k
+
+    spans = state["spans"]
+    assert spans and state["counters"]["spans_dropped"] == 0
+    names = [s["name"] for s in spans]
+    reads = names.count("plateau_read") + names.count("segment_read")
+    assert reads > 0 and state["counters"]["device_reads"] == reads
+
+    def path_of(i):
+        while spans[i]["name"] != "step":
+            i = spans[i]["parent"]
+        return spans[i]["attrs"]["path"]
+
+    paths = collections.Counter()
+    for i, s in enumerate(spans):
+        if s["name"] in ("lstm.input_proj", "lstm.recurrence", "ce"):
+            path = path_of(i)
+            paths[path] += 1
+            assert (s["device_ms"] is None) == (path == "capture"), (s["name"], path)
+        if s["name"] == "replay":
+            assert s["device_ms"] is not None and path_of(i) in ("capture", "replay")
+    assert paths["capture"] > 0 and paths["eager"] > 0 and "replay" not in paths
+
+    trace_path = tmp_path / "spans.trace.json"
+    prof.export_chrome_trace(str(trace_path))
+    trace = json.loads(trace_path.read_text())
+    base = int(trace.get("baseTimeNanoseconds", 0))
+    events = collections.defaultdict(list)
+    for e in trace["traceEvents"]:
+        if (e.get("ph") == "X" and e.get("cat") in ("user_annotation", "cpu_op")
+                and e["name"] in names):
+            events[e["name"]].append(e)
+    gaps = []  # (|gap| us, gap, side, name, position in the session)
+    t0 = min(s["start_ns"] for s in spans)
+    for name in set(names):
+        got = sorted((s for s in spans if s["name"] == name), key=lambda s: s["start_ns"])
+        evs = sorted(events[name], key=lambda e: e["ts"])
+        assert len(evs) == len(got), name
+        for s, e in zip(got, evs):
+            for side, gap in (("start", (s["start_ns"] - base) / 1e3 - e["ts"]),
+                              ("end", (s["end_ns"] - base) / 1e3 - (e["ts"] + e["dur"]))):
+                gaps.append((abs(gap), gap, side, name, (s["start_ns"] - t0) / 1e6))
+    gaps.sort()
+    print(f"spans: {len(spans)}; gaps to the trace's clock (us): median {gaps[len(gaps) // 2][0]:.1f}, "
+          f"p95 {gaps[int(0.95 * len(gaps))][0]:.1f}, largest {gaps[-1][0]:.1f}; the largest: "
+          + "; ".join(f"{g:.1f} {side} {name} at {ms:.1f} ms" for _, g, side, name, ms in gaps[-8:]))
+    assert gaps[-1][0] < 50.0
 
 
 @pytest.mark.cuda

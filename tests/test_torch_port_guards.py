@@ -112,7 +112,8 @@ def test_new_modules_import_no_jax(module):
     outside |= {n.module.split(".")[0] for n in ast.walk(tree)
                 if isinstance(n, ast.ImportFrom) and n.level == 0 and n.module}
     allowed = {"__future__", "typing", "numpy", "torch", "argparse", "zipfile", "collections",
-               "glob", "gzip", "json", "math", "os", "re", "ast", "sysconfig", "warnings"}
+               "glob", "gzip", "json", "math", "os", "re", "ast", "sysconfig", "warnings",
+               "contextlib", "heapq", "time"}
     assert outside <= allowed, outside - allowed
     if module == "utils.torch_import":
         assert outside - {"__future__", "typing", "argparse", "zipfile"} == {"numpy", "torch"}

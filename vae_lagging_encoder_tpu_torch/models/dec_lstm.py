@@ -35,7 +35,8 @@ On the kernel route the vocab projection + CE is the fused CE of
 default): ``ce_forward`` in evaluation, ``FusedCEFn`` (grad mode) in
 training. Otherwise it is the JAX package's XLA branch on f32 logits:
 ``log_softmax`` + gather in training, gather - logsumexp in evaluation.
-The JAX package routes to its CE kernel only when ``nh % 128 == 0`` (a TPU
+Under a profiler the fused CE call is the span ``ce``, with its device
+time (utils/profiling.py). The JAX package routes to its CE kernel only when ``nh % 128 == 0`` (a TPU
 lane tile) and V >= 1024; the port drops the tile gate and keeps the
 vocab-size one (``ce_fusable``).
 
@@ -66,6 +67,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..data.vocab import BOS_ID, EOS_ID, PAD_ID
 from ..ops.ce_cuda import FusedCEFn, ce_forward
+from ..utils.profiling import span
 from .decoder import DecoderBase
 from .lstm_core import LSTMParams, lstm_bias, lstm_cell, lstm_run, uniform_
 
@@ -187,10 +189,11 @@ class LSTMDecoder(DecoderBase):
                                   keep_out, self.dropout_out)  # [k*B, T-1, nh]
                 tgt = tokens[None, :, 1:].expand(k, B, T - 1).reshape(-1)
                 h = outs.reshape(-1, self.nh)
-                if train:
-                    logp = FusedCEFn.apply(h, self.pred, tgt, torch.bfloat16)
-                else:
-                    logp, _ = ce_forward(h, self.pred, tgt, torch.bfloat16)
+                with span("ce", device=True):
+                    if train:
+                        logp = FusedCEFn.apply(h, self.pred, tgt, torch.bfloat16)
+                    else:
+                        logp, _ = ce_forward(h, self.pred, tgt, torch.bfloat16)
                 tok_lp = logp.reshape(k, B, T - 1).transpose(0, 1)
             else:
                 logits = self._logits(tokens[:, :-1], z_chunk, keep_in, keep_out)

@@ -5,7 +5,10 @@ keep the JAX layouts: ``wx [ni, 4H]``, ``wh [H, 4H]`` and the two PyTorch
 biases ``b_ih``/``b_hh`` as separate parameters, gate order (i, f, g, o).
 The input projection for the whole sequence is hoisted out of the
 recurrence as one ``torch.matmul``, as the JAX package leaves it to XLA; the
-recurrence runs on ``ops/lstm_cuda.py``.
+recurrence runs on ``ops/lstm_cuda.py``. Under a profiler the product alone
+is the span ``lstm.input_proj`` and the recurrence ``lstm.recurrence``,
+each with its device time (utils/profiling.py); inside a graph replay
+neither exists.
 
 Routes (``kernel_route`` = the config's ``use_pallas``):
 
@@ -38,6 +41,7 @@ import torch
 from torch import nn
 
 from ..ops.lstm_cuda import LSTMSeqFn, lstm_seq, lstm_seq_plain
+from ..utils.profiling import span
 
 
 def uniform_(t: torch.Tensor, scale: float, generator: torch.Generator) -> None:
@@ -92,8 +96,10 @@ def lstm_run(params: LSTMParams, x: torch.Tensor,
     B, T, _ = x.shape
     H = params.wh.shape[0]
     cd = compute_dtype
-    xw = ((x.reshape(B * T, -1).to(cd).float() @ params.wx.to(cd).float())
-          .reshape(B, T, 4 * H) + lstm_bias(params)).transpose(0, 1)
+    x2, wx = x.reshape(B * T, -1).to(cd).float(), params.wx.to(cd).float()
+    with span("lstm.input_proj", device=True):
+        xw = x2 @ wx
+    xw = (xw.reshape(B, T, 4 * H) + lstm_bias(params)).transpose(0, 1)
     m = mask.transpose(0, 1) if mask is not None else x.new_ones((T, B))
     if h0 is None:
         h0 = x.new_zeros((B, H))
@@ -101,12 +107,16 @@ def lstm_run(params: LSTMParams, x: torch.Tensor,
         c0 = x.new_zeros((B, H))
 
     if not kernel_route:
-        hs, hT, cT = lstm_seq_plain(xw, m, params.wh.to(cd), h0, c0)
+        wh = params.wh.to(cd)
+        with span("lstm.recurrence", device=True):
+            hs, hT, cT = lstm_seq_plain(xw, m, wh, h0, c0)
     else:
         wh = params.wh.to(torch.bfloat16 if (H > 512 or cd == torch.bfloat16)
                           else torch.float32)
         needs_grad = torch.is_grad_enabled() and any(
             t.requires_grad for t in (xw, wh, h0, c0))
         run = LSTMSeqFn.apply if needs_grad else lstm_seq
-        hs, hT, cT = run(xw.contiguous(), m.contiguous(), wh, h0, c0)
+        xwc, mc = xw.contiguous(), m.contiguous()
+        with span("lstm.recurrence", device=True):
+            hs, hT, cT = run(xwc, mc, wh, h0, c0)
     return hs.transpose(0, 1), (hT, cT)

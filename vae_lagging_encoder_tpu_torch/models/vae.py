@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from ..utils.numeric import log_sum_exp
+from ..utils.profiling import span
 from .encoder import eval_inference_dist, gaussian_kl
 
 
@@ -86,7 +87,8 @@ class VAE(nn.Module):
         [B, ns, nz] from ``noise(j, shape)`` when given, else from
         ``generator``. ``log_px(x, mask, z) -> [B, K]`` is the decoder's
         likelihood (default ``dec.log_probability``; the vocab-sharded one
-        under tensor parallelism, parallel/tp.py)."""
+        under tensor parallelism, parallel/tp.py). Under a profiler each
+        chunk is the span ``iw_chunk``, with its device time."""
         log_px = log_px or self.dec.log_probability
         ns = min(ns, nsamples)
         if nsamples % ns:
@@ -94,10 +96,11 @@ class VAE(nn.Module):
         B = x.shape[0]
         log_w = []
         for j in range(nsamples // ns):
-            eps = noise(j, (B, ns, self.nz)) if noise is not None else None
-            z, (mu, logvar) = self.enc.sample(x, mask, ns, eps, generator)
-            log_w.append(self.eval_prior_dist(z) + log_px(x, mask, z)
-                         - eval_inference_dist(z, mu, logvar))
+            with span("iw_chunk", device=True):
+                eps = noise(j, (B, ns, self.nz)) if noise is not None else None
+                z, (mu, logvar) = self.enc.sample(x, mask, ns, eps, generator)
+                log_w.append(self.eval_prior_dist(z) + log_px(x, mask, z)
+                             - eval_inference_dist(z, mu, logvar))
         return -(log_sum_exp(torch.cat(log_w, dim=1), dim=1) - math.log(nsamples))
 
     def KL(self, x, mask=None) -> torch.Tensor:

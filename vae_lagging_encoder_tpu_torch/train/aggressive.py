@@ -18,7 +18,8 @@ Where the JAX package compiles the loop into one ``lax.while_loop``, here it
 is a host loop whose sums stay on the device: the stop can only turn true at
 a check, so the host reads one scalar every ``burn_window`` sub-iterations
 and none in between (the JAX package makes that test on the device; this
-port does not). Each sub-iteration is one static step (train/graphs.py: a
+port does not; under a profiler the read is the span ``plateau_read`` and
+one ``device_reads``). Each sub-iteration is one static step (train/graphs.py: a
 graph replay on the card) that also adds its loss sum and predicted words
 to two 0-dim device buffers. The batch draw is a flat index from the
 caller's ``draw("pick", (num_batches,))``, mapped to (bucket, index) by the
@@ -32,6 +33,7 @@ from typing import Callable, Dict
 import torch
 
 from ..data.pool import Pool
+from ..utils.profiling import count, span
 
 
 def grads_of(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -98,7 +100,9 @@ def make_aggressive_inner(run_sub: Callable, pool: Pool, burn_max_iters: int,
             run_sub(pool.batch(flat), draw, kl_weight)
             sub += 1
             if sub % burn_window == 0:
-                avg = float(cur / torch.clamp(words, min=1.0))
+                with span("plateau_read"):
+                    avg = float(cur / torch.clamp(words, min=1.0))
+                count("device_reads")
                 if mesh is not None:
                     (avg,) = mesh.same([avg])
                 if pre < avg:

@@ -13,7 +13,9 @@ device at each segment's end. Where it compiles one per evaluator, each
 evaluator here is a host loop over batches that accumulates on the device
 and reads the sums back once at the end, so nothing waits on the host
 between batches and there is no dispatch to bound (the JAX package's
-``EVAL_SEGMENT`` has no counterpart); they run eagerly.
+``EVAL_SEGMENT`` has no counterpart); they run eagerly. Under a profiler
+(utils/profiling.py) the training epoch's segment read is the span
+``segment_read`` and one ``device_reads``.
 A batch is ``(tokens, mask, row_weight)`` for text and ``(probs,
 row_weight)`` for images; the MI, AU and IW evaluators take a ``prep``
 that turns it into ``(x, mask, row_weight)`` (``unpack`` for text,
@@ -61,6 +63,7 @@ import numpy as np
 
 from ..data.pool import Pool
 from ..models.vae import VAE
+from ..utils.profiling import count, span
 from . import graphs as graphs_mod
 from .aggressive import grads_of, make_aggressive_inner, make_grad_on
 from .optim import clip_scale, make_optimizer
@@ -316,7 +319,9 @@ def make_train_epoch(vae: VAE, pool: Pool, cfg, loss_fn: Callable | None = None,
                           lambda site, shape, i=i: noise(i, site, shape))
             if stop < hi:
                 break  # stopped inside the segment
-            part = seg_sums.tolist()  # the segment's one read of the device
+            with span("segment_read"):
+                part = seg_sums.tolist()  # the segment's one read of the device
+            count("device_reads")
             total = [a + b for a, b in zip(total, part)]
             if on_segment is not None:
                 on_segment(hi, hi - lo, kl_weight, part, opt_state, total, inner_iters)

@@ -29,6 +29,10 @@ which a replay does not pass through: the counts a capture adds are taken
 back and added again at every replay, so ``LAUNCHES`` still counts the
 kernels that ran (chip_smoke.py's phase 9 holds these counts against the
 kernels in a profiler trace). ``GRAPHS`` counts captures and replays.
+Under a profiler a step is the span ``step`` (its mode, the batch's
+shape, its path: eager, capture or replay) and a graphed step's children
+``fill`` (the host part) and ``replay`` (with its device time); see
+utils/profiling.py.
 
 Graphs are off (the static step is called eagerly, through the same host
 part) on the CPU, under a mesh (its ``gloo`` collectives go through the
@@ -45,6 +49,7 @@ from typing import Callable, Dict, Optional, Sequence
 import torch
 
 from ..ops.build import GRAPHS, LAUNCHES
+from ..utils.profiling import NO_SPAN, span, tracing
 
 def off_reason(dev: torch.device, mesh, graphs: bool) -> Optional[str]:
     """Why the training step runs eagerly here, or None on the card."""
@@ -145,16 +150,23 @@ class StaticSteps:
 
     def run(self, mode: str, batch, kl, draw: Callable) -> None:
         """One step: eagerly when graphs are off or for the warm-up of its
-        (mode, batch shape), else as a replay of that shape's graph."""
+        (mode, batch shape), else as a replay of that shape's graph (the
+        span ``step``, its children ``fill`` and ``replay``)."""
         key = (mode, tuple(tuple(b.shape) for b in batch))
-        if self.off is not None or key not in self.sites:
-            self._eager(key, batch, kl, draw)
-            return
-        if key not in self.graphs:
-            self.graphs[key] = self._capture(mode, _Slot(batch, self.sites[key], self.dev))
-        slot, replay, launches = self.graphs[key]
-        slot.fill(batch, kl, draw, self.sites[key])
-        replay()
+        path = ("eager" if self.off is not None or key not in self.sites
+                else "replay" if key in self.graphs else "capture")
+        # the attrs are built only while tracing is on
+        with (span("step", mode=mode, shape=key[1][0], path=path) if tracing() else NO_SPAN):
+            if path == "eager":
+                self._eager(key, batch, kl, draw)
+                return
+            if path == "capture":
+                self.graphs[key] = self._capture(mode, _Slot(batch, self.sites[key], self.dev))
+            slot, replay, launches = self.graphs[key]
+            with span("fill"):
+                slot.fill(batch, kl, draw, self.sites[key])
+            with span("replay", device=True):
+                replay()
         for name, n in launches.items():
             LAUNCHES[name] += n
         GRAPHS["replays"] += 1

@@ -307,9 +307,11 @@ def _check_mid_epoch(mid: Dict, cfg: ExperimentConfig, num_batches: int, best_lo
             f"or pass its --save_path.")
 
 
-def _write_dossier(cfg: ExperimentConfig, log: Logger, epoch: int, ran: int) -> None:
-    """DOSSIER.md of the profiled epoch's trace; skipped (and logged) when
-    the epoch ran no step or the trace has no device timeline."""
+def _write_dossier(cfg: ExperimentConfig, log: Logger, epoch: int, ran: int,
+                   spans: dict) -> None:
+    """DOSSIER.md of the profiled epoch's trace and its spans
+    (utils/profiling.py); skipped (and logged) when the epoch ran no step
+    or the trace has no device timeline."""
     from ..utils.profiling import write_dossier
 
     dossier_path = os.path.join(cfg.profile_dir, "DOSSIER.md")
@@ -318,7 +320,8 @@ def _write_dossier(cfg: ExperimentConfig, log: Logger, epoch: int, ran: int) -> 
                  "the epoch boundary) — nothing to distill, dossier skipped")
         return
     summary = write_dossier(cfg.profile_dir, steps=ran, out_path=dossier_path,
-                            title=f"Epoch-{epoch} profiler dossier ({cfg.dataset})")
+                            title=f"Epoch-{epoch} profiler dossier ({cfg.dataset})",
+                            spans=spans)
     if summary is None:
         log.info("[profile] no device timeline in the trace (CPU runs emit none) — "
                  "dossier skipped")
@@ -516,8 +519,9 @@ def run_training(cfg: ExperimentConfig, vae: VAE, train_pool: Pool, val_pool: Po
         if lead and cfg.profile_dir and epoch == max(start_epoch, min(1, cfg.epochs - 1)):
             from torch.profiler import ProfilerActivity, profile
 
-            from ..utils.profiling import PRIMER_PAUSE_S, primer, window_trace
+            from ..utils.profiling import PRIMER_PAUSE_S, primer, take, window_trace
 
+            take()  # the recorder keeps this session's spans alone
             acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda"
                                              else [])
             profiler = profile(activities=acts)
@@ -535,6 +539,7 @@ def run_training(cfg: ExperimentConfig, vae: VAE, train_pool: Pool, val_pool: Po
         if _stop_after_steps is not None and steps_run >= _stop_after_steps:
             if profiler is not None:
                 profiler.stop()
+                take()
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             log.info(f"[stop] after {steps_run} steps (test hook)")
@@ -551,6 +556,7 @@ def run_training(cfg: ExperimentConfig, vae: VAE, train_pool: Pool, val_pool: Po
                 time.sleep(PRIMER_PAUSE_S)
                 primer(dev)  # the postamble
             profiler.stop()
+            spans = take()
             os.makedirs(cfg.profile_dir, exist_ok=True)
             trace = os.path.join(cfg.profile_dir, f"epoch{epoch}.pt.trace.json.gz")
             profiler.export_chrome_trace(trace)
@@ -560,7 +566,7 @@ def run_training(cfg: ExperimentConfig, vae: VAE, train_pool: Pool, val_pool: Po
                 note = (f" (the primer and the postamble cut; {len(untraced)} launch calls "
                         "without device events: a graph capture's launches run none)")
             log.info(f"[profile] trace for epoch {epoch} written to {trace}{note}")
-            _write_dossier(cfg, log, epoch, ran)
+            _write_dossier(cfg, log, epoch, ran, spans)
         dt = time.time() - t0
         log.info(f"epoch {epoch}: loss {loss_s / n_sent:.4f} "
                  f"rec {rec_s / n_sent:.4f} kl {kl_s / n_sent:.4f} "

@@ -36,17 +36,41 @@ on the card runs between a ``primer`` and a postamble (the same), each
 beside a pause of ``PRIMER_PAUSE_S``, which take those losses, and
 ``window_trace`` cuts them from the exported trace: ``chip_smoke.py``'s
 ``profiled`` and ``--profile_dir`` (``train/loop.py``) both do.
+
+The recorder: ``span(name, device=False, **attrs)`` and ``count(name,
+n=1)`` mark the port's layer boundaries (the step and its fill and
+replay, the device reads, the IW chunk, the LSTM's input product and
+recurrence, the CE). They record only while a ``torch.profiler`` session
+is active in the process (``tracing()``: torch's own flag,
+``torch.autograd.profiler._is_profiler_enabled``): off, a span is one
+flag check and the shared no-op context ``NO_SPAN``. On, a span enters
+torch's C++ profiler annotation of its name (the trace holds it as an
+event on the device events' clock) and keeps its name, start and end on
+the trace's clock (``time.time_ns``: a trace event's ``ts`` is ``(ns -
+baseTimeNanoseconds) / 1e3``), its parent and its attrs; ``device=True``
+adds a pair of timing CUDA events on the current stream, except while
+that stream captures a graph. ``recorded()`` returns what was recorded
+since the last ``take()`` (device times resolved after one synchronize),
+``take()`` returns it and clears; at most ``SPAN_CAP`` spans are kept, the
+rest counted in ``spans_dropped``. ``write_dossier`` appends two sections
+read from them (``span_sections``).
 """
 from __future__ import annotations
 
 import collections
 import glob
 import gzip
+import heapq
 import json
 import math
 import os
 import re
+import time
+from contextlib import nullcontext
 from typing import Optional
+
+import torch
+from torch.autograd import profiler as _torch_profiler
 
 # device event categories of torch's Chrome trace (Kineto), lower-cased
 DEVICE_CATS = {"kernel": "kernel", "gpu_memcpy": "memcpy", "gpu_memset": "memset",
@@ -146,11 +170,15 @@ def find_trace(trace_root: str) -> Optional[str]:
     return max(paths, key=lambda p: (os.path.getmtime(p), p)) if paths else None
 
 
-def _load(path: str) -> list:
+def _load_trace(path: str) -> dict:
     opener = gzip.open if path.endswith(".gz") else open
     with opener(path, "rt") as fh:
         trace = json.load(fh)
-    return trace["traceEvents"] if isinstance(trace, dict) else trace
+    return trace if isinstance(trace, dict) else {"traceEvents": trace}
+
+
+def _load(path: str) -> list:
+    return _load_trace(path)["traceEvents"]
 
 
 def op_name(name: str) -> tuple:
@@ -297,9 +325,12 @@ def render_dossier(summary: dict, title: str = "Profiler dossier",
 
 
 def write_dossier(trace_root: str, steps: int, out_path: str,
-                  title: str = "Profiler dossier") -> Optional[dict]:
+                  title: str = "Profiler dossier", spans: Optional[dict] = None
+                  ) -> Optional[dict]:
     """Distill, then write the markdown and a sibling ``.json`` of the
-    summary; None (and nothing written) without a device timeline."""
+    summary; None (and nothing written) without a device timeline. With
+    ``spans`` (the recorder's ``take()`` of the traced window) the two
+    sections of ``span_sections`` follow the rendered text."""
     summary = distill_trace(trace_root, steps)
     if summary is None:
         return None
@@ -312,8 +343,184 @@ def write_dossier(trace_root: str, steps: int, out_path: str,
         header.append(f"- `{wrapper}`: {row['calls']} launches, {row['ms_per_step']:.3f} ms/step "
                       f"over its kernels {', '.join(row['ops'])} (each listed below)")
     header += [""] * bool(header)
+    text = render_dossier(summary, title=title, header_lines=tuple(header))
+    if spans is not None and spans["spans"]:
+        trace = _load_trace(summary["trace"])
+        lines, extra = span_sections(spans, trace["traceEvents"],
+                                     int(trace.get("baseTimeNanoseconds", 0)))
+        text += "\n".join(lines) + "\n"
+        summary.update(extra)
     with open(out_path, "w") as fh:
-        fh.write(render_dossier(summary, title=title, header_lines=tuple(header)))
+        fh.write(text)
     with open(os.path.splitext(out_path)[0] + ".json", "w") as fh:
         json.dump(summary, fh, indent=1)
     return summary
+
+
+# ------------------------------------------------------------------ the recorder
+SPAN_CAP = 1 << 18       # spans kept until a take(); the rest are counted in spans_dropped
+_clock = time.time_ns    # the trace's clock (module docstring)
+NO_SPAN = nullcontext()  # the shared context of a span while tracing is off
+_spans: list = []        # recorded since the last take()
+_open: list = []         # the spans open now, innermost last
+_counters = collections.Counter()
+
+
+def tracing() -> bool:
+    """Whether a ``torch.profiler`` session is active in the process."""
+    return _torch_profiler._is_profiler_enabled
+
+
+class _Span:
+    """A span being recorded: the context ``span`` returns while on."""
+
+    __slots__ = ("name", "device", "attrs", "start", "end", "parent", "events", "device_ms",
+                 "_rf")
+
+    def __init__(self, name: str, device: bool, attrs: dict):
+        self.name, self.device, self.attrs = name, device, attrs
+        self.end = self.events = self.device_ms = None
+
+    def __enter__(self):
+        self.parent = _open[-1] if _open else None
+        # torch's C++ annotation: its trace event lies within a few us of
+        # the stamps taken right after its enter and its exit
+        self._rf = torch._C._profiler._RecordFunctionFast(self.name)
+        self._rf.__enter__()
+        self.start = _clock()
+        if (self.device and torch.cuda.is_initialized()
+                and not torch.cuda.is_current_stream_capturing()):
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+            self.events[0].record()
+        _open.append(self)
+        _spans.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        if self.events is not None:
+            self.events[1].record()
+        self._rf.__exit__(*exc)
+        self.end = _clock()  # after the annotation's own end, as the start is
+        self._rf = None
+        if _open and _open[-1] is self:
+            _open.pop()
+        return False
+
+
+def span(name: str, device: bool = False, **attrs):
+    """A context that records the span ``name`` while tracing is on."""
+    if not _torch_profiler._is_profiler_enabled:
+        return NO_SPAN
+    if len(_spans) >= SPAN_CAP:
+        _counters["spans_dropped"] += 1
+        return NO_SPAN
+    return _Span(name, device, attrs)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` while tracing is on."""
+    if _torch_profiler._is_profiler_enabled:
+        _counters[name] += n
+
+
+def recorded() -> dict:
+    """``{"spans": [...], "counters": {...}}`` since the last ``take()``.
+    A span: ``name``, ``start_ns``, ``end_ns`` (None while open), ``parent``
+    (its index, or None), ``attrs``, ``device_ms`` (the device time between
+    its events; None without them)."""
+    spans = list(_spans)
+    pending = [s for s in spans if s.events is not None and s.end is not None]
+    if pending:
+        torch.cuda.synchronize()
+        for s in pending:
+            s.device_ms = s.events[0].elapsed_time(s.events[1])
+            s.events = None
+    index = {s: i for i, s in enumerate(spans)}
+    return {"spans": [{"name": s.name, "start_ns": s.start, "end_ns": s.end,
+                       "parent": index.get(s.parent), "attrs": dict(s.attrs),
+                       "device_ms": s.device_ms} for s in spans],
+            "counters": {"spans_dropped": 0, **_counters}}
+
+
+def take() -> dict:
+    """``recorded()``, then clear."""
+    out = recorded()
+    _spans.clear()
+    _counters.clear()
+    return out
+
+
+def _quantile(xs: list, q: float) -> float:
+    """The ``q`` quantile of sorted ``xs``, linear between ranks."""
+    pos = q * (len(xs) - 1)
+    lo = int(pos)
+    hi = min(lo + 1, len(xs) - 1)
+    return xs[lo] + (xs[hi] - xs[lo]) * (pos - lo)
+
+
+def span_sections(state: dict, events: list, base_ns: int) -> tuple:
+    """The dossier's span sections from a recorder state and the window's
+    trace events (``base_ns``: the trace's ``baseTimeNanoseconds``):
+
+    - idle gaps by span: each gap between device events, put down to the
+      innermost span open when it began (the open span that started last)
+      and split into starved (the launch call of the kernel that ends the
+      gap came after the gap began: the device waited for the host) and
+      bubble (that kernel was already queued);
+    - the ``replay`` spans' device time by the (mode, shape) of their step.
+
+    Returns (markdown lines, the same as a dict for the summary's json)."""
+    spans = [s for s in state["spans"] if s["end_ns"] is not None]
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("ph") == "X" and e.get("cat") == "cuda_runtime"
+                and "correlation" in e.get("args", {})}
+    gaps, end = [], None
+    for e in sorted(device_events(events), key=lambda e: e["ts"]):
+        a, b = e["ts"], e["ts"] + e.get("dur", 0)
+        if end is not None and a > end:
+            at = launched.get(e.get("args", {}).get("correlation"))
+            gaps.append((end, a - end, at is not None and at > end))
+        end = b if end is None else max(end, b)
+    opened = sorted(((s["start_ns"] - base_ns) / 1e3, (s["end_ns"] - base_ns) / 1e3, s["name"])
+                    for s in spans)
+    heap, j = [], 0
+    idle = collections.defaultdict(lambda: [0.0, 0.0, 0])   # name -> starved, bubble us, gaps
+    for t, length, starved in gaps:
+        while j < len(opened) and opened[j][0] <= t:
+            heapq.heappush(heap, (-opened[j][0], opened[j][1], opened[j][2]))
+            j += 1
+        while heap and heap[0][1] <= t:
+            heapq.heappop(heap)
+        row = idle[heap[0][2] if heap else "(no span)"]
+        row[0 if starved else 1] += length
+        row[2] += 1
+    lines = ["", "## Idle gaps by span", "",
+             "Each device gap under the innermost program span open when it began: starved "
+             "where the kernel that ends it was launched after it began, bubble where it was "
+             "already queued.", "",
+             "| span | starved ms | bubble ms | gaps |", "|---|---|---|---|"]
+    rows = sorted(idle.items(), key=lambda kv: -(kv[1][0] + kv[1][1]))
+    for name, (st, bu, n) in rows:
+        lines.append(f"| `{name}` | {st / 1e3:.3f} | {bu / 1e3:.3f} | {n} |")
+    lines.append(f"| all | {sum(r[0] for _, r in rows) / 1e3:.3f} "
+                 f"| {sum(r[1] for _, r in rows) / 1e3:.3f} | {len(gaps)} |")
+    by_key = collections.defaultdict(list)
+    for s in spans:
+        if s["name"] == "replay" and s["device_ms"] is not None and s["parent"] is not None:
+            attrs = state["spans"][s["parent"]]["attrs"]
+            by_key[(str(attrs.get("mode")), "x".join(map(str, attrs.get("shape", ()))))].append(
+                s["device_ms"])
+    lines += ["", "## Step device time by (mode, shape)", "",
+              "| mode | shape | median ms | p97.5 ms | replays |", "|---|---|---|---|---|"]
+    steps = []
+    for (mode, shape), ms in sorted(by_key.items()):
+        ms.sort()
+        steps.append({"mode": mode, "shape": shape, "median_ms": _quantile(ms, 0.5),
+                      "p97_5_ms": _quantile(ms, 0.975), "replays": len(ms)})
+        lines.append(f"| {mode} | {shape} | {steps[-1]['median_ms']:.3f} "
+                     f"| {steps[-1]['p97_5_ms']:.3f} | {len(ms)} |")
+    extra = {"idle_by_span": {name: {"starved_ms": st / 1e3, "bubble_ms": bu / 1e3, "gaps": n}
+                              for name, (st, bu, n) in rows},
+             "step_device_ms": steps}
+    return lines, extra
