@@ -8,7 +8,8 @@
   1e3``); ``device=True`` records no CUDA event on the CPU; ``take()``
   clears; past the cap spans are counted in ``spans_dropped``.
 - The boundaries: an IW evaluation's ``iw_chunk`` > ``lstm.input_proj`` /
-  ``lstm.recurrence`` / ``ce``, and no read counted; an aggressive epoch's ``step`` (eager on the CPU), ``plateau_read`` and
+  ``lstm.recurrence`` / ``ce``, no read counted, and the decoder's shared
+  input rows counted (``lstm.input_rows_shared``); an aggressive epoch's ``step`` (eager on the CPU), ``plateau_read`` and
   ``segment_read``, one ``device_reads`` each; the answers equal those of
   the same run with tracing off.
 - The dossier's span sections: idle gaps split into starved and bubble
@@ -215,7 +216,11 @@ def test_iw_spans_nest_under_the_chunk_and_leave_the_answer(tmp_path):
         if s["name"] == "iw_chunk":
             assert s["parent"] is None
     assert set(names) == {"iw_chunk", "lstm.input_proj", "lstm.recurrence", "ce"}
-    assert state["counters"] == {"spans_dropped": 0}
+    # no read; each decoder call computes its B sentences' input product once
+    # for its iw_batch * B rows
+    sentences = sum(int(x.shape[0]) for x, _, _ in pool)
+    assert state["counters"] == {
+        "spans_dropped": 0, "lstm.input_rows_shared": chunks * (cfg.iw_batch - 1) * sentences}
 
 
 @pytest.mark.parametrize("aggressive", [True, False])

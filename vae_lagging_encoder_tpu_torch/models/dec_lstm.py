@@ -6,7 +6,9 @@ Counterpart of ``vae_lagging_encoder_tpu/models/dec_lstm.py``
 - word embedding with dropout_in (training only);
 - z -> Linear(nz, nh, no bias) -> c0, h0 = tanh(c0);
 - z concatenated to the word embedding at every timestep (LSTM input
-  ni + nz); rows are z-major, row n = k * B + b;
+  ni + nz); rows are z-major, row n = k * B + b. The LSTM takes the two
+  parts apart (``lstm_run``'s ``x`` and ``x_row``): the embeddings'
+  product once per sentence and step, z's once per row;
 - dropout_out on the LSTM outputs (training only), Linear(nh, V, no bias)
   logits; ``reconstruct_error`` is the token-summed masked cross-entropy
   per (sentence, z-sample).
@@ -28,7 +30,10 @@ training every chunk ``c`` draws its own dropout, at sites ``"keep_in<c>"``
 [B, T, ni] and ``"keep_out<c>"`` [iw_chunk*B, T, nh] in chunk order (the
 JAX package's ``split(key, n_chunks)[c]``, split into the two dropout
 keys); the masks are drawn before the checkpointed function and passed in,
-so the recompute sees the same ones.
+so the recompute sees the same ones. Where no chunk draws an input dropout
+and no gradient is taken (evaluation), the chunks of one call share the
+embeddings' product (``_shared_input``): it is computed in the first
+chunk's LSTM call.
 
 On the kernel route the vocab projection + CE is the fused CE of
 ``ops/ce_cuda.py`` with bf16 operands (the JAX package's ``fused_ce_logp``
@@ -69,7 +74,7 @@ from ..data.vocab import BOS_ID, EOS_ID, PAD_ID
 from ..ops.ce_cuda import FusedCEFn, ce_forward
 from ..utils.profiling import span
 from .decoder import DecoderBase
-from .lstm_core import LSTMParams, lstm_bias, lstm_cell, lstm_run, uniform_
+from .lstm_core import LSTMParams, SeqInput, lstm_bias, lstm_cell, lstm_run, uniform_
 
 
 Draw = Callable[[str, Tuple[int, ...]], torch.Tensor]
@@ -141,26 +146,37 @@ class LSTMDecoder(DecoderBase):
         return (keep_mask(self.dropout_in, draw, "keep_in" + suffix, (B, T, self.ni)),
                 keep_mask(self.dropout_out, draw, "keep_out" + suffix, (k * B, T, self.nh)))
 
+    def _shared_input(self, tokens_in: torch.Tensor, draw: Optional[Draw]
+                      ) -> Optional[SeqInput]:
+        """The embeddings of ``tokens_in`` as one ``SeqInput`` for every
+        z-chunk of a call, where no chunk draws an input dropout and no
+        gradient is taken; else None (each chunk embeds its own)."""
+        if torch.is_grad_enabled() or (draw is not None and self.dropout_in > 0.0):
+            return None
+        return SeqInput(self.emb[tokens_in])
+
     def _hidden_states(self, tokens_in: torch.Tensor, z: torch.Tensor,
-                       keep_in: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """tokens_in [B, T], z [B, K, nz] -> LSTM outputs [K*B, T, nh], row k*B + b."""
-        B, T = tokens_in.shape
+                       keep_in: Optional[torch.Tensor] = None,
+                       seq: Optional[SeqInput] = None) -> torch.Tensor:
+        """tokens_in [B, T], z [B, K, nz] -> LSTM outputs [K*B, T, nh], row
+        k*B + b. ``seq``: the embeddings shared by the call's chunks
+        (``_shared_input``), else they are embedded here with ``keep_in``."""
+        B = tokens_in.shape[0]
         K = z.shape[1]
-        emb = apply_keep(self.emb[tokens_in], keep_in, self.dropout_in)
-        emb_k = emb[None].expand(K, B, T, self.ni).reshape(K * B, T, self.ni)
+        if seq is None:
+            seq = SeqInput(apply_keep(self.emb[tokens_in], keep_in, self.dropout_in))
         z_flat = z.transpose(0, 1).reshape(K * B, self.nz)
-        z_seq = z_flat[:, None, :].expand(K * B, T, self.nz)
         h0, c0 = self._init_state(z_flat)
-        outs, _ = lstm_run(self.lstm, torch.cat([emb_k, z_seq], dim=-1), None, h0, c0,
-                           kernel_route=self.kernel_route,
-                           compute_dtype=self.compute_dtype)
+        outs, _ = lstm_run(self.lstm, seq, None, h0, c0, kernel_route=self.kernel_route,
+                           compute_dtype=self.compute_dtype, x_row=z_flat)
         return outs
 
-    def _logits(self, tokens_in, z, keep_in=None, keep_out=None) -> torch.Tensor:
+    def _logits(self, tokens_in, z, keep_in=None, keep_out=None, seq=None) -> torch.Tensor:
         B, T = tokens_in.shape
         K = z.shape[1]
         cd = self.compute_dtype
-        outs = apply_keep(self._hidden_states(tokens_in, z, keep_in), keep_out, self.dropout_out)
+        outs = apply_keep(self._hidden_states(tokens_in, z, keep_in, seq), keep_out,
+                          self.dropout_out)
         logits = outs.reshape(-1, self.nh).to(cd).float() @ self.pred.to(cd).float()
         return logits.reshape(K, B, T, self.vocab_size).permute(1, 0, 2, 3)
 
@@ -179,13 +195,13 @@ class LSTMDecoder(DecoderBase):
         targets tokens[:, 1:], target mask mask[:, 1:]. ``draw`` selects
         training mode: dropout, and the CE that takes a gradient."""
         B, T = tokens.shape
-        K = z.shape[1]
         train = draw is not None
+        seq = self._shared_input(tokens[:, :-1], draw)
 
         def rec_chunk(z_chunk, keep_in, keep_out):  # [B, k, nz] -> [B, k]
             k = z_chunk.shape[1]
             if self.fused_ce:
-                outs = apply_keep(self._hidden_states(tokens[:, :-1], z_chunk, keep_in),
+                outs = apply_keep(self._hidden_states(tokens[:, :-1], z_chunk, keep_in, seq),
                                   keep_out, self.dropout_out)  # [k*B, T-1, nh]
                 tgt = tokens[None, :, 1:].expand(k, B, T - 1).reshape(-1)
                 h = outs.reshape(-1, self.nh)
@@ -196,7 +212,7 @@ class LSTMDecoder(DecoderBase):
                         logp, _ = ce_forward(h, self.pred, tgt, torch.bfloat16)
                 tok_lp = logp.reshape(k, B, T - 1).transpose(0, 1)
             else:
-                logits = self._logits(tokens[:, :-1], z_chunk, keep_in, keep_out)
+                logits = self._logits(tokens[:, :-1], z_chunk, keep_in, keep_out, seq)
                 tgt = tokens[:, None, 1:].expand(B, k, T - 1)[..., None]
                 if train:
                     tok_lp = torch.log_softmax(logits, dim=-1).gather(-1, tgt)[..., 0]

@@ -166,10 +166,11 @@ def tp_reconstruct_error(dec, tokens, mask, z, group, draw=None) -> torch.Tensor
     the same draws. ``draw`` selects training mode (dropout)."""
     B, T = tokens.shape
     cd = dec.compute_dtype
+    seq = dec._shared_input(tokens[:, :-1], draw)
 
     def rec_chunk(z_chunk, keep_in, keep_out):  # [B, k, nz] -> [B, k]
         k = z_chunk.shape[1]
-        outs = apply_keep(dec._hidden_states(tokens[:, :-1], z_chunk, keep_in),
+        outs = apply_keep(dec._hidden_states(tokens[:, :-1], z_chunk, keep_in, seq),
                           keep_out, dec.dropout_out)
         tgt = tokens[None, :, 1:].expand(k, B, T - 1).reshape(-1)
         logp = tp_token_logp(outs.reshape(-1, dec.nh).to(cd).float(),
