@@ -847,11 +847,19 @@ def _graph_epoch(kind, tmp_path, graphs, aggressive, unroll=1):
         pool = BucketedPool(data.create_data_batch(cfg.batch_size, (16, 160)), "cuda")
         vae, loss_fn = build_text_vae(cfg, len(data.vocab), "cuda", generator=gen), None
         assert vae.dec.fused_ce
-    else:
+    elif kind == "image":
         cfg = get_config("omniglot", nz=4, enc_layers=(8, 8), dec_layers=2, dec_filters=8,
                          batch_size=10, **over)
         imgs = (np.random.RandomState(2).rand(70, 28, 28, 1) ** 3).astype(np.float32)
         pool = ImagePool(imgs, cfg.batch_size, "cuda")
+        vae = build_image_vae(cfg, "cuda", generator=gen)
+        loss_fn = make_image_loss_fn(vae, nsamples=1, train=True)
+    else:  # the published model: batch norm in the graph, a last batch of 3
+        cfg = get_config("omniglot", image_arch="published", nz=4, enc_layers=(8, 8),
+                         enc_head=16, dec_kernels=(5, 3, 3, 3, 3), dec_hidden=8,
+                         dec_bottleneck=4, latent_maps=2, batch_size=10, **over)
+        imgs = (np.random.RandomState(2).rand(73, 28, 28, 1) ** 3).astype(np.float32)
+        pool = ImagePool(imgs, cfg.batch_size, "cuda", pad=False)
         vae = build_image_vae(cfg, "cuda", generator=gen)
         loss_fn = make_image_loss_fn(vae, nsamples=1, train=True)
     build.reset_launches()
@@ -865,12 +873,13 @@ def _graph_epoch(kind, tmp_path, graphs, aggressive, unroll=1):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("aggressive", [False, True])
-@pytest.mark.parametrize("kind", ["text", "image"])
+@pytest.mark.parametrize("kind", ["text", "image", "published"])
 def test_graphed_epoch_equals_eager_on_cuda(kind, aggressive, tmp_path):
     """Plain steps, aggressive outer steps and sub-iterations replayed from
     captured CUDA graphs against the same steps run eagerly: parameters,
-    optimizer state and sums bit for bit; the replays launch the kernels the
-    eager steps launch (``LAUNCHES`` counted per replay)."""
+    buffers (the published model's batch-norm statistics), optimizer state
+    and sums bit for bit; the replays launch the kernels the eager steps
+    launch (``LAUNCHES`` counted per replay)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     from vae_lagging_encoder_tpu_torch.train.graphs import _leaves
@@ -879,8 +888,10 @@ def test_graphed_epoch_equals_eager_on_cuda(kind, aggressive, tmp_path):
     e_vae, e_out, e_steps, e_launch, e_graphs, _ = _graph_epoch(kind, tmp_path, False,
                                                                aggressive)
     assert g_steps.off is None and e_steps.off
-    for (k, p), (_, q) in zip(g_vae.named_parameters(), e_vae.named_parameters()):
+    for (k, p), (_, q) in zip(g_vae.state_dict().items(), e_vae.state_dict().items()):
         assert torch.equal(p, q), k
+    if kind == "published":
+        assert int(g_vae.state_dict()["dec.bn_a.num_batches_tracked"]) == n + g_out[3]
     for (path, a), (_, b) in zip(_leaves(g_out[0]), _leaves(e_out[0])):
         assert torch.equal(a, b), path
     assert g_out[2].tolist() == e_out[2].tolist() and g_out[1] == e_out[1]

@@ -11,12 +11,16 @@ generation.
     ... --load_path ck --reconstruct --output_file recon.png
     # off the GPU
     ... --device cpu
+    # jxhe's published model (batch norm, the bottleneck PixelCNN)
+    ... --image_arch published
 
 The data is ``--train_data`` (the reference's ``omniglot.pt`` or an
 ``.npz`` of the same splits; the synthetic substitute, with a warning, when
 the file is missing); the widths are the config's. The checkpoint is the
-JAX package's ``.npz`` format (either package writes and reads it).
-Generation runs the cached incremental PixelCNN sampler.
+JAX package's ``.npz`` format (either package writes and reads it; the
+published model's, with its batch norms' running statistics, this
+package alone). Generation runs the cached incremental PixelCNN sampler
+(the published model: the dense sampler).
 """
 from __future__ import annotations
 
@@ -52,6 +56,9 @@ def build_image_parser():
     p.add_argument("--num_samples", type=int, default=50)
     p.add_argument("--output_file", type=str, default="",
                    help="PNG path (default <exp_dir>/{samples,recon}.png)")
+    p.add_argument("--image_arch", type=str, default=None, choices=["stack", "published"],
+                   help="stack: the JAX package's PixelCNN (default); published: jxhe's "
+                        "config_omniglot.py model (batch norm, bottleneck blocks)")
     return p
 
 
@@ -108,6 +115,7 @@ def generate(cfg, args, log, exp_dir: str) -> int:
         raise SystemExit("--sample_from_prior/--reconstruct need --load_path")
     vae = build_image_vae(cfg, device=dev)
     vae.load_state_dict(from_jax_params(load_checkpoint(cfg.load_path)[0]))
+    vae.eval()  # batch norm (the published model) on its running statistics
     n = args.num_samples
     if args.sample_from_prior:
         t0 = time.perf_counter()

@@ -45,6 +45,15 @@ class ExperimentConfig:
     dec_kernel_size: int = 7
     dec_layers: int = 8
     dec_filters: int = 64
+    # "stack": the JAX package's model (the fields above); "published":
+    # jxhe's config_omniglot.py model (the fields below): the ResNet encoder
+    # with batch norm and the bottleneck PixelCNN with direct connections
+    image_arch: str = "stack"
+    enc_head: int = 512
+    dec_kernels: Tuple[int, ...] = (7, 7, 7, 7, 7, 5, 5, 5, 5, 3, 3, 3, 3)
+    dec_hidden: int = 64
+    dec_bottleneck: int = 32
+    latent_maps: int = 4
 
     # --- training -------------------------------------------------------
     epochs: int = 100

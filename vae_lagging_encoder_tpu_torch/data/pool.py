@@ -89,11 +89,17 @@ class BucketedPool(Pool):
 
 class ImagePool(Pool):
     """Image batches: ``(probs [B, H, W, C], row_weight [B])``; a partial
-    last batch is zero-padded with row_weight 0 (``image_batches``)."""
+    last batch is zero-padded with row_weight 0 (``image_batches``), or,
+    with ``pad=False``, kept at its own size as a second bucket (a batch
+    norm's statistics over a training batch would count padded rows)."""
 
-    def __init__(self, images: np.ndarray, batch_size: int, device):
-        stacked, w = image_batches(images, batch_size)
-        if not len(stacked):
+    def __init__(self, images: np.ndarray, batch_size: int, device, pad: bool = True):
+        n = len(images) if pad else len(images) // batch_size * batch_size
+        parts = [image_batches(images[:n], batch_size)] if n else []
+        if n < len(images):
+            parts.append(image_batches(images[n:], len(images) - n))
+        if not parts:
             raise ValueError("no images")
-        self.arrays = [(torch.from_numpy(stacked).to(device), torch.from_numpy(w).to(device))]
-        self._finalize([stacked.shape[0]])
+        self.arrays = [(torch.from_numpy(a).to(device), torch.from_numpy(b).to(device))
+                       for a, b in parts]
+        self._finalize([a.shape[0] for a, _ in parts])

@@ -31,7 +31,9 @@ pixel ``p`` (raster index) come from ``noise(p, (N, C))``, else from
 product is rounded to bf16 before the f32 epilogue, as the conv's output.
 
 Parameters keep the JAX layouts (HWIO ``w``, ``wz`` [nz, C]). Rows are
-z-major, row n = k * B + b.
+z-major, row n = k * B + b. The loss and the samplers live in
+``PixelDecoderBase``, which the published decoder (models/dec_pixelcnn_bn.py)
+shares; the dense sampler runs in evaluation mode (models/modes.py).
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.conv import causal_mask, masked_conv2d
 from .decoder import DecoderBase
 from .lstm_core import uniform_
+from .modes import module_mode
 
 
 StepNoise = Callable[[int, Tuple[int, ...]], torch.Tensor]
@@ -58,7 +61,84 @@ class _Layer(nn.Module):
         self.wz = nn.Parameter(torch.empty(nz, cout))
 
 
-class PixelCNNDecoderV2(DecoderBase):
+class PixelDecoderBase(DecoderBase):
+    """What both OmniGlot decoders share, given ``_logits(x [N, H, W, C],
+    z_flat [N, nz]) -> [N, H, W, C]``: the teacher-forced loss in chunks of
+    ``iw_chunk`` z-samples and the samplers. ``fast_sampler`` says whether
+    ``sample`` defaults to the cached sampler ``_incremental_pixels``."""
+
+    nz: int
+    img_size: Tuple[int, int, int]
+    iw_chunk: int
+    fast_sampler = True
+
+    def _logits(self, x: torch.Tensor, z_flat: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def decode(self, x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        """Teacher-forced logits: x [B, H, W, C], z [B, K, nz] -> [B, K, H, W, C]."""
+        B, K = x.shape[0], z.shape[1]
+        xk = x[None].expand(K, *x.shape).reshape(K * B, *x.shape[1:])
+        logits = self._logits(xk, z.transpose(0, 1).reshape(K * B, self.nz))
+        return logits.reshape(K, B, *x.shape[1:]).transpose(0, 1)
+
+    def _rec_chunk(self, x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        logits = self.decode(x, z)
+        nll = (torch.clamp(logits, min=0) - logits * x[:, None]
+               + torch.log1p(torch.exp(-torch.abs(logits))))  # stable BCE-with-logits
+        return torch.sum(nll, dim=(2, 3, 4))
+
+    def reconstruct_error(self, x: torch.Tensor, mask: Optional[torch.Tensor],
+                          z: torch.Tensor, draw=None) -> torch.Tensor:
+        """-log p(x|z) per (image, z-sample): [B, K]. ``mask`` and ``draw``
+        are unused (the image decoder has no padding and no dropout)."""
+        B, K = x.shape[0], z.shape[1]
+        c = self.iw_chunk
+        if K <= c:
+            return self._rec_chunk(x, z)
+        K_pad = -(-K // c) * c
+        if K_pad != K:
+            z = torch.cat([z, z.new_zeros((B, K_pad - K, self.nz))], dim=1)
+        grad = torch.is_grad_enabled()
+        out = [checkpoint(self._rec_chunk, x, z[:, s:s + c], use_reentrant=False) if grad
+               else self._rec_chunk(x, z[:, s:s + c]) for s in range(0, K_pad, c)]
+        return torch.cat(out, dim=1)[:, :K]
+
+    # ------------------------------------------------------------ sampling
+    @torch.no_grad()
+    def sample(self, z_flat: torch.Tensor, noise: Optional[StepNoise] = None,
+               fast: Optional[bool] = None,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """z [N, nz] -> binary images [N, H, W, C], pixel by pixel in raster
+        order: the cached sampler (``fast``; default ``fast_sampler``) or the
+        dense forward per pixel, in evaluation mode (models/modes.py)."""
+        if fast is None:
+            fast = self.fast_sampler
+        if fast:
+            return self._incremental_pixels(z_flat, noise, generator=generator)[0]
+        noise = noise or uniform_noise(generator, z_flat.device)
+        N = z_flat.shape[0]
+        H, W, C = self.img_size
+        canvas = z_flat.new_zeros((N, H, W, C))
+        with module_mode(self, False):
+            for p in range(H * W):
+                i, j = divmod(p, W)
+                logit = self._logits(canvas, z_flat)[:, i, j, :]
+                canvas[:, i, j, :] = (noise(p, (N, C)) < torch.sigmoid(logit)).float()
+        return canvas
+
+    # the shared VAE.reconstruct interface (max_len is unused)
+    def greedy_decode(self, z_flat: torch.Tensor, max_len: int = 0) -> torch.Tensor:
+        """A sample with a fixed seed (0), as the JAX package's ``PRNGKey(0)``."""
+        return self.sample(z_flat, generator=torch.Generator(z_flat.device).manual_seed(0))
+
+    def sample_decode(self, z_flat: torch.Tensor, max_len: int = 0,
+                      noise: Optional[StepNoise] = None,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.sample(z_flat, noise, generator=generator)
+
+
+class PixelCNNDecoderV2(PixelDecoderBase):
     def __init__(self, nz: int, img_size: Tuple[int, int, int] = (28, 28, 1),
                  n_layers: int = 8, filters: int = 64, first_kernel: int = 7,
                  kernel: int = 3, compute_dtype: torch.dtype = torch.float32,
@@ -94,35 +174,6 @@ class PixelCNNDecoderV2(DecoderBase):
             h = masked_conv2d(h, layer.w.to(cd), include_center=i > 0)
             h = F.elu(h.float() + shift).to(cd)
         return masked_conv2d(h.float(), self.out_w, include_center=True) + self.out_b
-
-    def decode(self, x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-        """Teacher-forced logits: x [B, H, W, C], z [B, K, nz] -> [B, K, H, W, C]."""
-        B, K = x.shape[0], z.shape[1]
-        xk = x[None].expand(K, *x.shape).reshape(K * B, *x.shape[1:])
-        logits = self._logits(xk, z.transpose(0, 1).reshape(K * B, self.nz))
-        return logits.reshape(K, B, *x.shape[1:]).transpose(0, 1)
-
-    def _rec_chunk(self, x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-        logits = self.decode(x, z)
-        nll = (torch.clamp(logits, min=0) - logits * x[:, None]
-               + torch.log1p(torch.exp(-torch.abs(logits))))  # stable BCE-with-logits
-        return torch.sum(nll, dim=(2, 3, 4))
-
-    def reconstruct_error(self, x: torch.Tensor, mask: Optional[torch.Tensor],
-                          z: torch.Tensor, draw=None) -> torch.Tensor:
-        """-log p(x|z) per (image, z-sample): [B, K]. ``mask`` and ``draw``
-        are unused (the image decoder has no padding and no dropout)."""
-        B, K = x.shape[0], z.shape[1]
-        c = self.iw_chunk
-        if K <= c:
-            return self._rec_chunk(x, z)
-        K_pad = -(-K // c) * c
-        if K_pad != K:
-            z = torch.cat([z, z.new_zeros((B, K_pad - K, self.nz))], dim=1)
-        grad = torch.is_grad_enabled()
-        out = [checkpoint(self._rec_chunk, x, z[:, s:s + c], use_reentrant=False) if grad
-               else self._rec_chunk(x, z[:, s:s + c]) for s in range(0, K_pad, c)]
-        return torch.cat(out, dim=1)[:, :K]
 
     # ------------------------------------------------------------ sampling
     @torch.no_grad()
@@ -171,33 +222,6 @@ class PixelCNNDecoderV2(DecoderBase):
             canvases[0][:, i + pads[0], j + pads[0], :] = pix
         m0 = pads[0]
         return canvases[0][:, m0:m0 + H, m0:m0 + W, :], logits
-
-    @torch.no_grad()
-    def sample(self, z_flat: torch.Tensor, noise: Optional[StepNoise] = None, fast: bool = True,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """z [N, nz] -> binary images [N, H, W, C], pixel by pixel in raster
-        order: the cached sampler (``fast``) or the dense forward per pixel."""
-        if fast:
-            return self._incremental_pixels(z_flat, noise, generator=generator)[0]
-        noise = noise or uniform_noise(generator, z_flat.device)
-        N = z_flat.shape[0]
-        H, W, C = self.img_size
-        canvas = z_flat.new_zeros((N, H, W, C))
-        for p in range(H * W):
-            i, j = divmod(p, W)
-            logit = self._logits(canvas, z_flat)[:, i, j, :]
-            canvas[:, i, j, :] = (noise(p, (N, C)) < torch.sigmoid(logit)).float()
-        return canvas
-
-    # the shared VAE.reconstruct interface (max_len is unused)
-    def greedy_decode(self, z_flat: torch.Tensor, max_len: int = 0) -> torch.Tensor:
-        """A sample with a fixed seed (0), as the JAX package's ``PRNGKey(0)``."""
-        return self.sample(z_flat, generator=torch.Generator(z_flat.device).manual_seed(0))
-
-    def sample_decode(self, z_flat: torch.Tensor, max_len: int = 0,
-                      noise: Optional[StepNoise] = None,
-                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return self.sample(z_flat, noise, generator=generator)
 
 
 def uniform_noise(generator: Optional[torch.Generator], device) -> StepNoise:

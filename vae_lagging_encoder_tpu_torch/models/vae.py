@@ -25,6 +25,7 @@ from torch import nn
 from ..utils.numeric import log_sum_exp
 from ..utils.profiling import span
 from .encoder import eval_inference_dist, gaussian_kl
+from .modes import module_mode
 
 
 class VAE(nn.Module):
@@ -123,15 +124,16 @@ class VAE(nn.Module):
         """Decode one z ~ q(z|x) per row: text ids [B, max_len] (greedy,
         sample) or hypotheses (beam); binary images [B, H, W, C]. ``eps``
         [B, 1, nz] and the decoder's ``noise`` default to draws from
-        ``generator`` (eps first)."""
-        z, _ = self.enc.sample(x, mask, 1, eps, generator)
-        z_flat = z[:, 0, :]
-        if decoding_strategy == "greedy":
-            return self.dec.greedy_decode(z_flat, max_len)
-        if decoding_strategy == "sample":
-            return self.dec.sample_decode(z_flat, max_len, noise=noise, generator=generator)
-        if decoding_strategy == "beam":
-            return self.dec.beam_search_decode(z_flat, max_len=max_len)
+        ``generator`` (eps first). In evaluation mode (models/modes.py)."""
+        with module_mode(self, False):
+            z, _ = self.enc.sample(x, mask, 1, eps, generator)
+            z_flat = z[:, 0, :]
+            if decoding_strategy == "greedy":
+                return self.dec.greedy_decode(z_flat, max_len)
+            if decoding_strategy == "sample":
+                return self.dec.sample_decode(z_flat, max_len, noise=noise, generator=generator)
+            if decoding_strategy == "beam":
+                return self.dec.beam_search_decode(z_flat, max_len=max_len)
         raise ValueError(decoding_strategy)
 
     def calc_model_posterior_mean(self, x, mask, z_grid: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,11 @@ Counterpart of ``vae_lagging_encoder_tpu/ops/conv.py``: ``conv2d`` over
 NHWC activations and HWIO weights with XLA's ``SAME`` padding,
 ``causal_mask`` (the PixelCNN raster masks A and B) and ``masked_conv2d``.
 No Pallas kernel lies behind these in the JAX package; here they are
-cuDNN convolutions through ``torch.ops.aten``.
+cuDNN convolutions through ``torch.ops.aten``. The published OmniGlot
+model (models/enc_resnet_bn.py, models/dec_pixelcnn_bn.py) takes PyTorch's
+own layouts instead: ``conv2d_nchw`` (NCHW activations, OIHW weights,
+symmetric padding) and ``raster_mask`` (an OIHW mask that may leave some
+input channels unmasked), under the same flags.
 
 - XLA ``SAME`` pads ``total = max((ceil(n / s) - 1) * s + k - n, 0)`` with
   ``total // 2`` before and the rest after: asymmetric at stride 2 (28 -> 14
@@ -112,3 +116,33 @@ def masked_conv2d(x: torch.Tensor, w: torch.Tensor, include_center: bool) -> tor
     """``conv2d`` with the raster mask folded into the weights."""
     mask = causal_mask(*w.shape, include_center, dtype=w.dtype, device=w.device)
     return conv2d(x, w * mask)
+
+
+def to_nchw(x: torch.Tensor) -> torch.Tensor:
+    """[N, H, W, C] -> [N, C, H, W] in NCHW memory (a view where C is 1:
+    ``permute`` would leave channels-last strides, which the library's
+    convolutions then keep)."""
+    N, H, W, C = x.shape
+    if C == 1:
+        return x.reshape(N, 1, H, W)
+    return x.permute(0, 3, 1, 2).clone(memory_format=torch.contiguous_format)
+
+
+def conv2d_nchw(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+                padding: int = 0) -> torch.Tensor:
+    """PyTorch's ``F.conv2d`` (x [N, Cin, H, W], w [Cout, Cin, kh, kw],
+    symmetric ``padding``, no bias) under ``conv2d``'s flags: TF32 off,
+    the backward on cuDNN's deterministic algorithms."""
+    return _Conv2dFn.apply(x, w, stride, (padding, padding))
+
+
+def raster_mask(cout: int, cin: int, k: int, include_center: bool, masked_in: int | None = None,
+                dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
+    """The PixelCNN raster mask of an OIHW ``k`` x ``k`` kernel (``causal_mask``'s
+    taps: mask A without the center, mask B with it) on the input channels
+    below ``masked_in`` (all by default); the channels from ``masked_in``
+    on (the decoder's latent maps) are left whole."""
+    m = causal_mask(k, k, 1, 1, include_center, dtype, device)[:, :, 0, 0]
+    out = torch.ones((cout, cin, k, k), dtype=dtype, device=device)
+    out[:, :cin if masked_in is None else masked_in] = m
+    return out

@@ -16,7 +16,9 @@ between batches and there is no dispatch to bound (the JAX package's
 ``EVAL_SEGMENT`` has no counterpart); they run eagerly. Under a profiler
 (utils/profiling.py) the training epoch's segment read is the span
 ``segment_read`` and one ``device_reads``.
-A batch is ``(tokens, mask, row_weight)`` for text and ``(probs,
+The training step runs the model in training mode and every evaluator in
+evaluation mode (models/modes.py: batch norm's batch or running
+statistics). A batch is ``(tokens, mask, row_weight)`` for text and ``(probs,
 row_weight)`` for images; the MI, AU and IW evaluators take a ``prep``
 that turns it into ``(x, mask, row_weight)`` (``unpack`` for text,
 ``binarize_prep`` for images), and the unit of the PPL is a predicted
@@ -62,6 +64,7 @@ import torch
 import numpy as np
 
 from ..data.pool import Pool
+from ..models.modes import module_mode
 from ..models.vae import VAE
 from ..utils.profiling import count, span
 from . import graphs as graphs_mod
@@ -269,8 +272,10 @@ def make_train_epoch(vae: VAE, pool: Pool, cfg, loss_fn: Callable | None = None,
     cur, words = torch.zeros((), device=dev), torch.zeros((), device=dev)
 
     def body(mode, batch, draw, kl_weight):
-        """The static step: no host read, fixed addresses."""
-        aux = grad_on(batch, draw, kl_weight)
+        """The static step: no host read, fixed addresses; the model in
+        training mode (batch norm on the batch's statistics)."""
+        with module_mode(vae, True):
+            aux = grad_on(batch, draw, kl_weight)
         scale, _, finite = scale_fn(grads_of(params), cfg.clip_grad)
         for part, ps in parts[mode]:
             opt_update(ps, grads_of(ps), steps.state[part], steps.lr, scale=scale,
@@ -375,10 +380,11 @@ def make_eval_fn(vae: VAE, pool: Pool, nsamples: int = 1,
     @torch.no_grad()
     def eval_fn(noise: Noise) -> Dict[str, float]:
         sums = torch.zeros(5, device=pool.arrays[0][0].device)
-        for i in _my_batches(pool, mesh):
-            _, out = loss_fn(pool.batch(i), lambda site, shape, i=i: noise(
-                i, "elbo" if site == "eps" else f"elbo_{site}", shape))
-            sums = sums + torch.stack(out)
+        with module_mode(vae, False):
+            for i in _my_batches(pool, mesh):
+                _, out = loss_fn(pool.batch(i), lambda site, shape, i=i: noise(
+                    i, "elbo" if site == "eps" else f"elbo_{site}", shape))
+                sums = sums + torch.stack(out)
         loss_s, rec_s, kl_s, n_sent, n_words = _sum_over_dp(sums, mesh).tolist()
         return {"loss": loss_s / n_sent, "rec": rec_s / n_sent, "kl": kl_s / n_sent,
                 "nll": (rec_s + kl_s) / n_sent,
@@ -402,10 +408,11 @@ def make_mi_fn(vae: VAE, pool: Pool, prep: Callable = unpack, mesh=None) -> Call
     @torch.no_grad()
     def mi_fn(noise: Noise) -> float:
         sums = torch.zeros(2, device=pool.arrays[0][0].device)
-        for i, (x, mask, row_weight) in _prepped(pool, prep, noise, "mi_bin", mesh):
-            eps = noise(i, "mi", (x.shape[0], 1, vae.nz))
-            n = row_weight.sum()
-            sums = sums + torch.stack([vae.calc_mi_q(x, mask, row_weight, eps) * n, n])
+        with module_mode(vae, False):
+            for i, (x, mask, row_weight) in _prepped(pool, prep, noise, "mi_bin", mesh):
+                eps = noise(i, "mi", (x.shape[0], 1, vae.nz))
+                n = row_weight.sum()
+                sums = sums + torch.stack([vae.calc_mi_q(x, mask, row_weight, eps) * n, n])
         mi_sum, n_sum = _sum_over_dp(sums, mesh).tolist()
         return mi_sum / max(n_sum, 1.0)
 
@@ -420,6 +427,10 @@ def make_au_fn(vae: VAE, pool: Pool, delta: float = 0.01,
 
     @torch.no_grad()
     def au_fn(noise: Noise) -> Tuple[int, torch.Tensor]:
+        with module_mode(vae, False):
+            return _au(noise)
+
+    def _au(noise: Noise) -> Tuple[int, torch.Tensor]:
         batches = [b for _, b in _prepped(pool, prep, noise, "au_bin", mesh)]
         acc = torch.zeros(vae.nz + 1, device=pool.arrays[0][0].device)
         for x, mask, row_weight in batches:
@@ -457,10 +468,11 @@ def make_iwnll_fn(vae: VAE, pool: Pool, nsamples: int = 500, ns: int = 100,
     @torch.no_grad()
     def iwnll_fn(noise: Noise) -> Dict[str, float]:
         sums = torch.zeros(3, device=pool.arrays[0][0].device)
-        for i, (x, mask, row_weight) in _prepped(pool, prep, noise, "iw_bin", mesh):
-            nll = nll_fn(x, mask, lambda j, shape, i=i: noise(i, f"iw{j}", shape))
-            sums = sums + torch.stack([(nll * row_weight).sum(), row_weight.sum(),
-                                       unit_count(x, mask, row_weight)])
+        with module_mode(vae, False):
+            for i, (x, mask, row_weight) in _prepped(pool, prep, noise, "iw_bin", mesh):
+                nll = nll_fn(x, mask, lambda j, shape, i=i: noise(i, f"iw{j}", shape))
+                sums = sums + torch.stack([(nll * row_weight).sum(), row_weight.sum(),
+                                           unit_count(x, mask, row_weight)])
         nll_sum, n_sent, n_words = _sum_over_dp(sums, mesh).tolist()
         return {"nll": nll_sum / n_sent, "ppl": _safe_exp(nll_sum / n_words),
                 "n_sents": n_sent, "n_words": n_words}

@@ -697,9 +697,13 @@ def train_image(cfg: ExperimentConfig, logger: Optional[Logger] = None,
     ``load_omniglot(cfg.train_data)`` (the synthetic substitute, with a
     warning, when the file is missing), the image loss and the eval
     binarization. ``--tp_devices`` trains no image model (its refusal is
-    the JAX package's); a standalone ``--eval`` folds it into dp."""
+    the JAX package's); a standalone ``--eval`` folds it into dp. The
+    published model (``cfg.image_arch``) runs in one process only."""
     log = logger or Logger()
     if cfg.dp_devices * cfg.tp_devices > 1:
+        if cfg.image_arch == "published":
+            raise SystemExit("--dp_devices / --tp_devices: the published OmniGlot model "
+                             "(--image_arch published) runs in one process only")
         return run_parallel(_train_image, cfg, log, device)
     return _train_image(resolve_device(device), cfg, log)
 
@@ -719,8 +723,11 @@ def _train_image(dev, cfg: ExperimentConfig, log: Logger, parallel: bool = False
         with torch.no_grad():
             return run_final_eval(cfg, vae, test_pool, log, eval_loss_fn=eval_loss_fn,
                                   prep=binarize_prep, mesh=mesh)
+    # the published model's batch norm must not count padded rows: its last
+    # training batch keeps its own size, as the reference's loader leaves it
+    train_pool = ImagePool(train_imgs, cfg.batch_size, dev, pad=cfg.image_arch != "published")
     return (run or run_training)(
-        cfg, vae, ImagePool(train_imgs, cfg.batch_size, dev),
+        cfg, vae, train_pool,
         ImagePool(val_imgs, cfg.batch_size, dev), test_pool, log,
         loss_fn=make_image_loss_fn(vae, nsamples=cfg.nsamples, train=True),
         eval_loss_fn=eval_loss_fn, prep=binarize_prep,
